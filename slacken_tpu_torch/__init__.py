@@ -2,9 +2,10 @@
 
 A port of the JAX package for NVIDIA Hopper GPUs: the minimizer scan and the
 index probe are hand-written CUDA kernels (ops/kernels/*.cu, built with nvcc
-at first use), everything around them is PyTorch. It imports no JAX; the
-JAX-free host modules of slacken_tpu (taxonomy, report, native packer,
-storage) are shared. Every entry point takes an explicit device.
+at first use), everything around them is PyTorch. It imports no JAX and
+nothing of slacken_tpu: the host modules (taxonomy, report, storage, zio,
+the native packer) are the package's own. Every entry point takes an
+explicit device.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Read classification, reports mode (counterpart of slacken_tpu/classify.py).
+"""Read classification (counterpart of slacken_tpu/classify.py).
 
 Per batch of packed reads, on the device:
 
@@ -9,14 +9,22 @@ Per batch of packed reads, on the device:
      distinct hit-group count per read,
   4. hit compaction and batched resolveTree,
   5. per-threshold finalisation against a host-computed table of
-     ceil_f64(threshold * total), giving one [B, 3 + nthr] int32 bundle,
-     the only array copied back.
+     ceil_f64(threshold * total), giving one [B, 3 + nthr] int32 bundle.
+     Reports mode copies back only this bundle; per-read mode also copies
+     the dense [B, L] int32 window taxa into a reused pinned buffer.
 
 The host packs batches, keeps up to PIPELINE_DEPTH batches in flight
 (launches are asynchronous until the host reads a bundle), resolves the rare
 rows with more than `max_taxa` distinct taxa exactly on the host, applies the
-min-hit-groups gate, and aggregates per-sample Kraken reports. On a CPU
-device the same code runs the kernels' plain PyTorch twins.
+min-hit-groups gate, aggregates per-sample Kraken reports and, in per-read
+mode, formats one Kraken output line per read (natively when the C++ library
+is available). On a CPU device the same code runs the kernels' plain PyTorch
+twins.
+
+Paired-end reads are packed as R1 + one INVALID separator + R2 in a single
+row: no k-mer window crosses the separator, the distinct-minimizer chain runs
+through it, and the host splits the ordered hit list at the border for
+output (the |:| marker).
 """
 
 from __future__ import annotations
@@ -25,29 +33,34 @@ import collections
 import os
 import re
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from slacken_tpu.report import KrakenReport
-from slacken_tpu.taxonomy import NONE
-from slacken_tpu.utils import prefetch_iterator
-
-from . import to_device
+from . import native, to_device
 from .index import KeyValueIndex
 from .ops import encode
 from .ops.lookup import probe
 from .ops.minimizers import window_minimizers_packed
 from .ops.resolve import INVALID_WINDOW, ResolveResult, compact_hits, resolve_hits
+from .report import KrakenReport
+from .taxonomy import NONE, Taxonomy
+from .utils import prefetch_iterator
+from .zio import ParallelGzipWriter
 
 #: batches launched ahead of the one the host post-processes
 PIPELINE_DEPTH = 3
 
-PER_READ_LATER = (
-    "per-read (detailed) output is not ported yet; use --no-detailed "
-    "(ROADMAP.md, port queue: per-read output)"
-)
+AMBIGUOUS_SPAN = -1
+
+
+class Fragment(NamedTuple):
+    """An input read (or read pair) to classify."""
+
+    title: str
+    seq: str
+    seq2: Optional[str] = None
 
 
 @dataclass
@@ -59,6 +72,23 @@ class ClassifyParams:
     thresholds: Sequence[float] = (0.0,)
     sample_regex: Optional[str] = None
     per_read_output: bool = True
+
+
+@dataclass
+class ClassifiedRead:
+    sample_id: str
+    classified: bool
+    title: str
+    taxon: int
+    length_string: str
+    hit_details: str
+
+    @property
+    def classify_flag(self) -> str:
+        return "C" if self.classified else "U"
+
+    def output_line(self) -> str:
+        return f"{self.classify_flag}\t{self.title}\t{self.taxon}\t{self.length_string}\t{self.hit_details}"
 
 
 def finalize(
@@ -111,7 +141,7 @@ def classify_batch(packed, valid, ambig, keys, taxa, fence, table, req_lut, mp, 
 
 
 # ---------------------------------------------------------------------------
-# Host helpers (copies of slacken_tpu/classify.py's, which imports JAX)
+# Host helpers (as slacken_tpu/classify.py's)
 # ---------------------------------------------------------------------------
 
 
@@ -124,6 +154,53 @@ def _char_runs(valid: np.ndarray):
     bounds = [0, *change.tolist(), n]
     for a, b in zip(bounds[:-1], bounds[1:]):
         yield a, b, bool(valid[a])
+
+
+def mate_hits(codes: np.ndarray, window_taxa: np.ndarray, a: int, b: int, k: int):
+    """Ordered (taxon, kmer-count) hit pairs for one mate occupying row
+    columns [a, b), merging adjacent equal taxa. Ambiguous char-runs >= k
+    become (-1, len-k+1) pseudo-hits; shorter ambiguous/valid runs are
+    dropped."""
+    hits: List[List[int]] = []
+
+    def add(taxon, count):
+        if hits and hits[-1][0] == taxon:
+            hits[-1][1] += count
+        else:
+            hits.append([taxon, count])
+
+    for i, j, is_valid in _char_runs(codes[a:b] < 4):
+        runlen = j - i
+        if runlen < k:
+            continue
+        if is_valid:
+            for w in range(a + i, a + j - k + 1):
+                add(int(window_taxa[w]), 1)
+        else:
+            add(AMBIGUOUS_SPAN, runlen - k + 1)
+    return hits
+
+
+def hits_to_strings(hits_parts: List[List[List[int]]], k: int) -> Tuple[str, str]:
+    """(hit_details, length_string) from per-mate ordered hit lists."""
+    pieces = []
+    lengths = []
+    for part in hits_parts:
+        for taxon, count in part:
+            pieces.append(("A" if taxon == AMBIGUOUS_SPAN else str(taxon)) + f":{count}")
+        lengths.append(sum(c for _, c in part) + (k - 1))
+        pieces.append("|:|")
+    pieces.pop()  # drop trailing border
+    return " ".join(pieces), "|".join(str(x) for x in lengths)
+
+
+def _row_hit_parts(codes_row, window_taxa_row, split, row_len, k):
+    if split is None:
+        return [mate_hits(codes_row, window_taxa_row, 0, row_len, k)]
+    return [
+        mate_hits(codes_row, window_taxa_row, 0, split, k),
+        mate_hits(codes_row, window_taxa_row, split + 1, row_len, k),
+    ]
 
 
 def _ambig_kmers(codes_row: np.ndarray, split: Optional[int], row_len: int, k: int) -> int:
@@ -205,6 +282,47 @@ def format_threshold(t: float, thresholds: Sequence[float]) -> str:
     return f"%.{decimals}f" % t
 
 
+def write_per_sample_output(
+    reads: List[ClassifiedRead], location: str, cpar: ClassifyParams, taxonomy: Taxonomy
+) -> List[str]:
+    """Write gzip per-read outputs partitioned by sample and a kreport per
+    sample (<loc>/sample=<id>/part-00000.txt.gz and <loc>/<id>_kreport.txt)."""
+    os.makedirs(location, exist_ok=True)
+    by_sample: Dict[str, List[ClassifiedRead]] = {}
+    for r in reads:
+        if cpar.with_unclassified or r.classified:
+            by_sample.setdefault(r.sample_id, []).append(r)
+    for sample, rs in by_sample.items():
+        if cpar.per_read_output:
+            d = os.path.join(location, f"sample={sample}")
+            os.makedirs(d, exist_ok=True)
+            with ParallelGzipWriter(os.path.join(d, "part-00000.txt.gz"), level=1) as f:
+                chunk = 1 << 14
+                for i in range(0, len(rs), chunk):
+                    f.write("\n".join(r.output_line() for r in rs[i : i + chunk]) + "\n")
+        counts: Dict[int, int] = {}
+        for r in rs:
+            counts[r.taxon] = counts.get(r.taxon, 0) + 1
+        KrakenReport(taxonomy, sorted(counts.items())).write(
+            os.path.join(location, f"{sample}_kreport.txt")
+        )
+    return list(by_sample)
+
+
+def _row_length_bucket(n: int) -> int:
+    b = 128
+    while b < n:
+        b *= 2
+    return b
+
+
+def _samples_of(titles: List[str], sre) -> Optional[np.ndarray]:
+    """Sample id per title through the compiled regex (None without one)."""
+    if sre is None:
+        return None
+    return np.array([(m.group(1) if (m := sre.search(t)) else "other") for t in titles])
+
+
 # ---------------------------------------------------------------------------
 # Classifier
 # ---------------------------------------------------------------------------
@@ -212,16 +330,25 @@ def format_threshold(t: float, thresholds: Sequence[float]) -> str:
 
 @dataclass
 class _Batch:
+    """One harvested batch. `window_taxa` (per-read mode only) is a view of
+    a reused pinned buffer: valid until the next batch is requested."""
+
     titles: List[str]
     num_distinct: np.ndarray
     total_kmers: np.ndarray
     final_taxa: Dict[float, np.ndarray]
     #: {row: window taxa row} for the rows that overflowed max_taxa
     overflow_window_taxa: Dict[int, np.ndarray]
+    codes: np.ndarray  # [n, L] uint8, L padded to a multiple of 8
+    mate_split: List[Optional[int]]  # R1 length per row if paired
+    row_lens: List[int]  # true row content length (trailing Ns are content)
+    window_taxa: Optional[np.ndarray] = None  # host [n, L] int32
+    pinned: Optional[torch.Tensor] = None  # the buffer behind window_taxa
+    hit_pairs: Optional[list] = None  # memoised (hit_details, length_string)
 
 
 class Classifier:
-    """Classify packed reads against a KeyValueIndex on `device`."""
+    """Classify reads against a KeyValueIndex on `device`."""
 
     def __init__(
         self,
@@ -240,6 +367,13 @@ class Classifier:
         self._table = torch.from_numpy(index.taxonomy.rpath_table()).to(self.device)
         self._req_luts: Dict[tuple, torch.Tensor] = {}
         self._thresholds: tuple = (0.0,)
+        #: set per call by the entry points: the dense window taxa reach the
+        #: host only when per-read lines are produced
+        self._fetch_window_taxa = False
+        #: free pinned [rows, L] int32 buffers per shape. A buffer is taken
+        #: at dispatch and comes back once its batch has been consumed, so
+        #: at most PIPELINE_DEPTH + 1 exist per shape.
+        self._pinned_free: Dict[tuple, List[torch.Tensor]] = {}
 
     def _rows_target(self, width: int) -> int:
         return max(8, self.target_batch_bp // width)
@@ -274,25 +408,36 @@ class Classifier:
             self._keys, self._taxa, self._fence, self._table, self._req_lut(w8),
             self.index.params.minimizer_params, self.max_taxa,
         )
+        pinned = None
         if self._cuda:
             host = torch.empty(bundle.shape, dtype=bundle.dtype, pin_memory=True)
             host.copy_(bundle, non_blocking=True)
+            if self._fetch_window_taxa:
+                free = self._pinned_free.setdefault((rows, w8), [])
+                pinned = free.pop() if free else torch.empty(
+                    (rows, w8), dtype=torch.int32, pin_memory=True)
+                pinned[:n].copy_(window_taxa[:n], non_blocking=True)
+                window_taxa = pinned
             done = torch.cuda.Event()
             done.record()
         else:
             host, done = bundle, None
-        return titles, host, done, window_taxa
+        return titles, host, done, window_taxa, pinned, codes[:n], splits, row_lens
 
     def _harvest(self, dispatched) -> _Batch:
-        titles, host, done, window_taxa = dispatched
+        titles, host, done, window_taxa, pinned, codes, splits, row_lens = dispatched
         if done is not None:
             done.synchronize()
         n = len(titles)
         fb = host.numpy()[:n]
         rows = np.flatnonzero(fb[:, 2])
+        wt_host = window_taxa.numpy()[:n] if self._fetch_window_taxa else None
         ovf = {}
         if len(rows):
-            wt = window_taxa[torch.from_numpy(rows).to(window_taxa.device)].cpu().numpy()
+            if wt_host is not None:
+                wt = wt_host[rows]
+            else:
+                wt = window_taxa[torch.from_numpy(rows).to(window_taxa.device)].cpu().numpy()
             ovf = dict(zip(rows.tolist(), wt))
         return _Batch(
             titles=titles,
@@ -300,7 +445,22 @@ class Classifier:
             total_kmers=fb[:, 1].astype(np.int64),
             final_taxa={t: fb[:, 3 + i].astype(np.int64) for i, t in enumerate(self._thresholds)},
             overflow_window_taxa=ovf,
+            codes=codes,
+            mate_split=splits,
+            row_lens=row_lens,
+            window_taxa=wt_host,
+            pinned=pinned,
         )
+
+    def _drain(self, pending, keep: int):
+        """Harvest and yield the oldest batches until `keep` stay in flight;
+        a batch's pinned buffer is free again once the consumer asks for the
+        next batch."""
+        while len(pending) > keep:
+            batch = self._harvest(pending.popleft())
+            yield batch
+            if batch.pinned is not None:
+                self._pinned_free[tuple(batch.pinned.shape)].append(batch.pinned)
 
     def packed_batches(self, packed_iter):
         """Run native.PackedReads chunks through the device pipeline.
@@ -341,14 +501,14 @@ class Classifier:
                     np.concatenate(codes_parts) if len(codes_parts) > 1 else codes_parts[0]
                 )
                 pending.append(self._dispatch(codes, titles, splits, lens))
-                while len(pending) > PIPELINE_DEPTH:
-                    yield self._harvest(pending.popleft())
+                yield from self._drain(pending, PIPELINE_DEPTH)
             buffers[width] = buf
 
         for packed in packed_iter:
             width = packed.codes.shape[1]
             if getattr(packed, "splits", None) is not None:
-                splits = [int(x) for x in packed.splits]
+                # a negative split marks a single read among paired rows
+                splits = [int(x) if x >= 0 else None for x in packed.splits]
             else:
                 splits = [None] * len(packed)
             buffers.setdefault(width, []).append(
@@ -357,8 +517,9 @@ class Classifier:
             yield from emit(width)
         for width in list(buffers):
             yield from emit(width, force=True)
-        while pending:
-            yield self._harvest(pending.popleft())
+        yield from self._drain(pending, 0)
+
+    # -- per-threshold finalisation -----------------------------------------
 
     def _finalize_taxa(self, batch: _Batch, threshold: float, cpar: ClassifyParams):
         """(taxon, classified) per read for one threshold."""
@@ -372,39 +533,160 @@ class Classifier:
         classified = (taxon != NONE) & (batch.num_distinct >= cpar.min_hit_groups)
         return taxon, classified
 
-    def classify_and_write_packed(self, packed_iter, output_location: str, cpar: ClassifyParams):
-        """Classify native-packed reads and write one kreport per (threshold,
-        sample) under <output_location>_c<threshold>/. Returns {threshold:
-        [sample ids]}. Reports mode only: per (sample, taxon) counts
-        aggregate as batches stream."""
-        if cpar.per_read_output:
-            raise NotImplementedError(PER_READ_LATER)
+    def _hit_pairs(self, batch: _Batch):
+        """(hit_details, length_string) per read, memoised on the batch: it
+        is the same for every threshold."""
+        if batch.hit_pairs is None:
+            k = self.index.params.k
+            splits = np.array([-1 if s is None else s for s in batch.mate_split], np.int64)
+            pairs = native.hit_lines(batch.codes, batch.window_taxa, splits, batch.row_lens, k)
+            if pairs is None:
+                pairs = [
+                    hits_to_strings(
+                        _row_hit_parts(batch.codes[i], batch.window_taxa[i],
+                                       batch.mate_split[i], batch.row_lens[i], k), k)
+                    for i in range(len(batch.titles))
+                ]
+            batch.hit_pairs = pairs
+        return batch.hit_pairs
+
+    def finalize(self, batch: _Batch, threshold: float, cpar: ClassifyParams) -> List[ClassifiedRead]:
+        """Apply one confidence threshold to a batch's device results."""
+        n = len(batch.titles)
+        taxon, classified = self._finalize_taxa(batch, threshold, cpar)
+        report_taxon = np.where(classified, taxon, NONE)
+        sre = re.compile(cpar.sample_regex) if cpar.sample_regex else None
+        samples = _samples_of(batch.titles, sre)
+        pairs = self._hit_pairs(batch) if cpar.per_read_output else [("", "")] * n
+        return [
+            ClassifiedRead(
+                "all" if samples is None else str(samples[i]), bool(classified[i]),
+                batch.titles[i], int(report_taxon[i]), pairs[i][1], pairs[i][0],
+            )
+            for i in range(n)
+        ]
+
+    # -- high level ----------------------------------------------------------
+
+    def _begin(self, cpar: ClassifyParams) -> None:
         self._thresholds = tuple(cpar.thresholds)
+        self._fetch_window_taxa = bool(cpar.per_read_output)
+
+    def _pack_rows(self, frags: List[Fragment], bucket: int) -> native.PackedReads:
+        rows, splits = [], []
+        for f in frags:
+            c1 = encode.encode_seq(f.seq)
+            if f.seq2 is not None:
+                rows.append(np.concatenate(
+                    [c1, np.array([encode.INVALID], np.uint8), encode.encode_seq(f.seq2)]))
+                splits.append(len(c1))
+            else:
+                rows.append(c1)
+                splits.append(-1)
+        codes, lens = encode.pack_batch(rows, bucket)
+        return native.PackedReads(codes, lens, [f.title for f in frags], np.array(splits, np.int64))
+
+    def classify(
+        self, fragments: Iterable[Fragment], cpar: ClassifyParams
+    ) -> Dict[float, List[ClassifiedRead]]:
+        """Classify all fragments at every threshold in one device pass.
+        Fragments are packed into rows by length bucket and go down the
+        packed_batches pipeline; results come back in input order."""
+        self._begin(cpar)
+        #: input positions per row width, in the order the rows were packed:
+        #: packed_batches keeps that order within a width
+        order: Dict[int, collections.deque] = {}
+
+        def chunks():
+            pending: Dict[int, list] = {}
+
+            def pack(bucket):
+                lst = pending.pop(bucket)
+                order.setdefault(bucket, collections.deque()).extend(p for p, _ in lst)
+                return self._pack_rows([f for _, f in lst], bucket)
+
+            for pos, f in enumerate(fragments):
+                n = len(f.seq) + (len(f.seq2) + 1 if f.seq2 is not None else 0)
+                bucket = _row_length_bucket(n)
+                pending.setdefault(bucket, []).append((pos, f))
+                if len(pending[bucket]) >= self._rows_target(bucket):
+                    yield pack(bucket)
+            for bucket in list(pending):
+                yield pack(bucket)
+
+        acc: Dict[float, list] = {t: [] for t in cpar.thresholds}
+        for batch in self.packed_batches(chunks()):
+            queue = order[batch.codes.shape[1]]
+            positions = [queue.popleft() for _ in batch.titles]
+            for t in cpar.thresholds:
+                acc[t].extend(zip(positions, self.finalize(batch, t, cpar)))
+        return {
+            t: [read for _, read in sorted(pairs, key=lambda x: x[0])]
+            for t, pairs in acc.items()
+        }
+
+    def classify_and_write(
+        self, fragments: Iterable[Fragment], output_location: str, cpar: ClassifyParams
+    ) -> Dict[float, List[str]]:
+        """Classify and write per-sample outputs + kreports per threshold.
+        Returns {threshold: [sample ids]}."""
+        out = {}
+        for t, reads in self.classify(fragments, cpar).items():
+            loc = output_location + "_c" + format_threshold(t, cpar.thresholds)
+            out[t] = write_per_sample_output(reads, loc, cpar, self.index.taxonomy)
+        return out
+
+    def classify_and_write_packed(self, packed_iter, output_location: str, cpar: ClassifyParams):
+        """Classify native-packed reads and write, under
+        <output_location>_c<threshold>/, one kreport per sample and, in
+        per-read mode, sample=<sample>/part-00000.txt.gz with one Kraken line
+        per read. Returns {threshold: [sample ids]}. Everything streams: per
+        (sample, taxon) counts aggregate, and lines are written, as batches
+        arrive."""
+        self._begin(cpar)
         counts: Dict[float, Dict[str, Dict[int, int]]] = {t: {} for t in cpar.thresholds}
         sre = re.compile(cpar.sample_regex) if cpar.sample_regex else None
-        for batch in self.packed_batches(packed_iter):
-            n = len(batch.titles)
-            if sre is not None:
-                samples = np.array(
-                    [(m.group(1) if (m := sre.search(t)) else "other") for t in batch.titles]
-                )
-            else:
-                samples = None
-            for t in cpar.thresholds:
-                taxon, classified = self._finalize_taxa(batch, t, cpar)
-                report_taxon = np.where(classified, taxon, NONE)
-                keep = classified if not cpar.with_unclassified else np.ones(n, bool)
-                per_sample = counts[t]
-                groups = (
-                    [("all", keep)]
-                    if samples is None
-                    else [(str(s), keep & (samples == s)) for s in np.unique(samples[keep])]
-                )
-                for sample, sel in groups:
-                    agg = per_sample.setdefault(sample, {})
-                    vals, cts = np.unique(report_taxon[sel], return_counts=True)
-                    for v, c in zip(vals.tolist(), cts.tolist()):
-                        agg[v] = agg.get(v, 0) + c
+        writers: Dict[tuple, ParallelGzipWriter] = {}
+
+        def writer_for(t, sample):
+            if (t, sample) not in writers:
+                d = os.path.join(
+                    output_location + "_c" + format_threshold(t, cpar.thresholds),
+                    f"sample={sample}")
+                os.makedirs(d, exist_ok=True)
+                writers[(t, sample)] = ParallelGzipWriter(
+                    os.path.join(d, "part-00000.txt.gz"), level=1)
+            return writers[(t, sample)]
+
+        try:
+            for batch in self.packed_batches(packed_iter):
+                n = len(batch.titles)
+                samples = _samples_of(batch.titles, sre)
+                lines = _LineFormatter(self, batch) if cpar.per_read_output else None
+                for t in cpar.thresholds:
+                    taxon, classified = self._finalize_taxa(batch, t, cpar)
+                    rtax = np.where(classified, taxon, NONE)
+                    keep = classified if not cpar.with_unclassified else np.ones(n, bool)
+                    groups = (
+                        [("all", np.flatnonzero(keep))]
+                        if samples is None
+                        else [(str(s), np.flatnonzero(keep & (samples == s)))
+                              for s in np.unique(samples[keep])]
+                    )
+                    if lines is not None:
+                        lines.emit(rtax, classified)
+                    for sample, idxs in groups:
+                        if len(idxs) == 0:
+                            continue
+                        if lines is not None:
+                            lines.write(writer_for(t, sample), idxs)
+                        agg = counts[t].setdefault(sample, {})
+                        vals, cts = np.unique(rtax[idxs], return_counts=True)
+                        for v, c in zip(vals.tolist(), cts.tolist()):
+                            agg[v] = agg.get(v, 0) + c
+        finally:
+            for f in writers.values():
+                f.close()
         return self._write_reports(counts, output_location, cpar)
 
     def _write_reports(self, counts, output_location: str, cpar: ClassifyParams):
@@ -420,3 +702,46 @@ class Classifier:
                 names.append(sample)
             out[t] = names
         return out
+
+
+class _LineFormatter:
+    """Per-read Kraken lines of one batch from its dense window taxa: whole
+    lines in C++ (native.output_lines_dense + gather_rows) when the native
+    library is available, else Python formatting over the hit pairs."""
+
+    def __init__(self, classifier: Classifier, batch: _Batch):
+        self.classifier = classifier
+        self.batch = batch
+        self.native = native.available()
+        if self.native:
+            tb = [s.encode("utf-8") for s in batch.titles]
+            self.title_offs = np.zeros(len(tb) + 1, np.int64)
+            np.cumsum([len(s) for s in tb], out=self.title_offs[1:])
+            self.blob = b"".join(tb)
+            self.max_title = max((len(s) for s in tb), default=0)
+            self.splits = np.array([-1 if s is None else s for s in batch.mate_split], np.int64)
+            self.row_lens = np.asarray(batch.row_lens, np.int64)
+
+    def emit(self, rtax: np.ndarray, classified: np.ndarray) -> None:
+        """Format every row for one threshold's (report taxon, classified)."""
+        self.rtax, self.classified = rtax, classified
+        if self.native:
+            b = self.batch
+            self.emitted = native.output_lines_dense(
+                b.codes, b.window_taxa, self.splits, self.row_lens, self.blob,
+                self.title_offs, rtax, classified.astype(np.uint8),
+                self.classifier.index.params.k, self.max_title,
+            )
+
+    def write(self, writer: ParallelGzipWriter, idxs: np.ndarray) -> None:
+        """Write the lines of rows `idxs` (non-empty) to `writer`."""
+        if self.native:
+            writer.write_bytes(native.gather_rows(*self.emitted, idxs))
+            return
+        titles = self.batch.titles
+        pairs = self.classifier._hit_pairs(self.batch)
+        lines = [
+            f"{'C' if self.classified[i] else 'U'}\t{titles[i]}\t{self.rtax[i]}\t{pairs[i][1]}\t{pairs[i][0]}"
+            for i in idxs
+        ]
+        writer.write("\n".join(lines) + "\n")

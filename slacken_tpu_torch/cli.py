@@ -1,4 +1,5 @@
-"""Command-line interface of the port: `build` and `classify` (reports mode).
+"""Command-line interface of the port: `build` and `classify` (per-read
+output by default, --no-detailed for reports only, -p for paired files).
 Run as `python -m slacken_tpu_torch.cli <subcommand>`; options match
 slacken_tpu's CLI, plus --device (default cuda)."""
 
@@ -7,8 +8,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-LATER = "ROADMAP.md, port queue"
 
 
 def _build_parser():
@@ -58,10 +57,9 @@ def main(argv=None):
 
 
 def cmd_build(args, device):
-    from slacken_tpu.taxonomy import Taxonomy
-
     from .index import IndexParams, KeyValueIndex
     from .inputs import GenomeLibrary
+    from .taxonomy import Taxonomy
 
     tax = Taxonomy.load(args.taxonomy)
     lib = GenomeLibrary.from_directory(args.library)
@@ -76,16 +74,14 @@ def cmd_build(args, device):
 def cmd_classify(args, device):
     from .classify import Classifier, ClassifyParams
     from .index import KeyValueIndex
-    from .inputs import expand_file_list, packed_reads_from_file
+    from .inputs import (
+        MatesOutOfOrder,
+        expand_file_list,
+        fragments_from_files,
+        packed_pairs_from_files,
+        packed_reads_from_file,
+    )
 
-    if args.paired:
-        print(f"slacken_tpu_torch classify: --paired input is a later slice ({LATER})",
-              file=sys.stderr)
-        return 2
-    if not args.no_detailed:
-        print(f"slacken_tpu_torch classify: per-read output is a later slice; "
-              f"pass --no-detailed ({LATER})", file=sys.stderr)
-        return 2
     for c in args.confidence:
         if c < 0 or c > 1:
             sys.exit(f"--confidence values must be in [0, 1] ({c} was given)")
@@ -94,12 +90,24 @@ def cmd_classify(args, device):
         with_unclassified=not args.no_unclassified,
         thresholds=list(args.confidence),
         sample_regex=args.sample_regex,
-        per_read_output=False,
+        per_read_output=not args.no_detailed,
     )
-    cls = Classifier(KeyValueIndex.load(args.index), device)
+    idx = KeyValueIndex.load(args.index)
+    cls = Classifier(idx, device)
     files = expand_file_list(args.inputs)
-    stream = (p for path in files for p in packed_reads_from_file(path))
-    samples = cls.classify_and_write_packed(stream, args.output, cpar)
+    if not args.paired:
+        stream = (p for path in files for p in packed_reads_from_file(path))
+        samples = cls.classify_and_write_packed(stream, args.output, cpar)
+    else:
+        stream = (p for f1, f2 in zip(files[0::2], files[1::2])
+                  for p in packed_pairs_from_files(f1, f2))
+        try:
+            samples = cls.classify_and_write_packed(stream, args.output, cpar)
+        except MatesOutOfOrder:
+            # only the pairing reader's own error: fall back to the reader
+            # that joins mates by id; any other error of the run propagates
+            frags = fragments_from_files(files, paired=True, k=idx.params.k)
+            samples = cls.classify_and_write(frags, args.output, cpar)
     for t, ss in samples.items():
         print(f"threshold {t}: samples {ss}")
     return 0

@@ -15,8 +15,8 @@ of its span's start, so these records hold exactly each sequence's distinct
 valid-window minimizers; LCA ignores order and duplicates, so no
 (key, taxon) pair sort or dedup is needed.
 
-IndexParams and the host-side fragment splitting are copies of
-slacken_tpu/index.py's (that module imports JAX).
+IndexParams and the host-side fragment splitting follow
+slacken_tpu/index.py's.
 """
 
 from __future__ import annotations
@@ -28,14 +28,12 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from slacken_tpu import storage
-from slacken_tpu.taxonomy import Taxonomy
-
-from . import to_device
+from . import storage, to_device
 from .ops import encode
 from .ops.lca import segment_lca_table
 from .ops.lookup import build_fence
 from .ops.minimizers import DEFAULT_TOGGLE_MASK, MinimizerParams, window_minimizers_packed
+from .taxonomy import Taxonomy
 
 FORMAT_VERSION = 1
 NOT_PORTED = "ROADMAP.md, port queue: explicit orderings and wide keys"

@@ -1,9 +1,8 @@
-"""Sequence inputs for the port: copies of slacken_tpu/inputs.py's readers.
+"""Sequence input readers (counterpart of slacken_tpu/inputs.py).
 
-slacken_tpu/inputs.py imports slacken_tpu.classify, which imports JAX, and
-the GPU host has no JAX; so the functions the port needs are copied here
-unchanged (ROADMAP.md records the duplication as debt). The FASTQ/FASTA
-packer itself is slacken_tpu.native, which is JAX-free and shared.
+Streaming FASTA/FASTQ parsing with gzip/bzip2 support, `@file` list
+expansion, paired-end joining, the genome library, and the native-packed
+fast paths for classification input (native.PackedReads chunks).
 """
 
 from __future__ import annotations
@@ -14,7 +13,9 @@ import os
 import re
 from typing import Iterable, Iterator, List, Optional, Tuple
 
-from slacken_tpu import native
+from . import native
+from .classify import Fragment
+from .zio import open_gz_subprocess
 
 DEFAULT_MAX_FRAGMENT = 1 << 20
 
@@ -22,8 +23,8 @@ DEFAULT_MAX_FRAGMENT = 1 << 20
 def open_maybe_compressed(path: str, mode: str = "rt"):
     if path.endswith(".gz"):
         if mode in ("rb", "r"):
-            from slacken_tpu.zio import open_gz_subprocess
-
+            # inflate in a gzip child process so the parse/pack thread
+            # keeps its whole core
             return open_gz_subprocess(path)
         return gzip.open(path, mode)
     if path.endswith(".bz2"):
@@ -66,6 +67,86 @@ def read_fasta(path: str) -> Iterator[Tuple[str, str]]:
             yield header, "".join(chunks)
 
 
+def read_fastq(path: str) -> Iterator[Tuple[str, str]]:
+    """Yield (header, sequence) from FASTQ, validating record structure."""
+    with open_maybe_compressed(path) as f:
+        while True:
+            h = f.readline()
+            if not h:
+                return
+            s = f.readline()
+            plus = f.readline()
+            q = f.readline()
+            if not q:
+                raise ValueError(f"{path}: truncated FASTQ record at {h!r}")
+            if not h.startswith("@") or not plus.startswith("+"):
+                raise ValueError(f"{path}: malformed FASTQ record at {h!r}")
+            yield h[1:].rstrip("\n\r"), s.strip()
+
+
+def read_sequences(path: str) -> Iterator[Tuple[str, str]]:
+    if is_fastq(path):
+        return read_fastq(path)
+    return read_fasta(path)
+
+
+def _strip_pair_suffix(title: str) -> str:
+    """Strip /1, /2 mate suffixes from the id token."""
+    tok = title.split()[0] if title else title
+    return re.sub(r"/[12]$", "", tok)
+
+
+def read_pairs(
+    path1: str, path2: str, max_pending: int = 1 << 20
+) -> Iterator[Tuple[str, str, str]]:
+    """Yield (header, seq1, seq2) joining two mate files. Reads are matched
+    by position with header verification, falling back to a join by header
+    when the files disagree in order. The out-of-order buffer is bounded:
+    mate files whose orders diverge by more than `max_pending` reads raise
+    instead of buffering a whole file in memory."""
+    it2 = read_sequences(path2)
+    pending2 = {}
+    for h1, s1 in read_sequences(path1):
+        key = _strip_pair_suffix(h1)
+        if key in pending2:
+            yield h1, s1, pending2.pop(key)
+            continue
+        for h2, s2 in it2:
+            if _strip_pair_suffix(h2) == key:
+                yield h1, s1, s2
+                break
+            pending2[_strip_pair_suffix(h2)] = s2
+            if len(pending2) > max_pending:
+                raise ValueError(
+                    f"mate files {path1!r} and {path2!r} diverge in read order "
+                    f"by more than {max_pending} reads; sort them consistently "
+                    "or raise max_pending"
+                )
+
+
+def fragments_from_files(
+    files: List[str], paired: bool = False, max_fragment: Optional[int] = None, k: int = 35
+) -> Iterator[Fragment]:
+    """Fragments for classification. With paired=True, consecutive files are
+    mate pairs."""
+    files = expand_file_list(files)
+    if paired:
+        if len(files) % 2 != 0:
+            raise ValueError("paired mode requires an even number of input files")
+        for f1, f2 in zip(files[0::2], files[1::2]):
+            for h, s1, s2 in read_pairs(f1, f2):
+                yield Fragment(h, s1, s2)
+    else:
+        for path in files:
+            for h, s in read_sequences(path):
+                if max_fragment and len(s) > max_fragment:
+                    step = max_fragment - (k - 1)
+                    for i, off in enumerate(range(0, len(s) - k + 1, step)):
+                        yield Fragment(h if i == 0 else f"{h} (part {i})", s[off : off + max_fragment])
+                else:
+                    yield Fragment(h, s)
+
+
 def packed_reads_from_file(path: str, chunk_bytes: int = 64 << 20, row_len: Optional[int] = None):
     """Stream a FASTQ/FASTA file as native-packed code batches
     (native.PackedReads)."""
@@ -93,6 +174,40 @@ def packed_reads_from_file(path: str, chunk_bytes: int = 64 << 20, row_len: Opti
         packed = native.pack_fasta_chunk(data, row_len)
         if len(packed):
             yield packed
+
+
+class MatesOutOfOrder(ValueError):
+    """Two mate files do not list their reads in the same order."""
+
+
+def packed_pairs_from_files(path1: str, path2: str, chunk_bytes: int = 64 << 20):
+    """Stream paired FASTQ files as native-packed paired rows. Mates are
+    matched positionally (the near-universal layout); a header check guards
+    the pairing and raises MatesOutOfOrder (a ValueError) on a mismatch, so
+    the caller can fall back to the id-joining reader."""
+    gen1 = packed_reads_from_file(path1, chunk_bytes)
+    gen2 = packed_reads_from_file(path2, chunk_bytes)
+    buf1 = buf2 = None
+    while True:
+        if buf1 is None or len(buf1) == 0:
+            buf1 = next(gen1, None)
+        if buf2 is None or len(buf2) == 0:
+            buf2 = next(gen2, None)
+        if buf1 is None or buf2 is None:
+            break
+        n = min(len(buf1), len(buf2))
+        head1 = _strip_pair_suffix(buf1.titles[0])
+        head2 = _strip_pair_suffix(buf2.titles[0])
+        if head1 != head2:
+            raise MatesOutOfOrder(
+                f"paired files disagree in record order ({head1!r} vs {head2!r}); "
+                "use fragments_from_files(paired=True) for id-joined pairing"
+            )
+        p1 = native.PackedReads(buf1.codes[:n], buf1.lengths[:n], buf1.titles[:n])
+        p2 = native.PackedReads(buf2.codes[:n], buf2.lengths[:n], buf2.titles[:n])
+        yield native.pack_pairs(p1, p2)
+        buf1 = native.PackedReads(buf1.codes[n:], buf1.lengths[n:], buf1.titles[n:])
+        buf2 = native.PackedReads(buf2.codes[n:], buf2.lengths[n:], buf2.titles[n:])
 
 
 def find_genome_files(location: str, suffix: str = ".fna") -> List[str]:

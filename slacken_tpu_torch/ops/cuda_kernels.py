@@ -36,7 +36,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-LAUNCHES: Dict[str, int] = {"scan": 0, "probe": 0}
+#: the five mask-idiom kernels (kernels/mask_idioms.cu)
+MASK_IDIOMS = ("select", "astype", "concat", "carry", "sum_bool")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in ("scan", "probe", *MASK_IDIOMS)}
 
 _lib = None
 #: (seconds, compiler output) of the build this process ran, if any
@@ -96,6 +99,10 @@ def _load():
     lib.stpu_scan.restype = i32
     lib.stpu_probe.argtypes = [p, p, i64, p, i64, p, i64, p, p]
     lib.stpu_probe.restype = i32
+    for name in MASK_IDIOMS:
+        fn = getattr(lib, f"stpu_mask_{name}")
+        fn.argtypes = [p, p, p, i64, i64, p] if name == "sum_bool" else [p, p, i64, i64, p]
+        fn.restype = i32
     _lib = lib
     return lib
 
@@ -173,4 +180,26 @@ def lookup_taxa_fence_cuda(
     )
     _check(rc, "probe")
     LAUNCHES["probe"] += 1
+    return out
+
+
+def mask_idiom_cuda(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Launch the mask-idiom kernel `name` (kernels/mask_idioms.cu) on a
+    contiguous int32 [R, C] CUDA tensor with C >= 16; int32 [R, C] out."""
+    if name not in MASK_IDIOMS:
+        raise ValueError(f"unknown mask idiom {name!r}")
+    _require(x, "x", torch.int32, 2)
+    rows, cols = x.shape
+    if cols < 16:
+        raise ValueError(f"the mask-idiom kernels take at least 16 columns, got {cols}")
+    lib = _load()
+    out = torch.empty_like(x)
+    fn = getattr(lib, f"stpu_mask_{name}")
+    if name == "sum_bool":
+        total = torch.empty(1, dtype=torch.int32, device=x.device)
+        rc = fn(x.data_ptr(), out.data_ptr(), total.data_ptr(), rows, cols, _stream(x))
+    else:
+        rc = fn(x.data_ptr(), out.data_ptr(), rows, cols, _stream(x))
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return out

@@ -1,0 +1,121 @@
+"""Synthetic workloads for smoke runs and measurements: the libraries,
+taxonomies and simulated reads of bench.py and scripts/scale_bench.py, made
+with the same generator calls in the same order, so the same seeds give the
+same sequences (and the same index record counts: 2,623,028 for the bench
+library, 131,190,899 for the 400 Mbp scale library at k=35 m=31 s=7).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Tuple
+
+import numpy as np
+
+from . import native
+from .ops import encode
+from .taxonomy import Taxonomy
+
+BENCH_SEED = 20260816
+SCALE_SEED = 20260818
+READ_SEED = 7
+READ_LEN = 101
+#: bench library: three genomes sized like the reference's tiny test data
+BENCH_SIZES = {455631: 4_100_000, 526997: 3_100_000, 9606: 800_000}
+
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+_COMPLEMENT = str.maketrans("ACGT", "TGCA")
+
+
+def bench_library(rng) -> Iterator[Tuple[int, str]]:
+    """(taxon, sequence) for the three bench genomes, 8 Mbp in all."""
+    for taxon, n in BENCH_SIZES.items():
+        yield taxon, _ACGT[rng.integers(0, 4, n)].tobytes().decode("ascii")
+
+
+def _star_taxonomy(taxa) -> Taxonomy:
+    nodes = [(1, 1, "root")] + [(t, 1, "species") for t in taxa]
+    return Taxonomy.from_nodes_and_names(nodes, [(t, f"taxon{t}") for t, _, _ in nodes])
+
+
+def bench_taxonomy() -> Taxonomy:
+    return _star_taxonomy(BENCH_SIZES)
+
+
+def scale_library(total_bp: int, n_taxa: int, seed=SCALE_SEED) -> Iterator[Tuple[int, str]]:
+    """Deterministic genomes: n_taxa species (taxa 10, 11, ...) under one
+    root, sizes Zipf-like (a few large genomes and a tail), totalling
+    total_bp."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n_taxa + 1)
+    sizes = np.maximum((total_bp * w / w.sum()).astype(np.int64), 50_000)
+    for i, n in enumerate(sizes):
+        codes = rng.integers(0, 4, int(n), dtype=np.int64).astype(np.uint8)
+        yield 10 + i, _ACGT[codes].tobytes().decode("ascii")
+
+
+def scale_taxonomy(n_taxa: int) -> Taxonomy:
+    return _star_taxonomy(range(10, 10 + n_taxa))
+
+
+def _simulated(seq: str, rng, n: int, taxon: int) -> native.PackedReads:
+    """n reads of READ_LEN bp from random offsets of seq with 1% mutated
+    bases, in 128-wide rows, titled sim<taxon>_<i>."""
+    codes_full = encode.encode_seq(seq)
+    starts = rng.integers(0, len(codes_full) - READ_LEN, n)
+    rows = codes_full[starts[:, None] + np.arange(READ_LEN)[None, :]].astype(np.uint8)
+    mut = rng.random(rows.shape) < 0.01
+    rows[mut] = rng.integers(0, 4, int(mut.sum()))
+    rows = np.pad(rows, ((0, 0), (0, 128 - READ_LEN)), constant_values=encode.INVALID)
+    return native.PackedReads(rows, np.full(n, READ_LEN, np.int32),
+                              [f"sim{taxon}_{i}" for i in range(n)])
+
+
+def bench_reads(n_copies: int = 8) -> List[native.PackedReads]:
+    """The bench's simulated reads: 3,334 from each bench genome (read seed
+    7), the three chunks repeated n_copies times."""
+    rng = np.random.default_rng(READ_SEED)
+    sim = [_simulated(seq, rng, 3334, taxon)
+           for taxon, seq in bench_library(np.random.default_rng(BENCH_SEED))]
+    return sim * n_copies
+
+
+def scale_reads(total_bp: int, n_taxa: int, n_reads: int = 200_000) -> List[native.PackedReads]:
+    """The scale run's simulated reads: n_reads spread over the first 2 Mbp
+    of each of the first eight genomes of scale_library(total_bp, n_taxa)."""
+    rng = np.random.default_rng(READ_SEED)
+    n_src = min(n_taxa, 8)
+    sim = []
+    for j, (taxon, seq) in enumerate(scale_library(total_bp, n_taxa)):
+        if j >= n_src:
+            break
+        sim.append(_simulated(seq[:2_000_000], rng, n_reads // n_src, taxon))
+    return sim
+
+
+def bench_pairs(n_pairs: int, seed: int = READ_SEED) -> List[Tuple[str, str, str]]:
+    """(title, mate 1, mate 2) read pairs from the bench library: the two
+    READ_LEN bp ends of a 300-400 bp fragment, the second mate
+    reverse-complemented, 1% of the bases mutated."""
+    rng = np.random.default_rng(seed)
+    lib = list(bench_library(np.random.default_rng(BENCH_SEED)))
+    pairs = []
+    for i in range(n_pairs):
+        taxon, seq = lib[i % len(lib)]
+        size = int(rng.integers(300, 401))
+        start = int(rng.integers(0, len(seq) - size))
+        frag = np.frombuffer(seq[start : start + size].encode("ascii"), np.uint8).copy()
+        mut = rng.random(size) < 0.01
+        frag[mut] = _ACGT[rng.integers(0, 4, int(mut.sum()))]
+        frag = frag.tobytes().decode("ascii")
+        mate2 = frag[-READ_LEN:].translate(_COMPLEMENT)[::-1]
+        pairs.append((f"pair{taxon}_{i}", frag[:READ_LEN], mate2))
+    return pairs
+
+
+def write_paired_fastq(pairs, path1: str, path2: str) -> None:
+    """Write (title, mate 1, mate 2) pairs as two FASTQ files whose titles
+    end in /1 and /2."""
+    with open(path1, "w") as f1, open(path2, "w") as f2:
+        for title, s1, s2 in pairs:
+            f1.write(f"@{title}/1\n{s1}\n+\n{'I' * len(s1)}\n")
+            f2.write(f"@{title}/2\n{s2}\n+\n{'I' * len(s2)}\n")

@@ -2,7 +2,10 @@
 classify_and_write_packed (reports mode): byte-identical kreports over two
 thresholds, sample regexes, min-hit-groups, paired rows, N runs, reads
 shorter than k and max_taxa overflow rows; then both CLIs' build and
-classify --no-detailed."""
+classify, with --no-detailed, per-read output and -p (mates in order and
+out of order)."""
+
+import gzip
 
 import os
 
@@ -73,6 +76,19 @@ def _reports(loc):
     return out
 
 
+def tree(prefix):
+    """{path below <prefix>_c*: bytes} of a classify output, .gz files inflated."""
+    base, stem = os.path.dirname(prefix), os.path.basename(prefix)
+    out = {}
+    for top in sorted(x for x in os.listdir(base) if x.startswith(stem + "_c")):
+        for root, _, names in os.walk(os.path.join(base, top)):
+            for name in names:
+                path = os.path.join(root, name)
+                with (gzip.open if name.endswith(".gz") else open)(path, "rb") as f:
+                    out[os.path.relpath(path, base)[len(stem):]] = f.read()
+    return out
+
+
 @pytest.mark.parametrize(
     "max_taxa,mhg,regex,unclassified",
     [(32, 2, None, True), (4, 1, r"^[a-z](s\d)_", False), (4, 3, r"^([ab])", True)],
@@ -103,9 +119,18 @@ def test_overflow_rows_reach_the_host_resolver(setup):
 
 
 def test_detailed_output_is_a_later_slice(setup, tmp_path):
+    """Per-read output is the default mode: one line per read, in input
+    order, and the window taxa reach the host only in this mode."""
     _, idx, single, _ = setup
-    with pytest.raises(NotImplementedError, match="per-read"):
-        Classifier(idx, "cpu").classify_and_write_packed(single, str(tmp_path / "o"), ClassifyParams())
+    cls = Classifier(idx, "cpu")
+    assert cls.classify_and_write_packed(single, str(tmp_path / "o"), ClassifyParams()) == {0.0: ["all"]}
+    with gzip.open(tmp_path / "o_c0.0" / "sample=all" / "part-00000.txt.gz", "rt") as f:
+        lines = f.read().splitlines()
+    assert [x.split("\t")[1] for x in lines] == [t for p in single for t in p.titles]
+    assert all(x[0] in "CU" and len(x.split("\t")) == 5 for x in lines)
+    assert all(b.window_taxa is not None for b in cls.packed_batches(single))
+    cls._fetch_window_taxa = False
+    assert all(b.window_taxa is None for b in cls.packed_batches(single))
 
 
 def _write_library(tmp_path, tax, lib):
@@ -142,9 +167,40 @@ def test_cli_build_and_classify_match_jax_cli(rng, tmp_path, capsys):
                      "--device", "cpu"]) == 0
     a, b = _reports(str(tmp_path / "jout")), _reports(str(tmp_path / "tout"))
     assert len(a) == 2 and a == b
-    # per-read output and paired input are later slices: one line, exit 2
-    assert cli.main(["classify", "-i", str(tmp_path / "tidx"), "-o", str(tmp_path / "x"),
-                     str(tmp_path / "reads.fastq"), "--device", "cpu"]) == 2
-    assert cli.main(["classify", "-i", str(tmp_path / "tidx"), "-o", str(tmp_path / "x"), "-p",
-                     "--no-detailed", str(tmp_path / "reads.fastq"), "--device", "cpu"]) == 2
-    assert "later slice" in capsys.readouterr().err
+    # per-read output (the default) and paired input, mates in order and,
+    # through the id-joining fallback, out of order
+    n = len(reads.titles)
+    for name, order in (("m2.fastq", range(n)), ("m2_shuffled.fastq", rng.permutation(n))):
+        with open(tmp_path / name, "w") as f:
+            for i in order:
+                seq = encode.revcomp_str(encode.decode_codes(reads.codes[i][: reads.lengths[i]]))
+                f.write(f"@{reads.titles[i]}/2\n{seq}\n+\n{'I' * len(seq)}\n")
+    r1 = str(tmp_path / "reads.fastq")
+    for tag, args in (("s", [r1]), ("p", ["-p", r1, str(tmp_path / "m2.fastq")]),
+                      ("u", ["-p", r1, str(tmp_path / "m2_shuffled.fastq"), "--no-unclassified",
+                             "--sample-regex", r"^r(s\d)"])):
+        assert jcli.main(["classify", "-i", str(tmp_path / "jidx"), "-o", str(tmp_path / f"j{tag}"), *args]) == 0
+        assert cli.main(["classify", "-i", str(tmp_path / "tidx"), "-o", str(tmp_path / f"t{tag}"), *args,
+                         "--device", "cpu"]) == 0
+        a, b = tree(str(tmp_path / f"j{tag}")), tree(str(tmp_path / f"t{tag}"))
+        assert a == b and any(k.endswith(".gz") for k in a), tag
+    assert b"|:|" in b"".join(tree(str(tmp_path / "tu")).values())
+
+
+
+def test_cli_paired_fallback_is_for_mates_out_of_order_only(setup, tmp_path, monkeypatch):
+    """A ValueError of the classify run itself (a kernel wrapper refusing its
+    input, say) is not taken for mates out of order: it propagates."""
+    _, idx, _, _ = setup
+    idx.save(str(tmp_path / "tidx"))
+    for name in ("a.fastq", "b.fastq"):
+        (tmp_path / name).write_text("@r1\nACGT\n+\nIIII\n")
+
+    def refuse(self, stream, location, cpar):
+        raise ValueError("not a CUDA tensor")
+
+    monkeypatch.setattr(Classifier, "classify_and_write_packed", refuse)
+    monkeypatch.setattr(Classifier, "classify_and_write", lambda *a: pytest.fail("fell back"))
+    with pytest.raises(ValueError, match="not a CUDA tensor"):
+        cli.main(["classify", "-i", str(tmp_path / "tidx"), "-o", str(tmp_path / "o"), "-p",
+                  str(tmp_path / "a.fastq"), str(tmp_path / "b.fastq"), "--device", "cpu"])

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, minimizers
+from slacken_tpu_torch import diagnostics
+from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, mask_idioms, minimizers
 
 torch.set_num_threads(1)
 
@@ -52,3 +53,29 @@ def test_probe_kernel_matches_twin(cuda, n):
     got = lookup.probe(k_d, t_d, lookup.build_fence(k_d), q_d)
     want = lookup.lookup_taxa(torch.from_numpy(keys), torch.from_numpy(taxa), torch.from_numpy(q))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (4096, 128), (5, 16), (33, 1000)])
+@pytest.mark.parametrize("name", cuda_kernels.MASK_IDIOMS)
+def test_mask_idiom_kernel_matches_twin(cuda, name, shape):
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 129, shape).astype(np.int32)
+    x[0, :3] = [np.iinfo(np.int32).max, np.iinfo(np.int32).min, 65]
+    before = cuda_kernels.LAUNCHES[name]
+    got = mask_idioms.run(name, torch.from_numpy(x).to(cuda))
+    assert cuda_kernels.LAUNCHES[name] == before + 1
+    want = mask_idioms.PLAIN[name](torch.from_numpy(x))
+    assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+def test_mask_idiom_kernel_rejects_what_it_does_not_take(cuda):
+    for bad in (torch.zeros((8, 8), dtype=torch.int32), torch.zeros((8, 128), dtype=torch.int64),
+                torch.zeros(128, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            mask_idioms.run("select", bad.to(cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        mask_idioms.run("select", torch.zeros((8, 256), dtype=torch.int32, device=cuda)[:, ::2])
+
+
+def test_kernel_probe_says_ok(cuda):
+    assert diagnostics.kernel_probe(cuda) == {name: "ok" for name in cuda_kernels.MASK_IDIOMS}

@@ -1,8 +1,11 @@
-"""The port runs where JAX is absent: no slacken_tpu_torch module (nor
-chip_smoke.py) imports jax, and the device is chosen explicitly, never
-falling back to the CPU."""
+"""The port runs where JAX and the JAX package are absent: no
+slacken_tpu_torch module (nor chip_smoke.py) imports jax, slacken_tpu or the
+bench scripts, and the device is chosen explicitly, never falling back to
+the CPU."""
 
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -22,8 +25,9 @@ names = [m.name for m in pkgutil.walk_packages(slacken_tpu_torch.__path__, "slac
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert len(names) >= 10, names
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert len(names) >= 20, names
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "slacken_tpu", "bench", "scale_bench"))
 assert not bad, bad
 print("imported", len(names))
 """
@@ -35,6 +39,19 @@ def test_no_module_imports_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("imported")
+
+
+def test_no_source_names_the_jax_package():
+    """No file of the port, nor chip_smoke.py, holds an import of jax,
+    slacken_tpu, bench or scale_bench (not even inside a function)."""
+    files = glob.glob(os.path.join(ROOT, "slacken_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) >= 20
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|slacken_tpu|bench|scale_bench)\b", re.M)
+    for path in files:
+        with open(path) as f:
+            found = pat.search(f.read())
+        assert found is None, (path, found.group(0))
 
 
 def test_get_device_never_falls_back(monkeypatch):
