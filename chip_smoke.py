@@ -3,7 +3,9 @@
 
 Run from the repository root: `python3 chip_smoke.py`. It builds the CUDA
 kernels from ops/kernels/*.cu, checks each kernel bit-exact against its
-plain PyTorch twin on the card, then drives the port's paths, each with the
+plain PyTorch twin on the card (the scan at every main-path shape and at
+other k, m, s; the probe on random, one-prefix and tiny indexes, and later on
+the bench and the scale index), then drives the port's paths, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
   * reports mode: build the bench library's index on the card (2,623,028
@@ -75,6 +77,28 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time of one call of fn alone: the kernel and copy durations
+    that torch.profiler records over `iters` calls, summed. The host's time
+    to enqueue a launch, which bounds `cuda_ms` for a kernel of a few
+    microseconds, does not count. None if the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / 1e3 / iters if total_us > 0 else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def bound(n_bytes, n_ops):
     """The least time the card could take: the larger of bytes over the
     memory rate (each input read once, each output written once) and
@@ -93,83 +117,153 @@ def random_codes(rng, shape, invalid=0.05):
     return codes
 
 
+#: the scan's shapes on the main path: a 4 Mbp classify batch of 128 bp rows,
+#: one of paired rows (two 128-wide mates and the separator, padded to 264)
+#: and a build batch of 4 kbp genome rows (index._default_batch)
+SCAN_SHAPES = [(32768, 128), (16384, 264), (8192, 4096)]
+
+
 def check_scan(rng, dev, results):
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
 
-    mp = minimizers.MinimizerParams()
-    err = 0
-    # random shapes, then the main path's: a 4 Mbp classify batch of 128 bp
-    # rows, one of paired rows (two 128-wide mates and the separator, padded
-    # to 264) and a build batch of 4 kbp genome rows (index._default_batch)
-    for shape in [(4096, 128), (512, 1024), (32768, 128), (16384, 264), (8192, 4096)]:
+    default = minimizers.MinimizerParams()
+    P = minimizers.MinimizerParams
+    # random shapes and the main path's with the default k, m, s; then other
+    # parameter sets: a window inside one lane (W = 1), non-canonical, m = 1
+    # (W = k), windows that reach 2 to 9 lanes ahead, k > 61 (validity over
+    # several words) and rows shorter than one chunk
+    cases = [(shape, default) for shape in [(4096, 128), (512, 1024), *SCAN_SHAPES]]
+    cases += [((512, 1024), mp) for mp in (
+        P(21, 15, 3), P(31, 31, 0), P(35, 31, 7, canonical=False), P(35, 1, 0), P(12, 5, 1, canonical=False),
+        P(38, 31, 7), P(70, 31, 7), P(100, 16, 2), P(151, 31, 0))]
+    cases += [((37, 8), P(5, 3, 1)), ((37, 72), default)]
+    for shape, mp in cases:
         packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
         got = minimizers.window_minimizers_packed(packed, valid, mp)
         want = minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp)
         torch.cuda.synchronize()
+        what = f"{list(shape)} k={mp.k} m={mp.m} s={mp.spaces} canonical={mp.canonical}"
         for name in ("valid", "span_start", "distinct"):
             if not torch.equal(getattr(got, name), getattr(want, name)):
-                fail(f"scan {name} differs from the twin at {shape}")
+                fail(f"scan {name} differs from the twin at {what}")
         v = want.valid
-        diff = (got.minimizer[v] - want.minimizer[v]).abs()
-        err = max(err, int(diff.max()) if diff.numel() else 0)
+        err = int((got.minimizer - want.minimizer).abs().max())  # -1 at invalid windows in both
         if err:
-            fail(f"scan minimizers differ from the twin at {shape} (max abs err {err})")
-        log(f"scan kernel == twin at {list(shape)}: valid windows {int(v.sum())}, "
+            fail(f"scan minimizers differ from the twin at {what} (max abs err {err})")
+        log(f"scan kernel == twin at {what}: valid windows {int(v.sum())}, "
             f"span starts {int(got.span_start.sum())}, max_abs_err 0")
-    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, (32768, 128))))
-    ms = cuda_ms(lambda: cuda_kernels.window_minimizers_cuda(packed, valid, mp))
-    plain = cuda_ms(lambda: minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp), iters=5)
-    # bytes: packed codes and validity bits in; int64 minimizers and three
-    # flag arrays out. Operations: about 48 32-bit integer operations a
-    # position suffice (rolling forward and reverse m-mers, spaced mask,
-    # toggle, canonical min, a min over k-m+1 windows, the three flags).
-    n_pos = packed.shape[0] * packed.shape[1] * 4
-    bound_ms, by = bound(tensor_bytes(packed, valid) + n_pos * (8 + 3), 48 * n_pos)
-    log(f"scan [32768, 128]: kernel {ms:.4f} ms, plain PyTorch on the card {plain:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({by}); no single library call computes it")
-    results["scan"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                           bound_by=by, library_ms=None)
+    shapes = {}
+    for shape in SCAN_SHAPES:
+        packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
+        run = lambda: cuda_kernels.window_minimizers_cuda(packed, valid, default)  # noqa: E731
+        ms, dev_ms = cuda_ms(run), device_ms(run)
+        plain = cuda_ms(lambda: minimizers.window_minimizers(encode.unpack_2bit(packed, valid), default), iters=3)
+        # bytes: packed codes and validity bits in; int64 minimizers and three
+        # flag arrays out. Operations: about 48 32-bit integer operations a
+        # position suffice (rolling forward and reverse m-mers, spaced mask,
+        # toggle, canonical min, a min over k-m+1 windows, the three flags).
+        n_pos = shape[0] * shape[1]
+        bound_ms, by = bound(tensor_bytes(packed, valid) + n_pos * (8 + 3), 48 * n_pos)
+        log(f"scan {list(shape)}: kernel {ms:.4f} ms back to back through the wrapper, {fmt_ms(dev_ms)} "
+            f"on the device alone, plain PyTorch on the card {plain:.4f} ms, bound {bound_ms:.4f} ms ({by}); "
+            "no single library call computes it")
+        shapes[str(list(shape))] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by)
+    results["scan"] = dict(max_abs_err=0.0, **shapes[str(list(SCAN_SHAPES[0]))], library_ms=None, shapes=shapes)
+
+
+def time_probe(label, keys, taxa, directory, queries):
+    """Kernel == twin on these queries, then the kernel's time beside the
+    twin's and torch.searchsorted's (a yardstick: the port never calls it on
+    the card). Returns the numbers of one entry of the probe's `shapes`."""
+    import torch
+
+    from slacken_tpu_torch.ops import cuda_kernels, lookup
+
+    got = lookup.probe(keys, taxa, directory, queries)
+    want = lookup.lookup_taxa(keys, taxa, queries)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    if err:
+        fail(f"probe differs from the twin on {label} (max abs err {err})")
+    run = lambda: cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)  # noqa: E731
+    ms, dev_ms = cuda_ms(run), device_ms(run)
+    plain = cuda_ms(lambda: lookup.lookup_taxa(keys, taxa, queries), iters=5)
+    library = cuda_ms(lambda: torch.searchsorted(keys, queries))
+    # bytes: the smaller of every array once (queries, keys, taxa and
+    # directory in, taxa out) and what these queries need (a query and its
+    # answer; for a query inside the keys' range one directory entry and one
+    # key; on a hit one taxon): a probe of a large index reads little of it.
+    # Operations: a shift, two compares and a select or two per query.
+    nq, inside, hits = queries.numel(), int(((queries >> directory.shift) < directory.buckets).sum()), int((want > 0).sum())
+    inside -= int((queries < 0).sum())
+    n_bytes = min(tensor_bytes(queries, keys, taxa, directory.starts) + 4 * nq, 12 * nq + 12 * inside + 4 * hits)
+    bound_ms, by = bound(n_bytes, 8 * nq)
+    log(f"probe, {label}: {keys.numel()} keys ({directory.buckets} buckets, shift {directory.shift}), {nq} queries, "
+        f"{hits} hits, {inside} inside the keys' range, max_abs_err 0; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the "
+        f"device alone), plain twin {plain:.4f} ms, torch.searchsorted alone {library:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
+    return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
+                library_ms=library)
+
+
+def random_queries(rng, keys, nq):
+    """Half hits, half random misses, 1,000 above 2^62, and the edges."""
+    hits = keys[rng.integers(0, len(keys), nq // 2)]
+    misses = rng.integers(0, 1 << 62, nq - nq // 2 - 1005, dtype=np.int64)
+    wild = rng.integers(1 << 62, (1 << 63) - 1, 1000, dtype=np.int64)  # garbage queries
+    q = np.concatenate([hits, misses, wild, [-5, 0, keys[0], keys[-1], (1 << 63) - 1]])
+    rng.shuffle(q)
+    return q
 
 
 def check_probe(rng, dev, results):
     import torch
 
-    from slacken_tpu_torch.ops import cuda_kernels, lookup
+    from slacken_tpu_torch.ops import lookup
+
+    # adversarial indexes: tiny, all keys under one prefix, two prefixes far
+    # apart, narrow keys; queries at and around every key and at the edges
+    edge = np.array([-5, 0, 1, 1 << 61, 1 << 62, (1 << 63) - 1, -(1 << 63)], np.int64)
+    n_cases = 0
+    for n in (0, 1, 2, 127, 128, 129, 100_003):
+        kinds = {
+            "uniform": rng.integers(0, 1 << 62, 2 * n + 1, dtype=np.int64),
+            "one prefix": (1 << 61) + rng.integers(0, 1 << 20, 2 * n + 1, dtype=np.int64),
+            "two prefixes": np.concatenate([rng.integers(0, 1 << 12, n // 2, dtype=np.int64),
+                                            (1 << 62) - 1 - rng.integers(0, 1 << 12, n, dtype=np.int64)]),
+            "narrow keys": rng.integers(0, 1 << 30, 2 * n + 1, dtype=np.int64),
+        }
+        for kind, raw in kinds.items():
+            keys = np.unique(raw)[:n]
+            taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+            q = np.concatenate([keys, keys - 1, keys + 1, edge, rng.integers(-(1 << 63), (1 << 63) - 1, 2000, dtype=np.int64)])
+            k_d, t_d, q_d = (torch.from_numpy(a).to(dev) for a in (keys, taxa, q))
+            for bucket_keys in (1, lookup.BUCKET_KEYS, 1 << 30):  # the last: one bucket holds every key
+                d = lookup.build_directory(k_d, bucket_keys)
+                got, want = lookup.probe(k_d, t_d, d, q_d), lookup.lookup_taxa(k_d, t_d, q_d)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want) or not torch.equal(lookup.lookup_taxa_directory(k_d, t_d, d, q_d), want):
+                    fail(f"probe differs from the twin: {len(keys)} keys, {kind}, {d.buckets} buckets")
+                n_cases += 1
+    log(f"probe kernel == twin == directory twin on {n_cases} adversarial indexes (0 to 100,003 keys; uniform, one "
+        "prefix, two prefixes, narrow keys; 1, 4 and all keys a bucket), max_abs_err 0")
 
     n = 2_000_000
     keys = np.unique(rng.integers(0, 1 << 62, int(n * 1.01), dtype=np.int64))[:n]
     taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
     nq = 1 << 22  # one 4 Mbp batch probes every window position
-    hits = keys[rng.integers(0, len(keys), nq // 2)]
-    misses = rng.integers(0, 1 << 62, nq // 2 - 1000, dtype=np.int64)
-    wild = rng.integers(1 << 62, (1 << 63) - 1, 1000, dtype=np.int64)  # garbage queries
-    q = np.concatenate([hits, misses, wild, [-5, 0, keys[0], keys[-1], (1 << 63) - 1]])
-    rng.shuffle(q)
-    k_d, t_d, q_d = (torch.from_numpy(a).to(dev) for a in (keys, taxa, q))
-    fence = lookup.build_fence(k_d)
-    got = lookup.probe(k_d, t_d, fence, q_d)
-    want = lookup.lookup_taxa(k_d, t_d, q_d)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max())
-    if err:
-        fail(f"probe differs from the twin (max abs err {err})")
-    log(f"probe kernel == twin: {len(keys)} keys, {len(q)} queries, {int((got > 0).sum())} hits, max_abs_err 0")
-    qm = q_d[:nq]
-    ms = cuda_ms(lambda: cuda_kernels.lookup_taxa_fence_cuda(k_d, t_d, fence, qm))
-    plain = cuda_ms(lambda: lookup.lookup_taxa(k_d, t_d, qm))
-    library = cuda_ms(lambda: torch.searchsorted(k_d, qm))
-    # bytes: queries, keys, taxa and fence in, taxa out. Operations: one
-    # compare-and-step (about 3 integer operations) per level of a binary
-    # search over the keys, for every query.
-    out_bytes = nq * 4
-    n_ops = 3 * nq * int(np.ceil(np.log2(len(keys))))
-    bound_ms, by = bound(tensor_bytes(qm, k_d, t_d, fence) + out_bytes, n_ops)
-    log(f"probe 2M keys x {nq} queries: kernel {ms:.4f} ms, plain twin {plain:.4f} ms, "
-        f"torch.searchsorted alone {library:.4f} ms, bound {bound_ms:.4f} ms ({by})")
-    results["probe"] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                            bound_by=by, library_ms=library)
+    k_d, t_d, q_d = (torch.from_numpy(a).to(dev) for a in (keys, taxa, random_queries(rng, keys, nq)))
+    shapes = {"2M random keys, random queries": time_probe(
+        "2M random keys, random queries", k_d, t_d, lookup.build_directory(k_d), q_d)}
+    # the directory's one parameter, timed on the same index and queries
+    for bucket_keys in (2, 4, 8, 16, 64):
+        d = lookup.build_directory(k_d, bucket_keys)
+        ms = cuda_ms(lambda: lookup.probe(k_d, t_d, d, q_d))
+        log(f"probe, 2M random keys, about {bucket_keys} keys a bucket ({d.starts.numel() * 4 / 1e6:.2f} MB "
+            f"directory): {ms:.4f} ms")
+    results["probe"] = dict(shapes["2M random keys, random queries"], shapes=shapes)
 
 
 def check_mask_idioms(dev, results):
@@ -199,21 +293,32 @@ def check_mask_idioms(dev, results):
             err = max(err, int((got.long() - want.long()).abs().max()))
             if err:
                 fail(f"{name} kernel differs from its twin at {label} (max abs err {err})")
+        # back to back through the wrapper as a caller would use it (it
+        # allocates the result), then into a ready `out`, then the device
+        # time alone: at this size a call is bound by the host's enqueue
+        out = torch.empty_like(big)
         ms = cuda_ms(lambda: cuda_kernels.mask_idiom_cuda(name, big), iters=50)
+        ms_out = cuda_ms(lambda: cuda_kernels.mask_idiom_cuda(name, big, out=out), iters=50)
+        dev_ms = device_ms(lambda: cuda_kernels.mask_idiom_cuda(name, big, out=out), iters=100)
+        if not torch.equal(out, plain_fn(big)):
+            fail(f"{name} kernel differs from its twin when it writes into `out`")
         plain = cuda_ms(lambda: plain_fn(big), iters=50)
-        library_ms = None
+        library_ms = library_dev_ms = None
         if name in library:
             if not torch.equal(library[name](), plain_fn(big)):
                 fail(f"torch.gt(out=int32) is not the function of the {name} kernel")
             library_ms = cuda_ms(library[name], iters=50)
+            library_dev_ms = device_ms(library[name], iters=100)
         # bytes: the array in, the array out; about 3 operations an element
         bound_ms, by = bound(2 * tensor_bytes(big), 3 * big.numel())
         log(f"{name} kernel == twin at [8, 128] and [4096, 128], max_abs_err 0; at [4096, 128]: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound_ms:.5f} ms ({by}), " +
+            f"kernel {ms:.4f} ms back to back, {ms_out:.4f} ms into a ready out, {fmt_ms(dev_ms)} on the device alone, "
+            f"plain {plain:.4f} ms, bound {bound_ms:.5f} ms ({by}), " +
             ("no single library call computes it" if library_ms is None
-             else f"torch.gt(out=int32) {library_ms:.4f} ms"))
-        results[name] = dict(max_abs_err=float(err), ms=ms, plain_ms=plain, bound_ms=bound_ms,
-                             bound_by=by, library_ms=library_ms)
+             else f"torch.gt(out=int32) {library_ms:.4f} ms back to back, {fmt_ms(library_dev_ms)} on the device alone"))
+        results[name] = dict(max_abs_err=float(err), ms=ms, out_ms=ms_out, device_ms=dev_ms, plain_ms=plain,
+                             bound_ms=bound_ms, bound_by=by, library_ms=library_ms,
+                             library_device_ms=library_dev_ms)
 
 
 def check_resolve(rng, dev):
@@ -293,7 +398,7 @@ def timed_runs(fn, n=3):
     return times
 
 
-def phase_bench(dev, out):
+def phase_bench(dev, out, results):
     """Reports mode. Returns what the later phases reuse: the card's and the
     CPU's index, the reads, and the reports-mode rate."""
     import torch
@@ -352,7 +457,7 @@ def phase_bench(dev, out):
             fail(f"kreport counts {total} reads, expected {n_reads}")
     if classified_count(os.path.join(out, "gpu_c0.00", "all_kreport.txt"))[0] < 0.9 * n_reads:
         fail("fewer than 90% of the bench's simulated reads classified")
-    breakdown(cls, reads, cpar)
+    breakdown(cls, reads, cpar, results)
     return dict(idx=idx, idx_cpu=idx_cpu, reads=reads, n_reads=n_reads, cls=cls,
                 reports_rate=n_reads / med, launches=launches)
 
@@ -540,23 +645,37 @@ def profile_run(fn, mode):
         f"{os.path.basename(f)}:{ln}({name}) {v[2] * 1e3:.2f} ms" for (f, ln, name), v in top))
 
 
-def breakdown(cls, reads, cpar):
-    """Device time per stage of one 4 Mbp classify batch (CUDA events)."""
+def batch_queries(cls, reads):
+    """One 4 Mbp classify batch of `reads` on the card: its packed rows and
+    the probe's queries, the minimizer of every window position."""
     import torch
 
-    from slacken_tpu_torch.classify import finalize
-    from slacken_tpu_torch.ops import encode, lookup, minimizers, resolve
+    from slacken_tpu_torch.ops import encode, minimizers
 
     codes = np.concatenate([p.codes for p in reads])[: cls.target_batch_bp // 128]
     packed, valid = (torch.from_numpy(a).to(cls.device) for a in encode.pack_2bit(codes))
+    wm = minimizers.window_minimizers_packed(packed, valid, cls.index.params.minimizer_params)
+    return packed, valid, wm
+
+
+def breakdown(cls, reads, cpar, results):
+    """Device time per stage of one 4 Mbp classify batch (CUDA events), and
+    the probe against the bench index on that batch's dense minimizers."""
+    import torch
+
+    from slacken_tpu_torch.classify import finalize
+    from slacken_tpu_torch.ops import lookup, minimizers, resolve
+
+    packed, valid, wm = batch_queries(cls, reads)
     mp = cls.index.params.minimizer_params
-    b, l = codes.shape
+    b, l = wm.valid.shape
     st = {}
     st["scan"] = cuda_ms(lambda: minimizers.window_minimizers_packed(packed, valid, mp), iters=10)
-    wm = minimizers.window_minimizers_packed(packed, valid, mp)
     q = wm.minimizer.reshape(-1)
-    st["probe"] = cuda_ms(lambda: lookup.probe(cls._keys, cls._taxa, cls._fence, q), iters=10)
-    looked = lookup.probe(cls._keys, cls._taxa, cls._fence, q).reshape(b, l)
+    label = "bench index, one batch's dense minimizers"
+    results["probe"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q)
+    st["probe"] = cuda_ms(lambda: lookup.probe(cls._keys, cls._taxa, cls._directory, q), iters=10)
+    looked = lookup.probe(cls._keys, cls._taxa, cls._directory, q).reshape(b, l)
     wt = torch.where(wm.valid, looked, resolve.INVALID_WINDOW)
     st["compact_hits"] = cuda_ms(lambda: resolve.compact_hits(wt, cls.max_taxa), iters=10)
     ch = resolve.compact_hits(wt, cls.max_taxa)
@@ -569,14 +688,19 @@ def breakdown(cls, reads, cpar):
     log(f"device ms per stage, one [{b}, {l}] batch: " + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
 
 
-def phase_scale(dev, out):
+def phase_scale(dev, out, results):
+    """Build and classify at scale; the probe against an index far larger
+    than L2, on random queries and on a real batch's. Returns the launch
+    counts of the build and the classify."""
     import torch
 
     from slacken_tpu_torch import workloads
     from slacken_tpu_torch.classify import Classifier, ClassifyParams
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
 
     tax = workloads.scale_taxonomy(SCALE_TAXA)
+    cuda_kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -605,6 +729,16 @@ def phase_scale(dev, out):
     log(f"scale peak torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
     if total != n_reads or c < 0.99 * n_reads:
         fail(f"scale classified {c} of {total} reads")
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("scale build and classify", launches)
+    rng = np.random.default_rng(SCALE_RECORDS)
+    host_keys = idx.keys_t[torch.from_numpy(rng.integers(0, idx.num_records, 1 << 21)).to(dev)].cpu().numpy()
+    for label, q in (
+        ("scale index, random queries", torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev)),
+        ("scale index, one batch's dense minimizers", batch_queries(cls, reads)[2].minimizer.reshape(-1)),
+    ):
+        results["probe"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q)
+    return launches
 
 
 def main():
@@ -632,7 +766,7 @@ def main():
     secs, text = cuda_kernels.build_info
     log(f"kernel build: {secs:.2f} s (nvcc), {time.perf_counter() - t0:.2f} s with loading")
     for line in text.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
+        if "ptxas info" in line and ("Used" in line or "Compiling" in line) or "spill" in line:
             log("  " + line.strip())
     t0 = time.perf_counter()
     log(f"native packer: available {native.available()} "
@@ -648,12 +782,12 @@ def main():
     out = os.path.join(HERE, ".smoke_out")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    bench = phase_bench(dev, out)
+    bench = phase_bench(dev, out, results)
     by_path = {"reports": bench["launches"], "per_read": phase_detailed(dev, out, bench),
                "paired": phase_paired(dev, out, bench), "api": phase_api(dev, out, bench),
                "diagnostics": phase_diagnostics(dev)}
     del bench
-    phase_scale(dev, out)
+    by_path["scale"] = phase_scale(dev, out, results)
     shutil.rmtree(out, ignore_errors=True)
     for mod in ("jax", "slacken_tpu", "bench", "scale_bench"):
         if mod in sys.modules:

@@ -31,7 +31,7 @@ import torch
 from . import storage, to_device
 from .ops import encode
 from .ops.lca import segment_lca_table
-from .ops.lookup import build_fence
+from .ops.lookup import Directory, build_directory
 from .ops.minimizers import DEFAULT_TOGGLE_MASK, MinimizerParams, window_minimizers_packed
 from .taxonomy import Taxonomy
 
@@ -158,12 +158,12 @@ class KeyValueIndex:
     def taxa(self) -> np.ndarray:
         return self.taxa_t.cpu().numpy()
 
-    def device_arrays(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(keys, taxa, fence) on `device`, copied there once."""
+    def device_arrays(self, device) -> Tuple[torch.Tensor, torch.Tensor, Directory]:
+        """(keys, taxa, prefix directory) on `device`, copied or built there once."""
         device = torch.device(device)
         if device not in self._on:
             keys = self.keys_t.to(device)
-            self._on[device] = (keys, self.taxa_t.to(device), build_fence(keys))
+            self._on[device] = (keys, self.taxa_t.to(device), build_directory(keys))
         return self._on[device]
 
     # -- construction -------------------------------------------------------

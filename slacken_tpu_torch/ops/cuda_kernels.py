@@ -25,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .lookup import PROBE_BLOCK
+from .lookup import Directory
 from .minimizers import space_mask_int
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -97,7 +97,7 @@ def _load():
     p, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
     lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, u64, u64, p, p, p, p, p]
     lib.stpu_scan.restype = i32
-    lib.stpu_probe.argtypes = [p, p, i64, p, i64, p, i64, p, p]
+    lib.stpu_probe.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
     lib.stpu_probe.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -128,54 +128,60 @@ def _stream(t: torch.Tensor) -> int:
 
 def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params):
     """Fused unpack + minimizer scan (kernels/scan.cu) over pack_2bit's
-    [B, L/4] codes and [B, L/8] validity bits. Returns
-    (minimizer int64 [B, L], valid, span_start, distinct bool [B, L])."""
+    [B, L/4] codes and [B, L/8] validity bits. Returns (minimizer int64
+    [B, L], valid, span_start, distinct bool [B, L]); the minimizer of an
+    invalid window is -1."""
     _require(packed, "packed", torch.uint8, 2)
     _require(valid, "valid", torch.uint8, 2)
     b, l4 = packed.shape
     L = 4 * l4
     if tuple(valid.shape) != (b, L // 8) or L % 8:
         raise ValueError(f"valid must be [{b}, {L // 8}], got {tuple(valid.shape)}")
-    if params.m > 31 or params.k < params.m:
-        raise ValueError(f"the scan kernel takes m <= 31 <= k, got k={params.k} m={params.m}")
+    if not 1 <= params.m <= 31 or not 0 <= params.k - params.m <= 120:
+        raise ValueError(
+            f"the scan kernel takes 1 <= m <= 31 and m <= k <= m + 120, got k={params.k} m={params.m}"
+        )
     lib = _load()
     mn = torch.empty((b, L), dtype=torch.int64, device=packed.device)
-    flags = torch.empty((3, b, L), dtype=torch.uint8, device=packed.device)
+    flags = torch.empty((3, b, L), dtype=torch.bool, device=packed.device)
     mask = (1 << (2 * params.m)) - 1
+    f0 = flags.data_ptr()
     rc = lib.stpu_scan(
         packed.data_ptr(), valid.data_ptr(), b, L, params.k, params.m,
         int(bool(params.canonical)), params.toggle_mask & mask,
         space_mask_int(params.m, params.spaces), mn.data_ptr(),
-        flags[0].data_ptr(), flags[1].data_ptr(), flags[2].data_ptr(),
-        _stream(packed),
+        f0, f0 + b * L, f0 + 2 * b * L, _stream(packed),
     )
     _check(rc, "scan")
     LAUNCHES["scan"] += 1
-    f = flags.view(torch.bool)
-    return mn, f[0], f[1], f[2]
+    return (mn, *flags.unbind(0))
 
 
-def lookup_taxa_fence_cuda(
-    keys: torch.Tensor, taxa: torch.Tensor, fence: torch.Tensor, queries: torch.Tensor
+def lookup_taxa_directory_cuda(
+    keys: torch.Tensor, taxa: torch.Tensor, directory: Directory, queries: torch.Tensor
 ) -> torch.Tensor:
     """Exact-match probe (kernels/probe.cu): int32 taxon per int64 query, 0
-    on a miss. keys sorted int64 [N], taxa int32 [N], fence = keys[::128]
-    (lookup.build_fence)."""
+    on a miss. keys sorted int64 [N], taxa int32 [N], directory =
+    lookup.build_directory(keys)."""
+    starts, shift = directory
     _require(keys, "keys", torch.int64, 1)
     _require(taxa, "taxa", torch.int32, 1)
-    _require(fence, "fence", torch.int64, 1)
+    _require(starts, "directory.starts", torch.int32, 1)
     _require(queries, "queries", torch.int64, 1)
-    n = keys.shape[0]
-    if taxa.shape[0] != n or fence.shape[0] != -(-n // PROBE_BLOCK):
+    n, buckets = keys.shape[0], directory.buckets
+    if taxa.shape[0] != n or buckets < 1 or buckets & (buckets - 1) or not 0 <= shift <= 63:
         raise ValueError(
-            f"taxa [{taxa.shape[0]}] and fence [{fence.shape[0]}] do not fit {n} keys"
+            f"taxa [{taxa.shape[0]}] or a directory of {buckets} buckets and shift {shift} "
+            f"do not fit {n} keys"
         )
+    if keys.data_ptr() % 16:
+        raise ValueError("keys must be 16-byte aligned (the probe loads two keys at a time)")
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
     if n == 0:  # an empty index: every query misses
         return out.zero_()
     lib = _load()
     rc = lib.stpu_probe(
-        keys.data_ptr(), taxa.data_ptr(), n, fence.data_ptr(), fence.shape[0],
+        keys.data_ptr(), taxa.data_ptr(), n, starts.data_ptr(), buckets, shift,
         queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
     )
     _check(rc, "probe")
@@ -183,17 +189,23 @@ def lookup_taxa_fence_cuda(
     return out
 
 
-def mask_idiom_cuda(name: str, x: torch.Tensor) -> torch.Tensor:
+def mask_idiom_cuda(name: str, x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the mask-idiom kernel `name` (kernels/mask_idioms.cu) on a
-    contiguous int32 [R, C] CUDA tensor with C >= 16; int32 [R, C] out."""
+    contiguous int32 [R, C] CUDA tensor with C >= 16; int32 [R, C] out,
+    written into `out` (same shape, not `x` itself) when one is given."""
     if name not in MASK_IDIOMS:
         raise ValueError(f"unknown mask idiom {name!r}")
     _require(x, "x", torch.int32, 2)
     rows, cols = x.shape
     if cols < 16:
         raise ValueError(f"the mask-idiom kernels take at least 16 columns, got {cols}")
+    if out is None:
+        out = torch.empty_like(x)
+    else:
+        _require(out, "out", torch.int32, 2)
+        if out.shape != x.shape or out.device != x.device or out.data_ptr() == x.data_ptr():
+            raise ValueError(f"out must be another {tuple(x.shape)} tensor on {x.device}")
     lib = _load()
-    out = torch.empty_like(x)
     fn = getattr(lib, f"stpu_mask_{name}")
     if name == "sum_bool":
         total = torch.empty(1, dtype=torch.int32, device=x.device)

@@ -1,80 +1,94 @@
-// Exact-match index probe over a fence of block-leading keys.
+// Exact-match index probe through a prefix directory.
 //
 // Replaces the Pallas kernel `_probe_kernel` / `lookup_taxa_dma`
-// (slacken_tpu/ops/pallas_kernels.py:98,182): find the 128-key block that
-// can hold the query through a fence holding every 128th sorted key, search
-// that block, and return the taxon of an equal key or 0 on a miss. Outputs
-// equal the plain twin `slacken_tpu_torch.ops.lookup.lookup_taxa`
-// (torch.searchsorted).
+// (slacken_tpu/ops/pallas_kernels.py:98,182), which finds the 128-key block
+// of a query through a fence of every 128th sorted key held in VMEM and
+// pipelines block DMAs. Outputs equal the plain twin
+// `slacken_tpu_torch.ops.lookup.lookup_taxa` (torch.searchsorted): the taxon
+// of an equal key, or 0 on a miss, for any int64 query.
 //
-// Design. One thread per query: a binary search of the fence (log2(N/128)
-// steps), then of the 128-key block (7 steps). The TPU kernel keeps the
-// fence in VMEM and pipelines block DMAs through an 8-slot ring; here the
-// fence stays in device memory (2.6M keys give a 164 KB fence, 131M keys an
-// 8.2 MB one, far over the 227 KB of shared memory a block may hold), where
-// the 50 MB L2 keeps it and the hot upper levels of every search resident.
-// Queries are arbitrary int64: garbage minimizers at invalid window
-// positions (possibly >= 2^62) stay in bounds and simply miss.
+// Design. Keys are minimizer priorities: after the canonical minimum, the
+// XOR toggle and the spaced mask they spread over their top bits. So the
+// index carries a directory (lookup.build_directory): starts[p] is the
+// position of the first key whose top b bits are >= p, with b chosen so
+// that a bucket holds about 4 keys, one 32-byte sector. One thread per query
+// takes the prefix p = x >> shift, loads starts[p], and scans the sorted keys
+// forward from there, four at a time with two 16-byte loads in flight together,
+// until one is >= x; it loads the taxon on a hit. The scan needs no bucket
+// end: the first key of the next bucket already exceeds x. It starts at the
+// even position at or below starts[p] so that the 16-byte loads are aligned;
+// the one key this may add lies in an earlier bucket and is below x. A query
+// outside the keys' range (negative, or above the widest key's prefix:
+// garbage at invalid windows) misses without touching memory. The walk is
+// exact for any bucket size, so skew costs time, never correctness.
 //
-// Bound: memory latency, ~log2(N) dependent loads per query. The card hides
-// it with queries in flight, so a query gets one thread, not a warp: a
-// warp-per-query version (coalesced 128-key block read and a ballot) kept 32x
-// fewer queries in flight and measured 7-22x slower on an H100 (PERF.md,
-// Findings). A shared-memory copy of the fence's top levels did not help
-// either.
+// Bound: the rate at which L2 (or device memory, once the index outgrows
+// the 50 MB L2) serves scattered 32-byte sectors, not the bytes streamed:
+// queries in and taxa out are 12 bytes a query, while every load of a random
+// query lands in another sector. A bisection of the whole array touches about
+// log2(N) - 5 sectors that miss L1 and makes as many dependent loads; this
+// walk touches 3 to 4 (directory, one or two of keys, taxa) in 4 loads. Timed
+// beside it on an H100 (PERF.md, Findings): a bisection of the bucket and a
+// scan of the bucket between starts[p] and starts[p + 1], each at 2 to 64
+// keys a bucket; fewer and wider loads won at every index size. One thread
+// per query keeps the most loads in flight: a warp per query measured 7-22x
+// slower. Queries and results pass through with streaming loads and stores,
+// which leaves the L2 to the index.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr long long BLOCK_KEYS = 128;
 constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 probe_kernel(const long long* __restrict__ keys, const int* __restrict__ taxa, long long n,
-             const long long* __restrict__ fence, long long nb,
+             const int* __restrict__ starts, unsigned long long buckets, int shift,
              const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
   const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (qi >= nq) return;
-  const long long x = queries[qi];
-
-  // last fence entry <= x (block 0 when x precedes every key)
-  long long lo = 0, hi = nb - 1;
-  while (lo < hi) {
-    const long long mid = (lo + hi + 1) >> 1;
-    if (__ldg(fence + mid) <= x) {
-      lo = mid;
-    } else {
-      hi = mid - 1;
+  const long long x = __ldcs(queries + qi);  // streamed: the index keeps the L2
+  // logical shift: a negative query gets a prefix >= 2^(63 - shift) >= buckets
+  const unsigned long long p = (unsigned long long)x >> shift;
+  int taxon = 0;
+  if (p < buckets) {
+    long long i = __ldg(starts + p) & ~1;
+    while (i + 3 < n) {
+      const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(keys + i));
+      const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(keys + i + 2));
+      if (b.y < x) {  // all four below x
+        i += 4;
+        continue;
+      }
+      const int j = a.x == x ? 0 : a.y == x ? 1 : b.x == x ? 2 : b.y == x ? 3 : -1;
+      if (j >= 0) taxon = __ldg(taxa + i + j);
+      i = n;  // found, or passed where x would be
+    }
+    for (; i < n; ++i) {  // the last keys of the index, fewer than four
+      const long long key = __ldg(keys + i);
+      if (key >= x) {
+        if (key == x) taxon = __ldg(taxa + i);
+        break;
+      }
     }
   }
-  // first key >= x inside the block; past the block's end every key is > x
-  long long a = lo * BLOCK_KEYS;
-  long long b = a + BLOCK_KEYS < n ? a + BLOCK_KEYS : n;
-  while (a < b) {
-    const long long mid = (a + b) >> 1;
-    if (__ldg(keys + mid) < x) {
-      a = mid + 1;
-    } else {
-      b = mid;
-    }
-  }
-  out[qi] = (a < n && keys[a] == x) ? taxa[a] : 0;
+  __stcs(out + qi, taxon);
 }
 
 }  // namespace
 
-// keys: sorted int64 [n], n > 0; taxa: int32 [n]; fence: int64 [nb],
-// fence[b] = keys[b * 128]; queries: int64 [nq]; out: int32 [nq].
+// keys: sorted unique non-negative int64 [n], 16-byte aligned; taxa: int32
+// [n]; starts: int32 [buckets + 1], the prefix directory of keys >> shift
+// (0 <= shift <= 63); queries: int64 [nq]; out: int32 [nq].
 // Returns the cudaError_t of the launch (0 on success).
-extern "C" int stpu_probe(const void* keys, const void* taxa, long long n, const void* fence,
-                          long long nb, const void* queries, long long nq, void* out,
-                          void* stream) {
+extern "C" int stpu_probe(const void* keys, const void* taxa, long long n, const void* starts,
+                          long long buckets, int shift, const void* queries, long long nq,
+                          void* out, void* stream) {
   if (nq <= 0) return 0;
   const long long blocks = (nq + THREADS - 1) / THREADS;
   probe_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const long long*)keys, (const int*)taxa, n, (const long long*)fence, nb,
-      (const long long*)queries, nq, (int*)out);
+      (const long long*)keys, (const int*)taxa, n, (const int*)starts,
+      (unsigned long long)buckets, shift, (const long long*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }

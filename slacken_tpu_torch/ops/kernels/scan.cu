@@ -4,156 +4,281 @@
 // (slacken_tpu/ops/pallas_kernels.py:26,42), which runs the doubling scans of
 // `window_minimizers_impl` (slacken_tpu/ops/minimizers.py:367) on the TPU's
 // vector unit. Outputs are those of the plain twin
-// `slacken_tpu_torch.ops.minimizers.window_minimizers`, bit for bit wherever
-// a window is valid (minimizer values at invalid windows are garbage in every
-// implementation).
+// `slacken_tpu_torch.ops.minimizers.window_minimizers`, bit for bit. Both
+// write -1 as the minimizer of an invalid window (the TPU kernel leaves it
+// undefined): no key is negative, so the probe kernel dismisses such a query
+// without touching memory.
 //
-// Design. One block per row; the block walks the row in chunks of CH window
-// positions, one thread per position. Codes are unpacked from the 2-bit wire
-// format (encode.pack_2bit) straight into shared memory, so the dense [B, L]
-// code matrix never exists in device memory. Each thread assembles its
-// m-mer and the m-mer's reverse complement directly in a uint64_t (no
-// doubling), takes the sliding minimum over the W = k - m + 1 priorities in
-// shared memory and tests its k codes for validity. `distinct` needs the
-// minimizer of the last valid window before each position, possibly many
-// chunks back: a warp-shuffle max-scan of (valid ? position : -1) inside the
-// chunk plus a carry across chunks replaces the TPU's doubling carry-forward
-// (minimizers.py:417).
+// Design. The 2-bit wire format (encode.pack_2bit: base i at bits 2i of a
+// little-endian stream) already is the m-mer: the 2m bits from bit 2p are the
+// reverse complement of the m-mer at p before complementing, and the forward
+// m-mer is the same bits with their pairs in reverse order (a bit reversal,
+// a swap inside each pair, a shift). A priority therefore costs two funnel
+// shifts, one `brev` and a dozen logic operations, not a loop over m bases,
+// and a window's validity is one k-bit slice of the validity stream compared
+// with all ones. One warp owns a row and walks it in chunks of 128 window
+// positions, four consecutive positions a lane, four rows a block; nothing
+// is shared between warps, so there is no shared memory and no block-wide
+// barrier. A lane cuts its 4 + m - 1 bases from three aligned 32-bit loads.
+// The minimum over the W = k - m + 1 priorities of a window reaches into the
+// next lanes, and past lane 31 into the next chunk: the warp computes the
+// priorities of chunk c + 1 before it emits chunk c, so every priority is
+// computed once and a shuffle picks the neighbour's value from either chunk.
+// `span_start` takes the window before from the lane below; `distinct`
+// needs the minimizer of the last valid window before each position,
+// possibly many chunks back: a ballot of the lanes that hold a valid window
+// names the lane to ask, and the carry across chunks stays in registers.
+// A lane stores its four minimizers as two 16-byte words and each flag array
+// as one 4-byte word, so a warp writes 1,024 and 3 x 128 contiguous bytes.
 //
-// Bound: device-memory bytes. Per position it reads 3/8 byte and writes
-// 11 bytes (int64 minimizer and three u8 flags); the m-mer assembly is
-// O(m) shared-memory reads per position, which the block's arithmetic hides
-// at these sizes. The int64 output dominates; a later version can emit only
-// span starts.
+// Kraken 2's default k = 35, m = 31 gets an instance of its own, in which the
+// window's shape and every mask are constants; any other k and m run the
+// same code with them read from the arguments.
+//
+// Bound: device-memory bytes written, 11 a position (an int64 minimizer and
+// three flag bytes) against 3/8 byte read. What limits the kernel on an H100
+// is instruction throughput: about 125 integer instructions and 6 shuffles a
+// position in the default instance, half of them the 64-bit compares and
+// selects of the minima and of the canonical choice. It reaches 51% of the
+// byte bound on 128-wide rows, 45% on 264-wide and 62% on 4,096-wide ones
+// (PERF.md, Findings).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int CH = 128;  // window positions per chunk == threads per block
-constexpr int WARPS = CH / 32;
+typedef unsigned long long u64;
 
-__device__ __forceinline__ int code_at(const uint8_t* __restrict__ packed,
-                                       const uint8_t* __restrict__ vbits,
-                                       int L, int p) {
-  if (p >= L) return 4;
-  if (!((vbits[p >> 3] >> (p & 7)) & 1)) return 4;
-  return (packed[p >> 2] >> (2 * (p & 3))) & 3;
+constexpr int WARPS = 4;   // rows per block (2 to 16 time alike on an H100)
+constexpr int CH = 128;    // window positions per warp and chunk, four a lane
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ u64 min64(u64 a, u64 b) { return a < b ? a : b; }
+
+// A row's bytes seen as aligned 32-bit words. Rows start at any byte, so the
+// first word may begin up to 3 bytes before the row (`skew`), and a word that
+// straddles the row's start or end stays inside its aligned 4 bytes: no load
+// leaves the tensor's allocation.
+struct Words {
+  const uint32_t* base;  // the aligned word that holds the row's first byte
+  int skew;              // bytes of that word before the row
+  int end;               // skew + bytes in the row
+
+  __device__ __forceinline__ Words(const uint8_t* row, int n_bytes) {
+    skew = (int)(reinterpret_cast<uintptr_t>(row) & 3);
+    base = reinterpret_cast<const uint32_t*>(row - skew);
+    end = skew + n_bytes;
+  }
+  // word i, or 0 at or past the row's end
+  __device__ __forceinline__ uint32_t operator[](int i) const {
+    return 4 * i < end ? __ldg(base + i) : 0u;
+  }
+};
+
+// Priorities of the four m-mers at positions p0 .. p0 + 3 (p0 % 4 == 0) of
+// the row whose packed bytes are `row`. Bits past the row's end are 0.
+__device__ __forceinline__ void priorities(const Words& row, int p0, int m, int canonical,
+                                           u64 toggle, u64 smask, u64 (&q)[4]) {
+  const int at = row.skew + (p0 >> 2), i = at >> 2;
+  const unsigned sh = 8 * (at & 3);
+  const uint32_t w0 = row[i], w1 = row[i + 1], w2 = row[i + 2];
+  // 72 bits of the stream from base p0: 4 + 31 - 1 bases are 68 bits
+  const uint32_t s0 = __funnelshift_r(w0, w1, sh);
+  const uint32_t s1 = __funnelshift_r(w1, w2, sh);
+  const uint32_t s2 = w2 >> sh;
+  const u64 mask = (1ull << (2 * m)) - 1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const u64 s =
+        (((u64)__funnelshift_r(s1, s2, 2 * j) << 32) | __funnelshift_r(s0, s1, 2 * j)) & mask;
+    u64 r = __brevll(s);  // pair t lands at pair 31 - t with its two bits swapped
+    r = ((r >> 1) & 0x5555555555555555ull) | ((r & 0x5555555555555555ull) << 1);
+    const u64 fwd = r >> (64 - 2 * m);
+    const u64 rc = ~s & mask;
+    const u64 v = (canonical && rc < fwd) ? rc : fwd;
+    q[j] = (v ^ toggle) & smask;
+  }
 }
 
-__global__ void __launch_bounds__(CH)
-scan_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
-            int L, int k, int m, int canonical, unsigned long long toggle,
-            unsigned long long smask, long long* __restrict__ out_min,
-            uint8_t* __restrict__ out_valid, uint8_t* __restrict__ out_start,
-            uint8_t* __restrict__ out_distinct) {
-  extern __shared__ unsigned long long smem[];
+// 64 validity bits of the row from position p (p % 4 == 0); positions at or
+// past L read 0.
+__device__ __forceinline__ u64 valid64(const Words& row, int L, int p) {
+  if (p >= L) return 0;
+  const int at = row.skew + (p >> 3), i = at >> 2;
+  const unsigned sh = 8 * (at & 3) + (p & 7);  // at most 28
+  const uint32_t w0 = row[i], w1 = row[i + 1], w2 = row[i + 2];
+  u64 v = ((u64)__funnelshift_r(w1, w2, sh) << 32) | __funnelshift_r(w0, w1, sh);
+  if (L - p < 64) v &= (1ull << (L - p)) - 1;  // the next row's bits
+  return v;
+}
+
+// The value that the lane `d` lanes ahead holds (1 <= d <= 31): `e` while
+// that lane is in this chunk, `n`, the next chunk's, past lane 31.
+__device__ __forceinline__ u64 ahead(u64 e, u64 n, int d, int lane) {
+  return __shfl_sync(FULL, lane >= d ? e : n, (lane + d) & 31);
+}
+
+__device__ __forceinline__ u64 pick(const u64 (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// One byte of 0 or 1 for each of the four low bits.
+__device__ __forceinline__ uint32_t spread4(unsigned bits) {
+  return (bits * 0x00204081u) & 0x01010101u;
+}
+
+// K, M: k and m when the compiler should know them (the window's shape and
+// every mask fold to constants), 0 to read them from the arguments.
+template <int K, int M>
+__global__ void __launch_bounds__(32 * WARPS)
+scan_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits, long long B,
+            int L, int k_arg, int m_arg, int canonical, u64 toggle, u64 smask,
+            long long* __restrict__ out_min, uint8_t* __restrict__ out_valid,
+            uint8_t* __restrict__ out_start, uint8_t* __restrict__ out_distinct) {
+  const int k = K ? K : k_arg, m = M ? M : m_arg;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;  // the lanes below this one
   const int W = k - m + 1;
-  unsigned long long* prio = smem;                  // [CH + W - 1]
-  unsigned long long* wmin = prio + (CH + W - 1);   // [CH]
-  int* scan = reinterpret_cast<int*>(wmin + CH);    // [CH]
-  int* warp_tot = scan + CH;                        // [WARPS]
-  uint8_t* wvalid = reinterpret_cast<uint8_t*>(warp_tot + WARPS);  // [CH]
-  uint8_t* codes = wvalid + CH;                     // [CH + k - 1]
+  // a window's last priority is W - 1 ahead of its first: D0 whole lanes and e0 more
+  const int D0 = (W - 1) >> 2, e0 = (W - 1) & 3;
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= B) return;  // the whole warp
+  const Words rp(packed + row * (L / 4), L / 4);
+  const Words rv(vbits + row * (L / 8), L / 8);
 
-  __shared__ unsigned long long carry_prev_min, carry_last_min;
-  __shared__ int carry_prev_valid, carry_has_last;
+  // carries across chunks, equal in every lane
+  int c_prev_valid = 0, c_has_last = 0;
+  u64 c_prev_min = 0, c_last_min = 0;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long row = blockIdx.x;
-  const uint8_t* rp = packed + row * (L / 4);
-  const uint8_t* rv = vbits + row * (L / 8);
-  const int n_mmers = CH + W - 1;
-  const int n_codes = CH + k - 1;
-
-  if (tid == 0) {
-    carry_prev_valid = 0;
-    carry_has_last = 0;
-    carry_prev_min = 0;
-    carry_last_min = 0;
-  }
-
+  u64 qn[4];
+  priorities(rp, 4 * lane, m, canonical, toggle, smask, qn);
   for (int cs = 0; cs < L; cs += CH) {
-    __syncthreads();  // previous chunk done with shared memory and carries
-    for (int j = tid; j < n_codes; j += CH) codes[j] = (uint8_t)code_at(rp, rv, L, cs + j);
-    __syncthreads();
+    const int p0 = cs + 4 * lane;
+    const bool more = cs + CH < L;
+    u64 q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) q[j] = qn[j];
+    if (more) {
+      priorities(rp, p0 + CH, m, canonical, toggle, smask, qn);
+    } else {  // only windows that run past the row's end look there
+#pragma unroll
+      for (int j = 0; j < 4; ++j) qn[j] = 0;
+    }
 
-    for (int j = tid; j < n_mmers; j += CH) {
-      unsigned long long fwd = 0, rc = 0;
-      for (int t = 0; t < m; ++t) {
-        const unsigned long long c = codes[j + t] & 3u;
-        fwd = (fwd << 2) | c;
-        rc |= (3ull - c) << (2 * t);
+    // window minima: the rest of this lane, whole lanes between, the start
+    // of the lane where the window ends
+    u64 pe[4], pn[4], se[4];
+    pe[0] = q[0];
+    pn[0] = qn[0];
+    se[3] = q[3];
+#pragma unroll
+    for (int j = 1; j < 4; ++j) {
+      pe[j] = min64(pe[j - 1], q[j]);
+      pn[j] = min64(pn[j - 1], qn[j]);
+      se[3 - j] = min64(se[4 - j], q[3 - j]);
+    }
+    u64 between = ~0ull;  // lanes 1 .. D0 - 1 ahead
+    for (int d = 1; d < D0; ++d) between = min64(between, ahead(pe[3], pn[3], d, lane));
+    u64 between1 = between;  // and lane D0 ahead, for windows that end in lane D0 + 1
+    if (D0 >= 1 && e0 > 0) between1 = min64(between, ahead(pe[3], pn[3], D0, lane));
+    u64 mn[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int last = e0 + j;  // index of the window's last priority in lane D0 ahead
+      if (last < 4 && D0 == 0) {  // the window lies inside this lane
+        u64 r = q[j];
+#pragma unroll
+        for (int t = j + 1; t < 4; ++t)
+          if (t <= last) r = min64(r, q[t]);
+        mn[j] = r;
+      } else if (last < 4) {
+        u64 r = min64(se[j], ahead(pick(pe, last), pick(pn, last), D0, lane));
+        if (D0 > 1) r = min64(r, between);
+        mn[j] = r;
+      } else {
+        u64 r = min64(se[j], ahead(pick(pe, last - 4), pick(pn, last - 4), D0 + 1, lane));
+        if (D0 >= 1) r = min64(r, between1);
+        mn[j] = r;
       }
-      const unsigned long long v = (canonical && rc < fwd) ? rc : fwd;
-      prio[j] = (v ^ toggle) & smask;
     }
-    __syncthreads();
 
-    unsigned long long mn = prio[tid];
-    for (int t = 1; t < W; ++t) {
-      const unsigned long long x = prio[tid + t];
-      mn = x < mn ? x : mn;
-    }
-    int valid = 1;
-    for (int t = 0; t < k; ++t) valid &= codes[tid + t] < 4;
-    const int pos = cs + tid;
-    if (pos >= L) valid = 0;
-    wmin[tid] = mn;
-    wvalid[tid] = (uint8_t)valid;
-
-    // inclusive max-scan of (valid ? tid : -1) across the chunk
-    int x = valid ? tid : -1;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, off);
-      if (lane >= off) x = max(x, y);
-    }
-    if (lane == 31) warp_tot[warp] = x;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) x = max(x, warp_tot[w]);
-    scan[tid] = x;
-    __syncthreads();
-
-    int prev_valid;
-    unsigned long long prev_min;
-    if (tid > 0) {
-      prev_valid = wvalid[tid - 1];
-      prev_min = wmin[tid - 1];
+    // window validity: bits [j, j + k) of the validity stream from p0 all set
+    unsigned ok = 0xfu;
+    if (k <= 61) {
+      const u64 inv = ~valid64(rv, L, p0);
+      const u64 ones = (1ull << k) - 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if ((inv >> j) & ones) ok &= ~(1u << j);
     } else {
-      prev_valid = carry_prev_valid;
-      prev_min = carry_prev_min;
+      for (int base = 0; base < k + 3; base += 64) {
+        const u64 inv = ~valid64(rv, L, p0 + base);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int lo = max(j, base) - base, hi = min(j + k, base + 64) - base;
+          if (hi > lo) {
+            const u64 bits = (hi - lo == 64 ? ~0ull : (1ull << (hi - lo)) - 1) << lo;
+            if (inv & bits) ok &= ~(1u << j);
+          }
+        }
+      }
     }
-    const int start = valid && (!prev_valid || mn != prev_min);
-    const int before = tid > 0 ? scan[tid - 1] : -1;
-    int before_has;
-    unsigned long long before_min;
-    if (before >= 0) {
-      before_has = 1;
-      before_min = wmin[before];
-    } else {
-      before_has = carry_has_last;
-      before_min = carry_last_min;
-    }
-    const int distinct = start && (!before_has || mn != before_min);
 
-    if (pos < L) {
-      const long long o = row * L + pos;
-      out_min[o] = (long long)mn;
-      out_valid[o] = (uint8_t)valid;
-      out_start[o] = (uint8_t)start;
-      out_distinct[o] = (uint8_t)distinct;
+    // span_start: against the window before (lane below, or the chunk before)
+    int prev_valid = __shfl_up_sync(FULL, (int)(ok >> 3), 1);
+    u64 prev_min = __shfl_up_sync(FULL, mn[3], 1);
+    if (lane == 0) {
+      prev_valid = c_prev_valid;
+      prev_min = c_prev_min;
     }
-    __syncthreads();  // every thread has read the carries of this chunk
-    if (tid == CH - 1) {
-      carry_prev_valid = wvalid[CH - 1];
-      carry_prev_min = wmin[CH - 1];
-      const int last = scan[CH - 1];
-      if (last >= 0) {
-        carry_has_last = 1;
-        carry_last_min = wmin[last];
+    unsigned start = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int v = (ok >> j) & 1;
+      if (v && (!prev_valid || mn[j] != prev_min)) start |= 1u << j;
+      prev_valid = v;
+      prev_min = mn[j];
+    }
+
+    // distinct: against the last valid window before, which the highest
+    // lane below that holds a valid window knows
+    const u64 lane_last = pick(mn, ok ? 31 - __clz((int)ok) : 0);  // this lane's last valid
+    const unsigned holders = __ballot_sync(FULL, ok != 0);
+    const int before = 31 - __clz((int)(holders & below));  // -1: none in this chunk
+    u64 before_min = __shfl_sync(FULL, lane_last, before & 31);
+    int has = 1;
+    if (before < 0) {
+      has = c_has_last;
+      before_min = c_last_min;
+    }
+    unsigned distinct = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (((start >> j) & 1) && (!has || mn[j] != before_min)) distinct |= 1u << j;
+      if ((ok >> j) & 1) {
+        has = 1;
+        before_min = mn[j];
+      }
+    }
+
+    if (p0 < L) {  // L % 8 == 0: all four positions, 16- and 4-byte aligned
+      const long long o = row * L + p0;
+      longlong2* om = reinterpret_cast<longlong2*>(out_min + o);
+      om[0] = make_longlong2(ok & 1 ? (long long)mn[0] : -1, ok & 2 ? (long long)mn[1] : -1);
+      om[1] = make_longlong2(ok & 4 ? (long long)mn[2] : -1, ok & 8 ? (long long)mn[3] : -1);
+      *reinterpret_cast<uint32_t*>(out_valid + o) = spread4(ok);
+      *reinterpret_cast<uint32_t*>(out_start + o) = spread4(start);
+      *reinterpret_cast<uint32_t*>(out_distinct + o) = spread4(distinct);
+    }
+
+    if (more) {
+      c_prev_valid = __shfl_sync(FULL, (int)(ok >> 3), 31);
+      c_prev_min = __shfl_sync(FULL, mn[3], 31);
+      const u64 last_min = __shfl_sync(FULL, lane_last, (31 - __clz((int)holders)) & 31);
+      if (holders) {
+        c_has_last = 1;
+        c_last_min = last_min;
       }
     }
   }
@@ -161,28 +286,20 @@ scan_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbit
 
 }  // namespace
 
-extern "C" size_t stpu_scan_smem_bytes(int k, int m) {
-  const int W = k - m + 1;
-  return sizeof(unsigned long long) * (CH + W - 1 + CH) + sizeof(int) * (CH + WARPS) +
-         CH + (CH + k - 1);
-}
-
-// packed: [B, L/4] u8, vbits: [B, L/8] u8 (encode.pack_2bit layout); L % 8 == 0.
-// Outputs [B, L]: int64 minimizer, u8 valid / span_start / distinct.
+// packed: [B, L/4] u8, vbits: [B, L/8] u8 (encode.pack_2bit layout); L % 8 == 0,
+// 1 <= m <= 31, m <= k <= m + 120. Outputs [B, L]: int64 minimizer (16-byte
+// aligned), u8 valid / span_start / distinct (4-byte aligned).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int stpu_scan(const void* packed, const void* vbits, long long B, int L,
                          int k, int m, int canonical, unsigned long long toggle,
                          unsigned long long smask, void* out_min, void* out_valid,
                          void* out_start, void* out_distinct, void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = stpu_scan_smem_bytes(k, m);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  scan_kernel<<<(unsigned)B, CH, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, (const uint8_t*)vbits, L, k, m, canonical, toggle, smask,
+  const long long blocks = (B + WARPS - 1) / WARPS;
+  // Kraken 2's default k and m get their own instance
+  auto kernel = (k == 35 && m == 31) ? scan_kernel<35, 31> : scan_kernel<0, 0>;
+  kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)packed, (const uint8_t*)vbits, B, L, k, m, canonical, toggle, smask,
       (long long*)out_min, (uint8_t*)out_valid, (uint8_t*)out_start, (uint8_t*)out_distinct);
   return (int)cudaGetLastError();
 }

@@ -67,7 +67,7 @@ def space_mask_int(m: int, s: int) -> int:
 
 class WindowMinimizers(NamedTuple):
     """Per-window results, all [B, L]; position i is the k-mer window
-    starting at base i. `minimizer` is meaningful only where `valid`."""
+    starting at base i. `minimizer` is -1 where the window is not `valid`."""
 
     minimizer: torch.Tensor  # int64
     valid: torch.Tensor  # bool: all k bases of the window are valid
@@ -184,7 +184,8 @@ def window_minimizers(codes: torch.Tensor, params: MinimizerParams) -> WindowMin
     before = _behind(last, 1, -1)
     before_min = torch.gather(win_min, -1, before.clamp(min=0))
     distinct = span_start & ((before < 0) | (win_min != before_min))
-    return WindowMinimizers(win_min, win_valid, span_start, distinct)
+    # no key is negative, so the probe dismisses an invalid window unsearched
+    return WindowMinimizers(torch.where(win_valid, win_min, -1), win_valid, span_start, distinct)
 
 
 def window_minimizers_packed(

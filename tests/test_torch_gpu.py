@@ -24,35 +24,116 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(64, 128), (8, 1024), (3, 136)])
-@pytest.mark.parametrize("kms", [(35, 31, 7), (21, 15, 3), (31, 31, 0)])
-def test_scan_kernel_matches_twin(cuda, shape, kms):
-    rng = np.random.default_rng(5)
+def _codes(shape, seed=5):
+    rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, shape).astype(np.uint8)
     codes[rng.random(shape) < 0.05] = encode.INVALID
+    return codes
+
+
+def _assert_scan_matches_twin(cuda, codes, mp):
     packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
-    mp = minimizers.MinimizerParams(*kms)
     before = cuda_kernels.LAUNCHES["scan"]
     got = minimizers.window_minimizers_packed(packed, valid, mp)
     assert cuda_kernels.LAUNCHES["scan"] == before + 1
     want = minimizers.window_minimizers(torch.from_numpy(codes), mp)
-    v = want.valid
-    assert torch.equal(got.valid.cpu(), v)
+    assert torch.equal(got.valid.cpu(), want.valid)
     assert torch.equal(got.span_start.cpu(), want.span_start)
     assert torch.equal(got.distinct.cpu(), want.distinct)
-    assert torch.equal(got.minimizer.cpu()[v], want.minimizer[v])
+    assert torch.equal(got.minimizer.cpu(), want.minimizer)  # -1 at invalid windows in both
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (8, 1024), (3, 136)])
+@pytest.mark.parametrize("kms", [(35, 31, 7), (21, 15, 3), (31, 31, 0)])
+def test_scan_kernel_matches_twin(cuda, shape, kms):
+    _assert_scan_matches_twin(cuda, _codes(shape), minimizers.MinimizerParams(*kms))
+
+
+@pytest.mark.parametrize("shape", [(5, 264), (9, 104), (16, 4096)])
+@pytest.mark.parametrize("kms,canonical", [
+    ((35, 31, 7), False),  # the forward m-mer alone
+    ((35, 1, 0), True),    # m = 1: the window is k priorities wide
+    ((12, 5, 1), False),
+    ((36, 31, 7), True), ((38, 31, 7), True),  # windows that end one to three priorities into the next lane
+    ((70, 31, 7), True),   # k > 61: validity over several words
+    ((100, 16, 2), True),  # a window 22 lanes wide
+    ((8, 8, 0), True),     # W = 1: no neighbour at all
+])
+def test_scan_kernel_other_parameters(cuda, shape, kms, canonical):
+    mp = minimizers.MinimizerParams(*kms, canonical=canonical)
+    _assert_scan_matches_twin(cuda, _codes(shape, seed=kms[0]), mp)
+
+
+def test_scan_kernel_rows_at_any_byte(cuda):
+    """Rows of 66 packed bytes start at every alignment; a view that skips
+    the first row starts off a 4-byte boundary."""
+    codes = _codes((33, 264))
+    packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
+    mp = minimizers.MinimizerParams()
+    got = minimizers.window_minimizers_packed(packed[1:], valid[1:], mp)
+    want = minimizers.window_minimizers(torch.from_numpy(codes[1:]), mp)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_scan_kernel_refuses_what_it_does_not_take(cuda):
+    packed = torch.zeros((4, 32), dtype=torch.uint8, device=cuda)
+    valid = torch.zeros((4, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="m <= k <= m \\+ 120"):
+        cuda_kernels.window_minimizers_cuda(packed, valid, minimizers.MinimizerParams(160, 31, 0))
+
+
+def _probe_case(cuda, keys, q, bucket_keys):
+    taxa = (np.arange(len(keys)) % 1000 + 1).astype(np.int32)
+    k_d, t_d, q_d = (torch.from_numpy(a).to(cuda) for a in (keys, taxa, q))
+    before = cuda_kernels.LAUNCHES["probe"]
+    got = lookup.probe(k_d, t_d, lookup.build_directory(k_d, bucket_keys), q_d)
+    assert cuda_kernels.LAUNCHES["probe"] == before + (1 if len(keys) else 0)
+    want = lookup.lookup_taxa(torch.from_numpy(keys), torch.from_numpy(taxa), torch.from_numpy(q))
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("n", [1, 127, 128, 129, 100_000])
 def test_probe_kernel_matches_twin(cuda, n):
     rng = np.random.default_rng(n)
     keys = np.unique(rng.integers(0, 1 << 62, 2 * n, dtype=np.int64))[:n]
-    taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
     q = np.concatenate([keys, rng.integers(-(1 << 63), (1 << 63) - 1, 5000, dtype=np.int64)])
-    k_d, t_d, q_d = (torch.from_numpy(a).to(cuda) for a in (keys, taxa, q))
-    got = lookup.probe(k_d, t_d, lookup.build_fence(k_d), q_d)
-    want = lookup.lookup_taxa(torch.from_numpy(keys), torch.from_numpy(taxa), torch.from_numpy(q))
-    assert torch.equal(got.cpu(), want)
+    _probe_case(cuda, keys, q, lookup.BUCKET_KEYS)
+
+
+EDGE_QUERIES = np.array([-5, -(1 << 63), 0, 1, 1 << 61, 1 << 62, (1 << 63) - 1], np.int64)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 127, 128, 129])
+@pytest.mark.parametrize("kind", ["uniform", "one prefix", "two prefixes", "narrow keys"])
+@pytest.mark.parametrize("bucket_keys", [1, lookup.BUCKET_KEYS, 1 << 30])
+def test_probe_kernel_adversarial(cuda, n, kind, bucket_keys):
+    """Tiny indexes, every key under one prefix, one bucket for the whole
+    index, and the queries -5, 0, 2^62, 2^63 - 1 beside every key +- 1."""
+    rng = np.random.default_rng(n)
+    raw = {
+        "uniform": rng.integers(0, 1 << 62, 2 * n + 1, dtype=np.int64),
+        "one prefix": (1 << 61) + rng.integers(0, 1 << 20, 2 * n + 1, dtype=np.int64),
+        "two prefixes": np.concatenate([rng.integers(0, 1 << 12, n // 2, dtype=np.int64),
+                                        (1 << 62) - 1 - rng.integers(0, 1 << 12, n, dtype=np.int64)]),
+        "narrow keys": rng.integers(0, 1 << 30, 2 * n + 1, dtype=np.int64),
+    }[kind]
+    keys = np.unique(raw)[:n]
+    q = np.concatenate([keys, keys - 1, keys + 1, EDGE_QUERIES,
+                        rng.integers(-(1 << 63), (1 << 63) - 1, 500, dtype=np.int64)])
+    _probe_case(cuda, keys, q, bucket_keys)
+
+
+def test_probe_kernel_refuses_what_it_does_not_take(cuda):
+    keys = torch.arange(10, device=cuda)
+    taxa = torch.ones(10, dtype=torch.int32, device=cuda)
+    d = lookup.build_directory(keys)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_kernels.lookup_taxa_directory_cuda(keys[1:], taxa[1:], lookup.build_directory(keys[1:]), keys)
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_kernels.lookup_taxa_directory_cuda(keys, taxa[:5], d, keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, d, torch.arange(20, device=cuda)[::2])
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (4096, 128), (5, 16), (33, 1000)])
@@ -66,6 +147,17 @@ def test_mask_idiom_kernel_matches_twin(cuda, name, shape):
     assert cuda_kernels.LAUNCHES[name] == before + 1
     want = mask_idioms.PLAIN[name](torch.from_numpy(x))
     assert got.dtype == want.dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", cuda_kernels.MASK_IDIOMS)
+def test_mask_idiom_kernel_writes_into_out(cuda, name):
+    x = torch.from_numpy(np.random.default_rng(11).integers(0, 129, (33, 1000)).astype(np.int32)).to(cuda)
+    out = torch.full_like(x, -7)
+    assert cuda_kernels.mask_idiom_cuda(name, x, out=out) is out
+    assert torch.equal(out.cpu(), mask_idioms.PLAIN[name](x.cpu()))
+    for bad in (x, out[:5], out.long()):
+        with pytest.raises(ValueError):
+            cuda_kernels.mask_idiom_cuda(name, x, out=bad)
 
 
 def test_mask_idiom_kernel_rejects_what_it_does_not_take(cuda):

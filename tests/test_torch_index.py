@@ -59,9 +59,11 @@ def test_each_package_loads_the_other(rng, tmp_path):
     assert np.array_equal(from_jax.keys, from_torch.keys)
     assert np.array_equal(from_jax.taxa, from_torch.taxa)
     assert from_jax.params == IndexParams.from_json(from_torch.params.to_json())
-    keys, taxa, fence = from_jax.device_arrays("cpu")
+    keys, taxa, directory = from_jax.device_arrays("cpu")
     assert keys.dtype == torch.int64 and taxa.dtype == torch.int32
-    assert fence.shape[0] == -(-from_jax.num_records // 128)
+    # about 4 keys a bucket: ceil(log2(n / 4)) prefix bits, one entry more than buckets
+    assert directory.starts.shape[0] == (1 << (-(-from_jax.num_records // 4) - 1).bit_length()) + 1
+    assert int(directory.starts[-1]) == from_jax.num_records
 
 
 @pytest.mark.parametrize("params", [IndexParams(ordering="lexicographic"), IndexParams(k=40, m=35, spaces=0)])

@@ -99,3 +99,43 @@ def test_cpu_tensors_never_reach_the_kernel(rng, monkeypatch):
 def test_wide_minimizers_not_ported(rng):
     with pytest.raises(NotImplementedError):
         minimizers.window_minimizers(torch.zeros((1, 128), dtype=torch.uint8), _port_params(40, 35, 0))
+
+
+def _bit_stream(row_bytes):
+    """A little-endian byte row as one Python integer: byte i at bits 8i."""
+    return int.from_bytes(row_bytes.tobytes(), "little")
+
+
+def _reverse_pairs(s):
+    """The 32 bit pairs of a 64-bit word in reverse order, as the scan kernel
+    takes them: reverse all 64 bits, then swap the two bits of every pair."""
+    r = int(f"{s:064b}"[::-1], 2)
+    return ((r >> 1) & 0x5555555555555555) | ((r & 0x5555555555555555) << 1)
+
+
+@pytest.mark.parametrize("length", [8, 128, 264, 1024])
+@pytest.mark.parametrize("m", [1, 5, 16, 31])
+def test_wire_format_is_the_mmer(rng, m, length):
+    """What the CUDA scan kernel relies on: in pack_2bit's stream the 2m bits
+    from bit 2p are the m-mer at p, its bases in reverse order. Complemented
+    they are the reverse complement; with their bit pairs reversed, the
+    forward m-mer; and a k-window is valid where k validity bits from bit p
+    are all ones. Tolerance 0."""
+    k = min(m + 4, length)
+    codes = rng.integers(0, 4, (3, length)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.05] = encode.INVALID
+    codes[1, length // 2 :] = encode.INVALID  # padding
+    packed, valid = encode.pack_2bit(codes)
+    c = torch.from_numpy(codes & 3).to(torch.int64)
+    want_fwd = minimizers._mmers(c, m).numpy()
+    want_rc = minimizers._revcomps(c, m).numpy()
+    want_valid = minimizers.sliding_all(torch.from_numpy(codes < 4), k).numpy()
+    mask = (1 << (2 * m)) - 1
+    for r in range(codes.shape[0]):
+        stream, vstream = _bit_stream(packed[r]), _bit_stream(valid[r])
+        for p in range(length - m + 1):  # m-mers that end inside the row
+            s = (stream >> (2 * p)) & mask
+            assert ~s & mask == want_rc[r, p]
+            assert _reverse_pairs(s) >> (64 - 2 * m) == want_fwd[r, p]
+        got_valid = [(vstream >> p) & ((1 << k) - 1) == (1 << k) - 1 for p in range(length)]
+        assert got_valid == want_valid[r].tolist()
