@@ -3,10 +3,11 @@
 
 Run from the repository root: `python3 chip_smoke.py`. It builds the CUDA
 kernels from ops/kernels/*.cu, checks each kernel bit-exact against its
-plain PyTorch twin on the card (the scan at every main-path shape and at
-other k, m, s; the probe on random, one-prefix and tiny indexes, and later on
-the bench and the scale index), then drives the port's paths, each with the
-kernels' launch counts set to 0 just before it and read just after:
+plain PyTorch twin on the card (the scan, its rank-table instance and the
+wide scan at every main-path shape and at other k, m, s; the probe and the
+wide probe on random, one-prefix and tiny indexes, and later on the bench and
+the scale indexes), then drives the port's paths, each with the kernels'
+launch counts set to 0 just before it and read just after:
 
   * reports mode: build the bench library's index on the card (2,623,028
     records expected) and on the CPU, classify the bench's simulated reads
@@ -19,7 +20,13 @@ kernels' launch counts set to 0 just before it and read just after:
   * the programmatic API (Slacken.classify_reads, write_reports,
     Classifier.classify_and_write) on reads and pairs, card against CPU;
   * the kernel diagnostics entry point (the five mask-idiom kernels);
-  * the 400 Mbp scale library, built and classified (131,190,899 records).
+  * the 400 Mbp scale library, built and classified (131,190,899 records);
+  * wide keys: the bench library at (k, m, s) = (50, 45, 7) and (35, 33, 0),
+    built, saved, loaded and classified in both modes on the card and on the
+    CPU, then the scale library built wide and classified;
+  * explicit orderings: the bench library at k = 35, m = 13, s = 3 with the
+    signature, lexicographic and frequency orderings (the sampling pass on
+    the card), saved with its rank table, loaded and classified.
 
 It prints the measured numbers, one JSON line of per-kernel results (time
 beside its bound, the plain twin's time and a library call's where there is
@@ -30,6 +37,7 @@ it exits 1 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import os
@@ -78,10 +86,14 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def device_ms(fn, iters=20):
-    """Device time of one call of fn alone: the kernel and copy durations
-    that torch.profiler records over `iters` calls, summed. The host's time
-    to enqueue a launch, which bounds `cuda_ms` for a kernel of a few
-    microseconds, does not count. None if the profiler saw no device time."""
+    """Device time of one call of fn alone: the mean duration that
+    torch.profiler records for each kernel or copy of fn over `iters` calls,
+    times its launches a call, summed. The host's time to enqueue a launch,
+    which bounds `cuda_ms` for a kernel of a few microseconds, does not
+    count. The mean is taken over the events the trace holds, because a trace
+    can come back short of one (19 of 20 launches, seen on the H100 once a
+    process has traced often); a plain sum over `iters` would then read low.
+    None if the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,8 +103,9 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    per_call = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters)) for e in rows)
+    return per_call / 1e3 if rows else None
 
 
 def fmt_ms(ms):
@@ -121,12 +134,70 @@ def random_codes(rng, shape, invalid=0.05):
 #: one of paired rows (two 128-wide mates and the separator, padded to 264)
 #: and a build batch of 4 kbp genome rows (index._default_batch)
 SCAN_SHAPES = [(32768, 128), (16384, 264), (8192, 4096)]
+#: (k, m, s) of the rank-table scan's checks: a table in L1 (m = 5), one a
+#: little over the L2 (m = 12, 64 MiB) and one far over it (m = 13, 256 MiB);
+#: the last is timed at every shape
+LUT_SCANS = [(21, 5, 1), (35, 12, 3), (35, 13, 3)]
+#: (label, keys, bits of hi64) of the random wide indexes the probe is timed on
+WIDE_INDEXES = [("2M random wide keys, random queries", 2_000_000, 62),
+                ("120M random wide keys (hi64 below 2^26), random queries", 120_000_000, 26)]
+
+
+def scan_equals_twin(rng, dev, shape, mp, lut=None, table=""):
+    """The scan kernel for these parameters == its twin, bit for bit, on
+    random rows with invalid bases."""
+    import torch
+
+    from slacken_tpu_torch.ops import encode, minimizers
+
+    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
+    got = minimizers.window_minimizers_packed(packed, valid, mp, lut)
+    want = minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp, lut)
+    torch.cuda.synchronize()
+    what = f"{list(shape)} k={mp.k} m={mp.m} s={mp.spaces} canonical={mp.canonical}" + table
+    for name in ("valid", "span_start", "distinct"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            fail(f"scan {name} differs from the twin at {what}")
+    if got.minimizer.shape != want.minimizer.shape:
+        fail(f"scan minimizers are {tuple(got.minimizer.shape)}, the twin's {tuple(want.minimizer.shape)} at {what}")
+    if not torch.equal(got.minimizer, want.minimizer):  # -1 at invalid windows in both
+        fail(f"scan minimizers differ from the twin at {what}")
+    log(f"scan kernel == twin at {what}: valid windows {int(want.valid.sum())}, "
+        f"span starts {int(got.span_start.sum())}, max_abs_err 0")
+
+
+def time_scan(rng, dev, shape, mp, lut=None):
+    """Kernel ms back to back and alone, the twin's ms and the bound at one
+    shape. Bytes: packed codes and validity bits in; minimizers (8 bytes, 16
+    for a wide m) and three flag bytes a position out; with a rank table 4
+    bytes of it a position, or all of it if that is less. Operations: about
+    48 32-bit integer operations a position suffice (rolling forward and
+    reverse m-mers, spaced mask, toggle, canonical min, a min over k-m+1
+    windows, the three flags), twice that on two limbs."""
+    import torch
+
+    from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
+
+    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
+    run = lambda: cuda_kernels.window_minimizers_cuda(packed, valid, mp, lut)  # noqa: E731
+    ms, dev_ms = cuda_ms(run), device_ms(run)
+    plain = cuda_ms(lambda: minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp, lut), iters=3)
+    n_pos = shape[0] * shape[1]
+    n_bytes = tensor_bytes(packed, valid) + n_pos * ((16 if mp.wide else 8) + 3)
+    if lut is not None:
+        n_bytes += min(tensor_bytes(lut), 4 * n_pos)
+    bound_ms, by = bound(n_bytes, (96 if mp.wide else 48) * n_pos)
+    log(f"scan {list(shape)} k={mp.k} m={mp.m} s={mp.spaces}{'' if lut is None else ' with a rank table'}: "
+        f"kernel {ms:.4f} ms back to back through the wrapper, {fmt_ms(dev_ms)} "
+        f"on the device alone, plain PyTorch on the card {plain:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
+        f"{n_bytes / 1e6:.1f} MB); no single library call computes it")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by)
 
 
 def check_scan(rng, dev, results):
     import torch
 
-    from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
+    from slacken_tpu_torch.ops import minimizers, ordering
 
     default = minimizers.MinimizerParams()
     P = minimizers.MinimizerParams
@@ -140,69 +211,84 @@ def check_scan(rng, dev, results):
         P(38, 31, 7), P(70, 31, 7), P(100, 16, 2), P(151, 31, 0))]
     cases += [((37, 8), P(5, 3, 1)), ((37, 72), default)]
     for shape, mp in cases:
-        packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
-        got = minimizers.window_minimizers_packed(packed, valid, mp)
-        want = minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp)
-        torch.cuda.synchronize()
-        what = f"{list(shape)} k={mp.k} m={mp.m} s={mp.spaces} canonical={mp.canonical}"
-        for name in ("valid", "span_start", "distinct"):
-            if not torch.equal(getattr(got, name), getattr(want, name)):
-                fail(f"scan {name} differs from the twin at {what}")
-        v = want.valid
-        err = int((got.minimizer - want.minimizer).abs().max())  # -1 at invalid windows in both
-        if err:
-            fail(f"scan minimizers differ from the twin at {what} (max abs err {err})")
-        log(f"scan kernel == twin at {what}: valid windows {int(v.sum())}, "
-            f"span starts {int(got.span_start.sum())}, max_abs_err 0")
-    shapes = {}
-    for shape in SCAN_SHAPES:
-        packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
-        run = lambda: cuda_kernels.window_minimizers_cuda(packed, valid, default)  # noqa: E731
-        ms, dev_ms = cuda_ms(run), device_ms(run)
-        plain = cuda_ms(lambda: minimizers.window_minimizers(encode.unpack_2bit(packed, valid), default), iters=3)
-        # bytes: packed codes and validity bits in; int64 minimizers and three
-        # flag arrays out. Operations: about 48 32-bit integer operations a
-        # position suffice (rolling forward and reverse m-mers, spaced mask,
-        # toggle, canonical min, a min over k-m+1 windows, the three flags).
-        n_pos = shape[0] * shape[1]
-        bound_ms, by = bound(tensor_bytes(packed, valid) + n_pos * (8 + 3), 48 * n_pos)
-        log(f"scan {list(shape)}: kernel {ms:.4f} ms back to back through the wrapper, {fmt_ms(dev_ms)} "
-            f"on the device alone, plain PyTorch on the card {plain:.4f} ms, bound {bound_ms:.4f} ms ({by}); "
-            "no single library call computes it")
-        shapes[str(list(shape))] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by)
+        scan_equals_twin(rng, dev, shape, mp)
+    shapes = {str(list(shape)): time_scan(rng, dev, shape, default) for shape in SCAN_SHAPES}
     results["scan"] = dict(max_abs_err=0.0, **shapes[str(list(SCAN_SHAPES[0]))], library_ms=None, shapes=shapes)
 
+    # the rank-table instance, each m with the lexicographic, the signature
+    # and a random order; rows shorter than k (8 < 21) and than one chunk, and
+    # the main path's shapes
+    shapes = {}
+    timed = LUT_SCANS[-1][1]
+    for mp in (P(*kms) for kms in LUT_SCANS):
+        n = 1 << (2 * mp.m)
+        tables = {"lexicographic": ordering.lexicographic_lut(mp.m), "signature": ordering.signature_lut(mp.m),
+                  "random permutation": rng.permutation(n)}
+        for name, table in tables.items():
+            lut = torch.from_numpy(table.astype(np.int32)).to(dev)
+            for shape in [(512, 1024), (37, 8), (37, 72), *SCAN_SHAPES]:
+                scan_equals_twin(rng, dev, shape, mp, lut, f", {name} table of {n} ranks")
+        for shape in SCAN_SHAPES if mp.m == timed else SCAN_SHAPES[:1]:  # `lut` is the random permutation
+            shapes[f"{list(shape)} m={mp.m}"] = time_scan(rng, dev, shape, mp, lut)
+        del lut
+    results["scan_lut"] = dict(max_abs_err=0.0, **shapes[f"{list(SCAN_SHAPES[0])} m={timed}"], library_ms=None, shapes=shapes)
 
-def time_probe(label, keys, taxa, directory, queries):
+    # the wide kernel: m = 32 (the key is all of lo64) and 33, the widest m,
+    # spaced and not, W = 1, 3, 4, 6 and 18
+    wide = (P(35, 32, 0), P(35, 33, 0), P(50, 45, 7), P(80, 63, 7), P(63, 63, 0))
+    for mp in wide:
+        for shape in [(512, 1024), (37, 8), (37, 72), *SCAN_SHAPES]:
+            scan_equals_twin(rng, dev, shape, mp)
+    scan_equals_twin(rng, dev, (512, 1024), P(50, 45, 7, canonical=False))
+    shapes = {f"{list(shape)} (50, 45, 7)": time_scan(rng, dev, shape, P(50, 45, 7)) for shape in SCAN_SHAPES}
+    for mp in (P(35, 33, 0), P(80, 63, 7)):
+        shapes[f"{list(SCAN_SHAPES[0])} ({mp.k}, {mp.m}, {mp.spaces})"] = time_scan(rng, dev, SCAN_SHAPES[0], mp)
+    results["scan_wide"] = dict(max_abs_err=0.0, **shapes[f"{list(SCAN_SHAPES[0])} (50, 45, 7)"], library_ms=None,
+                                shapes=shapes)
+
+
+def time_probe(label, keys, taxa, directory, queries, name="probe"):
     """Kernel == twin on these queries, then the kernel's time beside the
-    twin's and torch.searchsorted's (a yardstick: the port never calls it on
-    the card). Returns the numbers of one entry of the probe's `shapes`."""
+    twin's and, for narrow keys, torch.searchsorted's (a yardstick: the port
+    never calls it on the card; it has no form for two-limb keys). Returns
+    the numbers of one entry of the probe's `shapes`."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, lookup
 
+    wide = keys.dim() == 2
+    before = cuda_kernels.LAUNCHES[name]
     got = lookup.probe(keys, taxa, directory, queries)
+    if cuda_kernels.LAUNCHES[name] != before + 1:
+        fail(f"the probe of {label} did not launch the {name} kernel")
     want = lookup.lookup_taxa(keys, taxa, queries)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
     if err:
-        fail(f"probe differs from the twin on {label} (max abs err {err})")
+        fail(f"{name} differs from the twin on {label} (max abs err {err})")
     run = lambda: cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)  # noqa: E731
     ms, dev_ms = cuda_ms(run), device_ms(run)
     plain = cuda_ms(lambda: lookup.lookup_taxa(keys, taxa, queries), iters=5)
-    library = cuda_ms(lambda: torch.searchsorted(keys, queries))
+    library = None if wide else cuda_ms(lambda: torch.searchsorted(keys, queries))
     # bytes: the smaller of every array once (queries, keys, taxa and
     # directory in, taxa out) and what these queries need (a query and its
     # answer; for a query inside the keys' range one directory entry and one
     # key; on a hit one taxon): a probe of a large index reads little of it.
     # Operations: a shift, two compares and a select or two per query.
-    nq, inside, hits = queries.numel(), int(((queries >> directory.shift) < directory.buckets).sum()), int((want > 0).sum())
-    inside -= int((queries < 0).sum())
-    n_bytes = min(tensor_bytes(queries, keys, taxa, directory.starts) + 4 * nq, 12 * nq + 12 * inside + 4 * hits)
-    bound_ms, by = bound(n_bytes, 8 * nq)
-    log(f"probe, {label}: {keys.numel()} keys ({directory.buckets} buckets, shift {directory.shift}), {nq} queries, "
+    nq, hits, key_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
+    if wide:
+        p_lo, p_above = lookup.prefix_wide(queries, directory.shift)
+        inside = int(((queries[:, 0] >= 0) & (p_above == 0) & (p_lo >= 0) & (p_lo < directory.buckets)).sum())
+    else:
+        inside = int(((queries >> directory.shift) < directory.buckets).sum()) - int((queries < 0).sum())
+    n_bytes = min(tensor_bytes(queries, keys, taxa, directory.starts) + 4 * nq,
+                  (key_bytes + 4) * nq + (key_bytes + 4) * inside + 4 * hits)
+    bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq)
+    log(f"{name}, {label}: {keys.shape[0]} keys ({directory.buckets} buckets, shift {directory.shift}), {nq} queries, "
         f"{hits} hits, {inside} inside the keys' range, max_abs_err 0; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the "
-        f"device alone), plain twin {plain:.4f} ms, torch.searchsorted alone {library:.4f} ms, "
+        f"device alone), plain twin {plain:.4f} ms, " +
+        ("no library call: torch.searchsorted takes one-limb keys only, " if wide
+         else f"torch.searchsorted alone {library:.4f} ms, ") +
         f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
     return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
                 library_ms=library)
@@ -264,6 +350,103 @@ def check_probe(rng, dev, results):
         log(f"probe, 2M random keys, about {bucket_keys} keys a bucket ({d.starts.numel() * 4 / 1e6:.2f} MB "
             f"directory): {ms:.4f} ms")
     results["probe"] = dict(shapes["2M random keys, random queries"], shapes=shapes)
+    check_probe_wide(rng, dev, results)
+
+
+def wide_rows(hi, lo):
+    """Sorted unique int64 [n, 2] rows (hi64, lo64 as bit patterns) of the
+    given limbs: np.unique orders uint64 rows by (hi64, lo64), unsigned."""
+    return np.unique(np.stack([hi.view(np.uint64), lo.view(np.uint64)], 1), axis=0).view(np.int64)
+
+
+def rand64(gen, n, dev):
+    """n random 64-bit patterns as int64, from two 32-bit halves."""
+    import torch
+
+    half = lambda: torch.randint(0, 1 << 32, (n,), generator=gen, device=dev)  # noqa: E731
+    return (half() << 32) | half()
+
+
+def random_wide_index(dev, n, hi_bits, seed):
+    """About n random sorted unique wide keys with hi64 below 2^hi_bits, made
+    and sorted on the card (the build's own sort), and taxa."""
+    import torch
+
+    from slacken_tpu_torch.index import _sort_records
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    keys = torch.stack([torch.randint(0, 1 << hi_bits, (n,), generator=gen, device=dev), rand64(gen, n, dev)], 1)
+    taxa = torch.randint(1, 1 << 20, (n,), generator=gen, device=dev, dtype=torch.int32)
+    keys, taxa = _sort_records(keys, taxa)
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    new[1:] = (keys[1:] != keys[:-1]).any(1)
+    return keys[new].contiguous(), taxa[new].contiguous()
+
+
+def random_wide_queries(dev, keys, nq, seed):
+    """Half hits, a quarter keys with another lo64 (equal hi64, lo64
+    missing), the rest random, of them 1,000 invalid windows' -1."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pick = lambda n: keys[torch.randint(0, keys.shape[0], (n,), generator=gen, device=dev)]  # noqa: E731
+    near = pick(nq // 4).clone()
+    near[:, 1] = rand64(gen, nq // 4, dev)
+    n_rest = nq - nq // 2 - nq // 4
+    rest = torch.stack([torch.randint(0, int(keys[-1, 0]) + 2, (n_rest,), generator=gen, device=dev),
+                        rand64(gen, n_rest, dev)], 1)
+    rest[:1000] = -1
+    q = torch.cat([pick(nq // 2), near, rest])
+    return q[torch.randperm(nq, generator=gen, device=dev)].contiguous()
+
+
+def check_probe_wide(rng, dev, results):
+    import torch
+
+    from slacken_tpu_torch.ops import lookup
+
+    # adversarial wide indexes: empty, one key, every key under one hi64,
+    # hi64 = 0 throughout (m = 32), few hi64, lo64 differing only in the top
+    # bit; queries at every key, beside it in either limb, with the top bit of
+    # lo64 flipped, an invalid window's -1, random
+    one = np.array([[0, 1]], np.int64)
+    edge = np.array([[-1, -1], [0, 0], [0, -1], [(1 << 62) - 1, -1], [-(1 << 63), 0], [1 << 61, 0]], np.int64)
+    n_cases = 0
+    for n in (0, 1, 2, 3, 127, 128, 129, 100_003):
+        lo = rng.integers(-(1 << 63), (1 << 63) - 1, 2 * n + 4, dtype=np.int64)
+        lo[:4] = [0, 1, -(1 << 63), -1]
+        kinds = {
+            "uniform": rng.integers(0, 1 << 62, 2 * n + 4, dtype=np.int64),
+            "hi64 below 2^26 (m = 45)": rng.integers(0, 1 << 26, 2 * n + 4, dtype=np.int64),
+            "one hi64": np.full(2 * n + 4, 12345, np.int64),
+            "hi64 = 0 (m = 32)": np.zeros(2 * n + 4, np.int64),
+            "three hi64": rng.integers(0, 3, 2 * n + 4, dtype=np.int64),
+        }
+        for kind, hi in kinds.items():
+            rows = wide_rows(hi, lo)
+            keys = rows[np.sort(rng.permutation(len(rows))[:n])]
+            taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+            q = np.concatenate([keys, keys + one, keys - one, keys + one[:, ::-1], keys ^ np.array([[0, -(1 << 63)]]),
+                                edge, rng.integers(-(1 << 63), (1 << 63) - 1, (2000, 2), dtype=np.int64)])
+            k_d, t_d, q_d = (torch.from_numpy(a).to(dev) for a in (keys, taxa, q))
+            for bucket_keys in (1, lookup.BUCKET_KEYS, 1 << 30):
+                d = lookup.build_directory(k_d, bucket_keys)
+                got, want = lookup.probe(k_d, t_d, d, q_d), lookup.lookup_taxa(k_d, t_d, q_d)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want) or not torch.equal(lookup.lookup_taxa_directory(k_d, t_d, d, q_d), want):
+                    fail(f"wide probe differs from the twin: {len(keys)} keys, {kind}, {d.buckets} buckets")
+                if int((want > 0).sum()) < len(keys):
+                    fail(f"the wide twin misses keys of the index: {len(keys)} keys, {kind}")
+                n_cases += 1
+    log(f"wide probe kernel == twin == directory twin on {n_cases} adversarial indexes (0 to 100,003 keys; uniform, "
+        "hi64 below 2^26, one hi64, hi64 = 0, three hi64; 1, 4 and all keys a bucket), max_abs_err 0")
+    shapes = {}
+    for label, n, hi_bits in WIDE_INDEXES:
+        k_d, t_d = random_wide_index(dev, n, hi_bits, n)
+        q_d = random_wide_queries(dev, k_d, 1 << 22, n + 1)
+        shapes[label] = time_probe(label, k_d, t_d, lookup.build_directory(k_d), q_d, "probe_wide")
+        del k_d, t_d, q_d
+    results["probe_wide"] = dict(shapes[WIDE_INDEXES[0][0]], shapes=shapes)
 
 
 def check_mask_idioms(dev, results):
@@ -365,11 +548,31 @@ def classified_count(report_path):
     return total - uncl, total
 
 
-def require_launches(path, launches, names=("scan", "probe")):
+def require_launches(path, launches, names=("scan", "probe"), never=()):
     log(f"{path}: kernel launches {launches}")
     for name in names:
         if launches[name] == 0:
             fail(f"{path} never launched the {name} kernel")
+    for name in never:
+        if launches[name]:
+            fail(f"{path} launched the {name} kernel, which is not of its kind of index")
+
+
+@contextlib.contextmanager
+def twins_forbidden():
+    """While a run on the card goes, the kernels' plain twins fail the script
+    if anything calls them."""
+    from slacken_tpu_torch.ops import lookup, minimizers
+
+    def refuse(*args, **kwargs):
+        fail("a kernel's plain twin was called on the card's path")
+
+    saved = minimizers.window_minimizers, lookup.lookup_taxa
+    minimizers.window_minimizers = lookup.lookup_taxa = refuse
+    try:
+        yield
+    finally:
+        minimizers.window_minimizers, lookup.lookup_taxa = saved
 
 
 def output_tree(prefix):
@@ -741,6 +944,183 @@ def phase_scale(dev, out, results):
     return launches
 
 
+def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least, table=None):
+    """One kind of index end to end: built on the card, saved, loaded and
+    classified there in reports and per-read mode with the twins forbidden,
+    then the same on the CPU; index arrays, kreports and per-read lines must
+    be equal. `table(device)` makes the rank table of a frequency ordering.
+    Returns the card's loaded index, its Classifier and the launch counts."""
+    import torch
+
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    modes = {"rep": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=False),
+             "det": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=True)}
+    what = f"k={params.k} m={params.m} s={params.spaces} {params.ordering}"
+    cuda_kernels.reset_launch_counts()
+    with twins_forbidden():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lut = table(dev) if table else None
+        t1 = time.perf_counter()
+        built = KeyValueIndex.build(library(), params, tax, dev, ordering_lut=lut)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        built.save(os.path.join(out, f"{tag}_idx"))
+        idx = KeyValueIndex.load(os.path.join(out, f"{tag}_idx"))
+        cls = Classifier(idx, dev)
+        cls.classify_and_write_packed(reads, os.path.join(out, f"{tag}_warm"), modes["rep"])
+        times = {}
+        for mode, cpar in modes.items():
+            times[mode] = timed_runs(
+                lambda r: cls.classify_and_write_packed(reads, os.path.join(out, f"{tag}_{mode}"), cpar), n=1)[0]
+    launches = dict(cuda_kernels.LAUNCHES)
+    log(f"{what}: built on the card in {build_s:.3f} s ({8e6 / build_s / 1e6:.2f} Mbp/s incl. host packing"
+        + (f"; its rank table in {t1 - t0:.2f} s before that" if table else "") + f"), {idx.num_records} records; "
+        f"classify on the card {n_reads / times['rep']:.1f} reads/s in reports mode, "
+        f"{n_reads / times['det']:.1f} in per-read mode (one warm run each)")
+    keys_file = np.load(os.path.join(out, f"{tag}_idx", "keys.npy"), mmap_mode="r")
+    if keys_file.shape != ((idx.num_records, 2) if params.m > 31 else (idx.num_records,)) or keys_file.dtype != np.uint64:
+        fail(f"{what}: keys.npy is {keys_file.dtype} {keys_file.shape}")
+    if os.path.exists(os.path.join(out, f"{tag}_idx", "ordering_lut.npy")) != (params.ordering != "xor"):
+        fail(f"{what}: ordering_lut.npy is there for xor only or missing for {params.ordering}")
+    t0 = time.perf_counter()
+    lut_cpu = table("cpu") if table else None
+    idx_cpu = KeyValueIndex.build(library(), params, tax, "cpu", ordering_lut=lut_cpu)
+    if idx.num_records != idx_cpu.num_records:
+        fail(f"{what}: {idx.num_records} records on the card, {idx_cpu.num_records} on the CPU")
+    if not (np.array_equal(idx.keys, idx_cpu.keys) and np.array_equal(idx.taxa, idx_cpu.taxa)):
+        fail(f"{what}: the card's index differs from the CPU build")
+    if table and not np.array_equal(idx.ordering_lut, idx_cpu.ordering_lut):
+        fail(f"{what}: the rank table sampled on the card differs from the CPU's")
+    cls_cpu = Classifier(idx_cpu, "cpu")
+    for mode, cpar in modes.items():
+        cls_cpu.classify_and_write_packed(reads, os.path.join(out, f"{tag}_{mode}cpu"), cpar)
+        got, want = output_tree(os.path.join(out, f"{tag}_{mode}")), output_tree(os.path.join(out, f"{tag}_{mode}cpu"))
+        if got != want or len(got) != (2 if mode == "rep" else 4):
+            fail(f"{what}: the {mode} output of the card differs from the CPU's")
+    if {k: v for k, v in got.items() if k.endswith(".txt")} != output_tree(os.path.join(out, f"{tag}_rep")):
+        fail(f"{what}: per-read mode's kreports differ from reports mode's")
+    c, total = classified_count(os.path.join(out, f"{tag}_det_c0.00", "all_kreport.txt"))
+    log(f"{what}: index, kreports and per-read lines byte-identical card vs CPU ({time.perf_counter() - t0:.1f} s "
+        f"of CPU build and classify); classified {c} of {total}")
+    if total != n_reads or c < least * n_reads:
+        fail(f"{what}: classified {c} of {total} reads")
+    return idx, cls, launches
+
+
+def add_launches(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def phase_wide(dev, out, reads, results):
+    """Wide keys (m > 31) end to end on the bench library at two parameter
+    sets, then the 400 Mbp scale library built wide and classified. Returns
+    the launch counts of the whole path."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    tax = workloads.bench_taxonomy()
+    library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
+    n_reads = sum(len(p) for p in reads)
+    total = {}
+    narrow = ("scan", "scan_lut", "probe")
+    for tag, kms in (("w45", (50, 45, 7)), ("w33", (35, 33, 0))):
+        params = IndexParams(k=kms[0], m=kms[1], spaces=kms[2])
+        idx, cls, launches = card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, 0.8)
+        require_launches(f"wide bench {kms}: build, 3 classify runs", launches, ("scan_wide", "probe_wide"), narrow)
+        add_launches(total, launches)
+        if tag == "w45":
+            label = "wide bench index (50, 45, 7), one batch's dense minimizers"
+            q = batch_queries(cls, reads)[2].minimizer.flatten(0, 1)
+            results["probe_wide"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q,
+                                                                "probe_wide")
+        del idx, cls
+
+    tax = workloads.scale_taxonomy(SCALE_TAXA)
+    cuda_kernels.reset_launch_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with twins_forbidden():
+        idx = KeyValueIndex.build(workloads.scale_library(SCALE_BP, SCALE_TAXA),
+                                  IndexParams(k=50, m=45, spaces=7), tax, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        log(f"wide scale build on the card: {SCALE_BP / 1e6:.0f} Mbp at (50, 45, 7), {idx.num_records} records of "
+            f"16 + 4 bytes in {build_s:.2f} s, {SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. library generation and host "
+            f"packing; peak torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+        if not idx.wide or idx.keys_t.shape != (idx.num_records, 2) or idx.num_records < SCALE_BP // 8:
+            fail(f"the wide scale index holds keys of shape {tuple(idx.keys_t.shape)}")
+        if not bool(((idx.keys_t[1:, 0] > idx.keys_t[:-1, 0]) | ((idx.keys_t[1:, 0] == idx.keys_t[:-1, 0]) & (
+                (idx.keys_t[1:, 1] ^ -(1 << 63)) > (idx.keys_t[:-1, 1] ^ -(1 << 63))))).all()):
+            fail("the wide scale index is not sorted by (hi64, lo64 unsigned) without repeats")
+        reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA)
+        n_reads = sum(len(p) for p in reads)
+        cls = Classifier(idx, dev)
+        cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
+        cls.classify_and_write_packed(reads[:1], os.path.join(out, "wscale_warm"), cpar)
+        dt = timed_runs(lambda r: cls.classify_and_write_packed(reads, os.path.join(out, "wscale"), cpar), n=1)[0]
+    c, total_reads = classified_count(os.path.join(out, "wscale_c0.0", "all_kreport.txt"))
+    log(f"wide scale classify on the card: {n_reads} reads in {dt:.3f} s, {n_reads / dt:.1f} reads/s, "
+        f"classified {c} ({100.0 * c / n_reads:.2f}%); peak torch.cuda.max_memory_allocated with it "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    # k = 50: a 101 bp read with 1% mutated bases keeps fewer clean windows than at k = 35
+    if total_reads != n_reads or c < 0.9 * n_reads:
+        fail(f"wide scale classified {c} of {total_reads} reads")
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("wide scale build and classify", launches, ("scan_wide", "probe_wide"), narrow)
+    add_launches(total, launches)
+    for label, q in (
+        ("wide scale index, random queries", random_wide_queries(dev, idx.keys_t, 1 << 22, SCALE_RECORDS)),
+        ("wide scale index, one batch's dense minimizers", batch_queries(cls, reads)[2].minimizer.flatten(0, 1)),
+    ):
+        results["probe_wide"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q, "probe_wide")
+    return total
+
+
+def phase_ordering(dev, out, reads):
+    """Explicit orderings end to end on the bench library at k = 35, m = 13,
+    s = 3: signature, lexicographic and frequency (its table sampled on the
+    device that builds). Returns the launch counts of the whole path."""
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import encode, ordering
+
+    tax = workloads.bench_taxonomy()
+    library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
+    n_reads = sum(len(p) for p in reads)
+    kms = dict(k=35, m=13, spaces=3)
+
+    def frequency_table(device):
+        mp = IndexParams(**kms).minimizer_params
+        counts = ordering.sample_mmer_counts((encode.encode_seq(seq) for _, seq in library()), mp, device)
+        return ordering.frequency_lut(counts, mp.m)
+
+    total = {}
+    for name in ("signature", "lexicographic", "frequency"):
+        idx, _, launches = card_against_cpu(
+            dev, out, name, IndexParams(**kms, ordering=name), tax, library, reads, n_reads, 0.9,
+            frequency_table if name == "frequency" else None)
+        require_launches(f"{name} ordering: build, 3 classify runs", launches, ("scan_lut", "probe"),
+                         ("scan", "scan_wide", "probe_wide"))
+        add_launches(total, launches)
+        if name == "lexicographic":  # ranks are the masked m-mers: the XOR order with no toggle
+            xor0 = KeyValueIndex.build(library(), IndexParams(**kms, toggle_mask=0), tax, dev)
+            if not (np.array_equal(idx.keys, xor0.keys) and np.array_equal(idx.taxa, xor0.taxa)):
+                fail("the lexicographic index differs from an XOR build with toggle_mask = 0")
+            log(f"lexicographic index == XOR build with toggle_mask = 0, key for key ({idx.num_records} records)")
+    return total
+
+
 def main():
     import torch
 
@@ -786,15 +1166,24 @@ def main():
     by_path = {"reports": bench["launches"], "per_read": phase_detailed(dev, out, bench),
                "paired": phase_paired(dev, out, bench), "api": phase_api(dev, out, bench),
                "diagnostics": phase_diagnostics(dev)}
+    reads = bench["reads"]
     del bench
     by_path["scale"] = phase_scale(dev, out, results)
+    by_path["wide"] = phase_wide(dev, out, reads, results)
+    by_path["ordering"] = phase_ordering(dev, out, reads)
     shutil.rmtree(out, ignore_errors=True)
     for mod in ("jax", "slacken_tpu", "bench", "scale_bench"):
         if mod in sys.modules:
             fail(f"the port imported {mod}")
     idioms = ("slacken_tpu_torch/ops/kernels/mask_idioms.cu", "scripts/tpu_session.py:")
-    sources = {"scan": ("slacken_tpu_torch/ops/kernels/scan.cu", "slacken_tpu/ops/pallas_kernels.py:26"),
-               "probe": ("slacken_tpu_torch/ops/kernels/probe.cu", "slacken_tpu/ops/pallas_kernels.py:98"),
+    # the rank-table and wide kernels replace code that the JAX package left
+    # to XLA, not a Pallas kernel: their lines name that code
+    scan_cu, probe_cu = "slacken_tpu_torch/ops/kernels/scan.cu", "slacken_tpu_torch/ops/kernels/probe.cu"
+    sources = {"scan": (scan_cu, "slacken_tpu/ops/pallas_kernels.py:26"),
+               "scan_lut": (scan_cu, "slacken_tpu/ops/minimizers.py:195"),
+               "scan_wide": (scan_cu, "slacken_tpu/ops/minimizers.py:372"),
+               "probe": (probe_cu, "slacken_tpu/ops/pallas_kernels.py:98"),
+               "probe_wide": (probe_cu, "slacken_tpu/ops/lookup.py:161"),
                **{name: (idioms[0], idioms[1] + str(line)) for name, line in
                   zip(cuda_kernels.MASK_IDIOMS, (1023, 1027, 1030, 1036, 1047))}}
     log(json.dumps({"kernels": [

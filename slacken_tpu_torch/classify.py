@@ -2,9 +2,11 @@
 
 Per batch of packed reads, on the device:
 
-  1. minimizer scan over the 2-bit wire format (CUDA scan kernel; the
-     unpack is fused into it),
-  2. a probe of every window position (CUDA directory probe kernel),
+  1. minimizer scan over the 2-bit wire format (a CUDA scan kernel: the
+     XOR-ordered one, its rank-table instance for an index with an explicit
+     ordering, or the wide one for m > 31; the unpack is fused into it),
+  2. a probe of every window position (the CUDA directory probe kernel, or
+     its wide counterpart over two-limb keys),
   3. window taxa (INVALID_WINDOW where the window is invalid) and the
      distinct hit-group count per read,
   4. hit compaction and batched resolveTree,
@@ -122,11 +124,14 @@ def finalize(
     )
 
 
-def classify_batch(packed, valid, ambig, keys, taxa, directory, table, req_lut, mp, max_taxa):
-    """The device body for one batch: (bundle [B, 3+nthr], window taxa [B, L])."""
-    wm = window_minimizers_packed(packed, valid, mp)
+def classify_batch(packed, valid, ambig, keys, taxa, directory, table, req_lut, mp, max_taxa,
+                   lut=None):
+    """The device body for one batch: (bundle [B, 3+nthr], window taxa [B, L]).
+    `lut` is the index's rank table on the device (explicit orderings); in a
+    wide index `keys` and the minimizers are rows of two limbs."""
+    wm = window_minimizers_packed(packed, valid, mp, lut)
     b, l = wm.valid.shape
-    looked = probe(keys, taxa, directory, wm.minimizer.reshape(-1)).reshape(b, l)
+    looked = probe(keys, taxa, directory, wm.minimizer.flatten(0, 1)).reshape(b, l)
     window_taxa = torch.where(wm.valid, looked, INVALID_WINDOW)
     # hit groups: spans whose minimizer is distinct AND found in the index
     num_distinct = (wm.span_start & wm.distinct & (looked > 0) & wm.valid).sum(
@@ -363,6 +368,7 @@ class Classifier:
         # 4 Mbp batches on the card, 1 Mbp on the CPU (cache residency)
         self.target_batch_bp = (1 << 22) if self._cuda else (1 << 20)
         self._keys, self._taxa, self._directory = index.device_arrays(self.device)
+        self._lut = index.device_lut(self.device)
         # indexed by raw taxon ID: [max_id + 1, D], copied to the device once
         self._table = torch.from_numpy(index.taxonomy.rpath_table()).to(self.device)
         self._req_luts: Dict[tuple, torch.Tensor] = {}
@@ -406,7 +412,7 @@ class Classifier:
             to_device(packed, self.device), to_device(valid, self.device),
             to_device(ambig, self.device),
             self._keys, self._taxa, self._directory, self._table, self._req_lut(w8),
-            self.index.params.minimizer_params, self.max_taxa,
+            self.index.params.minimizer_params, self.max_taxa, self._lut,
         )
         pinned = None
         if self._cuda:

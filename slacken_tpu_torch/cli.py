@@ -1,4 +1,5 @@
-"""Command-line interface of the port: `build` and `classify` (per-read
+"""Command-line interface of the port: `build` (--ordering for an explicit
+minimizer ordering, -m up to 63 for wide keys) and `classify` (per-read
 output by default, --no-detailed for reports only, -p for paired files).
 Run as `python -m slacken_tpu_torch.cli <subcommand>`; options match
 slacken_tpu's CLI, plus --device (default cuda)."""
@@ -21,9 +22,12 @@ def _build_parser():
     b.add_argument("-l", "--library", required=True, help="Genome library directory (contains library/)")
     b.add_argument("-t", "--taxonomy", required=True, help="Taxonomy directory (nodes.dmp, names.dmp, merged.dmp)")
     b.add_argument("-k", type=int, default=35, help="k-mer length (default 35)")
-    b.add_argument("-m", type=int, default=31, help="minimizer width (default 31, at most 31)")
+    b.add_argument("-m", type=int, default=31, help="minimizer width (default 31, at most 63; at most 15 with an --ordering other than xor)")
     b.add_argument("-s", "--spaces", type=int, default=7, help="spaced seed spaces (default 7)")
     b.add_argument("-p", "--partitions", type=int, default=200, help="shard count hint")
+    b.add_argument("--ordering", choices=["xor", "lexicographic", "signature", "frequency"], default="xor",
+                   help="Minimizer ordering (default xor = Kraken 2-compatible RandomXOR; frequency samples "
+                        "the library and prefers rare minimizers; signature = KMC2/3 signature ordering)")
     b.add_argument("--device", default="cuda", help="torch device (default cuda)")
 
     c = sub.add_parser("classify", help="Classify genomic sequences")
@@ -64,8 +68,17 @@ def cmd_build(args, device):
     tax = Taxonomy.load(args.taxonomy)
     lib = GenomeLibrary.from_directory(args.library)
     print(f"Discovered {len(lib.files)} genome files")
-    params = IndexParams(k=args.k, m=args.m, spaces=args.spaces, buckets=args.partitions)
-    idx = KeyValueIndex.build(lib.taxa_sequences(), params, tax, device)
+    params = IndexParams(k=args.k, m=args.m, spaces=args.spaces, buckets=args.partitions,
+                         ordering=args.ordering)
+    ordering_lut = None
+    if args.ordering == "frequency":
+        from .ops import encode, ordering
+
+        print("Sampling m-mer frequencies over the library...")
+        counts = ordering.sample_mmer_counts(
+            (encode.encode_seq(seq) for _, seq in lib.taxa_sequences()), params.minimizer_params, device)
+        ordering_lut = ordering.frequency_lut(counts, args.m)
+    idx = KeyValueIndex.build(lib.taxa_sequences(), params, tax, device, ordering_lut=ordering_lut)
     idx.save(args.index)
     print(f"Saved {idx.num_records} records to {args.index}")
     return 0

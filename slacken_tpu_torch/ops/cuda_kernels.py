@@ -1,8 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels (ops/kernels/*.cu).
 
-The sources compile at first use with nvcc for sm_90a into one shared
-library with a plain C interface, bound through ctypes (no PyTorch headers,
-so a build takes seconds). The library's file name carries a hash of the
+The sources compile at first use with nvcc for sm_90a, one compiler process
+a source and all at once, into one shared library with a plain C interface,
+bound through ctypes (no PyTorch headers, so a build takes seconds). The library's file name carries a hash of the
 sources, so a stale binary is never loaded. Kernels launch on PyTorch's
 current stream and allocate nothing: the wrappers allocate outputs with
 torch.empty, check every input, and raise on any launch error.
@@ -26,20 +26,21 @@ from typing import Dict, Optional
 import torch
 
 from .lookup import Directory
-from .minimizers import space_mask_int
+from .minimizers import space_mask_int, wide_toggle_mask
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = sorted(glob.glob(os.path.join(_HERE, "kernels", "*.cu")))
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-NVCC_FLAGS = [
-    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-Xcompiler", "-fPIC"]
 
 #: the five mask-idiom kernels (kernels/mask_idioms.cu)
 MASK_IDIOMS = ("select", "astype", "concat", "carry", "sum_bool")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in ("scan", "probe", *MASK_IDIOMS)}
+#: scan: the XOR-ordered narrow scan; scan_lut: its rank-table instance;
+#: scan_wide, probe_wide: the kernels for m > 31
+LAUNCHES: Dict[str, int] = {
+    name: 0 for name in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide", *MASK_IDIOMS)
+}
 
 _lib = None
 #: (seconds, compiler output) of the build this process ran, if any
@@ -76,16 +77,28 @@ def build(verbose: bool = False) -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *SOURCES]
+    nvcc = [_nvcc(), *NVCC_FLAGS]
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    build_info = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    try:
+        compiles = [
+            subprocess.Popen(
+                [*nvcc, *(["-Xptxas", "-v"] if verbose else []), "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objects)
+        ]
+        outputs = [proc.communicate()[0] for proc in compiles]
+        link = subprocess.run([*nvcc, "-shared", "-o", tmp, *objects], capture_output=True, text=True)
+        outputs.append(link.stdout + link.stderr)
+        failed = [proc.returncode for proc in (*compiles, link) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n" + "\n".join(outputs))
+        os.replace(tmp, path)
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
+    build_info = (time.perf_counter() - t0, "".join(outputs))
     return path
 
 
@@ -95,10 +108,12 @@ def _load():
         return _lib
     lib = ctypes.CDLL(build())
     p, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-    lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, u64, u64, p, p, p, p, p]
-    lib.stpu_scan.restype = i32
-    lib.stpu_probe.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
-    lib.stpu_probe.restype = i32
+    lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, u64, u64, p, p, p, p, p, p]
+    lib.stpu_scan_wide.argtypes = [p, p, i64, i32, i32, i32, i32, u64, u64, u64, u64, p, p, p, p, p]
+    for fn in (lib.stpu_probe, lib.stpu_probe_wide):
+        fn.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
+    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide):
+        fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
         fn.argtypes = [p, p, p, i64, i64, p] if name == "sum_bool" else [p, p, i64, i64, p]
@@ -126,66 +141,92 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params):
+def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None):
     """Fused unpack + minimizer scan (kernels/scan.cu) over pack_2bit's
-    [B, L/4] codes and [B, L/8] validity bits. Returns (minimizer int64
-    [B, L], valid, span_start, distinct bool [B, L]); the minimizer of an
-    invalid window is -1."""
+    [B, L/4] codes and [B, L/8] validity bits. Returns (minimizer, valid,
+    span_start, distinct bool [B, L]); the minimizer is int64 [B, L], or
+    int64 [B, L, 2] (hi64, lo64) for a wide m, and -1 in every limb at an
+    invalid window. `lut` is an int32 rank table of 4^m entries on the same
+    device (explicit orderings, m <= 15)."""
     _require(packed, "packed", torch.uint8, 2)
     _require(valid, "valid", torch.uint8, 2)
     b, l4 = packed.shape
     L = 4 * l4
+    k, m = params.k, params.m
     if tuple(valid.shape) != (b, L // 8) or L % 8:
         raise ValueError(f"valid must be [{b}, {L // 8}], got {tuple(valid.shape)}")
-    if not 1 <= params.m <= 31 or not 0 <= params.k - params.m <= 120:
+    if not 1 <= m <= 63 or not 0 <= k - m <= 120:
         raise ValueError(
-            f"the scan kernel takes 1 <= m <= 31 and m <= k <= m + 120, got k={params.k} m={params.m}"
+            f"the scan kernels take 1 <= m <= 63 and m <= k <= m + 120, got k={k} m={m}"
         )
+    if lut is not None:
+        _require(lut, "lut", torch.int32, 1)
+        if m > 15 or lut.shape[0] != 1 << (2 * m) or lut.device != packed.device:
+            raise ValueError(
+                f"a rank table takes m <= 15 and 4^m entries on {packed.device}, got m={m} "
+                f"and {lut.shape[0]} entries on {lut.device}"
+            )
     lib = _load()
-    mn = torch.empty((b, L), dtype=torch.int64, device=packed.device)
     flags = torch.empty((3, b, L), dtype=torch.bool, device=packed.device)
-    mask = (1 << (2 * params.m)) - 1
     f0 = flags.data_ptr()
-    rc = lib.stpu_scan(
-        packed.data_ptr(), valid.data_ptr(), b, L, params.k, params.m,
-        int(bool(params.canonical)), params.toggle_mask & mask,
-        space_mask_int(params.m, params.spaces), mn.data_ptr(),
-        f0, f0 + b * L, f0 + 2 * b * L, _stream(packed),
-    )
-    _check(rc, "scan")
-    LAUNCHES["scan"] += 1
+    outs = (f0, f0 + b * L, f0 + 2 * b * L, _stream(packed))
+    common = (packed.data_ptr(), valid.data_ptr(), b, L, k, m, int(bool(params.canonical)))
+    smask = space_mask_int(m, params.spaces)
+    if params.wide:
+        name = "scan_wide"
+        mn = torch.empty((b, L, 2), dtype=torch.int64, device=packed.device)
+        limbs = [x for mask in (wide_toggle_mask(m, params.toggle_mask), smask)
+                 for x in (mask >> 64, mask & ((1 << 64) - 1))]
+        rc = lib.stpu_scan_wide(*common, *limbs, mn.data_ptr(), *outs)
+    else:
+        name = "scan" if lut is None else "scan_lut"
+        mn = torch.empty((b, L), dtype=torch.int64, device=packed.device)
+        rc = lib.stpu_scan(
+            *common, params.toggle_mask & ((1 << (2 * m)) - 1), smask,
+            None if lut is None else lut.data_ptr(), mn.data_ptr(), *outs,
+        )
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return (mn, *flags.unbind(0))
 
 
 def lookup_taxa_directory_cuda(
     keys: torch.Tensor, taxa: torch.Tensor, directory: Directory, queries: torch.Tensor
 ) -> torch.Tensor:
-    """Exact-match probe (kernels/probe.cu): int32 taxon per int64 query, 0
-    on a miss. keys sorted int64 [N], taxa int32 [N], directory =
-    lookup.build_directory(keys)."""
+    """Exact-match probe (kernels/probe.cu): int32 taxon per query, 0 on a
+    miss. keys sorted int64 [N] with int64 [Q] queries, or wide: int64
+    [N, 2] rows (hi64, lo64) with [Q, 2] queries; taxa int32 [N], directory
+    = lookup.build_directory(keys)."""
     starts, shift = directory
-    _require(keys, "keys", torch.int64, 1)
+    wide = keys.dim() == 2
+    _require(keys, "keys", torch.int64, 1 + wide)
     _require(taxa, "taxa", torch.int32, 1)
     _require(starts, "directory.starts", torch.int32, 1)
-    _require(queries, "queries", torch.int64, 1)
+    _require(queries, "queries", torch.int64, 1 + wide)
+    if wide and (keys.shape[1] != 2 or queries.shape[1] != 2):
+        raise ValueError(
+            f"wide keys and queries are [N, 2] and [Q, 2], got {tuple(keys.shape)} and {tuple(queries.shape)}"
+        )
     n, buckets = keys.shape[0], directory.buckets
-    if taxa.shape[0] != n or buckets < 1 or buckets & (buckets - 1) or not 0 <= shift <= 63:
+    if (taxa.shape[0] != n or buckets < 1 or buckets & (buckets - 1)
+            or not 0 <= shift <= (127 if wide else 63)):
         raise ValueError(
             f"taxa [{taxa.shape[0]}] or a directory of {buckets} buckets and shift {shift} "
             f"do not fit {n} keys"
         )
-    if keys.data_ptr() % 16:
-        raise ValueError("keys must be 16-byte aligned (the probe loads two keys at a time)")
+    if keys.data_ptr() % 16 or (wide and queries.data_ptr() % 16):
+        raise ValueError("keys must be 16-byte aligned (the probe loads 16 bytes at a time)")
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
     if n == 0:  # an empty index: every query misses
         return out.zero_()
     lib = _load()
-    rc = lib.stpu_probe(
+    name = "probe_wide" if wide else "probe"
+    rc = (lib.stpu_probe_wide if wide else lib.stpu_probe)(
         keys.data_ptr(), taxa.data_ptr(), n, starts.data_ptr(), buckets, shift,
         queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
     )
-    _check(rc, "probe")
-    LAUNCHES["probe"] += 1
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 

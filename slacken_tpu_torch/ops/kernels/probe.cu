@@ -34,6 +34,15 @@
 // per query keeps the most loads in flight: a warp per query measured 7-22x
 // slower. Queries and results pass through with streaming loads and stores,
 // which leaves the L2 to the index.
+//
+// Wide keys (m > 31; `lookup_taxa_routed_wide`, slacken_tpu/ops/lookup.py:161,
+// a bisection over four 32-bit limbs there) take the same walk over 16-byte
+// keys: rows (hi64, lo64) of an interleaved [n, 2] array, so a key is one
+// 16-byte load, two keys one sector, where the narrow walk has four. The
+// prefix is the top of the 128-bit query; an invalid window's query, -1 in
+// both limbs, has a prefix beyond every bucket and misses without a load.
+// The same number of scattered loads a hit as the narrow kernel, twice the
+// key bytes a scan step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,6 +85,64 @@ probe_kernel(const long long* __restrict__ keys, const int* __restrict__ taxa, l
   __stcs(out + qi, taxon);
 }
 
+struct K2 {
+  unsigned long long hi, lo;
+};
+
+__device__ __forceinline__ K2 load2(const ulonglong2* p) {
+  const ulonglong2 v = __ldg(p);
+  return K2{v.x, v.y};
+}
+
+__device__ __forceinline__ bool less2(const K2& a, const K2& b) {
+  return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
+}
+
+__device__ __forceinline__ bool equal2(const K2& a, const K2& b) {
+  return a.hi == b.hi && a.lo == b.lo;
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_wide_kernel(const ulonglong2* __restrict__ keys, const int* __restrict__ taxa, long long n,
+                  const int* __restrict__ starts, unsigned long long buckets, int shift,
+                  const ulonglong2* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  const ulonglong2 raw = __ldcs(queries + qi);  // streamed: the index keeps the L2
+  const K2 x = {raw.x, raw.y};
+  // the 128-bit query >> shift, as the 64 bits that can name a bucket and
+  // whatever lies above them
+  unsigned long long p, above;
+  if (shift >= 64) {
+    p = x.hi >> (shift - 64);
+    above = 0;
+  } else if (shift == 0) {
+    p = x.lo;
+    above = x.hi;
+  } else {
+    p = (x.hi << (64 - shift)) | (x.lo >> shift);
+    above = x.hi >> shift;
+  }
+  int taxon = 0;
+  if (above == 0 && p < buckets) {
+    long long i = __ldg(starts + p) & ~1;  // even: two keys are one aligned sector
+    while (i + 1 < n) {
+      const K2 a = load2(keys + i), b = load2(keys + i + 1);
+      if (less2(b, x)) {  // both below x
+        i += 2;
+        continue;
+      }
+      if (equal2(a, x)) taxon = __ldg(taxa + i);
+      else if (equal2(b, x)) taxon = __ldg(taxa + i + 1);
+      i = n;  // found, or passed where x would be
+    }
+    if (i + 1 == n) {  // the last key of an index of odd length
+      if (equal2(load2(keys + i), x)) taxon = __ldg(taxa + i);
+    }
+  }
+  __stcs(out + qi, taxon);
+}
+
 }  // namespace
 
 // keys: sorted unique non-negative int64 [n], 16-byte aligned; taxa: int32
@@ -90,5 +157,21 @@ extern "C" int stpu_probe(const void* keys, const void* taxa, long long n, const
   probe_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
       (const long long*)keys, (const int*)taxa, n, (const int*)starts,
       (unsigned long long)buckets, shift, (const long long*)queries, nq, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// keys: [n, 2] unsigned (hi64, lo64) rows sorted by value, hi64 below 2^63,
+// 16-byte aligned; taxa: int32 [n]; starts: int32 [buckets + 1], the prefix
+// directory of the 128-bit keys >> shift (0 <= shift <= 127); queries:
+// [nq, 2], 16-byte aligned; out: int32 [nq].
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int stpu_probe_wide(const void* keys, const void* taxa, long long n,
+                               const void* starts, long long buckets, int shift,
+                               const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  const long long blocks = (nq + THREADS - 1) / THREADS;
+  probe_wide_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const ulonglong2*)keys, (const int*)taxa, n, (const int*)starts,
+      (unsigned long long)buckets, shift, (const ulonglong2*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Minimizer scan for narrow (m <= 31) XOR-ordered minimizers.
+"""Minimizer scan: XOR-ordered and rank-table minimizers, narrow and wide.
 
 Same semantics as slacken_tpu.ops.minimizers (Kraken 2 compatible):
 
@@ -8,13 +8,26 @@ with the toggle mask truncated to 2m bits, the window minimizer the minimum
 priority over the W = k - m + 1 m-mers of a k-mer window, and super-mer
 spans starting where the window minimum changes or validity resumes.
 
-Every value fits one int64 (2m <= 62 bits), so the plain version here works
-on int64 tensors with no unsigned arithmetic: the reverse complement is
-built by the same doubling as the forward m-mer, over complemented codes,
-so bit 63 is never set. `window_minimizers` is the plain PyTorch twin of
-the CUDA scan kernel; `window_minimizers_packed` is the entry point the
-pipeline calls: it launches the kernel for CUDA tensors and runs the twin
-only for CPU tensors.
+For m <= 31 every value fits one int64 (2m <= 62 bits), so the plain version
+works on int64 tensors with no unsigned arithmetic: the reverse complement
+is built by the same doubling as the forward m-mer, over complemented codes,
+so bit 63 is never set.
+
+With a rank table (an explicit ordering, ops/ordering.py; m <= 15) the
+priority is `lut[canonical(m-mer) AND spaced_seed_mask]` and no toggle
+applies; ranks are below 4^15 and stay int64 like any narrow key.
+
+Wide minimizers (31 < m <= 63) are 2m-bit values held right-aligned in two
+int64 limbs: hi64 (below 2^62) and lo64, whose 64 bits are all in use. The
+m-mer of m bases is the (m - 32)-mer of its first bases over the 32-mer of
+its last, so both limbs come from the narrow doubling. Order on the lo limb
+is unsigned: the scan keeps it with its sign bit flipped, where signed and
+unsigned order agree, and flips it back at the end. The toggle mask is
+replicated over the limbs as the reference does (`wide_toggle_mask`).
+
+`window_minimizers` is the plain PyTorch twin of the CUDA scan kernels;
+`window_minimizers_packed` is the entry point the pipeline calls: it launches
+a kernel for CUDA tensors and runs the twin only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from .encode import unpack_2bit
 #: Kraken 2's minimizer toggle mask (mmscanner.h)
 DEFAULT_TOGGLE_MASK = 0xE37E28C4271B5A2D
 INT64_MAX = (1 << 63) - 1
+INT64_MIN = -(1 << 63)
 
 
 class MinimizerParams(NamedTuple):
@@ -65,11 +79,34 @@ def space_mask_int(m: int, s: int) -> int:
     return mask
 
 
-class WindowMinimizers(NamedTuple):
-    """Per-window results, all [B, L]; position i is the k-mer window
-    starting at base i. `minimizer` is -1 where the window is not `valid`."""
+def wide_toggle_mask(m: int, toggle: int) -> int:
+    """The XOR toggle over 2m bits: every full 32-nt long of the m-mer carries
+    the whole 64-bit mask and a trailing partial long of r nts its low 2r
+    bits. For m <= 32 this is the low 2m bits."""
+    if m <= 32:
+        return toggle & ((1 << (2 * m)) - 1)
+    r = m % 32
+    val = 0
+    for _ in range(m // 32):
+        val = (val << 64) | (toggle & ((1 << 64) - 1))
+    if r:
+        val = (val << (2 * r)) | (toggle & ((1 << (2 * r)) - 1))
+    return val
 
-    minimizer: torch.Tensor  # int64
+
+def limbs_int64(value: int):
+    """(hi64, lo64) of a 128-bit Python integer as signed int64 bit patterns."""
+    signed = lambda x: x - (1 << 64) if x >> 63 else x  # noqa: E731
+    return signed(value >> 64), signed(value & ((1 << 64) - 1))
+
+
+class WindowMinimizers(NamedTuple):
+    """Per-window results; position i is the k-mer window starting at base
+    i. `minimizer` is int64 [B, L] for m <= 31 and int64 [B, L, 2], the
+    (hi64, lo64) limbs of each value, for a wide m; the flags are [B, L].
+    Every limb of `minimizer` is -1 where the window is not `valid`."""
+
+    minimizer: torch.Tensor  # int64 [B, L], or [B, L, 2] for a wide m
     valid: torch.Tensor  # bool: all k bases of the window are valid
     span_start: torch.Tensor  # bool: window starts a new super-mer span
     distinct: torch.Tensor  # bool: span's minimizer differs from the last valid window's
@@ -153,50 +190,101 @@ def sliding_all(valid: torch.Tensor, width: int) -> torch.Tensor:
     )
 
 
-def priorities(codes: torch.Tensor, params: MinimizerParams) -> torch.Tensor:
-    """Priority of the m-mer starting at each position (garbage where the
-    m-mer runs into invalid bases or past the end)."""
+def priorities(codes: torch.Tensor, params: MinimizerParams, lut=None) -> torch.Tensor:
+    """Priority of the narrow m-mer starting at each position (garbage where
+    the m-mer runs into invalid bases or past the end). With `lut`, an
+    integer rank table of 4^m entries on the codes' device, the priority is
+    the rank of the masked canonical m-mer."""
     m = params.m
     c = (codes & 3).to(torch.int64)
     mm = _mmers(c, m)
     if params.canonical:
         mm = torch.minimum(mm, _revcomps(c, m))
+    if lut is not None:
+        return lut[mm & space_mask_int(m, params.spaces)].to(torch.int64)
     toggle = params.toggle_mask & ((1 << (2 * m)) - 1)
     return (mm ^ toggle) & space_mask_int(m, params.spaces)
 
 
-def window_minimizers(codes: torch.Tensor, params: MinimizerParams) -> WindowMinimizers:
+def _min_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum of two stacks [2, ...] of (hi64, flipped lo64)."""
+    a_first = (a[0] < b[0]) | ((a[0] == b[0]) & (a[1] <= b[1]))
+    return torch.where(a_first, a, b)
+
+
+def priorities_wide(codes: torch.Tensor, params: MinimizerParams) -> torch.Tensor:
+    """Priority of the wide m-mer (31 < m <= 63) starting at each position,
+    as a stack [2, B, L] of hi64 and lo64 with lo64's sign bit flipped."""
+    m = params.m
+    c = (codes & 3).to(torch.int64)
+    zero = torch.zeros_like(c)
+    # forward: the first m - 32 bases over the 32-mer that follows them
+    mm = torch.stack([_mmers(c, m - 32) if m > 32 else zero, _ahead(_mmers(c, 32), m - 32, 0)])
+    mm[1] ^= INT64_MIN
+    if params.canonical:
+        # reverse complement: base j lands, complemented, at bits 2j
+        rc = torch.stack([_ahead(_revcomps(c, m - 32), 32, 0) if m > 32 else zero, _revcomps(c, 32)])
+        rc[1] ^= INT64_MIN
+        mm = _min_wide(mm, rc)
+    t_hi, t_lo = limbs_int64(wide_toggle_mask(m, params.toggle_mask))
+    s_hi, s_lo = limbs_int64(space_mask_int(m, params.spaces))
+    lo = (((mm[1] ^ INT64_MIN) ^ t_lo) & s_lo) ^ INT64_MIN
+    return torch.stack([(mm[0] ^ t_hi) & s_hi, lo])
+
+
+def sliding_min_wide(x: torch.Tensor, width: int) -> torch.Tensor:
+    """sliding_min over a stack [2, B, L] of (hi64, flipped lo64)."""
+    return _doubling(
+        x, width,
+        lambda v, p: _min_wide(v, _ahead(v, p, INT64_MAX)),
+        lambda acc, blk, off, p: _min_wide(acc, blk),
+        INT64_MAX,
+    )
+
+
+def window_minimizers(codes: torch.Tensor, params: MinimizerParams, lut=None) -> WindowMinimizers:
     """Plain PyTorch minimizer scan over dense codes [B, L] (0..3, 4 =
-    invalid); the twin of the CUDA scan kernel."""
+    invalid); the twin of the CUDA scan kernels. `lut` is a rank table on
+    the codes' device (explicit orderings, m <= 15)."""
     params.validate()
-    if params.wide:
-        raise NotImplementedError("wide minimizers (m > 31) are not ported yet")
     codes = codes.to(torch.uint8)
-    win_min = sliding_min(priorities(codes, params), params.window)
+    wide = params.wide
+    if wide:
+        if lut is not None:
+            raise ValueError("explicit-ordering rank tables require m <= 15")
+        win_min = sliding_min_wide(priorities_wide(codes, params), params.window)
+        differs = lambda a, b: (a != b).any(0)  # noqa: E731
+    else:
+        win_min = sliding_min(priorities(codes, params, lut), params.window)
+        differs = lambda a, b: a != b  # noqa: E731
     win_valid = sliding_all(codes < 4, params.k)
     prev_valid = _behind(win_valid, 1, False)
-    prev_min = _behind(win_min, 1, 0)
-    span_start = win_valid & (~prev_valid | (win_min != prev_min))
+    span_start = win_valid & (~prev_valid | differs(win_min, _behind(win_min, 1, 0)))
     # distinct: against the last valid window strictly before i, carried
     # across invalid gaps (a running max of valid positions)
-    pos = torch.arange(codes.shape[-1], device=codes.device).expand_as(win_min)
+    pos = torch.arange(codes.shape[-1], device=codes.device).expand_as(win_valid)
     last = torch.cummax(torch.where(win_valid, pos, -1), dim=-1).values
     before = _behind(last, 1, -1)
-    before_min = torch.gather(win_min, -1, before.clamp(min=0))
-    distinct = span_start & ((before < 0) | (win_min != before_min))
+    before_min = torch.gather(win_min, -1, before.clamp(min=0).expand_as(win_min))
+    distinct = span_start & ((before < 0) | differs(win_min, before_min))
     # no key is negative, so the probe dismisses an invalid window unsearched
-    return WindowMinimizers(torch.where(win_valid, win_min, -1), win_valid, span_start, distinct)
+    if wide:
+        win_min = torch.stack([win_min[0], win_min[1] ^ INT64_MIN], dim=-1)
+        out = torch.where(win_valid[..., None], win_min, -1)
+    else:
+        out = torch.where(win_valid, win_min, -1)
+    return WindowMinimizers(out, win_valid, span_start, distinct)
 
 
 def window_minimizers_packed(
-    packed: torch.Tensor, valid: torch.Tensor, params: MinimizerParams
+    packed: torch.Tensor, valid: torch.Tensor, params: MinimizerParams, lut=None
 ) -> WindowMinimizers:
     """Minimizer scan over pack_2bit's wire format ([B, L/4] codes, [B, L/8]
-    validity bits): the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors."""
+    validity bits): a CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors. `lut` is an int32 rank table on the same device, or None."""
     if packed.device.type == "cpu":
-        return window_minimizers(unpack_2bit(packed, valid), params)
+        return window_minimizers(unpack_2bit(packed, valid), params, lut)
     from . import cuda_kernels
 
     params.validate()
-    return WindowMinimizers(*cuda_kernels.window_minimizers_cuda(packed, valid, params))
+    return WindowMinimizers(*cuda_kernels.window_minimizers_cuda(packed, valid, params, lut))

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from slacken_tpu_torch import diagnostics
-from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, mask_idioms, minimizers
+from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, mask_idioms, minimizers, ordering
 
 torch.set_num_threads(1)
 
@@ -31,12 +31,16 @@ def _codes(shape, seed=5):
     return codes
 
 
-def _assert_scan_matches_twin(cuda, codes, mp):
+def _assert_scan_matches_twin(cuda, codes, mp, lut=None):
+    """The kernel for these parameters (scan, scan_lut with a rank table,
+    scan_wide for m > 31) launched once and equal to the twin in all four
+    outputs."""
     packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
-    before = cuda_kernels.LAUNCHES["scan"]
-    got = minimizers.window_minimizers_packed(packed, valid, mp)
-    assert cuda_kernels.LAUNCHES["scan"] == before + 1
-    want = minimizers.window_minimizers(torch.from_numpy(codes), mp)
+    name = "scan_wide" if mp.wide else "scan" if lut is None else "scan_lut"
+    before = dict(cuda_kernels.LAUNCHES)
+    got = minimizers.window_minimizers_packed(packed, valid, mp, None if lut is None else lut.to(cuda))
+    assert {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]} == {name: 1}
+    want = minimizers.window_minimizers(torch.from_numpy(codes), mp, lut)
     assert torch.equal(got.valid.cpu(), want.valid)
     assert torch.equal(got.span_start.cpu(), want.span_start)
     assert torch.equal(got.distinct.cpu(), want.distinct)
@@ -64,6 +68,42 @@ def test_scan_kernel_other_parameters(cuda, shape, kms, canonical):
     _assert_scan_matches_twin(cuda, _codes(shape, seed=kms[0]), mp)
 
 
+@pytest.mark.parametrize("shape", [(64, 128), (5, 264), (9, 104), (4, 4096), (3, 8)])
+@pytest.mark.parametrize("kms,table", [
+    ((15, 8, 2), "lexicographic"), ((19, 7, 2), "signature"), ((12, 6, 1), "random"),
+    ((35, 13, 3), "signature"), ((6, 3, 0), "random"), ((135, 15, 7), "lexicographic"),
+])
+def test_scan_kernel_rank_table(cuda, shape, kms, table):
+    m = kms[1]
+    lut = {"lexicographic": ordering.lexicographic_lut, "signature": ordering.signature_lut,
+           "random": lambda m: np.random.default_rng(m).permutation(1 << (2 * m))}[table](m)
+    lut = torch.from_numpy(lut.astype(np.int32))
+    for canonical in (True, False):
+        mp = minimizers.MinimizerParams(*kms, canonical=canonical)
+        _assert_scan_matches_twin(cuda, _codes(shape, seed=kms[0]), mp, lut)
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (5, 264), (9, 104), (4, 4096), (3, 8), (33, 72)])
+@pytest.mark.parametrize("kms", [
+    (35, 32, 0), (35, 33, 0), (50, 45, 7), (80, 63, 7), (63, 63, 0), (40, 33, 5), (32, 32, 7),
+    (152, 32, 0), (183, 63, 31),  # the widest window the kernel takes
+])
+def test_scan_wide_kernel_matches_twin(cuda, shape, kms):
+    for canonical in (True, False):
+        mp = minimizers.MinimizerParams(*kms, canonical=canonical)
+        _assert_scan_matches_twin(cuda, _codes(shape, seed=kms[0]), mp)
+
+
+def test_scan_wide_kernel_rows_at_any_byte(cuda):
+    codes = _codes((33, 264))
+    packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
+    mp = minimizers.MinimizerParams(50, 45, 7)
+    got = minimizers.window_minimizers_packed(packed[1:], valid[1:], mp)
+    want = minimizers.window_minimizers(torch.from_numpy(codes[1:]), mp)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
 def test_scan_kernel_rows_at_any_byte(cuda):
     """Rows of 66 packed bytes start at every alignment; a view that skips
     the first row starts off a 4-byte boundary."""
@@ -81,6 +121,16 @@ def test_scan_kernel_refuses_what_it_does_not_take(cuda):
     valid = torch.zeros((4, 16), dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="m <= k <= m \\+ 120"):
         cuda_kernels.window_minimizers_cuda(packed, valid, minimizers.MinimizerParams(160, 31, 0))
+    with pytest.raises(ValueError, match="m <= k <= m \\+ 120"):
+        cuda_kernels.window_minimizers_cuda(packed, valid, minimizers.MinimizerParams(184, 63, 0))
+    mp = minimizers.MinimizerParams(15, 8, 2)
+    for bad in (torch.zeros(4 ** 8, dtype=torch.int64, device=cuda), torch.zeros(4 ** 7, dtype=torch.int32, device=cuda),
+                torch.zeros(4 ** 8, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            cuda_kernels.window_minimizers_cuda(packed, valid, mp, bad)
+    with pytest.raises(ValueError, match="m <= 15"):
+        cuda_kernels.window_minimizers_cuda(packed, valid, minimizers.MinimizerParams(40, 16, 2),
+                                            torch.zeros(4 ** 8, dtype=torch.int32, device=cuda))
 
 
 def _probe_case(cuda, keys, q, bucket_keys):
@@ -122,6 +172,48 @@ def test_probe_kernel_adversarial(cuda, n, kind, bucket_keys):
     q = np.concatenate([keys, keys - 1, keys + 1, EDGE_QUERIES,
                         rng.integers(-(1 << 63), (1 << 63) - 1, 500, dtype=np.int64)])
     _probe_case(cuda, keys, q, bucket_keys)
+
+
+def _wide_keys(rng, kind, n):
+    """n sorted unique [n, 2] int64 rows (hi64, lo64 as bit patterns)."""
+    lo = rng.integers(-(1 << 63), (1 << 63) - 1, 2 * n + 2, dtype=np.int64)
+    hi = {
+        "uniform": lambda: rng.integers(0, 1 << 62, 2 * n + 2, dtype=np.int64),
+        "m = 45": lambda: rng.integers(0, 1 << 26, 2 * n + 2, dtype=np.int64),
+        "one hi64": lambda: np.full(2 * n + 2, 12345, np.int64),
+        "m = 32": lambda: np.zeros(2 * n + 2, np.int64),
+        "few hi64": lambda: rng.integers(0, 3, 2 * n + 2, dtype=np.int64),
+    }[kind]()
+    if kind == "m = 32" and n > 4:
+        lo[:4] = [0, 1, -(1 << 63), -1]  # lo64 differing only in its top bit
+    # np.unique sorts the rows by (hi64, lo64), unsigned
+    rows = np.unique(np.stack([hi.view(np.uint64), lo.view(np.uint64)], 1), axis=0)
+    return rows[np.sort(rng.permutation(len(rows))[:n])].view(np.int64)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 127, 128, 129, 100_001])
+@pytest.mark.parametrize("kind", ["uniform", "m = 45", "one hi64", "m = 32", "few hi64"])
+@pytest.mark.parametrize("bucket_keys", [1, lookup.BUCKET_KEYS, 1 << 30])
+def test_probe_wide_kernel_adversarial(cuda, n, kind, bucket_keys):
+    """Tiny indexes, every key under one hi64, hi64 = 0 throughout, keys
+    whose lo64 differ only in the top bit; queries at every key, beside it
+    in either limb, -1 (an invalid window) and random."""
+    rng = np.random.default_rng(n)
+    keys = _wide_keys(rng, kind, n)
+    taxa = (np.arange(len(keys)) % 1000 + 1).astype(np.int32)
+    one = np.array([[0, 1]], np.int64)
+    q = np.concatenate([keys, keys + one, keys - one, keys ^ np.array([[0, -(1 << 63)]], np.int64),
+                        keys + one[:, ::-1], np.array([[-1, -1], [0, 0], [0, -1], [(1 << 62) - 1, -1]], np.int64),
+                        rng.integers(-(1 << 63), (1 << 63) - 1, (500, 2), dtype=np.int64)])
+    k_d, t_d, q_d = (torch.from_numpy(a).to(cuda) for a in (keys, taxa, q))
+    d = lookup.build_directory(k_d, bucket_keys)
+    before = cuda_kernels.LAUNCHES["probe_wide"]
+    got = lookup.probe(k_d, t_d, d, q_d)
+    assert cuda_kernels.LAUNCHES["probe_wide"] == before + (1 if len(keys) else 0)
+    want = lookup.lookup_taxa(torch.from_numpy(keys), torch.from_numpy(taxa), torch.from_numpy(q))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(lookup.lookup_taxa_directory(k_d, t_d, d, q_d).cpu(), want)
+    assert int((want > 0).sum()) >= len(keys)
 
 
 def test_probe_kernel_refuses_what_it_does_not_take(cuda):

@@ -66,11 +66,35 @@ def test_each_package_loads_the_other(rng, tmp_path):
     assert int(directory.starts[-1]) == from_jax.num_records
 
 
-@pytest.mark.parametrize("params", [IndexParams(ordering="lexicographic"), IndexParams(k=40, m=35, spaces=0)])
-def test_unported_index_kinds_raise(rng, params):
+@pytest.mark.parametrize("kw", [dict(k=21, m=11, spaces=0, ordering="lexicographic"), dict(k=40, m=35, spaces=0)])
+def test_unported_index_kinds_raise(rng, tmp_path, kw):
+    """Explicit orderings and wide keys, which the port used to refuse, build
+    to the JAX package's files byte for byte (the name dates from the
+    refusal). What still raises: a rank table beside a wide m or beside
+    "xor", a table-less frequency build, and tables for m > 15."""
     tax = random_taxonomy(rng)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KeyValueIndex.build(iter([]), params, tax, "cpu")
+    lib = shared_library(rng, tax)
+    want = JIndex.build(iter(lib), JParams(**kw), tax, batch_rows=8, row_len=4096)
+    got = KeyValueIndex.build(iter(lib), IndexParams(**kw), tax, "cpu", batch_rows=4, row_len=1024)
+    assert got.num_records == len(want.keys) > 500
+    assert got.keys.shape == ((got.num_records, 2) if kw["m"] > 31 else (got.num_records,))
+    want.save(str(tmp_path / "jax"))
+    got.save(str(tmp_path / "torch"))
+    names = ["keys.npy", "taxa.npy"] + (["ordering_lut.npy"] if "ordering" in kw else [])
+    for name in names:
+        assert (tmp_path / "jax" / name).read_bytes() == (tmp_path / "torch" / name).read_bytes()
+    assert (tmp_path / "torch" / "ordering_lut.npy").exists() == ("ordering" in kw)
+    lut = np.arange(4 ** 11, dtype=np.uint32)
+    for bad, error in (
+        (dict(params=IndexParams(k=40, m=35, spaces=0, ordering="lexicographic")), NotImplementedError),
+        (dict(params=IndexParams(k=21, m=11, spaces=0), ordering_lut=lut), ValueError),
+        (dict(params=IndexParams(k=21, m=11, spaces=0, ordering="frequency")), ValueError),
+        (dict(params=IndexParams(k=21, m=11, spaces=0, ordering="given"), ordering_lut=lut[:100]), ValueError),
+        (dict(params=IndexParams(k=21, m=16, spaces=0, ordering="signature")), ValueError),
+        (dict(params=IndexParams(k=21, m=11, spaces=0, ordering="random")), ValueError),
+    ):
+        with pytest.raises(error):
+            KeyValueIndex.build(iter([]), taxonomy=tax, device="cpu", **bad)
 
 
 def test_empty_library(rng):

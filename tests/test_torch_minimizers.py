@@ -97,8 +97,21 @@ def test_cpu_tensors_never_reach_the_kernel(rng, monkeypatch):
 
 
 def test_wide_minimizers_not_ported(rng):
-    with pytest.raises(NotImplementedError):
-        minimizers.window_minimizers(torch.zeros((1, 128), dtype=torch.uint8), _port_params(40, 35, 0))
+    """Wide minimizers (m > 31), which the port used to refuse, equal the JAX
+    package's in all four outputs (the name dates from the refusal;
+    tests/test_torch_wide.py holds the other parameter sets). A rank table
+    beside a wide m still raises."""
+    from slacken_tpu.ops import u128
+
+    codes = _codes(rng)
+    want = jmin.window_minimizers(codes, jmin.MinimizerParams(40, 35, 0))
+    hi, lo = u128.to_u64_pair(want.minimizer)
+    got = minimizers.window_minimizers(torch.from_numpy(codes), _port_params(40, 35, 0))
+    assert got.minimizer.shape == (16, 256, 2) and got.minimizer.dtype == torch.int64
+    _assert_same(got, np.stack([hi, lo], -1).view(np.int64), want.valid, want.span_start, want.distinct)
+    assert bool((got.minimizer[~got.valid] == -1).all())
+    with pytest.raises(ValueError, match="m <= 15"):
+        minimizers.window_minimizers(torch.from_numpy(codes), _port_params(40, 35, 0), torch.zeros(4, dtype=torch.int32))
 
 
 def _bit_stream(row_bytes):
