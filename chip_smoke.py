@@ -26,7 +26,15 @@ launch counts set to 0 just before it and read just after:
     CPU, then the scale library built wide and classified;
   * explicit orderings: the bench library at k = 35, m = 13, s = 3 with the
     signature, lexicographic and frequency orderings (the sampling pass on
-    the card), saved with its rank table, loaded and classified.
+    the card), saved with its rank table, loaded and classified;
+  * two-step classification (classify2): at bench size with every detection
+    criterion and the gold set, for a narrow, a wide and a rank-table base
+    index, through Dynamic and through the CLI, card against CPU; then on
+    the 400 Mbp scale library under a taxonomy with ranks, with the wall of
+    each step (find the taxon set, the restricted build from the sidecar,
+    the same by a rebuild from the library, the directory, the final
+    classify) and the device's busy share; stats, inspect reports and respace
+    on the bench and the scale index.
 
 It prints the measured numbers, one JSON line of per-kernel results (time
 beside its bound, the plain twin's time and a library call's where there is
@@ -39,6 +47,7 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import io
 import json
 import os
 import shutil
@@ -451,7 +460,9 @@ def check_probe_wide(rng, dev, results):
 
 def check_mask_idioms(dev, results):
     """Each of the five mask-idiom kernels == its twin at [8, 128] and
-    [4096, 128] (the diagnostics entry point's inputs); timed at the latter."""
+    [4096, 128] (the diagnostics entry point's inputs); timed at the latter.
+    The one-kernel sum_bool also at shapes whose grid-stride loop runs more
+    than once, off a 16-byte boundary, and several launches in a row."""
     import torch
 
     from slacken_tpu_torch import diagnostics
@@ -466,9 +477,19 @@ def check_mask_idioms(dev, results):
     library_out = torch.empty_like(big)
     library = {name: (lambda: torch.gt(big, mask_idioms.THRESHOLD, out=library_out))
                for name in ("select", "astype")}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flat = torch.randint(0, 129, (1201 * 1001 + 1,), generator=gen, device=dev, dtype=torch.int32)
+    sum_bool_inputs = {
+        "[16384, 128] random (two grid-stride rounds of 16-byte loads)":
+            torch.randint(0, 129, (16384, 128), generator=gen, device=dev, dtype=torch.int32),
+        "[1201, 1001] random, 4 bytes off a 16-byte boundary (the scalar path, several rounds)":
+            flat[1:].view(1201, 1001),
+        "[5, 16] random (under one block)": torch.randint(0, 129, (5, 16), generator=gen, device=dev, dtype=torch.int32),
+    }
     for name, plain_fn in mask_idioms.PLAIN.items():
         err = 0
-        for label, x in inputs.items():
+        cases = dict(inputs, **sum_bool_inputs) if name == "sum_bool" else inputs
+        for label, x in [*cases.items(), *cases.items()]:  # twice: sum_bool's counters alternate by launch
             got, want = cuda_kernels.mask_idiom_cuda(name, x), plain_fn(x)
             torch.cuda.synchronize()
             if got.dtype != want.dtype or got.shape != want.shape:
@@ -499,6 +520,10 @@ def check_mask_idioms(dev, results):
             f"plain {plain:.4f} ms, bound {bound_ms:.5f} ms ({by}), " +
             ("no single library call computes it" if library_ms is None
              else f"torch.gt(out=int32) {library_ms:.4f} ms back to back, {fmt_ms(library_dev_ms)} on the device alone"))
+        if name == "sum_bool":
+            log(f"sum_bool is one cooperative kernel, equal to its twin also at {list(sum_bool_inputs)}; the memset "
+                "and two kernels it replaced took 0.0277 ms back to back, 0.0244 into a ready out and 0.0059 on the "
+                "device alone (PERF.md: an earlier run of this script, NVIDIA H100 80GB HBM3, 700.00 W)")
         results[name] = dict(max_abs_err=float(err), ms=ms, out_ms=ms_out, device_ms=dev_ms, plain_ms=plain,
                              bound_ms=bound_ms, bound_by=by, library_ms=library_ms,
                              library_device_ms=library_dev_ms)
@@ -577,14 +602,19 @@ def twins_forbidden():
 
 def output_tree(prefix):
     """{path below <prefix>_c*: bytes} of a classify output, .gz inflated."""
-    base, stem = os.path.dirname(prefix), os.path.basename(prefix)
+    return {k: v for k, v in files_under(prefix).items() if k.startswith("_c")}
+
+
+def files_under(prefix):
+    """{what follows `prefix` in the path: bytes} of every file whose path
+    starts with `prefix`, .gz inflated."""
     files = {}
-    for top in sorted(x for x in os.listdir(base) if x.startswith(stem + "_c")):
-        for root, _, names in os.walk(os.path.join(base, top)):
-            for name in names:
-                path = os.path.join(root, name)
+    for root, _, names in os.walk(os.path.dirname(prefix)):
+        for name in names:
+            path = os.path.join(root, name)
+            if path.startswith(prefix):
                 with (gzip.open if name.endswith(".gz") else open)(path, "rb") as f:
-                    files[os.path.relpath(path, base)[len(stem):]] = f.read()
+                    files[path[len(prefix):]] = f.read()
     return files
 
 
@@ -641,10 +671,11 @@ def phase_bench(dev, out, results):
     profile_run(lambda: cls.classify_and_write_packed(reads, os.path.join(out, "prof"), cpar), "reports mode")
 
     t0 = time.perf_counter()
-    idx_cpu = KeyValueIndex.build(library(), params, tax, "cpu")
-    log(f"bench build on the CPU (plain twins): {idx_cpu.num_records} records in {time.perf_counter() - t0:.1f} s")
+    idx_cpu = KeyValueIndex.build(library(), params, tax, "cpu", keep_records=True)  # the sidecar: for classify2
+    log(f"bench build on the CPU (plain twins, with the full-records sidecar): {idx_cpu.num_records} records, "
+        f"{len(idx_cpu.record_taxa_t)} (key, taxon) pairs in {time.perf_counter() - t0:.1f} s")
     if not (np.array_equal(idx.keys, idx_cpu.keys) and np.array_equal(idx.taxa, idx_cpu.taxa)):
-        fail("the card's bench index differs from the CPU build")
+        fail("the card's bench index (no sidecar) differs from the CPU build with one")
     t0 = time.perf_counter()
     Classifier(idx_cpu, "cpu").classify_and_write_packed(reads, os.path.join(out, "cpu"), cpar)
     log(f"bench classify on the CPU (plain twins): {time.perf_counter() - t0:.1f} s")
@@ -815,36 +846,29 @@ def phase_diagnostics(dev):
 
 
 def profile_run(fn, mode):
-    """Where one warm run of fn (classify in `mode`) spends its time: the device's busy share of
-    the wall (torch.profiler; kernel and copy time summed, so an upper
-    bound) and the main thread's leading host functions (cProfile)."""
+    """Where one warm run of fn (classify in `mode`) spends its time: the
+    device's busy share of the wall and the main thread's leading host
+    functions."""
+    device_busy(fn, f"classify, {mode}", host_activity=True)
+    host_profile(fn, f"one classify run, {mode}")
+
+
+def host_profile(fn, what, top_n=6):
+    """The main thread's leading host functions over one run of fn, by self
+    time (cProfile)."""
     import cProfile
     import pstats
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
-    if dev_ms > 0:
-        log(f"profiled classify, {mode}: wall {wall_ms:.2f} ms, device busy {dev_ms:.3f} ms "
-            f"({100 * dev_ms / wall_ms:.1f}% of the wall, under the profiler)")
-    else:
-        log(f"profiled classify, {mode}: wall {wall_ms:.2f} ms, device busy not measured "
-            "(the profiler saw no device time)")
     pr = cProfile.Profile()
     pr.enable()
     fn()
     torch.cuda.synchronize()
     pr.disable()
     stats = pstats.Stats(pr).stats  # (file, line, name) -> (cc, nc, tottime, cumtime, callers)
-    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]
-    log(f"host self time, one classify run, {mode} (cProfile, main thread): " + ", ".join(
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top_n]
+    log(f"host self time, {what} (cProfile, main thread): " + ", ".join(
         f"{os.path.basename(f)}:{ln}({name}) {v[2] * 1e3:.2f} ms" for (f, ln, name), v in top))
 
 
@@ -891,10 +915,12 @@ def breakdown(cls, reads, cpar, results):
     log(f"device ms per stage, one [{b}, {l}] batch: " + ", ".join(f"{k} {v:.4f}" for k, v in st.items()))
 
 
-def phase_scale(dev, out, results):
+def phase_scale(dev, out, results, genomes):
     """Build and classify at scale; the probe against an index far larger
     than L2, on random queries and on a real batch's. Returns the launch
-    counts of the build and the classify."""
+    counts of the build and the classify. The library's (taxon, sequence)
+    pairs are appended to `genomes` as the build draws them, for the later
+    phases."""
     import torch
 
     from slacken_tpu_torch import workloads
@@ -902,13 +928,17 @@ def phase_scale(dev, out, results):
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
     from slacken_tpu_torch.ops import cuda_kernels
 
+    def library():
+        for pair in workloads.scale_library(SCALE_BP, SCALE_TAXA):
+            genomes.append(pair)
+            yield pair
+
     tax = workloads.scale_taxonomy(SCALE_TAXA)
     cuda_kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    idx = KeyValueIndex.build(workloads.scale_library(SCALE_BP, SCALE_TAXA),
-                              IndexParams(k=35, m=31, spaces=7), tax, dev)
+    idx = KeyValueIndex.build(library(), IndexParams(k=35, m=31, spaces=7), tax, dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     log(f"scale build on the card: {SCALE_BP / 1e6:.0f} Mbp, {idx.num_records} records "
@@ -916,7 +946,7 @@ def phase_scale(dev, out, results):
         f"{SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. library generation and host packing")
     if idx.num_records != SCALE_RECORDS:
         fail(f"scale index has {idx.num_records} records, expected {SCALE_RECORDS}")
-    reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA)
+    reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
     n_reads = sum(len(p) for p in reads)
     cls = Classifier(idx, dev)
     cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
@@ -941,15 +971,24 @@ def phase_scale(dev, out, results):
         ("scale index, one batch's dense minimizers", batch_queries(cls, reads)[2].minimizer.reshape(-1)),
     ):
         results["probe"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q)
+    del cls
+    t0 = time.perf_counter()
+    spaced = idx.respace(9)
+    torch.cuda.synchronize()
+    log(f"respace 7 -> 9 of the scale index on the card (a mask over {idx.num_records} keys, a sort, the run "
+        f"reduce): {spaced.num_records} records in {time.perf_counter() - t0:.3f} s")
+    if not 0 < spaced.num_records <= idx.num_records or spaced.params.spaces != 9:
+        fail(f"the respaced scale index holds {spaced.num_records} records at s = {spaced.params.spaces}")
     return launches
 
 
-def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least, table=None):
+def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least, table=None, keep_records=False):
     """One kind of index end to end: built on the card, saved, loaded and
     classified there in reports and per-read mode with the twins forbidden,
-    then the same on the CPU; index arrays, kreports and per-read lines must
-    be equal. `table(device)` makes the rank table of a frequency ordering.
-    Returns the card's loaded index, its Classifier and the launch counts."""
+    then the same on the CPU; index arrays (with `keep_records` the sidecar's
+    too), kreports and per-read lines must be equal. `table(device)` makes the
+    rank table of a frequency ordering. Returns the card's loaded index, its
+    Classifier, the launch counts and the CPU's index."""
     import torch
 
     from slacken_tpu_torch.classify import Classifier, ClassifyParams
@@ -965,7 +1004,7 @@ def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least,
         t0 = time.perf_counter()
         lut = table(dev) if table else None
         t1 = time.perf_counter()
-        built = KeyValueIndex.build(library(), params, tax, dev, ordering_lut=lut)
+        built = KeyValueIndex.build(library(), params, tax, dev, ordering_lut=lut, keep_records=keep_records)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t1
         built.save(os.path.join(out, f"{tag}_idx"))
@@ -988,7 +1027,10 @@ def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least,
         fail(f"{what}: ordering_lut.npy is there for xor only or missing for {params.ordering}")
     t0 = time.perf_counter()
     lut_cpu = table("cpu") if table else None
-    idx_cpu = KeyValueIndex.build(library(), params, tax, "cpu", ordering_lut=lut_cpu)
+    idx_cpu = KeyValueIndex.build(library(), params, tax, "cpu", ordering_lut=lut_cpu, keep_records=keep_records)
+    if keep_records and not (torch.equal(idx.record_keys_t, idx_cpu.record_keys_t)
+                             and torch.equal(idx.record_taxa_t, idx_cpu.record_taxa_t)):
+        fail(f"{what}: the sidecar built on the card, saved and loaded differs from the CPU's")
     if idx.num_records != idx_cpu.num_records:
         fail(f"{what}: {idx.num_records} records on the card, {idx_cpu.num_records} on the CPU")
     if not (np.array_equal(idx.keys, idx_cpu.keys) and np.array_equal(idx.taxa, idx_cpu.taxa)):
@@ -1008,7 +1050,7 @@ def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least,
         f"of CPU build and classify); classified {c} of {total}")
     if total != n_reads or c < least * n_reads:
         fail(f"{what}: classified {c} of {total} reads")
-    return idx, cls, launches
+    return idx, cls, launches, idx_cpu
 
 
 def add_launches(total, launches):
@@ -1016,10 +1058,11 @@ def add_launches(total, launches):
         total[name] = total.get(name, 0) + n
 
 
-def phase_wide(dev, out, reads, results):
+def phase_wide(dev, out, reads, results, genomes, bases):
     """Wide keys (m > 31) end to end on the bench library at two parameter
-    sets, then the 400 Mbp scale library built wide and classified. Returns
-    the launch counts of the whole path."""
+    sets, then the 400 Mbp scale library (`genomes`) built wide and
+    classified. Returns the launch counts of the whole path; the (50, 45, 7)
+    bench indexes, built with their sidecars, go into `bases` for classify2."""
     import torch
 
     from slacken_tpu_torch import workloads
@@ -1034,7 +1077,8 @@ def phase_wide(dev, out, reads, results):
     narrow = ("scan", "scan_lut", "probe")
     for tag, kms in (("w45", (50, 45, 7)), ("w33", (35, 33, 0))):
         params = IndexParams(k=kms[0], m=kms[1], spaces=kms[2])
-        idx, cls, launches = card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, 0.8)
+        idx, cls, launches, idx_cpu = card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, 0.8,
+                                                       keep_records=tag == "w45")
         require_launches(f"wide bench {kms}: build, 3 classify runs", launches, ("scan_wide", "probe_wide"), narrow)
         add_launches(total, launches)
         if tag == "w45":
@@ -1042,7 +1086,8 @@ def phase_wide(dev, out, reads, results):
             q = batch_queries(cls, reads)[2].minimizer.flatten(0, 1)
             results["probe_wide"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q,
                                                                 "probe_wide")
-        del idx, cls
+            bases["wide"] = (idx, idx_cpu)
+        del idx, cls, idx_cpu
 
     tax = workloads.scale_taxonomy(SCALE_TAXA)
     cuda_kernels.reset_launch_counts()
@@ -1051,19 +1096,18 @@ def phase_wide(dev, out, reads, results):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with twins_forbidden():
-        idx = KeyValueIndex.build(workloads.scale_library(SCALE_BP, SCALE_TAXA),
-                                  IndexParams(k=50, m=45, spaces=7), tax, dev)
+        idx = KeyValueIndex.build(iter(genomes), IndexParams(k=50, m=45, spaces=7), tax, dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         log(f"wide scale build on the card: {SCALE_BP / 1e6:.0f} Mbp at (50, 45, 7), {idx.num_records} records of "
-            f"16 + 4 bytes in {build_s:.2f} s, {SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. library generation and host "
-            f"packing; peak torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+            f"16 + 4 bytes in {build_s:.2f} s, {SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. host packing (the library "
+            f"was generated before, not inside this wall as in earlier runs); peak torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
         if not idx.wide or idx.keys_t.shape != (idx.num_records, 2) or idx.num_records < SCALE_BP // 8:
             fail(f"the wide scale index holds keys of shape {tuple(idx.keys_t.shape)}")
         if not bool(((idx.keys_t[1:, 0] > idx.keys_t[:-1, 0]) | ((idx.keys_t[1:, 0] == idx.keys_t[:-1, 0]) & (
                 (idx.keys_t[1:, 1] ^ -(1 << 63)) > (idx.keys_t[:-1, 1] ^ -(1 << 63))))).all()):
             fail("the wide scale index is not sorted by (hi64, lo64 unsigned) without repeats")
-        reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA)
+        reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
         n_reads = sum(len(p) for p in reads)
         cls = Classifier(idx, dev)
         cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
@@ -1087,10 +1131,12 @@ def phase_wide(dev, out, reads, results):
     return total
 
 
-def phase_ordering(dev, out, reads):
+def phase_ordering(dev, out, reads, bases):
     """Explicit orderings end to end on the bench library at k = 35, m = 13,
     s = 3: signature, lexicographic and frequency (its table sampled on the
-    device that builds). Returns the launch counts of the whole path."""
+    device that builds). Returns the launch counts of the whole path; the
+    lexicographic indexes, built with their sidecars, go into `bases` for
+    classify2."""
     from slacken_tpu_torch import workloads
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
     from slacken_tpu_torch.ops import encode, ordering
@@ -1107,9 +1153,9 @@ def phase_ordering(dev, out, reads):
 
     total = {}
     for name in ("signature", "lexicographic", "frequency"):
-        idx, _, launches = card_against_cpu(
+        idx, _, launches, idx_cpu = card_against_cpu(
             dev, out, name, IndexParams(**kms, ordering=name), tax, library, reads, n_reads, 0.9,
-            frequency_table if name == "frequency" else None)
+            frequency_table if name == "frequency" else None, keep_records=name == "lexicographic")
         require_launches(f"{name} ordering: build, 3 classify runs", launches, ("scan_lut", "probe"),
                          ("scan", "scan_wide", "probe_wide"))
         add_launches(total, launches)
@@ -1118,7 +1164,353 @@ def phase_ordering(dev, out, reads):
             if not (np.array_equal(idx.keys, xor0.keys) and np.array_equal(idx.taxa, xor0.taxa)):
                 fail("the lexicographic index differs from an XOR build with toggle_mask = 0")
             log(f"lexicographic index == XOR build with toggle_mask = 0, key for key ({idx.num_records} records)")
+            bases["lexicographic"] = (idx, idx_cpu)
     return total
+
+
+def index_equal(a, b):
+    """Two indexes hold the same keys and taxa (wherever their tensors lie)."""
+    import torch
+
+    return (a.num_records == b.num_records and torch.equal(a.keys_t.cpu(), b.keys_t.cpu())
+            and torch.equal(a.taxa_t.cpu(), b.taxa_t.cpu()))
+
+
+def device_busy(fn, what, host_activity=False):
+    """fn's wall and the device's busy share of it (torch.profiler; kernel
+    and copy time summed, so an upper bound), with the leading device work.
+    `host_activity` also traces the host's operators, as the classify
+    profiles of the earlier phases always did. Returns fn's result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_activity
+                 else [ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if dev_ms > 0:
+        log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}% of "
+            "the wall, under the profiler); leading device work: " +
+            ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in rows[:6]))
+    else:
+        log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy not measured (the profiler saw no device time)")
+    return result
+
+
+def phase_classify2(dev, out, reads, bases):
+    """Two-step classification at bench size, card against CPU, for a narrow,
+    a wide (50, 45, 7) and a rank-table (35, 13, 3, lexicographic) base index
+    built with the full-records sidecar: reads from two of the three bench
+    genomes; every detection criterion and the gold set on the narrow index,
+    two criteria on the others, one of them with the dynamic index rebuilt
+    from the library (no sidecar); the taxon set file, kreports, per-read
+    files and --index-reports files must be byte-identical, and the dynamic
+    index equal between build_restricted, build(taxon_filter=) and the CPU.
+    Then the CLI's classify2, stats, inspect and respace on files written
+    here, and the statistics functions, card against CPU. The card's side
+    runs with the twins forbidden. Returns the card's launch counts."""
+    import torch
+
+    from slacken_tpu_torch import cli, dynamic, stats, workloads
+    from slacken_tpu_torch.classify import ClassifyParams, Fragment
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.inputs import GenomeLibrary
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    tax = workloads.bench_taxonomy()
+    genomes = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
+    lib_dir = os.path.join(out, "c2lib")
+    workloads.write_library(genomes, lib_dir)
+    lib = GenomeLibrary.from_directory(lib_dir)
+    present = [p for i, p in enumerate(reads) if i % 3 != 2]  # chunks of the first two genomes
+    n_reads = sum(len(p) for p in present)
+    want_set = set(list(workloads.BENCH_SIZES)[:2])
+    fragments = lambda: (Fragment(t, s) for t, s in workloads.read_sequences(present))  # noqa: E731
+    packed = lambda: iter(present)  # noqa: E731
+    gold_file = os.path.join(out, "c2gold.txt")
+    with open(gold_file, "w") as f:
+        f.write("".join(f"{t}\n" for t in sorted(want_set)))
+    total = {}
+    t0 = time.perf_counter()
+    bases["narrow"] = (KeyValueIndex.build(iter(genomes), IndexParams(k=35, m=31, spaces=7), tax, dev,
+                                           keep_records=True), bases["narrow"][1])
+    torch.cuda.synchronize()
+    idx = bases["narrow"][0]
+    log(f"bench build on the card with the full-records sidecar: {idx.num_records} records, "
+        f"{idx.record_taxa_t.shape[0]} (key, taxon) pairs in {time.perf_counter() - t0:.3f} s")
+    if idx.num_records != BENCH_RECORDS or not torch.equal(idx.record_keys_t.cpu(), bases["narrow"][1].record_keys_t):
+        fail("the bench build with keep_records differs in its records or its sidecar from the CPU's")
+
+    reads_c, total_c, distinct_c, fraction_c = (
+        dynamic.ClassifiedReadCount(100, 0.15), dynamic.MinimizerTotalCount(1000),
+        dynamic.MinimizerDistinctCount(500), dynamic.MinimizerFraction(0.01))
+    reports = dict(thresholds=[0.0, 0.15], per_read_output=False)
+    per_read = dict(thresholds=[0.0], per_read_output=True)
+    # (tag, criterion, gold set options, classify parameters, from the sidecar, --index-reports)
+    cases = {
+        "narrow": [("reads", reads_c, None, per_read, True, True), ("total", total_c, None, reports, True, False),
+                   ("distinct", distinct_c, None, reports, False, False),
+                   ("fraction", fraction_c, (gold_file, None, False), reports, True, False),
+                   ("gold", reads_c, (gold_file, None, True), reports, True, False)],
+        "wide": [("distinct", distinct_c, None, reports, True, True), ("reads", reads_c, None, per_read, False, False)],
+        "lexicographic": [("distinct", distinct_c, None, reports, True, True),
+                          ("reads", reads_c, None, per_read, False, False)],
+    }
+    kernels = {"narrow": ("scan", "probe"), "wide": ("scan_wide", "probe_wide"), "lexicographic": ("scan_lut", "probe")}
+    for kind, (card, host) in bases.items():
+        card.to(dev)
+        everything = set(tax.taxa())
+        if not index_equal(card.build_restricted(everything), card):
+            fail(f"classify2 {kind}: build_restricted over every taxon is not the base index")
+        for tag, criterion, gold, cpar, sidecar, index_reports in cases[kind]:
+            made = {}
+            for where, base, device in (("card", card, dev), ("cpu", host, "cpu")):
+                if not sidecar:  # the dynamic index by a rebuild from the library
+                    base = base.with_records(base.keys_t, base.taxa_t)
+                prefix = os.path.join(out, f"c2_{kind}_{tag}_{where}", "dyn")
+                dyn = dynamic.Dynamic(base, lib, 8, criterion, ClassifyParams(**cpar),
+                                      dynamic.GoldSetOptions(*gold) if gold else None, prefix, device)
+                if where == "card":
+                    cuda_kernels.reset_launch_counts()
+                    with twins_forbidden():
+                        t0 = time.perf_counter()
+                        made[where] = dyn.two_step_classify_and_write(fragments, index_reports, packed_factory=packed)
+                        torch.cuda.synchronize()
+                        card_s = time.perf_counter() - t0
+                    launches = dict(cuda_kernels.LAUNCHES)
+                    require_launches(f"classify2 {kind} {tag}", launches, kernels[kind],
+                                     [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide")
+                                      if k not in kernels[kind]])
+                    add_launches(total, launches)
+                    if made[where].keys_t.device.type != dev.type:
+                        fail(f"classify2 {kind} {tag}: the dynamic index left the card")
+                else:
+                    t0 = time.perf_counter()
+                    made[where] = dyn.two_step_classify_and_write(fragments, index_reports, packed_factory=packed)
+                    cpu_s = time.perf_counter() - t0
+            got = files_under(os.path.join(out, f"c2_{kind}_{tag}_card", "dyn"))
+            want = files_under(os.path.join(out, f"c2_{kind}_{tag}_cpu", "dyn"))
+            n_files = (0 if gold and gold[2] else 1) + len(cpar["thresholds"]) * (2 if cpar["per_read_output"] else 1) \
+                + (2 if index_reports else 0)
+            if got != want or len(got) != n_files:
+                fail(f"classify2 {kind} {tag}: the card wrote {sorted(got)}, the CPU {sorted(want)}, or their bytes differ")
+            # narrow keys tell the genomes apart: exactly the two sources; the 13-mers of the rank-table
+            # index are shared by chance, so there the absent genome may pass a minimizer criterion
+            used = want_set if gold and gold[2] else {int(x) for x in got["_taxonSet.txt"].split()}
+            if not want_set <= used or (kind != "lexicographic" and used != want_set):
+                fail(f"classify2 {kind} {tag}: detected {sorted(used)}, the reads come from {sorted(want_set)}")
+            if not index_equal(made["card"], made["cpu"]):
+                fail(f"classify2 {kind} {tag}: the dynamic index differs between the card and the CPU")
+            restricted = card.build_restricted(used)
+            rebuilt = KeyValueIndex.build(iter(genomes), card.params, tax, dev, taxon_filter=used,
+                                          ordering_lut=card.ordering_lut)
+            if not (index_equal(made["card"], restricted) and index_equal(restricted, rebuilt)):
+                fail(f"classify2 {kind} {tag}: build_restricted, build(taxon_filter=) and the run's index differ")
+            c, n = classified_count(os.path.join(out, f"c2_{kind}_{tag}_card", "dyn_c0.0" + ("0" if len(cpar["thresholds"]) > 1 else ""), "all_kreport.txt"))
+            log(f"classify2 {kind} {tag} ({criterion}{', gold set' if gold else ''}; dynamic index "
+                f"{'from the sidecar' if sidecar else 'rebuilt from the library'}): {len(got)} files byte-identical card "
+                f"vs CPU, {len(used)} taxa, dynamic index {made['card'].num_records} of {card.num_records} records equal "
+                f"by all three routes, classified {c} of {n}; {card_s:.2f} s on the card, {cpu_s:.1f} s on the CPU")
+            if n != n_reads or c < 0.8 * n_reads:
+                fail(f"classify2 {kind} {tag}: classified {c} of {n} reads, expected {n_reads}")
+
+    # the CLI on files: classify2 (default criterion, --index-reports), then stats, inspect and respace
+    card, host = bases["narrow"]
+    idx_dir, fastq = os.path.join(out, "c2idx_s7"), os.path.join(out, "c2reads.fastq")
+    card.save(idx_dir)
+    workloads.write_fastq(present[:2], fastq)  # one copy of the two genomes' reads
+    printed = {}
+    cuda_kernels.reset_launch_counts()
+    for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        runs = [
+            ["classify2", fastq, "-i", idx_dir, "-l", lib_dir, "-o", os.path.join(out, f"c2cli_{where}", "o"),
+             "-c", "0.0", "0.15", "--index-reports", "-R", "50"],
+            ["stats", "-i", idx_dir], ["stats", "-i", idx_dir, "--histogram"], ["stats", "-i", idx_dir, "-l", lib_dir],
+            ["inspect", "-i", idx_dir, "-l", lib_dir, "-o", os.path.join(out, f"c2cli_{where}", "inspect"),
+             "--labels", os.path.join(lib_dir, "seqid2taxid.map")],
+            ["respace", "-i", idx_dir, "-o", os.path.join(out, f"c2cli_{where}", "re_s7"), "--spaces", "9"],
+        ]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), (twins_forbidden() if where == "card" else contextlib.nullcontext()):
+            for argv in runs:
+                if cli.main([*argv, *extra]) != 0:
+                    fail(f"the CLI failed on the {where}: {argv}")
+        printed[where] = buf.getvalue().replace(f"c2cli_{where}", "c2cli")
+        if where == "card":
+            launches = dict(cuda_kernels.LAUNCHES)
+            require_launches("classify2, stats, inspect through the CLI", launches)
+            add_launches(total, launches)
+    got, want = files_under(os.path.join(out, "c2cli_card", "")), files_under(os.path.join(out, "c2cli_cpu", ""))
+    got = {k: v for k, v in got.items() if not k.endswith("params.json") and "taxonomy" not in k}
+    want = {k: v for k, v in want.items() if not k.endswith("params.json") and "taxonomy" not in k}
+    if got != want or len(got) != 12 or printed["card"] != printed["cpu"]:
+        fail(f"the CLI's classify2, stats, inspect or respace differ between the card and the CPU: files {sorted(got)}")
+    log("classify2 --index-reports, stats (plain, --histogram, -l), inspect (-l, --labels) and respace through "
+        f"cli.main: {len(got)} files and {len(printed['card'].splitlines())} printed lines equal card vs CPU; the card printed:")
+    for line in printed["card"].splitlines():
+        log("  | " + line)
+
+    # the statistics functions and respace, card against CPU (the narrow and the wide index)
+    for kind in ("narrow", "wide"):
+        card, host = bases[kind]
+        cuda_kernels.reset_launch_counts()
+        with twins_forbidden():
+            t0 = time.perf_counter()
+            on_card = (stats.depth_histograms(card), stats.taxon_full_coverage_stats(card, lib, dev),
+                       stats.total_kmer_count_report(card, lib, dev).lines())
+            spaced = card.respace(9)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
+        require_launches(f"stats on the {kind} bench index", launches, kernels[kind])
+        add_launches(total, launches)
+        t0 = time.perf_counter()
+        on_cpu = (stats.depth_histograms(host), stats.taxon_full_coverage_stats(host, lib, "cpu"),
+                  stats.total_kmer_count_report(host, lib, "cpu").lines())
+        if on_card != on_cpu or len(on_card[1]) != 3:
+            fail(f"depth_histograms, taxon_full_coverage_stats or the TKC report differ on the {kind} bench index")
+        if spaced.keys_t.device.type != dev.type or not index_equal(spaced, host.respace(9)):
+            fail(f"respace 7 -> 9 of the {kind} bench index differs between the card and the CPU")
+        log(f"stats on the {kind} bench index: depth histograms {on_card[0][0]}, coverage rows {on_card[1]}, TKC report "
+            f"of {len(on_card[2])} lines and respace 7 -> 9 ({card.num_records} -> {spaced.num_records} records) equal "
+            f"card vs CPU; {card_s:.2f} s on the card, {time.perf_counter() - t0:.1f} s on the CPU")
+    return total
+
+
+def phase_classify2_scale(dev, out, genomes):
+    """Two-step classification at full size: the 400 Mbp scale library under
+    a taxonomy with ranks (64 species in 16 genera in 4 families), the base
+    index built with its sidecar on the card, 200,000 reads from the eight
+    largest genomes. Prints the wall of every step and the device's busy
+    share, holds the restricted build against the rebuild from the library,
+    and the whole run's files against the CPU's (which starts from a host
+    copy of the card's base index: the CPU's twins would take many minutes to
+    build it). Returns the card's launch counts."""
+    import torch
+
+    from slacken_tpu_torch import dynamic, workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.ops.lookup import build_directory
+
+    class Library:
+        """The genome library interface over the strings made already."""
+
+        def taxa_sequences(self):
+            return iter(genomes)
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    tax = workloads.scale_taxonomy_deep(SCALE_TAXA)
+    params = IndexParams(k=35, m=31, spaces=7)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    with twins_forbidden():
+        t0 = time.perf_counter()
+        base = KeyValueIndex.build(iter(genomes), params, tax, dev, keep_records=True)
+        build_s = sync_s(t0)
+        n_pairs = base.record_taxa_t.shape[0]
+        log(f"scale build on the card with the full-records sidecar: {base.num_records} records "
+            f"({tensor_bytes(base.keys_t, base.taxa_t)} bytes), sidecar {n_pairs} (key, taxon) pairs "
+            f"({tensor_bytes(base.record_keys_t, base.record_taxa_t)} bytes) in {build_s:.2f} s "
+            f"({SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. host packing, the library made before); peak "
+            f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+        if base.num_records != SCALE_RECORDS or n_pairs < base.num_records:
+            fail(f"the scale index with keep_records holds {base.num_records} records and {n_pairs} pairs")
+        reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
+        n_reads = sum(len(p) for p in reads)
+        # step 1 takes Fragments: made here once, outside every wall below, as a caller's list would be
+        fragments = [Fragment(t, s) for t, s in workloads.read_sequences(reads)]
+        sources = {t for t, _ in genomes[:8]}
+        cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
+        default = dynamic.ClassifiedReadCount(100, 0.15)
+        dyn = dynamic.Dynamic(base, Library(), 8, default, cpar, None, os.path.join(out, "c2s_steps", "dyn"), dev)
+        dyn._classifier().classify_and_write_packed(reads[:1], os.path.join(out, "c2s_warm"), cpar)  # warm
+        t0 = time.perf_counter()
+        taxon_set = dyn.find_taxon_set(fragments, os.path.join(out, "c2s_steps", "dyn_taxonSet.txt"))
+        find_s = sync_s(t0)
+        if taxon_set != sources:
+            fail(f"classify2 at scale detected {sorted(taxon_set)}, the reads come from {sorted(sources)}")
+        t0 = time.perf_counter()
+        restricted = base.build_restricted(taxon_set)
+        restrict_s = sync_s(t0)
+        t0 = time.perf_counter()
+        rebuilt = KeyValueIndex.build(iter(genomes), params, tax, dev, taxon_filter=taxon_set)
+        rebuild_s = sync_s(t0)
+        if not index_equal(restricted, rebuilt):
+            fail("classify2 at scale: build_restricted differs from build(taxon_filter=) on the same library")
+        del rebuilt
+        t0 = time.perf_counter()
+        directory = build_directory(restricted.keys_t)
+        directory_s = sync_s(t0)
+        del directory
+        cls = Classifier(restricted, dev)
+        if cls._keys.data_ptr() != restricted.keys_t.data_ptr():
+            fail("classify2 at scale: the Classifier copied the dynamic index's keys")
+        t0 = time.perf_counter()
+        cls.classify_and_write_packed(iter(reads), os.path.join(out, "c2s_steps", "dyn"), cpar)
+        classify_s = sync_s(t0)
+        share = sum(len(s) for t, s in genomes if t in taxon_set) / sum(len(s) for _, s in genomes)
+        log(f"classify2 at scale, step by step ({default}): find taxon set {find_s:.3f} s ({n_reads / find_s:.1f} "
+            f"reads/s, {len(taxon_set)} taxa: the eight source species and no more, {100 * share:.1f}% of the "
+            f"library's bases); build_restricted {restrict_s:.4f} s for {restricted.num_records} of {base.num_records} "
+            f"records from {n_pairs} pairs; the same index by a rebuild from the library {rebuild_s:.3f} s "
+            f"({rebuild_s / restrict_s:.1f}x); directory {directory_s:.4f} s; final classify {classify_s:.3f} s "
+            f"({n_reads / classify_s:.1f} reads/s)")
+        del cls, restricted
+
+        whole = dynamic.Dynamic(base, Library(), 8, default, cpar, None, os.path.join(out, "c2s_card", "dyn"), dev)
+        t0 = time.perf_counter()
+        made = whole.two_step_classify_and_write(fragments, packed_factory=lambda: iter(reads))
+        whole_s = sync_s(t0)
+        log(f"classify2 at scale, the whole (two_step_classify_and_write, a list of Fragments for step 1, packed reads for "
+            f"the final pass): {whole_s:.3f} s, {n_reads / whole_s:.1f} reads/s end to end, dynamic index "
+            f"{made.num_records} records; peak torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+        prof = dynamic.Dynamic(base, Library(), 8, default, cpar, None, os.path.join(out, "c2s_prof", "dyn"), dev)
+        run_whole = lambda: prof.two_step_classify_and_write(fragments, packed_factory=lambda: iter(reads))  # noqa: E731
+        device_busy(run_whole, "classify2 at scale, the whole")
+        host_profile(run_whole, "classify2 at scale, the whole", top_n=10)
+        distinct = dynamic.Dynamic(base, Library(), 8, dynamic.MinimizerDistinctCount(1000), cpar, None,
+                                   os.path.join(out, "c2s_distinct", "dyn"), dev)
+        t0 = time.perf_counter()
+        by_distinct = distinct.find_taxon_set(fragments)
+        distinct_s = sync_s(t0)
+        device_busy(lambda: distinct.find_taxon_set(fragments), "classify2 at scale, find taxon set by distinct minimizers")
+        log(f"classify2 at scale, find taxon set by MinimizerDistinctCount(1000): {distinct_s:.3f} s "
+            f"({n_reads / distinct_s:.1f} reads/s), {len(by_distinct)} taxa")
+        if by_distinct != sources:
+            fail(f"classify2 at scale detected {sorted(by_distinct)} by distinct minimizers")
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("classify2 at scale", launches)
+
+    # the CPU's run, from a host copy of the card's base index and sidecar
+    t0 = time.perf_counter()
+    host = base.with_records(base.keys_t.cpu(), base.taxa_t.cpu())
+    host.record_keys_t, host.record_taxa_t = base.record_keys_t.cpu(), base.record_taxa_t.cpu()
+    on_cpu = dynamic.Dynamic(host, Library(), 8, default, cpar, None, os.path.join(out, "c2s_cpu", "dyn"), "cpu")
+    made_cpu = on_cpu.two_step_classify_and_write(fragments, packed_factory=lambda: iter(reads))
+    cpu_s = time.perf_counter() - t0
+    got, want = files_under(os.path.join(out, "c2s_card", "dyn")), files_under(os.path.join(out, "c2s_cpu", "dyn"))
+    if got != want or len(got) != 2 or not index_equal(made, made_cpu):
+        fail("classify2 at scale: the taxon set file, the kreport or the dynamic index differ between the card and the CPU")
+    if got != files_under(os.path.join(out, "c2s_steps", "dyn")):
+        fail("classify2 at scale: the run step by step wrote other files than two_step_classify_and_write")
+    c, n = classified_count(os.path.join(out, "c2s_card", "dyn_c0.0", "all_kreport.txt"))
+    log(f"classify2 at scale: taxon set file, kreport and dynamic index byte-identical card vs CPU (the CPU's run, "
+        f"from a host copy of the base index, took {cpu_s:.1f} s); classified {c} of {n}")
+    if n != n_reads or c < 0.99 * n_reads:
+        fail(f"classify2 at scale classified {c} of {n} reads")
+    return launches
 
 
 def main():
@@ -1167,10 +1559,15 @@ def main():
                "paired": phase_paired(dev, out, bench), "api": phase_api(dev, out, bench),
                "diagnostics": phase_diagnostics(dev)}
     reads = bench["reads"]
+    bases = {"narrow": (None, bench["idx_cpu"])}  # kind -> (card's, CPU's) base index with its sidecar
     del bench
-    by_path["scale"] = phase_scale(dev, out, results)
-    by_path["wide"] = phase_wide(dev, out, reads, results)
-    by_path["ordering"] = phase_ordering(dev, out, reads)
+    genomes = []
+    by_path["scale"] = phase_scale(dev, out, results, genomes)
+    by_path["wide"] = phase_wide(dev, out, reads, results, genomes, bases)
+    by_path["ordering"] = phase_ordering(dev, out, reads, bases)
+    by_path["classify2"] = phase_classify2(dev, out, reads, bases)
+    del bases
+    add_launches(by_path["classify2"], phase_classify2_scale(dev, out, genomes))
     shutil.rmtree(out, ignore_errors=True)
     for mod in ("jax", "slacken_tpu", "bench", "scale_bench"):
         if mod in sys.modules:

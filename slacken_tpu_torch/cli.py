@@ -1,8 +1,10 @@
 """Command-line interface of the port: `build` (--ordering for an explicit
-minimizer ordering, -m up to 63 for wide keys) and `classify` (per-read
-output by default, --no-detailed for reports only, -p for paired files).
-Run as `python -m slacken_tpu_torch.cli <subcommand>`; options match
-slacken_tpu's CLI, plus --device (default cuda)."""
+minimizer ordering, -m up to 63 for wide keys, --full-records for the
+sidecar that makes dynamic builds a filter), `classify` (per-read output by
+default, --no-detailed for reports only, -p for paired files), `classify2`
+(two-step classification with a dynamic index), `respace`, `stats` and
+`inspect`. Run as `python -m slacken_tpu_torch.cli <subcommand>`; options
+match slacken_tpu's CLI, plus --device (default cuda)."""
 
 from __future__ import annotations
 
@@ -28,21 +30,82 @@ def _build_parser():
     b.add_argument("--ordering", choices=["xor", "lexicographic", "signature", "frequency"], default="xor",
                    help="Minimizer ordering (default xor = Kraken 2-compatible RandomXOR; frequency samples "
                         "the library and prefers rare minimizers; signature = KMC2/3 signature ordering)")
-    b.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    b.add_argument("--full-records", action="store_true",
+                   help="Also store the full (minimizer, taxon) records, enabling fast dynamic (classify2) rebuilds")
+    _add_device(b)
 
     c = sub.add_parser("classify", help="Classify genomic sequences")
-    c.add_argument("-i", "--index", required=True, help="Index location")
-    c.add_argument("inputs", nargs="*", help="Sequence files to classify")
-    c.add_argument("--min-hits", type=int, default=2, help="Minimum hit groups (default 2)")
-    c.add_argument("-p", "--paired", action="store_true", help="Inputs are paired-end reads")
-    c.add_argument("--no-unclassified", action="store_true", help="Omit unclassified reads")
-    c.add_argument("-o", "--output", required=True, help="Output location")
-    c.add_argument("--no-detailed", action="store_true", help="Only reports, no per-read output")
-    c.add_argument("-c", "--confidence", type=float, nargs="+", default=[0.0],
-                   help="Confidence thresholds in [0,1]")
-    c.add_argument("--sample-regex", help="Regex extracting sample ID from read headers")
-    c.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    _add_classify_opts(c)
+
+    c2 = sub.add_parser("classify2", help="Two-step classification with a dynamic index built on the fly")
+    _add_classify_opts(c2)
+    c2.add_argument("-l", "--library", required=True, help="Genome library for dynamic index construction")
+    c2.add_argument("--rank", default="species", help="Granularity for index construction (default species)")
+    c2.add_argument("-C", "--min-count", type=int, help="Minimizer total count criterion")
+    c2.add_argument("-D", "--min-distinct", type=int, help="Minimizer distinct count criterion")
+    c2.add_argument("-R", "--reads", type=int, help="Classified read count criterion (default 100)")
+    c2.add_argument("-F", "--min-fraction", type=float,
+                    help="Minimizer fraction criterion: keep clades whose distinct hits "
+                         "cover >= this fraction of the clade's index minimizers")
+    c2.add_argument("--init-confidence", type=float, default=0.15, help="Confidence for step-1 classification")
+    c2.add_argument("--bracken-length", type=int, help="Read length for dynamic bracken weights (not ported yet)")
+    c2.add_argument("--index-reports", action="store_true", help="Report on the dynamic index")
+    c2.add_argument("--classify-with-gold", action="store_true", help="Use gold taxon set for the dynamic library")
+    c2.add_argument("-g", "--gold-set", help="Gold standard taxon set file")
+    c2.add_argument("--promote-gold-set", help="Promote unmatched gold taxa to this rank")
+
+    r = sub.add_parser("respace", help="Derive new indexes with more spaced-seed spaces")
+    r.add_argument("-i", "--index", required=True)
+    r.add_argument("-o", "--output", required=True)
+    r.add_argument("--spaces", type=int, nargs="+", required=True)
+    _add_device(r)
+
+    st = sub.add_parser("stats", help="Index statistics")
+    st.add_argument("-i", "--index", required=True)
+    st.add_argument("-l", "--library", help="Genome library for coverage check")
+    st.add_argument("--histogram", action="store_true", help="Taxonomic depth histograms")
+    _add_device(st)
+
+    ins = sub.add_parser("inspect", help="Generate index contents reports")
+    ins.add_argument("-i", "--index", required=True)
+    ins.add_argument("-l", "--library")
+    ins.add_argument("-o", "--output", required=True)
+    ins.add_argument("--labels", help="Label file to check for missing taxa")
+    _add_device(ins)
     return ap
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+
+
+def _add_classify_opts(p):
+    p.add_argument("-i", "--index", required=True, help="Index location")
+    p.add_argument("inputs", nargs="*", help="Sequence files to classify")
+    p.add_argument("--min-hits", type=int, default=2, help="Minimum hit groups (default 2)")
+    p.add_argument("-p", "--paired", action="store_true", help="Inputs are paired-end reads")
+    p.add_argument("--no-unclassified", action="store_true", help="Omit unclassified reads")
+    p.add_argument("-o", "--output", required=True, help="Output location")
+    p.add_argument("--no-detailed", action="store_true", help="Only reports, no per-read output")
+    p.add_argument("-c", "--confidence", type=float, nargs="+", default=[0.0],
+                   help="Confidence thresholds in [0,1]")
+    p.add_argument("--sample-regex", help="Regex extracting sample ID from read headers")
+    _add_device(p)
+
+
+def _cpar(args):
+    from .classify import ClassifyParams
+
+    for c in args.confidence:
+        if c < 0 or c > 1:
+            sys.exit(f"--confidence values must be in [0, 1] ({c} was given)")
+    return ClassifyParams(
+        min_hit_groups=args.min_hits,
+        with_unclassified=not args.no_unclassified,
+        thresholds=list(args.confidence),
+        sample_regex=args.sample_regex,
+        per_read_output=not args.no_detailed,
+    )
 
 
 def main(argv=None):
@@ -78,14 +141,15 @@ def cmd_build(args, device):
         counts = ordering.sample_mmer_counts(
             (encode.encode_seq(seq) for _, seq in lib.taxa_sequences()), params.minimizer_params, device)
         ordering_lut = ordering.frequency_lut(counts, args.m)
-    idx = KeyValueIndex.build(lib.taxa_sequences(), params, tax, device, ordering_lut=ordering_lut)
+    idx = KeyValueIndex.build(lib.taxa_sequences(), params, tax, device, ordering_lut=ordering_lut,
+                              keep_records=args.full_records)
     idx.save(args.index)
     print(f"Saved {idx.num_records} records to {args.index}")
     return 0
 
 
 def cmd_classify(args, device):
-    from .classify import Classifier, ClassifyParams
+    from .classify import Classifier
     from .index import KeyValueIndex
     from .inputs import (
         MatesOutOfOrder,
@@ -95,16 +159,7 @@ def cmd_classify(args, device):
         packed_reads_from_file,
     )
 
-    for c in args.confidence:
-        if c < 0 or c > 1:
-            sys.exit(f"--confidence values must be in [0, 1] ({c} was given)")
-    cpar = ClassifyParams(
-        min_hit_groups=args.min_hits,
-        with_unclassified=not args.no_unclassified,
-        thresholds=list(args.confidence),
-        sample_regex=args.sample_regex,
-        per_read_output=not args.no_detailed,
-    )
+    cpar = _cpar(args)  # validate before any heavy work
     idx = KeyValueIndex.load(args.index)
     cls = Classifier(idx, device)
     files = expand_file_list(args.inputs)
@@ -126,7 +181,128 @@ def cmd_classify(args, device):
     return 0
 
 
-COMMANDS = {"build": cmd_build, "classify": cmd_classify}
+def cmd_classify2(args, device):
+    from .dynamic import Dynamic, GoldSetOptions, criteria_from_args
+    from .index import KeyValueIndex
+    from .inputs import (
+        GenomeLibrary,
+        MatesOutOfOrder,
+        expand_file_list,
+        fragments_from_files,
+        packed_pairs_from_files,
+        packed_reads_from_file,
+    )
+    from .taxonomy import RANK_DEPTH
+
+    cpar = _cpar(args)
+    idx = KeyValueIndex.load(args.index).to(device)
+    lib = GenomeLibrary.from_directory(args.library)
+    gold = None
+    if args.gold_set:
+        promote = RANK_DEPTH.get(args.promote_gold_set) if args.promote_gold_set else None
+        gold = GoldSetOptions(args.gold_set, promote, args.classify_with_gold)
+    dyn = Dynamic(idx, lib, RANK_DEPTH.get(args.rank, 8), criteria_from_args(args), cpar, gold,
+                  args.output, device)
+    files_factory = lambda: fragments_from_files(args.inputs, paired=args.paired, k=idx.params.k)  # noqa: E731
+    # the final classification takes the native packed streaming path (the
+    # same writer the 1-step CLI uses); the dynamic-criteria pass keeps the
+    # Fragment stream (it feeds the span-hit counting)
+    files = expand_file_list(args.inputs)
+    if not args.paired:
+        packed_factory = lambda: (p for path in files for p in packed_reads_from_file(path))  # noqa: E731
+        dyn.two_step_classify_and_write(files_factory, args.index_reports, args.bracken_length,
+                                        packed_factory=packed_factory)
+        return 0
+    packed_factory = lambda: (p for f1, f2 in zip(files[0::2], files[1::2])  # noqa: E731
+                              for p in packed_pairs_from_files(f1, f2))
+    try:
+        dyn.two_step_classify_and_write(files_factory, args.index_reports, args.bracken_length,
+                                        packed_factory=packed_factory)
+    except MatesOutOfOrder:
+        # only the pairing reader's own error: run again with the reader that
+        # joins mates by id in the final pass too; any other error propagates
+        dyn.two_step_classify_and_write(files_factory, args.index_reports, args.bracken_length)
+    return 0
+
+
+def cmd_respace(args, device):
+    from .index import KeyValueIndex
+
+    idx = KeyValueIndex.load(args.index).to(device)
+    for s in args.spaces:
+        out = args.output.replace("_s%d" % idx.params.spaces, "_s%d" % s)
+        if out == args.output:
+            out = f"{args.output}_s{s}"
+        new = idx.respace(s)
+        new.save(out)
+        print(f"Respaced to s={s}: {new.num_records} records at {out}")
+        _show_index_stats(new)
+    return 0
+
+
+def _show_index_stats(idx):
+    per_taxon = idx.records_per_taxon()
+    leaf = {t: c for t, c in per_taxon.items() if idx.taxonomy.is_leaf(t)}
+    tree_size = idx.taxonomy.count_distinct_taxa_with_ancestors(per_taxon.keys())
+    total = sum(per_taxon.values())
+    leaf_total = sum(leaf.values())
+    print(
+        f"Tree size: {tree_size} taxa, stored taxa: {len(per_taxon)}, of which "
+        f"{len(leaf)} leaf taxa ({100.0 * len(leaf) / max(len(per_taxon), 1):.2f}%)"
+    )
+    print(
+        f"Total {idx.params.m}-minimizers: {total}, of which leaf records: "
+        f"{leaf_total} ({100.0 * leaf_total / max(total, 1):.2f}%)"
+    )
+
+
+def cmd_stats(args, device):
+    from .index import KeyValueIndex
+    from .stats import depth_histograms, show_coverage_stats
+
+    idx = KeyValueIndex.load(args.index).to(device)
+    p = idx.params
+    print(f"Index {args.index}: k={p.k} m={p.m} spaces={p.spaces} "
+          f"toggle=0x{p.toggle_mask:x} canonical={p.canonical} records={idx.num_records}")
+    if args.histogram:
+        kmer_h, taxon_h = depth_histograms(idx)
+        print("Minimizer depth histogram")
+        for depth, rank, count in kmer_h:
+            print(f"  {depth}\t{rank}\t{count}")
+        print("Taxon depth histogram")
+        for depth, rank, count in taxon_h:
+            print(f"  {depth}\t{rank}\t{count}")
+    else:
+        _show_index_stats(idx)
+        if args.library:
+            from .inputs import GenomeLibrary
+
+            show_coverage_stats(idx, GenomeLibrary.from_directory(args.library), device)
+    return 0
+
+
+def cmd_inspect(args, device):
+    from .index import KeyValueIndex
+    from .stats import write_inspect_reports
+
+    idx = KeyValueIndex.load(args.index).to(device)
+    lib = None
+    if args.library:
+        from .inputs import GenomeLibrary
+
+        lib = GenomeLibrary.from_directory(args.library)
+    write_inspect_reports(idx, args.output, labels=args.labels, library=lib, device=device)
+    return 0
+
+
+COMMANDS = {
+    "build": cmd_build,
+    "classify": cmd_classify,
+    "classify2": cmd_classify2,
+    "respace": cmd_respace,
+    "stats": cmd_stats,
+    "inspect": cmd_inspect,
+}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,368 @@
+"""Two-step dynamic classification (counterpart of slacken_tpu/dynamic.py;
+reference: Dynamic.scala), on one device.
+
+Step 1: detect a taxon set present in the sample, by one of four criteria
+(total minimizer hits, distinct minimizer hits, the distinct hits' share of
+the index, or classified read counts against the base index). Step 2: build
+a sample-tailored index restricted to that taxon set (plus descendants) and
+classify all reads against it.
+
+The span hits behind the minimizer criteria are made and counted on the
+device: the scan kernel, the probe kernel, one mask (span start, found, deep
+enough) and a select; only the per-taxon counts reach the host. The dynamic
+index comes from the base index's full-records sidecar where it has one
+(`KeyValueIndex.build_restricted`, no second scan of the genomes), else from
+the library with a taxon filter; either way its keys and taxa stay on the
+device and the final classification probes them there.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import torch
+
+from . import get_device, to_device
+from .classify import Classifier, ClassifyParams, Fragment, _row_length_bucket
+from .index import KeyValueIndex, distinct_pairs, taxon_counts
+from .ops import encode
+from .ops.lookup import probe
+from .ops.minimizers import window_minimizers_packed
+from .report import TreeAggregator
+from .taxonomy import Taxonomy
+from .utils import Timer
+
+
+@dataclass(frozen=True)
+class MinimizerTotalCount:
+    """Include taxa with >= threshold total minimizer hits (Dynamic.scala:34)."""
+
+    threshold: int
+
+
+@dataclass(frozen=True)
+class MinimizerDistinctCount:
+    """Include taxa with >= threshold distinct minimizer hits (Dynamic.scala:37)."""
+
+    threshold: int
+
+
+@dataclass(frozen=True)
+class ClassifiedReadCount:
+    """Include taxa with >= threshold classified reads at the given
+    confidence (Dynamic.scala:41)."""
+
+    threshold: int
+    confidence: float
+
+
+@dataclass(frozen=True)
+class MinimizerFraction:
+    """Include taxa whose clade-aggregated distinct minimizer hits cover
+    >= threshold fraction of the clade's minimizers in the index.
+
+    The reference DECLARES this criterion (Dynamic.scala:43) but leaves its
+    counting method unimplemented (`???`, Dynamic.scala:255); these are this
+    framework's semantics, chosen to be self-consistent: the numerator is
+    the sample's distinct (minimizer, LCA taxon) hit count, the denominator
+    the index's minimizer count per LCA taxon, both clade-aggregated with
+    TreeAggregator — so a clade is kept when the sample has touched at least
+    `threshold` of the index content that can possibly vote for it."""
+
+    threshold: float
+
+
+@dataclass
+class GoldSetOptions:
+    """User-supplied gold taxon set (Dynamic.scala:62)."""
+
+    taxon_file: str
+    promote_rank_depth: Optional[int]
+    classify_with: bool
+
+
+def criteria_from_args(args):
+    if getattr(args, "min_count", None):
+        return MinimizerTotalCount(args.min_count)
+    if getattr(args, "reads", None):
+        return ClassifiedReadCount(args.reads, args.init_confidence)
+    if getattr(args, "min_distinct", None):
+        return MinimizerDistinctCount(args.min_distinct)
+    if getattr(args, "min_fraction", None):
+        return MinimizerFraction(args.min_fraction)
+    return ClassifiedReadCount(100, getattr(args, "init_confidence", 0.15))
+
+
+class Dynamic:
+    """Two-step classification (Dynamic.scala:78) on `device`."""
+
+    def __init__(
+        self,
+        base: KeyValueIndex,
+        genomes,
+        reclassify_rank_depth: int,
+        criteria,
+        cpar: ClassifyParams,
+        gold: Optional[GoldSetOptions],
+        output_location: str,
+        device="cuda",
+    ):
+        self.base = base
+        self.genomes = genomes
+        self.rank_depth = reclassify_rank_depth
+        self.criteria = criteria
+        self.cpar = cpar
+        self.gold = gold
+        self.output = output_location
+        self.device = get_device(device)
+        self._base_classifier: Optional[Classifier] = None
+
+    @property
+    def taxonomy(self) -> Taxonomy:
+        return self.base.taxonomy
+
+    def _classifier(self) -> Classifier:
+        """The base index's Classifier, made once: it puts the index and its
+        directory on the device."""
+        if self._base_classifier is None:
+            self._base_classifier = Classifier(self.base, self.device)
+        return self._base_classifier
+
+    # -- counting methods (Dynamic.scala:95-142) ----------------------------
+
+    def _span_hits(self, fragments: Sequence[Fragment]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-span (minimizer key, LCA taxon) pairs against the base index,
+        for spans whose taxon is at depth >= the reclassify rank, as tensors
+        on the device: int64 [S] keys (int64 [S, 2] rows of (hi64, lo64) for
+        a wide index) and int32 [S] taxa."""
+        idx = self.base
+        mp = idx.params.minimizer_params
+        cls = self._classifier()
+        keys, taxa, directory = idx.device_arrays(self.device)
+        lut = idx.device_lut(self.device)
+        depth = torch.from_numpy(self.taxonomy.depth_std).to(self.device)
+        out_keys: List[torch.Tensor] = []
+        out_taxa: List[torch.Tensor] = []
+        for bucket, frags in _bucketize(fragments, cls):
+            packed, valid = encode.pack_2bit(cls._pack_rows(frags, bucket).codes)
+            wm = window_minimizers_packed(
+                to_device(packed, self.device), to_device(valid, self.device), mp, lut)
+            b, l = wm.valid.shape
+            looked = probe(keys, taxa, directory, wm.minimizer.flatten(0, 1)).reshape(b, l)
+            # span_start implies valid: the scan sets it on valid windows only
+            # (kernels and twin alike), and an invalid window's -1 finds nothing
+            keep = wm.span_start & (looked > 0) & (depth[looked.long()] >= self.rank_depth)
+            out_keys.append(wm.minimizer[keep])
+            out_taxa.append(looked[keep])
+        if not out_keys:
+            return (
+                torch.zeros((0, 2) if idx.wide else 0, dtype=torch.int64, device=self.device),
+                torch.zeros(0, dtype=torch.int32, device=self.device),
+            )
+        return torch.cat(out_keys), torch.cat(out_taxa)
+
+    def total_minimizers_per_taxon(self, fragments) -> Dict[int, int]:
+        return taxon_counts(self._span_hits(fragments)[1])
+
+    def distinct_minimizers_per_taxon(self, fragments) -> Dict[int, int]:
+        return taxon_counts(distinct_pairs(*self._span_hits(fragments))[1])
+
+    def classified_reads_per_taxon(self, fragments, confidence: float) -> Dict[int, int]:
+        cpar = ClassifyParams(
+            min_hit_groups=self.cpar.min_hit_groups,
+            thresholds=[confidence],
+            per_read_output=False,
+        )
+        reads = self._classifier().classify(fragments, cpar)[confidence]
+        counts: Dict[int, int] = {}
+        for r in reads:
+            if r.classified:
+                counts[r.taxon] = counts.get(r.taxon, 0) + 1
+        return counts
+
+    # -- taxon set detection (Dynamic.scala:189-280) ------------------------
+
+    def count_filter(self, counts: Dict[int, int], threshold: int) -> Set[int]:
+        """Clade-aggregated counts >= threshold at depth >= rank
+        (CountFilter, Dynamic.scala:191-201)."""
+        agg = TreeAggregator(self.taxonomy, counts.items())
+        return {
+            t
+            for t in agg.clade_totals
+            if self.taxonomy.depth(t) >= self.rank_depth
+            and agg.clade_totals[t] >= threshold
+        }
+
+    def fraction_filter(self, counts: Dict[int, int], threshold: float) -> Set[int]:
+        """Clade hit fraction of the clade's index minimizers >= threshold
+        at depth >= rank (the MinimizerFraction criterion — see its
+        docstring; the reference declares but never implements it,
+        Dynamic.scala:255)."""
+        tax = self.taxonomy
+        hits = TreeAggregator(tax, counts.items()).clade_totals
+        denom = TreeAggregator(tax, self.base.records_per_taxon().items()).clade_totals
+        return {
+            x
+            for x, h in hits.items()
+            if tax.depth(x) >= self.rank_depth
+            and h >= threshold * denom.get(x, float("inf"))
+        }
+
+    def find_taxon_set(self, fragments, write_location: Optional[str] = None) -> Set[int]:
+        t = Timer("Find taxon set in subjects")
+        c = self.criteria
+        if isinstance(c, MinimizerTotalCount):
+            counts = self.total_minimizers_per_taxon(fragments)
+            keep = self.count_filter(counts, c.threshold)
+        elif isinstance(c, MinimizerDistinctCount):
+            counts = self.distinct_minimizers_per_taxon(fragments)
+            keep = self.count_filter(counts, c.threshold)
+        elif isinstance(c, MinimizerFraction):
+            counts = self.distinct_minimizers_per_taxon(fragments)
+            keep = self.fraction_filter(counts, c.threshold)
+        elif isinstance(c, ClassifiedReadCount):
+            counts = self.classified_reads_per_taxon(fragments, c.confidence)
+            keep = self.count_filter(counts, c.threshold)
+        else:
+            raise ValueError(f"Unsupported criterion {c}")
+
+        if write_location:
+            os.makedirs(os.path.dirname(write_location) or ".", exist_ok=True)
+            with open(write_location, "w") as f:
+                for x in sorted(keep):
+                    f.write(f"{x}\n")
+
+        if self.gold is not None:
+            gold_set = self.read_gold_set()
+            tp = len(keep & gold_set)
+            fp = len(keep - gold_set)
+            fn = len(gold_set - keep)
+            prec = tp / (tp + fp) if tp + fp else 0.0
+            rec = tp / len(gold_set) if gold_set else 0.0
+            print(
+                f"Comparing detected set with supplied gold set. True Positives: {tp}, "
+                f"False Positives: {fp}, False Negatives: {fn}, "
+                f"Precision: {prec * 100:.2f}%, Recall: {rec * 100:.2f}%"
+            )
+
+        with_desc = self.taxonomy.taxa_with_descendants(keep)
+        t.finish()
+        print(
+            f"Detected set: initial scan (criterion {c}) produced {len(keep)} taxa, "
+            f"expanded with descendants to {len(with_desc)}"
+        )
+        return with_desc
+
+    def read_gold_set(self) -> Set[int]:
+        """Read + canonicalise the gold set, promoting taxa missing from the
+        library up their lineage (Dynamic.scala:284-312)."""
+        tax = self.taxonomy
+        with open(self.gold.taxon_file) as f:
+            gold = {
+                int(tax.primary[int(line.strip().split(",")[0])])
+                for line in f
+                if line.strip()
+            }
+        print(f"Gold set contained {len(gold)} taxa")
+        lib_set = self.genomes.taxon_set(tax)
+        not_found = gold - lib_set
+        promoted = set()
+        for t in not_found:
+            for p in tax.path_to_root(t):
+                if p in lib_set:
+                    promoted.add(p)
+                    break
+        print(f"{len(not_found)} taxa from gold set not found in library, promoted to {len(promoted)} taxa.")
+        if self.gold.promote_rank_depth is not None:
+            kept_promoted = {t for t in promoted if tax.depth(t) >= self.gold.promote_rank_depth}
+        else:
+            kept_promoted = set()
+        total = gold | promoted
+        filtered = {t for t in total if tax.depth(t) >= self.rank_depth} | kept_promoted
+        print(f"Initial adjusted gold set size {len(total)}, filtered to {len(filtered)}")
+        return filtered
+
+    # -- two-step pipeline (Dynamic.scala:320-374) --------------------------
+
+    def make_records(self, fragments) -> Tuple[KeyValueIndex, Set[int]]:
+        """(the dynamic index, its taxon set). The index's keys and taxa are
+        made, and stay, on the device."""
+        if self.gold is not None and self.gold.classify_with:
+            taxon_set = self.taxonomy.taxa_with_descendants(self.read_gold_set())
+        else:
+            taxon_set = self.find_taxon_set(fragments, self.output + "_taxonSet.txt")
+
+        t = Timer("Build dynamic index")
+        if self.base.record_keys_t is not None:
+            # fast path: filter + re-reduce the base index's full records
+            dynamic = self.base.build_restricted(taxon_set, self.device)
+        else:
+            dynamic = KeyValueIndex.build(
+                self.genomes.taxa_sequences(),
+                self.base.params,
+                self.taxonomy,
+                self.device,
+                taxon_filter=taxon_set,
+                ordering_lut=self.base.ordering_lut,
+            )
+        t.finish()
+        return dynamic, taxon_set
+
+    def two_step_classify_and_write(
+        self,
+        fragments,
+        dynamic_reports: bool = False,
+        bracken_read_length: Optional[int] = None,
+        packed_factory=None,
+    ):
+        """fragments: a sequence of Fragments, or a zero-arg callable
+        returning a fresh iterator (streaming mode — reads are re-read for
+        each of the two passes instead of being held in memory, like the
+        reference re-evaluating its reads Dataset, Dynamic.scala:320-324).
+
+        packed_factory: optional zero-arg callable yielding native
+        PackedReads batches for the SAME reads — the final classification
+        then takes the fast streaming path (classify_and_write_packed, the
+        same writer the 1-step CLI uses)."""
+        if bracken_read_length:
+            raise NotImplementedError("bracken weights are not ported yet (ROADMAP.md)")
+        if callable(fragments):
+            factory = fragments
+        else:
+            frags_list = list(fragments)
+            factory = lambda: iter(frags_list)  # noqa: E731
+        dynamic_index, used_taxa = self.make_records(factory())
+        print(f"Dynamic index: {dynamic_index.num_records} records, {len(used_taxa)} taxa")
+
+        if dynamic_reports:
+            from .stats import write_inspect_reports
+
+            write_inspect_reports(dynamic_index, self.output + "_dynamic")
+
+        t = Timer("Classify reads")
+        cls = Classifier(dynamic_index, self.device)
+        if packed_factory is not None:
+            cls.classify_and_write_packed(packed_factory(), self.output, self.cpar)
+        else:
+            cls.classify_and_write(factory(), self.output, self.cpar)
+        t.finish()
+        return dynamic_index
+
+
+def _bucketize(fragments: Sequence[Fragment], cls: Classifier):
+    """(row width, fragments) batches by length bucket; a pair takes one row,
+    its mates joined by one INVALID code."""
+    pending: Dict[int, List[Fragment]] = {}
+    for f in fragments:
+        n = len(f.seq) + (len(f.seq2) + 1 if f.seq2 is not None else 0)
+        bucket = _row_length_bucket(n)
+        lst = pending.setdefault(bucket, [])
+        lst.append(f)
+        if len(lst) >= cls._rows_target(bucket):
+            yield bucket, lst
+            pending[bucket] = []
+    for bucket, lst in pending.items():
+        if lst:
+            yield bucket, lst

@@ -8,6 +8,8 @@ Same on-disk layout, so each package loads the other's index:
                             2m-bit key, sorted by its value
     <loc>/taxa.npy          int32  [N]
     <loc>/ordering_lut.npy  uint32 [4^m] rank table, explicit orderings only
+    <loc>/record_keys.npy   uint64 [R] or [R, 2], record_taxa.npy int32 [R]:
+                            the full-records sidecar of a keep_records build
     <loc>/taxonomy/         nodes.dmp, names.dmp, merged.dmp
 
 With an explicit ordering (ops/ordering.py, m <= 15) a key is the rank of
@@ -20,15 +22,22 @@ of its span's start, so these records hold exactly each sequence's distinct
 valid-window minimizers; LCA ignores order and duplicates, so no
 (key, taxon) pair sort or dedup is needed.
 
+A keep_records build also keeps the distinct (key, taxon) pairs, sorted by
+key and then taxon (one more stable sort pass, the taxon first): the sidecar
+from which `build_restricted` makes the index of a taxon subset by a mask, a
+select and the same run reduce, without a second scan of the genomes.
+`respace` is one mask over the keys, a sort and that reduce again.
+
 IndexParams and the host-side fragment splitting follow
 slacken_tpu/index.py's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +46,14 @@ from . import storage, to_device
 from .ops import encode, ordering
 from .ops.lca import segment_lca_table
 from .ops.lookup import Directory, build_directory
-from .ops.minimizers import DEFAULT_TOGGLE_MASK, MinimizerParams, window_minimizers_packed
+from .ops.minimizers import (
+    DEFAULT_TOGGLE_MASK,
+    INT64_MIN,
+    MinimizerParams,
+    limbs_int64,
+    space_mask_int,
+    window_minimizers_packed,
+)
 from .taxonomy import Taxonomy
 
 FORMAT_VERSION = 1
@@ -110,16 +126,66 @@ def _rank_table(params: IndexParams, ordering_lut: Optional[np.ndarray]) -> Opti
     return ordering_lut.astype(np.uint32)
 
 
-def _sort_records(keys: torch.Tensor, taxa: torch.Tensor):
-    """(keys, taxa) sorted by key. Wide keys [R, 2] sort by (hi64, lo64
-    unsigned): torch.sort takes one key, so lo64 first, its sign bit flipped,
-    then hi64 with a stable sort."""
-    if keys.dim() == 1:
+def sort_order(*columns: torch.Tensor) -> torch.Tensor:
+    """The permutation that sorts rows by integer columns, the first the most
+    significant. torch.sort takes one key: one pass a column from the last
+    to the first, every pass after the first a stable one."""
+    order = torch.sort(columns[-1]).indices
+    for col in reversed(columns[:-1]):
+        order = order[torch.sort(col[order], stable=True).indices]
+    return order
+
+
+def key_columns(keys: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The sort columns of keys: the key, or for wide keys [R, 2] hi64 and
+    lo64 with its sign bit flipped (lo64 orders unsigned)."""
+    return (keys,) if keys.dim() == 1 else (keys[:, 0], keys[:, 1] ^ INT64_MIN)
+
+
+def _sort_records(keys: torch.Tensor, taxa: torch.Tensor, by_taxon: bool = False):
+    """(keys, taxa) sorted by key, and with `by_taxon` by taxon among equal
+    keys (the order of slacken_tpu's dedup_pairs and dedup_pairs_wide)."""
+    if keys.dim() == 1 and not by_taxon:
         keys, order = torch.sort(keys)
         return keys, taxa[order]
-    order = torch.sort(keys[:, 1] ^ -(1 << 63)).indices
-    order = order[torch.sort(keys[order, 0], stable=True).indices]
+    order = sort_order(*key_columns(keys), *((taxa,) if by_taxon else ()))
     return keys[order], taxa[order]
+
+
+def _differs(x: torch.Tensor) -> torch.Tensor:
+    """bool [R - 1]: row i + 1 of x ([R] or [R, 2]) differs from row i."""
+    d = x[1:] != x[:-1]
+    return d.any(1) if x.dim() == 2 else d
+
+
+def distinct_pairs(keys: torch.Tensor, taxa: torch.Tensor):
+    """The distinct (key, taxon) pairs, sorted by key and then taxon: a sort
+    (one stable pass a column) and an adjacent-difference select."""
+    keys, taxa = _sort_records(keys, taxa, by_taxon=True)
+    if keys.shape[0] == 0:
+        return keys, taxa
+    new = torch.ones_like(taxa, dtype=torch.bool)
+    new[1:] = _differs(keys) | _differs(taxa)
+    return keys[new], taxa[new]
+
+
+def taxon_counts(taxa: torch.Tensor) -> Dict[int, int]:
+    """taxon -> occurrences, in taxon order, counted where `taxa` lies."""
+    t, c = torch.unique(taxa, return_counts=True)
+    return dict(zip(t.tolist(), c.tolist()))
+
+
+def _reduce_sorted(keys: torch.Tensor, taxa: torch.Tensor, taxonomy: Taxonomy):
+    """(distinct keys, the LCA of each key's taxa) of records sorted by key:
+    the tail that build, build_restricted and respace share."""
+    if keys.shape[0] == 0:
+        return keys, taxa
+    new = torch.ones_like(taxa, dtype=torch.bool)
+    new[1:] = _differs(keys)
+    run_ids = torch.cumsum(new, 0) - 1
+    uniq = keys[new]
+    table = torch.from_numpy(taxonomy.rpath_table()).to(keys.device)
+    return uniq, segment_lca_table(run_ids, taxa, table, int(uniq.shape[0]))
 
 
 def _default_batch(device: torch.device) -> Tuple[int, int]:
@@ -129,11 +195,14 @@ def _default_batch(device: torch.device) -> Tuple[int, int]:
     return (8192, 1 << 12) if device.type == "cuda" else (512, 1 << 12)
 
 
-def _batches(fragments, params: IndexParams, taxonomy: Taxonomy, batch_rows: int,
-             row_len: int):
-    """Host side of the build: (codes [batch_rows, row_len] uint8, row taxa)
-    batches, splitting sequences longer than row_len with k-1 overlap and
-    skipping taxa the taxonomy does not define (as slacken_tpu's build)."""
+def _batches(fragments, params: IndexParams, taxonomy: Optional[Taxonomy], batch_rows: int,
+             row_len: int, taxon_filter: Optional[Set[int]] = None):
+    """Host side of the build: (codes [batch_rows, row_len] uint8, row taxa
+    [batch_rows] int32, number of rows in use) batches, splitting sequences
+    longer than row_len with k-1 overlap and skipping taxa the taxonomy does
+    not define, or that lie outside `taxon_filter` when one is given (as
+    slacken_tpu's build). Without a taxonomy every sequence goes in under
+    the taxon it came with (the library scan of stats.py)."""
     rows: List[np.ndarray] = []
     row_taxa: List[int] = []
 
@@ -142,15 +211,19 @@ def _batches(fragments, params: IndexParams, taxonomy: Taxonomy, batch_rows: int
         for r, seq in enumerate(rows):
             codes[r, : len(seq)] = seq
         taxa = np.zeros(batch_rows, np.int32)
-        taxa[: len(row_taxa)] = row_taxa
+        n = len(row_taxa)
+        taxa[:n] = row_taxa
         rows.clear()
         row_taxa.clear()
-        return codes, taxa
+        return codes, taxa, n
 
     step = row_len - (params.k - 1)
     for taxon, seq in fragments:
-        taxon = int(taxonomy.primary[taxon]) if taxon < len(taxonomy.primary) else taxon
-        if not taxonomy.is_defined(taxon):
+        if taxonomy is not None:
+            taxon = int(taxonomy.primary[taxon]) if taxon < len(taxonomy.primary) else taxon
+            if not taxonomy.is_defined(taxon):
+                continue
+        if taxon_filter is not None and taxon not in taxon_filter:
             continue
         if isinstance(seq, str):
             seq = encode.encode_seq(seq)
@@ -168,7 +241,10 @@ class KeyValueIndex:
     Keys and taxa live as torch tensors on one device: int64 [N] keys (every
     key is below 2^62), or for a wide m int64 [N, 2] rows holding the bit
     patterns of (hi64, lo64). The host arrays materialise on demand.
-    `ordering_lut` is the uint32 rank table of an explicit ordering."""
+    `ordering_lut` is the uint32 rank table of an explicit ordering.
+    `record_keys_t` and `record_taxa_t` are the full-records sidecar of a
+    keep_records build (distinct (key, taxon) pairs sorted by key, then
+    taxon; keys shaped like `keys_t`), or None."""
 
     def __init__(self, keys: torch.Tensor, taxa: torch.Tensor, params: IndexParams,
                  taxonomy: Taxonomy, location: Optional[str] = None,
@@ -183,6 +259,8 @@ class KeyValueIndex:
         self.taxonomy = taxonomy
         self.location = location
         self.ordering_lut = ordering_lut
+        self.record_keys_t: Optional[torch.Tensor] = None
+        self.record_taxa_t: Optional[torch.Tensor] = None
         self._on = {}
         self._luts = {}
 
@@ -203,6 +281,24 @@ class KeyValueIndex:
     @property
     def taxa(self) -> np.ndarray:
         return self.taxa_t.cpu().numpy()
+
+    @property
+    def record_keys(self) -> Optional[np.ndarray]:
+        """Host uint64 keys of the sidecar, [R] or [R, 2]; None without one."""
+        return None if self.record_keys_t is None else self.record_keys_t.cpu().numpy().view(np.uint64)
+
+    @property
+    def record_taxa(self) -> Optional[np.ndarray]:
+        return None if self.record_taxa_t is None else self.record_taxa_t.cpu().numpy()
+
+    def to(self, device) -> "KeyValueIndex":
+        """Move the keys, the taxa and the sidecar to `device`, in place."""
+        device = torch.device(device)
+        self.keys_t, self.taxa_t = self.keys_t.to(device), self.taxa_t.to(device)
+        if self.record_keys_t is not None:
+            self.record_keys_t = self.record_keys_t.to(device)
+            self.record_taxa_t = self.record_taxa_t.to(device)
+        return self
 
     def device_arrays(self, device) -> Tuple[torch.Tensor, torch.Tensor, Directory]:
         """(keys, taxa, prefix directory) on `device`, copied or built there once."""
@@ -232,9 +328,13 @@ class KeyValueIndex:
         batch_rows: Optional[int] = None,
         row_len: Optional[int] = None,
         ordering_lut: Optional[np.ndarray] = None,
+        taxon_filter: Optional[Set[int]] = None,
+        keep_records: bool = False,
     ) -> "KeyValueIndex":
         """Build from (taxon, sequence) pairs on `device`. `ordering_lut` is
-        the rank table of a "frequency" or "given" ordering."""
+        the rank table of a "frequency" or "given" ordering; `taxon_filter`
+        drops sequences whose taxon is outside the set (dynamic builds);
+        `keep_records` keeps the full-records sidecar for build_restricted."""
         device = torch.device(device)
         mp = params.minimizer_params.validate()
         ordering_lut = _rank_table(params, ordering_lut)
@@ -247,32 +347,87 @@ class KeyValueIndex:
         if row_len % 8 or row_len < params.k:
             raise ValueError(f"row_len must be a multiple of 8 and >= k, got {row_len}")
         keys_parts, taxa_parts = [], []
-        for codes, row_taxa in _batches(fragments, params, taxonomy, batch_rows, row_len):
+        for codes, row_taxa, _ in _batches(fragments, params, taxonomy, batch_rows, row_len, taxon_filter):
             packed, valid = encode.pack_2bit(codes)
             wm = window_minimizers_packed(to_device(packed, device), to_device(valid, device), mp, lut)
             rt = torch.from_numpy(row_taxa).to(device)
             keys_parts.append(wm.minimizer[wm.span_start])
             taxa_parts.append(rt[:, None].expand(-1, row_len)[wm.span_start])
-        if not keys_parts:
-            empty = torch.zeros((0, 2) if mp.wide else 0, dtype=torch.int64, device=device)
-            no_taxa = torch.zeros(0, dtype=torch.int32, device=device)
-            return cls(empty, no_taxa, params, taxonomy, None, ordering_lut)
-        keys = torch.cat(keys_parts)
-        taxa = torch.cat(taxa_parts)
+        if keys_parts:
+            keys = torch.cat(keys_parts)
+            taxa = torch.cat(taxa_parts)
+        else:
+            keys = torch.zeros((0, 2) if mp.wide else 0, dtype=torch.int64, device=device)
+            taxa = torch.zeros(0, dtype=torch.int32, device=device)
         del keys_parts, taxa_parts
-        keys, taxa = _sort_records(keys, taxa)
-        new = torch.ones_like(taxa, dtype=torch.bool)
-        differs = keys[1:] != keys[:-1]
-        new[1:] = differs.any(1) if mp.wide else differs
-        del differs
-        run_ids = torch.cumsum(new, 0) - 1
-        uniq = keys[new]
-        table = torch.from_numpy(taxonomy.rpath_table()).to(device)
-        red = segment_lca_table(run_ids, taxa, table, int(uniq.shape[0]))
+        keys, taxa = distinct_pairs(keys, taxa) if keep_records else _sort_records(keys, taxa)
+        uniq, red = _reduce_sorted(keys, taxa, taxonomy)
         idx = cls(uniq, red, params, taxonomy, None, ordering_lut)
+        if keep_records:
+            idx.record_keys_t, idx.record_taxa_t = keys, taxa
         if lut is not None:
             idx._luts[device] = lut  # the build's copy serves classify on this device
         return idx
+
+    def with_records(self, keys, taxa) -> "KeyValueIndex":
+        """An index of these sorted keys and taxa (tensors, or host arrays in
+        the on-disk dtypes) with this one's parameters, taxonomy, location and
+        rank table."""
+        if isinstance(keys, np.ndarray):
+            keys = torch.from_numpy(np.ascontiguousarray(keys, np.uint64).view(np.int64))
+        if isinstance(taxa, np.ndarray):
+            taxa = torch.from_numpy(np.ascontiguousarray(taxa, np.int32))
+        return KeyValueIndex(keys, taxa, self.params, self.taxonomy, self.location, self.ordering_lut)
+
+    def build_restricted(self, taxon_set: Set[int], device=None) -> "KeyValueIndex":
+        """The index of the sequences whose taxon is in `taxon_set`, from the
+        full-records sidecar without a second scan of the genomes: the fast
+        path of two-step classification. All on `device` (default: where the
+        sidecar lies; a sidecar elsewhere is copied there for this call): a
+        bool table over the taxonomy in place of a set lookup, a mask select
+        (the sidecar is sorted already) and the build's run reduce. The
+        result's keys and taxa stay on the device."""
+        if self.record_keys_t is None:
+            raise ValueError("index was built/saved without full records")
+        device = self.record_keys_t.device if device is None else torch.device(device)
+        rec_keys, rec_taxa = self.record_keys_t.to(device), self.record_taxa_t.to(device)
+        size = len(self.taxonomy.parents)
+        allowed = np.zeros(size, bool)
+        allowed[[t for t in taxon_set if 0 <= t < size]] = True
+        mask = torch.from_numpy(allowed).to(device)[rec_taxa.long()]
+        keys, taxa = _reduce_sorted(rec_keys[mask], rec_taxa[mask], self.taxonomy)
+        return KeyValueIndex(keys, taxa, self.params, self.taxonomy, None, self.ordering_lut)
+
+    def respace(self, spaces: int) -> "KeyValueIndex":
+        """Project this index to a larger number of spaced-seed spaces and
+        reduce again (KeyValueIndex.scala:353-382): an index with s spaces
+        holds all that one with s' > s needs. Where the keys lie. The mask of
+        a wide key splits over its two limbs."""
+        if spaces <= self.params.spaces:
+            raise ValueError(
+                f"Respacing must increase spaces (was {self.params.spaces}, got {spaces})"
+            )
+        if self.params.ordering != "xor":
+            # rank-table keys are opaque ranks; re-masking them is meaningless
+            raise NotImplementedError("respace requires the xor ordering")
+        keys, taxa = self.keys_t, self.taxa_t
+        mask = space_mask_int(self.params.m, spaces)
+        if self.wide:
+            hi, lo = limbs_int64(mask)
+            keys = torch.stack([keys[:, 0] & hi, keys[:, 1] & lo], dim=1)
+        else:
+            keys = keys & mask
+        keys, taxa = _reduce_sorted(*_sort_records(keys, taxa), self.taxonomy)
+        return KeyValueIndex(keys, taxa, dataclasses.replace(self.params, spaces=spaces), self.taxonomy)
+
+    def records_per_taxon(self) -> Dict[int, int]:
+        """taxon -> number of stored minimizers, in taxon order; counted on
+        the index's device."""
+        return taxon_counts(self.taxa_t)
+
+    def distinct_minimizers_per_taxon(self) -> Dict[int, int]:
+        # keys are unique already, so this equals records_per_taxon
+        return self.records_per_taxon()
 
     # -- persistence --------------------------------------------------------
 
@@ -286,6 +441,9 @@ class KeyValueIndex:
         storage.np_save(storage.join(location, "taxa.npy"), self.taxa)
         if self.ordering_lut is not None:
             storage.np_save(storage.join(location, "ordering_lut.npy"), self.ordering_lut)
+        if self.record_keys_t is not None:
+            storage.np_save(storage.join(location, "record_keys.npy"), self.record_keys)
+            storage.np_save(storage.join(location, "record_taxa.npy"), self.record_taxa)
         self.taxonomy.save(storage.join(location, "taxonomy"))
         self.location = location
 
@@ -305,7 +463,14 @@ class KeyValueIndex:
         lut = None
         if storage.exists(storage.join(location, "ordering_lut.npy")):
             lut = storage.np_load(storage.join(location, "ordering_lut.npy"), mmap=False).astype(np.uint32)
-        return cls(
+        idx = cls(
             torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), params,
             taxonomy, location, lut,
         )
+        rk = storage.join(location, "record_keys.npy")
+        if storage.exists(rk):
+            rec_keys = storage.np_load(rk, mmap=False).astype(np.uint64)
+            rec_taxa = storage.np_load(storage.join(location, "record_taxa.npy"), mmap=False).astype(np.int32)
+            idx.record_keys_t = torch.from_numpy(rec_keys.view(np.int64))
+            idx.record_taxa_t = torch.from_numpy(rec_taxa)
+        return idx

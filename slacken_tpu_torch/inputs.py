@@ -302,3 +302,12 @@ class GenomeLibrary:
     def taxa_sequences(self) -> Iterator[Tuple[int, str]]:
         for taxon, _, seq in self.sequences():
             yield taxon, seq
+
+    def taxon_set(self, taxonomy) -> set:
+        """All label taxa (canonicalised) closed upward to root
+        (GenomeLibrary.scala:35-44)."""
+        base = set()
+        for t in self.labels.values():
+            if t < len(taxonomy.primary):
+                base.add(int(taxonomy.primary[t]))
+        return taxonomy.taxa_with_ancestors([t for t in base if taxonomy.is_defined(t)])

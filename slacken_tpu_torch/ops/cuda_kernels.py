@@ -43,6 +43,8 @@ LAUNCHES: Dict[str, int] = {
 }
 
 _lib = None
+#: (device, stream) -> [the sum_bool kernel's two counters, the next launch's parity]
+_sum_bool_counters: Dict[tuple, list] = {}
 #: (seconds, compiler output) of the build this process ran, if any
 build_info: Optional[tuple] = None
 
@@ -116,7 +118,7 @@ def _load():
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
-        fn.argtypes = [p, p, p, i64, i64, p] if name == "sum_bool" else [p, p, i64, i64, p]
+        fn.argtypes = [p, p, p, i32, i64, i64, p] if name == "sum_bool" else [p, p, i64, i64, p]
         fn.restype = i32
     _lib = lib
     return lib
@@ -249,8 +251,15 @@ def mask_idiom_cuda(name: str, x: torch.Tensor, out: Optional[torch.Tensor] = No
     lib = _load()
     fn = getattr(lib, f"stpu_mask_{name}")
     if name == "sum_bool":
-        total = torch.empty(1, dtype=torch.int32, device=x.device)
-        rc = fn(x.data_ptr(), out.data_ptr(), total.data_ptr(), rows, cols, _stream(x))
+        # two counters a stream, zeroed once: the kernel alternates between
+        # them by launch parity and zeroes the one its successor will use
+        key = (x.device, _stream(x))
+        if key not in _sum_bool_counters:
+            _sum_bool_counters[key] = [torch.zeros(2, dtype=torch.int32, device=x.device), 0]
+        state = _sum_bool_counters[key]
+        rc = fn(x.data_ptr(), out.data_ptr(), state[0].data_ptr(), state[1], rows, cols, _stream(x))
+        if rc == 0:
+            state[1] ^= 1
     else:
         rc = fn(x.data_ptr(), out.data_ptr(), rows, cols, _stream(x))
     _check(rc, name)

@@ -11,16 +11,26 @@
 // Design. One thread per element, 256 threads a block. The row shifts of
 // k_concat (left by 1) and k_carry (right by 16) index by column inside the
 // row, never by flat offset, and read the neighbour from global memory: it
-// is on a line the warp or its neighbour loads anyway. k_sum_bool sums over
-// the whole array, so it is two kernels in stream order: a count (warp
-// shuffle, then shared memory, then one atomicAdd a block into a zeroed int)
-// and an add that reads the finished count.
+// is on a line the warp or its neighbour loads anyway.
+//
+// k_sum_bool sums over the whole array before any element can be written, so
+// it is one cooperative kernel whose grid meets at a barrier: every block
+// counts its grid-strided share (warp shuffle, then shared memory, then one
+// atomicAdd a block), the grid syncs, and every thread adds the total to its
+// elements, which it reads a second time from L2. The grid is sized from the
+// occupancy so that every block is resident (a cooperative launch refuses any
+// other), and 16 bytes a thread a step where the pointers allow it. The
+// counter needs no memset: two counters alternate by launch parity, and a
+// launch zeroes the one the next launch will use.
 //
 // Bound: bytes. Each element is read once and written once (8 bytes an
 // element) against one compare and one select.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -67,28 +77,44 @@ carry_kernel(const int* __restrict__ x, int* __restrict__ out, long long n, long
   out[i] = take ? pv : v;
 }
 
+// counters: two int32 in device memory, both 0 before the first launch;
+// launches on one stream alternate `parity`. Wraps like int32 addition in the
+// plain twin.
 __global__ void __launch_bounds__(THREADS)
-count_kernel(const int* __restrict__ x, long long n, int* __restrict__ total) {
+sum_bool_kernel(const int* __restrict__ x, int* __restrict__ out, long long n, long long nvec,
+                int* counters, int parity) {
   __shared__ int warp_sums[THREADS / 32];
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  int c = (i < n && x[i] > THRESHOLD) ? 1 : 0;
+  cg::grid_group grid = cg::this_grid();
+  if (blockIdx.x == 0 && threadIdx.x == 0) counters[parity ^ 1] = 0;
+  const long long first = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long stride = (long long)gridDim.x * THREADS;
+  const int4* __restrict__ x4 = reinterpret_cast<const int4*>(x);
+  int c = 0;
+  for (long long i = first; i < nvec; i += stride) {
+    const int4 v = x4[i];
+    c += (v.x > THRESHOLD) + (v.y > THRESHOLD) + (v.z > THRESHOLD) + (v.w > THRESHOLD);
+  }
+  for (long long i = 4 * nvec + first; i < n; i += stride) c += x[i] > THRESHOLD;
   for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
   __syncthreads();
   if (threadIdx.x < 32) {
     c = threadIdx.x < THREADS / 32 ? warp_sums[threadIdx.x] : 0;
     for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
-    if (threadIdx.x == 0 && c != 0) atomicAdd(total, c);
+    if (threadIdx.x == 0 && c != 0) atomicAdd(counters + parity, c);
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-add_count_kernel(const int* __restrict__ x, int* __restrict__ out, long long n,
-                 const int* __restrict__ total) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  // wraps like int32 addition in the plain twin
-  out[i] = (int)((unsigned)x[i] + (unsigned)*total);
+  grid.sync();
+  const unsigned total = (unsigned)__ldcg(counters + parity);
+  int4* __restrict__ out4 = reinterpret_cast<int4*>(out);
+  for (long long i = first; i < nvec; i += stride) {
+    int4 v = __ldcg(x4 + i);
+    v.x = (int)((unsigned)v.x + total);
+    v.y = (int)((unsigned)v.y + total);
+    v.z = (int)((unsigned)v.z + total);
+    v.w = (int)((unsigned)v.w + total);
+    out4[i] = v;
+  }
+  for (long long i = 4 * nvec + first; i < n; i += stride) out[i] = (int)((unsigned)x[i] + total);
 }
 
 inline unsigned blocks_for(long long n) { return (unsigned)((n + THREADS - 1) / THREADS); }
@@ -132,18 +158,36 @@ extern "C" int stpu_mask_carry(const void* x, void* out, long long rows, long lo
   return (int)cudaGetLastError();
 }
 
-// total: one int32 of scratch in device memory; zeroed here, on the stream.
-extern "C" int stpu_mask_sum_bool(const void* x, void* out, void* total, long long rows,
-                                  long long cols, void* stream) {
-  const long long n = rows * cols;
+// counters: two int32 of device memory that this stream's launches share
+// (see sum_bool_kernel). The grid is at most what the card holds resident.
+extern "C" int stpu_mask_sum_bool(const void* x, void* out, void* counters, int parity,
+                                  long long rows, long long cols, void* stream) {
+  long long n = rows * cols;
   if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t rc = cudaMemsetAsync(total, 0, sizeof(int), s);
+  static int resident_dev = -1, resident_blocks = 0;
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
   if (rc != cudaSuccess) return (int)rc;
-  count_kernel<<<blocks_for(n), THREADS, 0, s>>>((const int*)x, n, (int*)total);
-  rc = cudaGetLastError();
-  if (rc != cudaSuccess) return (int)rc;
-  add_count_kernel<<<blocks_for(n), THREADS, 0, s>>>((const int*)x, (int*)out, n,
-                                                     (const int*)total);
-  return (int)cudaGetLastError();
+  if (dev != resident_dev) {
+    int per_sm = 0, sms = 0;
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sum_bool_kernel, THREADS, 0);
+    if (rc != cudaSuccess) return (int)rc;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc != cudaSuccess) return (int)rc;
+    resident_blocks = per_sm * sms;
+    resident_dev = dev;
+  }
+  const bool aligned = ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  long long nvec = aligned ? n / 4 : 0;
+  const long long work = nvec > n - 4 * nvec ? nvec : n - 4 * nvec;
+  long long blocks = (work + THREADS - 1) / THREADS;
+  if (blocks > resident_blocks) blocks = resident_blocks;
+  if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+  const int* xp = (const int*)x;
+  int* op = (int*)out;
+  int* cp = (int*)counters;
+  void* args[] = {&xp, &op, &n, &nvec, &cp, &parity};
+  rc = cudaLaunchCooperativeKernel((const void*)sum_bool_kernel, dim3((unsigned)blocks),
+                                   dim3(THREADS), args, 0, (cudaStream_t)stream);
+  return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
 }

@@ -1,10 +1,41 @@
-"""Host-side pipeline utilities (counterpart of slacken_tpu/utils.py; the
-timers and tracing hooks of that module are not used by this package)."""
+"""Host-side pipeline utilities (counterpart of slacken_tpu/utils.py: the
+named-task timer and the prefetch iterator; the phase timers and tracing
+hooks of that module are not used by this package)."""
 
 from __future__ import annotations
 
 import queue
+import sys
 import threading
+import time
+from typing import Optional
+
+
+class Timer:
+    """Named task timer, printing Start/Finish lines to stderr like the
+    reference."""
+
+    def __init__(self, task: str, quiet: bool = False):
+        self.task = task
+        self.quiet = quiet
+        self.start = time.time()
+        self.elapsed: Optional[float] = None
+        if not quiet:
+            print(f"Start task: {task}", file=sys.stderr)
+
+    def finish(self) -> float:
+        self.elapsed = time.time() - self.start
+        if not self.quiet:
+            s = int(self.elapsed)
+            print(f"Finish task: {self.task} [{s // 60} min {s % 60} s]", file=sys.stderr)
+        return self.elapsed
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.finish()
+        return False
 
 
 def prefetch_iterator(it, depth: int = 2):

@@ -7,6 +7,7 @@ library, 131,190,899 for the 400 Mbp scale library at k=35 m=31 s=7).
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, List, Tuple
 
 import numpy as np
@@ -57,6 +58,19 @@ def scale_taxonomy(n_taxa: int) -> Taxonomy:
     return _star_taxonomy(range(10, 10 + n_taxa))
 
 
+def scale_taxonomy_deep(n_taxa: int) -> Taxonomy:
+    """scale_library's species (taxa 10, 11, ...) four to a genus (1000,
+    1001, ...) and four genera to a family (2000, ...) under the root, with
+    the standard rank names, so that a species stands at depth 8 and two-step
+    classification has ranks to work with."""
+    genera, families = -(-n_taxa // 4), -(-n_taxa // 16)
+    nodes = [(1, 1, "root")]
+    nodes += [(2000 + f, 1, "family") for f in range(families)]
+    nodes += [(1000 + g, 2000 + g // 4, "genus") for g in range(genera)]
+    nodes += [(10 + i, 1000 + i // 4, "species") for i in range(n_taxa)]
+    return Taxonomy.from_nodes_and_names(nodes, [(t, f"taxon{t}") for t, _, _ in nodes])
+
+
 def _simulated(seq: str, rng, n: int, taxon: int) -> native.PackedReads:
     """n reads of READ_LEN bp from random offsets of seq with 1% mutated
     bases, in 128-wide rows, titled sim<taxon>_<i>."""
@@ -79,17 +93,47 @@ def bench_reads(n_copies: int = 8) -> List[native.PackedReads]:
     return sim * n_copies
 
 
-def scale_reads(total_bp: int, n_taxa: int, n_reads: int = 200_000) -> List[native.PackedReads]:
+def scale_reads(total_bp: int, n_taxa: int, n_reads: int = 200_000, library=None) -> List[native.PackedReads]:
     """The scale run's simulated reads: n_reads spread over the first 2 Mbp
-    of each of the first eight genomes of scale_library(total_bp, n_taxa)."""
+    of each of the first eight genomes of scale_library(total_bp, n_taxa),
+    or of `library`, those genomes made already."""
     rng = np.random.default_rng(READ_SEED)
     n_src = min(n_taxa, 8)
     sim = []
-    for j, (taxon, seq) in enumerate(scale_library(total_bp, n_taxa)):
+    for j, (taxon, seq) in enumerate(library or scale_library(total_bp, n_taxa)):
         if j >= n_src:
             break
         sim.append(_simulated(seq[:2_000_000], rng, n_reads // n_src, taxon))
     return sim
+
+
+_LETTERS = np.frombuffer(b"ACGTN", np.uint8)
+
+
+def read_sequences(reads: List[native.PackedReads]) -> Iterator[Tuple[str, str]]:
+    """(title, sequence) of every read of packed single-read chunks."""
+    for p in reads:
+        for title, codes, n in zip(p.titles, p.codes, p.lengths):
+            yield title, _LETTERS[codes[:n]].tobytes().decode("ascii")
+
+
+def write_fastq(reads: List[native.PackedReads], path: str) -> None:
+    """Write packed single-read chunks as one FASTQ file."""
+    with open(path, "w") as f:
+        for title, seq in read_sequences(reads):
+            f.write(f"@{title}\n{seq}\n+\n{'I' * len(seq)}\n")
+
+
+def write_library(genomes, location: str) -> None:
+    """Write (taxon, sequence) genomes as a genome library directory:
+    library/g<i>.fna with one sequence each and seqid2taxid.map."""
+    os.makedirs(os.path.join(location, "library"), exist_ok=True)
+    with open(os.path.join(location, "seqid2taxid.map"), "w") as labels:
+        for i, (taxon, seq) in enumerate(genomes):
+            with open(os.path.join(location, "library", f"g{i}.fna"), "w") as f:
+                f.write(f">seq{i}\n")
+                f.writelines(seq[a : a + 80] + "\n" for a in range(0, len(seq), 80))
+            labels.write(f"seq{i}\t{taxon}\n")
 
 
 def bench_pairs(n_pairs: int, seed: int = READ_SEED) -> List[Tuple[str, str, str]]:

@@ -263,3 +263,95 @@ def test_mask_idiom_kernel_rejects_what_it_does_not_take(cuda):
 
 def test_kernel_probe_says_ok(cuda):
     assert diagnostics.kernel_probe(cuda) == {name: "ok" for name in cuda_kernels.MASK_IDIOMS}
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((5, 16), 0),         # under one block
+    ((8, 128), 0),
+    ((4096, 128), 0),     # the diagnostics' shape: one int4 a thread
+    ((16384, 128), 0),    # more vectors than the resident grid has threads: several grid-stride rounds
+    ((1201, 1001), 1),    # off a 16-byte boundary: the scalar path, several rounds, an odd tail
+])
+def test_sum_bool_cooperative_kernel_matches_twin(cuda, shape, offset):
+    """The one-kernel k_sum_bool at five shapes, launched three times in a row
+    (its two counters alternate by launch parity and are never memset)."""
+    rng = np.random.default_rng(shape[0])
+    n = shape[0] * shape[1]
+    flat = rng.integers(0, 129, n + offset).astype(np.int32)
+    flat[offset : offset + 3] = [np.iinfo(np.int32).max, np.iinfo(np.int32).min, 65]
+    x = torch.from_numpy(flat).to(cuda)[offset:].view(shape)
+    want = mask_idioms.sum_bool_plain(torch.from_numpy(flat[offset:]).view(shape))
+    before = cuda_kernels.LAUNCHES["sum_bool"]
+    for _ in range(3):
+        assert torch.equal(mask_idioms.run("sum_bool", x).cpu(), want)
+    assert cuda_kernels.LAUNCHES["sum_bool"] == before + 3
+    other = torch.cuda.Stream()
+    with torch.cuda.stream(other):  # another stream has counters of its own
+        got = mask_idioms.run("sum_bool", x)
+    other.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def _small_library(kind):
+    """(taxonomy, genomes, index parameters) of six 3 kbp genomes, 2.6 kbp of
+    each its own and 400 bp shared within its genus, under a two-level
+    taxonomy with species at depth 8."""
+    from slacken_tpu_torch.index import IndexParams
+    from slacken_tpu_torch.taxonomy import Taxonomy
+
+    rng = np.random.default_rng(12)
+    nodes = [(1, 1, "root"), (100, 1, "genus"), (101, 1, "genus")]
+    nodes += [(10 + i, 100 + i // 3, "species") for i in range(6)]
+    tax = Taxonomy.from_nodes_and_names(nodes, [(t, f"t{t}") for t, _, _ in nodes])
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    own, shared = rng.integers(0, 4, (6, 2600)), rng.integers(0, 4, (2, 400))
+    genomes = [(10 + i, letters[np.concatenate([own[i], shared[i // 3]])].tobytes().decode()) for i in range(6)]
+    params = {"narrow": IndexParams(), "wide": IndexParams(k=50, m=45, spaces=7),
+              "lexicographic": IndexParams(k=21, m=11, spaces=2, ordering="lexicographic")}[kind]
+    return tax, genomes, params
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_restricted_build_respace_and_span_hits_on_the_card(cuda, kind, tmp_path):
+    """build_restricted, respace and Dynamic._span_hits on cuda against the
+    same on the CPU; the restricted index stays on the card."""
+    from slacken_tpu_torch import dynamic
+    from slacken_tpu_torch.classify import ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    tax, genomes, params = _small_library(kind)
+    on = {d: KeyValueIndex.build(iter(genomes), params, tax, d, keep_records=True) for d in ("cpu", cuda)}
+    assert torch.equal(on[cuda].record_keys_t.cpu(), on["cpu"].record_keys_t)
+    assert torch.equal(on[cuda].record_taxa_t.cpu(), on["cpu"].record_taxa_t)
+    taxon_set = {10, 11, 14, 100}
+    got, want = on[cuda].build_restricted(taxon_set), on["cpu"].build_restricted(taxon_set)
+    assert got.keys_t.device.type == "cuda" and 0 < got.num_records < on[cuda].num_records
+    assert torch.equal(got.keys_t.cpu(), want.keys_t) and torch.equal(got.taxa_t.cpu(), want.taxa_t)
+    from_host = on["cpu"].build_restricted(taxon_set, cuda)  # a sidecar on the host, reduced on the card
+    assert from_host.keys_t.device.type == "cuda" and torch.equal(from_host.keys_t.cpu(), want.keys_t)
+    rebuilt = KeyValueIndex.build(iter(genomes), params, tax, cuda, taxon_filter=taxon_set)
+    assert torch.equal(rebuilt.keys_t, got.keys_t) and torch.equal(rebuilt.taxa_t, got.taxa_t)
+    if kind != "lexicographic":
+        a, b = on[cuda].respace(params.spaces + 4), on["cpu"].respace(params.spaces + 4)
+        assert a.keys_t.device.type == "cuda" and 0 < a.num_records <= on[cuda].num_records and a.params.spaces == params.spaces + 4
+        assert torch.equal(a.keys_t.cpu(), b.keys_t) and torch.equal(a.taxa_t.cpu(), b.taxa_t)
+    frags = [Fragment(f"r{i}", genomes[i % 3][1][i * 20 : i * 20 + 101]) for i in range(100)]
+    frags += [Fragment(f"p{i}", genomes[4][1][i * 10 : i * 10 + 90], genomes[4][1][i * 10 + 200 : i * 10 + 300])
+              for i in range(50)]
+    hits = {}
+    for d in ("cpu", cuda):
+        dyn = dynamic.Dynamic(on[d], None, 8, dynamic.MinimizerDistinctCount(5), ClassifyParams(), None,
+                              str(tmp_path / str(d)), d)
+        before = dict(cuda_kernels.LAUNCHES)
+        keys, taxa = dyn._span_hits(frags)
+        launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
+        scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
+        assert launched == ({} if d == "cpu" else {scan: 2, "probe_wide" if kind == "wide" else "probe": 2})
+        assert keys.device.type == torch.device(d).type
+        hits[d] = (keys.cpu(), taxa.cpu(), dyn.distinct_minimizers_per_taxon(frags),
+                   dyn.total_minimizers_per_taxon(frags))
+    from slacken_tpu_torch.index import distinct_pairs
+    assert len(hits[cuda][1]) > 100 and hits[cuda][2:] == hits["cpu"][2:]
+    for a, b in zip(distinct_pairs(*hits[cuda][:2]), distinct_pairs(*hits["cpu"][:2])):
+        assert torch.equal(a, b)
+    assert torch.equal(hits[cuda][0], hits["cpu"][0]) and torch.equal(hits[cuda][1], hits["cpu"][1])

@@ -107,6 +107,53 @@ def test_prefetch_iterator_order_and_errors():
         next(it)
 
 
+def test_timer_lines_match(capsys, monkeypatch):
+    import slacken_tpu.utils as jutils
+
+    clock = iter([100.0, 225.4, 100.0, 225.4, 7.0, 7.5])
+    for mod in (utils, jutils):
+        monkeypatch.setattr(mod.time, "time", lambda: next(clock))
+    outs = []
+    for mod in (utils, jutils):
+        t = mod.Timer("Build dynamic index")
+        assert t.finish() == pytest.approx(125.4) and t.elapsed == pytest.approx(125.4)
+        outs.append(capsys.readouterr())
+    assert outs[0] == outs[1] and outs[0].out == ""
+    assert outs[0].err == "Start task: Build dynamic index\nFinish task: Build dynamic index [2 min 5 s]\n"
+    with utils.Timer("quiet", quiet=True) as t:
+        pass
+    assert t.elapsed == 0.5 and capsys.readouterr().err == ""
+
+
+def test_genome_library_taxon_set_matches(rng, tmp_path):
+    import slacken_tpu.inputs as jinputs
+    from slacken_tpu_torch import inputs
+
+    tax = random_taxonomy(rng, size=80)
+    taxa = [int(t) for t in rng.choice(list(tax.taxa()), 6, replace=False)]
+    labels = tmp_path / "seqid2taxid.map"
+    labels.write_text("".join(f"s{i}\t{t}\n" for i, t in enumerate(taxa + [10_000_000, 0])) + "no taxon\n")
+    got = inputs.GenomeLibrary([], str(labels)).taxon_set(tax)
+    assert got == jinputs.GenomeLibrary([], str(labels)).taxon_set(tax)
+    assert set(taxa) <= got and 1 in got and 10_000_000 not in got and len(got) > len(taxa)
+
+
+def test_dynamic_criteria_and_gold_options_match():
+    import dataclasses
+
+    import slacken_tpu.dynamic as jdynamic
+    from slacken_tpu_torch import dynamic
+
+    for name, args in (("MinimizerTotalCount", (5,)), ("MinimizerDistinctCount", (7,)),
+                       ("ClassifiedReadCount", (100, 0.15)), ("MinimizerFraction", (0.25,)),
+                       ("GoldSetOptions", ("gold.txt", 7, True))):
+        a, b = getattr(dynamic, name)(*args), getattr(jdynamic, name)(*args)
+        assert repr(a) == repr(b) and dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert [f.name for f in dataclasses.fields(a)] == [f.name for f in dataclasses.fields(b)]
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        dynamic.MinimizerTotalCount(5).threshold = 6
+
+
 def _fastq(rng, n, width):
     lut = np.frombuffer(b"ACGTNacgtRU", np.uint8)
     recs = []

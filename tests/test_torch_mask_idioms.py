@@ -56,6 +56,8 @@ BODIES = {"select": k_select, "astype": k_astype, "concat": k_concat, "carry": k
 
 
 def _input(kind):
+    if kind == "long":  # more elements than one wave of the sum_bool kernel's resident grid, an odd tail
+        return np.random.default_rng(5).integers(0, 129, (1201, 1001)).astype(np.int32)
     if kind == "ramp":  # the TPU experiment's own input
         return np.arange(8 * 128, dtype=np.int32).reshape(8, 128)
     rng = np.random.default_rng(11)
@@ -73,7 +75,7 @@ def test_names_agree():
     assert set(cuda_kernels.MASK_IDIOMS) <= set(cuda_kernels.LAUNCHES)
 
 
-@pytest.mark.parametrize("kind", ["ramp", "tall", "wide-range"])
+@pytest.mark.parametrize("kind", ["ramp", "tall", "wide-range", "long"])
 @pytest.mark.parametrize("name", list(BODIES))
 def test_twin_matches_tpu_body(name, kind):
     x = _input(kind)
@@ -85,6 +87,29 @@ def test_twin_matches_tpu_body(name, kind):
     assert np.array_equal(got.numpy(), want)
     assert np.array_equal(mask_idioms.PLAIN[name](torch.from_numpy(x)).numpy(), want)
     assert cuda_kernels.LAUNCHES == before  # no kernel was launched
+
+
+def test_sum_bool_wraps_like_int32():
+    x = torch.full((8, 16), 100, dtype=torch.int32)
+    x[0, 0] = np.iinfo(np.int32).max
+    got = mask_idioms.run("sum_bool", x)
+    assert int(got[0, 0]) == np.iinfo(np.int32).min + 127 and int(got[1, 1]) == 228
+
+
+def test_sum_bool_is_one_cooperative_kernel():
+    """The CUDA source holds one kernel for k_sum_bool, launched cooperatively
+    with a grid barrier: no memset, no separate count and add kernels."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(cuda_kernels.__file__), "kernels", "mask_idioms.cu")
+    with open(path) as f:
+        src = re.sub(r"//[^\n]*", "", f.read())
+    assert "cudaLaunchCooperativeKernel" in src and "grid.sync()" in src
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
+    assert "cudaMemset" not in src and "count_kernel" not in src
+    assert len(re.findall(r"__global__", src)) == 5
+    assert src.count("<<<") == 4  # the other four idioms launch plainly
 
 
 def test_shifts_stay_inside_a_row():

@@ -25,7 +25,8 @@ names = [m.name for m in pkgutil.walk_packages(slacken_tpu_torch.__path__, "slac
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert len(names) >= 21 and "slacken_tpu_torch.ops.ordering" in names, names
+assert len(names) >= 23 and "slacken_tpu_torch.ops.ordering" in names, names
+assert "slacken_tpu_torch.dynamic" in names and "slacken_tpu_torch.stats" in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "slacken_tpu", "bench", "scale_bench"))
 assert not bad, bad
@@ -46,8 +47,9 @@ def test_no_source_names_the_jax_package():
     slacken_tpu, bench or scale_bench (not even inside a function)."""
     files = glob.glob(os.path.join(ROOT, "slacken_tpu_torch", "**", "*.py"), recursive=True)
     files.append(os.path.join(ROOT, "chip_smoke.py"))
-    assert len(files) >= 21
-    assert os.path.join(ROOT, "slacken_tpu_torch", "ops", "ordering.py") in files
+    assert len(files) >= 23
+    for name in (os.path.join("ops", "ordering.py"), "dynamic.py", "stats.py"):
+        assert os.path.join(ROOT, "slacken_tpu_torch", name) in files
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|slacken_tpu|bench|scale_bench)\b", re.M)
     for path in files:
         with open(path) as f:
