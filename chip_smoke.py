@@ -4,7 +4,7 @@
 Run from the repository root: `python3 chip_smoke.py`. It builds the CUDA
 kernels from ops/kernels/*.cu, checks each kernel bit-exact against its
 plain PyTorch twin on the card (the scan, its rank-table instance and the
-wide scan at every main-path shape and at other k, m, s; the probe and the
+wide scan at every main-path shape (bracken's [4, 2^20] rows too) and at other k, m, s; the probe and the
 wide probe on random, one-prefix and tiny indexes, and later on the bench and
 the scale indexes), then drives the port's paths, each with the kernels'
 launch counts set to 0 just before it and read just after:
@@ -34,7 +34,18 @@ launch counts set to 0 just before it and read just after:
     each step (find the taxon set, the restricted build from the sidecar,
     the same by a rebuild from the library, the directory, the final
     classify) and the device's busy share; stats, inspect reports and respace
-    on the bench and the scale index.
+    on the bench and the scale index; classify2 --bracken-length 100 once;
+  * Bracken weights (R = 100) on the bench library for the narrow, the wide
+    and the rank-table index: the device window classifier on the card
+    against the numpy counts on the CPU, kmer_distrib byte-identical;
+    bracken-build through the CLI, resuming from chunk files; then two 400
+    Mbp libraries on the card, the scale library and one of related genomes
+    (fragment pass and device classifier timed apart, the classifier held to
+    the numpy counts on one long row), each source's reads equal to its read
+    windows;
+  * compareIndex: the bench index against its restriction to two genomes,
+    narrow and wide, card against CPU; the CLI's compareIndex, inputCheck and
+    build --check.
 
 It prints the measured numbers, one JSON line of per-kernel results (time
 beside its bound, the plain twin's time and a library call's where there is
@@ -143,6 +154,8 @@ def random_codes(rng, shape, invalid=0.05):
 #: one of paired rows (two 128-wide mates and the separator, padded to 264)
 #: and a build batch of 4 kbp genome rows (index._default_batch)
 SCAN_SHAPES = [(32768, 128), (16384, 264), (8192, 4096)]
+#: bracken's fragment rows: four of the longest fragment (2^20 bases), one batch
+LONG_ROWS = (4, 1 << 20)
 #: (k, m, s) of the rank-table scan's checks: a table in L1 (m = 5), one a
 #: little over the L2 (m = 12, 64 MiB) and one far over it (m = 13, 256 MiB);
 #: the last is timed at every shape
@@ -218,15 +231,15 @@ def check_scan(rng, dev, results):
     cases += [((512, 1024), mp) for mp in (
         P(21, 15, 3), P(31, 31, 0), P(35, 31, 7, canonical=False), P(35, 1, 0), P(12, 5, 1, canonical=False),
         P(38, 31, 7), P(70, 31, 7), P(100, 16, 2), P(151, 31, 0))]
-    cases += [((37, 8), P(5, 3, 1)), ((37, 72), default)]
+    cases += [((37, 8), P(5, 3, 1)), ((37, 72), default), (LONG_ROWS, default)]
     for shape, mp in cases:
         scan_equals_twin(rng, dev, shape, mp)
-    shapes = {str(list(shape)): time_scan(rng, dev, shape, default) for shape in SCAN_SHAPES}
+    shapes = {str(list(shape)): time_scan(rng, dev, shape, default) for shape in (*SCAN_SHAPES, LONG_ROWS)}
     results["scan"] = dict(max_abs_err=0.0, **shapes[str(list(SCAN_SHAPES[0]))], library_ms=None, shapes=shapes)
 
     # the rank-table instance, each m with the lexicographic, the signature
     # and a random order; rows shorter than k (8 < 21) and than one chunk, and
-    # the main path's shapes
+    # the main path's shapes, bracken's fragment rows with the timed m
     shapes = {}
     timed = LUT_SCANS[-1][1]
     for mp in (P(*kms) for kms in LUT_SCANS):
@@ -235,9 +248,9 @@ def check_scan(rng, dev, results):
                   "random permutation": rng.permutation(n)}
         for name, table in tables.items():
             lut = torch.from_numpy(table.astype(np.int32)).to(dev)
-            for shape in [(512, 1024), (37, 8), (37, 72), *SCAN_SHAPES]:
+            for shape in [(512, 1024), (37, 8), (37, 72), *SCAN_SHAPES, *([LONG_ROWS] if mp.m == timed else [])]:
                 scan_equals_twin(rng, dev, shape, mp, lut, f", {name} table of {n} ranks")
-        for shape in SCAN_SHAPES if mp.m == timed else SCAN_SHAPES[:1]:  # `lut` is the random permutation
+        for shape in (*SCAN_SHAPES, LONG_ROWS) if mp.m == timed else SCAN_SHAPES[:1]:  # `lut`: the random one
             shapes[f"{list(shape)} m={mp.m}"] = time_scan(rng, dev, shape, mp, lut)
         del lut
     results["scan_lut"] = dict(max_abs_err=0.0, **shapes[f"{list(SCAN_SHAPES[0])} m={timed}"], library_ms=None, shapes=shapes)
@@ -249,7 +262,9 @@ def check_scan(rng, dev, results):
         for shape in [(512, 1024), (37, 8), (37, 72), *SCAN_SHAPES]:
             scan_equals_twin(rng, dev, shape, mp)
     scan_equals_twin(rng, dev, (512, 1024), P(50, 45, 7, canonical=False))
-    shapes = {f"{list(shape)} (50, 45, 7)": time_scan(rng, dev, shape, P(50, 45, 7)) for shape in SCAN_SHAPES}
+    scan_equals_twin(rng, dev, LONG_ROWS, P(50, 45, 7))
+    shapes = {f"{list(shape)} (50, 45, 7)": time_scan(rng, dev, shape, P(50, 45, 7))
+              for shape in (*SCAN_SHAPES, LONG_ROWS)}
     for mp in (P(35, 33, 0), P(80, 63, 7)):
         shapes[f"{list(SCAN_SHAPES[0])} ({mp.k}, {mp.m}, {mp.spaces})"] = time_scan(rng, dev, SCAN_SHAPES[0], mp)
     results["scan_wide"] = dict(max_abs_err=0.0, **shapes[f"{list(SCAN_SHAPES[0])} (50, 45, 7)"], library_ms=None,
@@ -1252,7 +1267,9 @@ def phase_classify2(dev, out, reads, bases):
         dynamic.MinimizerDistinctCount(500), dynamic.MinimizerFraction(0.01))
     reports = dict(thresholds=[0.0, 0.15], per_read_output=False)
     per_read = dict(thresholds=[0.0], per_read_output=True)
-    # (tag, criterion, gold set options, classify parameters, from the sidecar, --index-reports)
+    # (tag, criterion, gold set options, classify parameters, from the sidecar, --index-reports);
+    # ("narrow", "total") also writes the dynamic index's Bracken weights for reads of 100 bp
+    with_bracken = {("narrow", "total")}
     cases = {
         "narrow": [("reads", reads_c, None, per_read, True, True), ("total", total_c, None, reports, True, False),
                    ("distinct", distinct_c, None, reports, False, False),
@@ -1280,7 +1297,9 @@ def phase_classify2(dev, out, reads, bases):
                     cuda_kernels.reset_launch_counts()
                     with twins_forbidden():
                         t0 = time.perf_counter()
-                        made[where] = dyn.two_step_classify_and_write(fragments, index_reports, packed_factory=packed)
+                        made[where] = dyn.two_step_classify_and_write(
+                            fragments, index_reports, 100 if (kind, tag) in with_bracken else None,
+                            packed_factory=packed)
                         torch.cuda.synchronize()
                         card_s = time.perf_counter() - t0
                     launches = dict(cuda_kernels.LAUNCHES)
@@ -1292,12 +1311,13 @@ def phase_classify2(dev, out, reads, bases):
                         fail(f"classify2 {kind} {tag}: the dynamic index left the card")
                 else:
                     t0 = time.perf_counter()
-                    made[where] = dyn.two_step_classify_and_write(fragments, index_reports, packed_factory=packed)
+                    made[where] = dyn.two_step_classify_and_write(
+                        fragments, index_reports, 100 if (kind, tag) in with_bracken else None, packed_factory=packed)
                     cpu_s = time.perf_counter() - t0
             got = files_under(os.path.join(out, f"c2_{kind}_{tag}_card", "dyn"))
             want = files_under(os.path.join(out, f"c2_{kind}_{tag}_cpu", "dyn"))
             n_files = (0 if gold and gold[2] else 1) + len(cpar["thresholds"]) * (2 if cpar["per_read_output"] else 1) \
-                + (2 if index_reports else 0)
+                + (2 if index_reports else 0) + ((kind, tag) in with_bracken)
             if got != want or len(got) != n_files:
                 fail(f"classify2 {kind} {tag}: the card wrote {sorted(got)}, the CPU {sorted(want)}, or their bytes differ")
             # narrow keys tell the genomes apart: exactly the two sources; the 13-mers of the rank-table
@@ -1305,6 +1325,13 @@ def phase_classify2(dev, out, reads, bases):
             used = want_set if gold and gold[2] else {int(x) for x in got["_taxonSet.txt"].split()}
             if not want_set <= used or (kind != "lexicographic" and used != want_set):
                 fail(f"classify2 {kind} {tag}: detected {sorted(used)}, the reads come from {sorted(want_set)}")
+            if (kind, tag) in with_bracken:
+                distrib = os.path.join(out, f"c2_{kind}_{tag}_card", "dyn", "database100mers.kmer_distrib")
+                if distrib_totals(distrib) != read_windows(genomes, used, 100):
+                    fail(f"classify2 {kind} {tag} --bracken-length 100: a source's reads differ from its read windows")
+                log(f"classify2 {kind} {tag} --bracken-length 100: kmer_distrib byte-identical card vs CPU, "
+                    f"{len(open(distrib).read().splitlines()) - 1} destination lines, each source's reads equal to "
+                    "its read windows")
             if not index_equal(made["card"], made["cpu"]):
                 fail(f"classify2 {kind} {tag}: the dynamic index differs between the card and the CPU")
             restricted = card.build_restricted(used)
@@ -1400,12 +1427,6 @@ def phase_classify2_scale(dev, out, genomes):
     from slacken_tpu_torch.ops import cuda_kernels
     from slacken_tpu_torch.ops.lookup import build_directory
 
-    class Library:
-        """The genome library interface over the strings made already."""
-
-        def taxa_sequences(self):
-            return iter(genomes)
-
     def sync_s(t0):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
@@ -1434,7 +1455,7 @@ def phase_classify2_scale(dev, out, genomes):
         sources = {t for t, _ in genomes[:8]}
         cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
         default = dynamic.ClassifiedReadCount(100, 0.15)
-        dyn = dynamic.Dynamic(base, Library(), 8, default, cpar, None, os.path.join(out, "c2s_steps", "dyn"), dev)
+        dyn = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, default, cpar, None, os.path.join(out, "c2s_steps", "dyn"), dev)
         dyn._classifier().classify_and_write_packed(reads[:1], os.path.join(out, "c2s_warm"), cpar)  # warm
         t0 = time.perf_counter()
         taxon_set = dyn.find_taxon_set(fragments, os.path.join(out, "c2s_steps", "dyn_taxonSet.txt"))
@@ -1469,18 +1490,18 @@ def phase_classify2_scale(dev, out, genomes):
             f"({n_reads / classify_s:.1f} reads/s)")
         del cls, restricted
 
-        whole = dynamic.Dynamic(base, Library(), 8, default, cpar, None, os.path.join(out, "c2s_card", "dyn"), dev)
+        whole = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, default, cpar, None, os.path.join(out, "c2s_card", "dyn"), dev)
         t0 = time.perf_counter()
         made = whole.two_step_classify_and_write(fragments, packed_factory=lambda: iter(reads))
         whole_s = sync_s(t0)
         log(f"classify2 at scale, the whole (two_step_classify_and_write, a list of Fragments for step 1, packed reads for "
             f"the final pass): {whole_s:.3f} s, {n_reads / whole_s:.1f} reads/s end to end, dynamic index "
             f"{made.num_records} records; peak torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-        prof = dynamic.Dynamic(base, Library(), 8, default, cpar, None, os.path.join(out, "c2s_prof", "dyn"), dev)
+        prof = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, default, cpar, None, os.path.join(out, "c2s_prof", "dyn"), dev)
         run_whole = lambda: prof.two_step_classify_and_write(fragments, packed_factory=lambda: iter(reads))  # noqa: E731
         device_busy(run_whole, "classify2 at scale, the whole")
         host_profile(run_whole, "classify2 at scale, the whole", top_n=10)
-        distinct = dynamic.Dynamic(base, Library(), 8, dynamic.MinimizerDistinctCount(1000), cpar, None,
+        distinct = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, dynamic.MinimizerDistinctCount(1000), cpar, None,
                                    os.path.join(out, "c2s_distinct", "dyn"), dev)
         t0 = time.perf_counter()
         by_distinct = distinct.find_taxon_set(fragments)
@@ -1497,7 +1518,7 @@ def phase_classify2_scale(dev, out, genomes):
     t0 = time.perf_counter()
     host = base.with_records(base.keys_t.cpu(), base.taxa_t.cpu())
     host.record_keys_t, host.record_taxa_t = base.record_keys_t.cpu(), base.record_taxa_t.cpu()
-    on_cpu = dynamic.Dynamic(host, Library(), 8, default, cpar, None, os.path.join(out, "c2s_cpu", "dyn"), "cpu")
+    on_cpu = dynamic.Dynamic(host, workloads.GenomeList(genomes), 8, default, cpar, None, os.path.join(out, "c2s_cpu", "dyn"), "cpu")
     made_cpu = on_cpu.two_step_classify_and_write(fragments, packed_factory=lambda: iter(reads))
     cpu_s = time.perf_counter() - t0
     got, want = files_under(os.path.join(out, "c2s_card", "dyn")), files_under(os.path.join(out, "c2s_cpu", "dyn"))
@@ -1511,6 +1532,322 @@ def phase_classify2_scale(dev, out, genomes):
     if n != n_reads or c < 0.99 * n_reads:
         fail(f"classify2 at scale classified {c} of {n} reads")
     return launches
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, seconds):
+    """Sum the wall of every call of owner.<name>, the device's work
+    included (a synchronize on either side), into seconds[name]."""
+    import torch
+
+    real = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return result
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def distrib_totals(path):
+    """{source: reads} of a kmer_distrib file, from its per-destination
+    counts, after checking that every total column agrees."""
+    totals, columns = {}, {}
+    for line in open(path).read().splitlines()[1:]:
+        for piece in line.split("\t")[1].split(" "):
+            src, cnt, tot = map(int, piece.split(":"))
+            totals[src] = totals.get(src, 0) + cnt
+            columns.setdefault(src, set()).add(tot)
+    if any(columns[s] != {t} for s, t in totals.items()):
+        fail(f"{path}: a source's total column disagrees with its counts")
+    return totals
+
+
+def read_windows(genomes, taxa, read_len):
+    """{source: read windows} that bracken must count: len - R + 1 over each
+    sequence of a source in `taxa` at least R long."""
+    want = {}
+    for taxon, seq in genomes:
+        if taxon in taxa and len(seq) >= read_len:
+            want[taxon] = want.get(taxon, 0) + len(seq) - read_len + 1
+    return want
+
+
+def phase_bracken(dev, out, bases):
+    """Bracken weights at R = 100 on the bench library for the narrow, the
+    wide (50, 45, 7) and the rank-table (35, 13, 3, lexicographic) index:
+    the card (fragment pass and device window classifier, twins forbidden)
+    against the CPU (the twins and the numpy counts), kmer_distrib
+    byte-identical, each source's reads equal to its read windows. Then
+    bracken-build through the CLI, resuming from chunk files a gradual run
+    left with one chunk lost. Returns the card's launch counts."""
+    import torch
+
+    from slacken_tpu_torch import bracken, cli, workloads
+    from slacken_tpu_torch.inputs import GenomeLibrary
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    genomes = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
+    lib = workloads.GenomeList(genomes)
+    kernels = {"narrow": ("scan", "probe"), "wide": ("scan_wide", "probe_wide"), "lexicographic": ("scan_lut", "probe")}
+    total = {}
+    for kind, (card, host) in bases.items():
+        card.to(dev)
+        taxa = {t for t, _ in genomes}
+        paths, walls = {}, {}
+        cuda_kernels.reset_launch_counts()
+        with twins_forbidden(), timed_calls(bracken, "fragment_pass", walls), \
+                timed_calls(bracken, "window_dest_counts", walls):
+            paths["card"] = os.path.join(out, f"br_{kind}_card.kmer_distrib")
+            t0 = time.perf_counter()
+            bracken.BrackenWeights(card, 100, dev).build_and_write_weights(lib, taxa, paths["card"])
+            torch.cuda.synchronize()
+            walls["wall"] = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
+        require_launches(f"bracken {kind}", launches, kernels[kind],
+                         [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide") if k not in kernels[kind]])
+        add_launches(total, launches)
+        t0 = time.perf_counter()
+        paths["cpu"] = os.path.join(out, f"br_{kind}_cpu.kmer_distrib")
+        bracken.BrackenWeights(host, 100, device="cpu").build_and_write_weights(lib, taxa, paths["cpu"])
+        cpu_s = time.perf_counter() - t0
+        want = open(paths["cpu"], "rb").read()
+        if open(paths["card"], "rb").read() != want:
+            fail(f"bracken {kind}: the card wrote other weights than the CPU")
+        if distrib_totals(paths["cpu"]) != read_windows(genomes, taxa, 100):
+            fail(f"bracken {kind}: a source's reads differ from its read windows")
+        n_windows = sum(read_windows(genomes, taxa, 100).values())
+        n_lines = len(want.splitlines()) - 1
+        log(f"bracken {kind} (k={card.params.k} m={card.params.m} s={card.params.spaces} {card.params.ordering}), R = 100, "
+            f"{n_windows} read windows: kmer_distrib byte-identical card = CPU ({n_lines} destination lines); card "
+            f"wall {walls['wall']:.3f} s (fragment pass {walls['fragment_pass']:.3f}, device window classifier and "
+            f"counts {walls['window_dest_counts']:.3f}); CPU (numpy counts) {cpu_s:.1f} s")
+
+    # bracken-build through the CLI: a gradual run that lost its last chunk resumes from the others
+    card = bases["narrow"][0]
+    lib_dir, idx_dir = os.path.join(out, "br_lib"), os.path.join(out, "br_idx")
+    workloads.write_library(genomes, lib_dir)
+    card.save(idx_dir)
+    taxa = GenomeLibrary.from_directory(lib_dir).taxon_set(card.taxonomy)
+    tmp = os.path.join(f"{idx_dir}_bracken", "database100mers.kmer_distrib_tmp")
+    cuda_kernels.reset_launch_counts()
+    with twins_forbidden():
+        bw = bracken.BrackenWeights(card, 100, device=dev)
+        chunked = bw.build_weights_gradually(GenomeLibrary.from_directory(lib_dir), taxa, tmp)
+        chunks = sorted(os.listdir(tmp))
+        os.remove(os.path.join(tmp, chunks[-1]))
+        calls = []
+        real = bracken.BrackenWeights.build_weights
+        bracken.BrackenWeights.build_weights = lambda self, *a: calls.append(1) or real(self, *a)
+        try:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                if cli.main(["bracken-build", "-i", idx_dir, "-l", lib_dir]) != 0:
+                    fail("bracken-build failed on the card")
+        finally:
+            bracken.BrackenWeights.build_weights = real
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("bracken-build CLI", launches)
+    add_launches(total, launches)
+    written = os.path.join(f"{idx_dir}_bracken", "database100mers.kmer_distrib")
+    bracken.write_kmer_distrib(chunked, os.path.join(out, "br_chunked.kmer_distrib"))
+    if (len(calls) != 1 or os.path.exists(tmp) or open(written, "rb").read()
+            != open(os.path.join(out, "br_chunked.kmer_distrib"), "rb").read()
+            or open(written, "rb").read() != open(os.path.join(out, "br_narrow_cpu.kmer_distrib"), "rb").read()):
+        fail(f"bracken-build did not resume from {len(chunks) - 1} of {len(chunks)} chunks to the same weights "
+             f"({len(calls)} chunks computed)")
+    log(f"bracken-build CLI resumed from {len(chunks) - 1} of {len(chunks)} chunk files, computed 1, wrote the same "
+        f"weights as the CPU; printed {buf.getvalue().strip()!r}")
+    return total
+
+
+#: positions of the fragment row on which the device window classifier is
+#: held to the numpy counts at scale (and the numpy counts timed)
+SAMPLE_POSITIONS = 1 << 18
+
+
+def bracken_at_scale(dev, out, label, genomes, records=None):
+    """Bracken weights at R = 100 of one 400 Mbp library on the card: its
+    narrow index built there (scale_taxonomy_deep), then the weights with
+    the wall of the fragment passes and of the device window classifier
+    timed apart, each source's reads equal to its read windows, the rows'
+    hit taxa and the peak device memory; last the device classifier held to
+    the numpy counts on the first SAMPLE_POSITIONS of the first fragment,
+    both timed. Returns the launch counts of the weights' run."""
+    import torch
+
+    from slacken_tpu_torch import bracken, workloads
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels, encode
+
+    tax = workloads.scale_taxonomy_deep(SCALE_TAXA)
+    torch.cuda.empty_cache()
+    cuda_kernels.reset_launch_counts()
+    with twins_forbidden():
+        t0 = time.perf_counter()
+        idx = KeyValueIndex.build(iter(genomes), IndexParams(k=35, m=31, spaces=7), tax, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if records is not None and idx.num_records != records:
+            fail(f"the {label} index for bracken holds {idx.num_records} records")
+        lib, taxa = workloads.GenomeList(genomes), {t for t, _ in genomes}
+        bw = bracken.BrackenWeights(idx, 100, dev)
+        n_windows = sum(read_windows(genomes, taxa, 100).values())
+        n_fragments = sum(1 for _ in bw._iter_fragments(lib, taxa))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, row_taxa = {}, []
+        real_taxa = bracken.hit_taxa_per_row
+
+        def spy(scan):
+            n = real_taxa(scan)
+            row_taxa.append(n.cpu())
+            return n
+
+        bracken.hit_taxa_per_row = spy
+        try:
+            with timed_calls(bracken, "fragment_pass", seconds), timed_calls(bracken, "window_dest_counts", seconds):
+                t0 = time.perf_counter()
+                counts = bw.build_weights(lib, taxa)
+                torch.cuda.synchronize()
+                seconds["wall"] = time.perf_counter() - t0
+        finally:
+            bracken.hit_taxa_per_row = real_taxa
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(cuda_kernels.LAUNCHES)
+        require_launches(f"bracken at scale, {label}", launches)
+        # the device classifier against the numpy counts on one long row
+        codes = encode.encode_seq(genomes[0][1][:SAMPLE_POSITIONS])[None, :]
+        scan = bracken.fragment_pass(idx, codes, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = bracken.window_dest_counts(scan, bw._rpath_table(), 100, 35, [SAMPLE_POSITIONS - 99])[0]
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    host = [x.cpu().numpy()[0] for x in scan]
+    t0 = time.perf_counter()
+    by_numpy = bw._fragment_dest_counts(*host, SAMPLE_POSITIONS)
+    numpy_s = time.perf_counter() - t0
+    if on_card != by_numpy:
+        fail(f"bracken at scale, {label}: the device window classifier and the numpy counts differ on a "
+             f"{SAMPLE_POSITIONS}-position row")
+    path = os.path.join(out, "br_scale.kmer_distrib")
+    bracken.write_kmer_distrib(counts, path)
+    if distrib_totals(path) != read_windows(genomes, taxa, 100):
+        fail(f"bracken at scale, {label}: a source's reads differ from its read windows")
+    row_taxa = torch.cat(row_taxa)
+    many = int((row_taxa > bracken.FEW_TAXA).sum())
+    mw = lambda s: n_windows / s / 1e6  # noqa: E731
+    log(f"bracken at scale, {label}, R = 100: {sum(len(g) for _, g in genomes) / 1e6:.0f} Mbp, index of "
+        f"{idx.num_records} records built on the card in {build_s:.2f} s; {n_fragments} fragments, {n_windows} read "
+        f"windows, {len(counts)} (destination, source) pairs, each source's reads equal to its read windows")
+    log(f"bracken at scale, {label}: wall {seconds['wall']:.3f} s ({mw(seconds['wall']):.2f} Mwindows/s), fragment "
+        f"passes {seconds['fragment_pass']:.3f} s ({mw(seconds['fragment_pass']):.2f} Mwindows/s), device window "
+        f"classifier and counts {seconds['window_dest_counts']:.3f} s ({mw(seconds['window_dest_counts']):.2f} "
+        f"Mwindows/s); hit taxa a row: median {float(row_taxa.float().median()):.0f}, max {int(row_taxa.max())}, "
+        f"{many} of {len(row_taxa)} rows above {bracken.FEW_TAXA} (classified in a group of their own); peak "
+        f"torch.cuda.max_memory_allocated {peak} bytes")
+    n = SAMPLE_POSITIONS - 99
+    log(f"bracken at scale, {label}: on the first {SAMPLE_POSITIONS} positions of taxon {genomes[0][0]} "
+        f"({int(real_taxa(scan)[0])} hit taxa), device window classifier == numpy counts: card {card_s:.4f} s "
+        f"({n / card_s / 1e6:.2f} Mwindows/s), numpy {numpy_s:.3f} s ({n / numpy_s / 1e6:.2f} Mwindows/s)")
+    return launches
+
+
+def phase_bracken_scale(dev, out, genomes):
+    """Bracken at scale on the card only, on two 400 Mbp libraries of 64
+    species in 16 genera in 4 families: scale_library's disjoint random
+    genomes (every read window goes to its own species), and
+    related_library's mutated copies (windows shared within genera and
+    families, many hit taxa a row, ties). Returns the launch counts."""
+    from slacken_tpu_torch import workloads
+
+    launches = bracken_at_scale(dev, out, "disjoint genomes", genomes, SCALE_RECORDS)
+    related = list(workloads.related_library(SCALE_BP, SCALE_TAXA))
+    add_launches(launches, bracken_at_scale(dev, out, "related genomes", related))
+    return launches
+
+
+def phase_compare_index(dev, out, bases):
+    """compareIndex (MinimizerMigration: the join through the probe) of the
+    bench index with its dynamic index restricted to two of the three
+    genomes, both ways round, narrow and wide, card (twins forbidden)
+    against CPU: printed histogram and taxaToRoot report byte-identical.
+    Then the CLI's compareIndex on saved indexes, and the host-only
+    inputCheck and build --check. Returns the card's launch counts."""
+    from slacken_tpu_torch import cli, workloads
+    from slacken_tpu_torch.analysis.migration import MinimizerMigration
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    keep = set(list(workloads.BENCH_SIZES)[:2]) | {1}
+    total = {}
+    for kind, probe_name in (("narrow", "probe"), ("wide", "probe_wide")):
+        card, host = bases[kind]
+        card.to(dev)
+        pairs = {"card": (card, card.build_restricted(keep)), "cpu": (host, host.build_restricted(keep))}
+        printed = {}
+        cuda_kernels.reset_launch_counts()
+        for where, device in (("card", dev), ("cpu", "cpu")):
+            full, restricted = pairs[where]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), (twins_forbidden() if where == "card" else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                for tag, (a, b) in (("rf", (restricted, full)), ("fr", (full, restricted))):
+                    MinimizerMigration(a, b, device).run(os.path.join(out, f"ci_{kind}_{tag}_{where}"))
+                dt = time.perf_counter() - t0
+            printed[where] = (buf.getvalue(), dt)
+            if where == "card":
+                launches = dict(cuda_kernels.LAUNCHES)
+                require_launches(f"compareIndex {kind}", launches, (probe_name,))
+                add_launches(total, launches)
+        for tag in ("rf", "fr"):
+            a = open(os.path.join(out, f"ci_{kind}_{tag}_card_taxaToRoot_report.txt"), "rb").read()
+            if a != open(os.path.join(out, f"ci_{kind}_{tag}_cpu_taxaToRoot_report.txt"), "rb").read():
+                fail(f"compareIndex {kind} {tag}: the taxaToRoot report differs between the card and the CPU")
+        if printed["card"][0] != printed["cpu"][0] or printed["card"][0].count("steps\tcount") != 2:
+            fail(f"compareIndex {kind}: the printed histograms differ between the card and the CPU")
+        log(f"compareIndex {kind}: bench index ({card.num_records} records) against its restriction to two genomes "
+            f"({pairs['card'][1].num_records}), both ways: histograms and taxaToRoot reports byte-identical card vs CPU "
+            f"({printed['card'][1]:.3f} s on the card, {printed['cpu'][1]:.3f} s on the CPU); the card printed "
+            + " | ".join(printed["card"][0].splitlines()))
+
+    # the CLI: compareIndex on saved indexes; inputCheck and build --check need no device
+    card = bases["narrow"][0]
+    lib_dir = os.path.join(out, "ci_lib")
+    genomes = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
+    workloads.write_library(genomes + [(9606, "N" * 300)], lib_dir)
+    card.save(os.path.join(out, "ci_full"))
+    card.build_restricted(keep).save(os.path.join(out, "ci_restricted"))
+    workloads.bench_taxonomy().save(os.path.join(out, "ci_tax"))
+    runs = [["compareIndex", "-i", os.path.join(out, "ci_restricted"), "-r", os.path.join(out, "ci_full"),
+             "-o", os.path.join(out, "ci_cli")],
+            ["inputCheck", "-t", os.path.join(out, "ci_tax"), "--labels", os.path.join(lib_dir, "seqid2taxid.map")],
+            ["build", "--check", "-i", os.path.join(out, "ci_none"), "-l", lib_dir, "-t", os.path.join(out, "ci_tax")]]
+    buf = io.StringIO()
+    cuda_kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(buf), twins_forbidden():
+        for argv in runs:
+            if cli.main(argv) != 0:
+                fail(f"the CLI failed on the card: {argv}")
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("compareIndex CLI", launches, ("probe",))
+    add_launches(total, launches)
+    text = buf.getvalue()
+    if (open(os.path.join(out, "ci_cli_taxaToRoot_report.txt"), "rb").read()
+            != open(os.path.join(out, "ci_narrow_rf_cpu_taxaToRoot_report.txt"), "rb").read()
+            or '"sequences": 4' not in text or "(total 1):" not in text or os.path.exists(os.path.join(out, "ci_none"))):
+        fail(f"compareIndex, inputCheck or build --check through the CLI printed {text!r}")
+    log("compareIndex, inputCheck and build --check through cli.main: the report equals the API's on the CPU; "
+        "printed " + " | ".join(text.splitlines()))
+    return total
 
 
 def main():
@@ -1566,8 +1903,11 @@ def main():
     by_path["wide"] = phase_wide(dev, out, reads, results, genomes, bases)
     by_path["ordering"] = phase_ordering(dev, out, reads, bases)
     by_path["classify2"] = phase_classify2(dev, out, reads, bases)
+    by_path["bracken"] = phase_bracken(dev, out, bases)
+    by_path["compare_index"] = phase_compare_index(dev, out, bases)
     del bases
     add_launches(by_path["classify2"], phase_classify2_scale(dev, out, genomes))
+    add_launches(by_path["bracken"], phase_bracken_scale(dev, out, genomes))
     shutil.rmtree(out, ignore_errors=True)
     for mod in ("jax", "slacken_tpu", "bench", "scale_bench"):
         if mod in sys.modules:

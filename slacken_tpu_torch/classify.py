@@ -631,6 +631,16 @@ class Classifier:
             for t, pairs in acc.items()
         }
 
+    def classify_packed(self, packed_iter, cpar: ClassifyParams) -> Dict[float, List[ClassifiedRead]]:
+        """Classify native.PackedReads chunks at every threshold in one
+        device pass; reads come back in stream order within a row width."""
+        self._begin(cpar)
+        results: Dict[float, List[ClassifiedRead]] = {t: [] for t in cpar.thresholds}
+        for batch in self.packed_batches(packed_iter):
+            for t in cpar.thresholds:
+                results[t].extend(self.finalize(batch, t, cpar))
+        return results
+
     def classify_and_write(
         self, fragments: Iterable[Fragment], output_location: str, cpar: ClassifyParams
     ) -> Dict[float, List[str]]:

@@ -1,14 +1,19 @@
 """Command-line interface of the port: `build` (--ordering for an explicit
 minimizer ordering, -m up to 63 for wide keys, --full-records for the
-sidecar that makes dynamic builds a filter), `classify` (per-read output by
-default, --no-detailed for reports only, -p for paired files), `classify2`
-(two-step classification with a dynamic index), `respace`, `stats` and
-`inspect`. Run as `python -m slacken_tpu_torch.cli <subcommand>`; options
-match slacken_tpu's CLI, plus --device (default cuda)."""
+sidecar that makes dynamic builds a filter, --check to only check the
+inputs), `classify` (per-read output by default, --no-detailed for reports
+only, -p for paired files), `classify2` (two-step classification with a
+dynamic index, --bracken-length for its Bracken weights), `bracken-build`,
+`respace`, `stats`, `inspect`, `compareIndex`, `compare`, `inputCheck` and
+`download`. Run as `python -m slacken_tpu_torch.cli <subcommand>`; options
+match slacken_tpu's single-device CLI, plus --device (default cuda) on every
+subcommand that works on a device (`compare`, `inputCheck` and `download`
+do not)."""
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -27,6 +32,7 @@ def _build_parser():
     b.add_argument("-m", type=int, default=31, help="minimizer width (default 31, at most 63; at most 15 with an --ordering other than xor)")
     b.add_argument("-s", "--spaces", type=int, default=7, help="spaced seed spaces (default 7)")
     b.add_argument("-p", "--partitions", type=int, default=200, help="shard count hint")
+    b.add_argument("--check", action="store_true", help="Only check input files for consistency")
     b.add_argument("--ordering", choices=["xor", "lexicographic", "signature", "frequency"], default="xor",
                    help="Minimizer ordering (default xor = Kraken 2-compatible RandomXOR; frequency samples "
                         "the library and prefers rare minimizers; signature = KMC2/3 signature ordering)")
@@ -48,11 +54,20 @@ def _build_parser():
                     help="Minimizer fraction criterion: keep clades whose distinct hits "
                          "cover >= this fraction of the clade's index minimizers")
     c2.add_argument("--init-confidence", type=float, default=0.15, help="Confidence for step-1 classification")
-    c2.add_argument("--bracken-length", type=int, help="Read length for dynamic bracken weights (not ported yet)")
+    c2.add_argument("--bracken-length", type=int, help="Read length for dynamic bracken weights")
     c2.add_argument("--index-reports", action="store_true", help="Report on the dynamic index")
     c2.add_argument("--classify-with-gold", action="store_true", help="Use gold taxon set for the dynamic library")
     c2.add_argument("-g", "--gold-set", help="Gold standard taxon set file")
     c2.add_argument("--promote-gold-set", help="Promote unmatched gold taxa to this rank")
+
+    bb = sub.add_parser("bracken-build", help="Generate Bracken weights (kmer_distrib)")
+    bb.add_argument("-i", "--index", required=True)
+    bb.add_argument("-l", "--library", required=True)
+    bb.add_argument("--read-len", type=int, default=100)
+    bb.add_argument("--no-gradual", action="store_true",
+                    help="Disable gradual (chunked, resumable) weight building; the default matches the "
+                         "reference CLI's gradual=true (Slacken.scala:276)")
+    _add_device(bb)
 
     r = sub.add_parser("respace", help="Derive new indexes with more spaced-seed spaces")
     r.add_argument("-i", "--index", required=True)
@@ -72,6 +87,41 @@ def _build_parser():
     ins.add_argument("-o", "--output", required=True)
     ins.add_argument("--labels", help="Label file to check for missing taxa")
     _add_device(ins)
+
+    ci = sub.add_parser("compareIndex", help="Compare minimizer LCAs between two indexes")
+    ci.add_argument("-i", "--index", required=True)
+    ci.add_argument("-r", "--reference", required=True)
+    ci.add_argument("-o", "--output", required=True)
+    _add_device(ci)
+
+    cm = sub.add_parser("compare", help="Compare classifications against a reference mapping")
+    cm.add_argument("-t", "--taxonomy", required=True)
+    cm.add_argument("-r", "--reference", required=True)
+    cm.add_argument("--id-col", type=int, default=2)
+    cm.add_argument("-T", "--taxon-col", type=int, default=3)
+    cm.add_argument("-o", "--output")
+    cm.add_argument("--header", action="store_true")
+    cm.add_argument("--multi-dirs", nargs="+")
+    cm.add_argument("--test-files", nargs="+")
+    cm.add_argument("--min-count", type=int, default=10)
+
+    ic = sub.add_parser("inputCheck", help="Inspect input data")
+    ic.add_argument("-t", "--taxonomy", required=True)
+    ic.add_argument("--labels", help="Sequence taxonomic label file")
+
+    dl = sub.add_parser("download", help="Download genome libraries + taxonomy from NCBI")
+    dl.add_argument("what", nargs="+",
+                    help="'taxonomy', 'standard', or library names (archaea bacteria viral fungi plant "
+                         "human protozoa plasmid UniVec UniVec_Core refseq)")
+    dl.add_argument("-d", "--db", required=True, help="Destination library directory")
+    dl.add_argument("--level", default="Complete Genome",
+                    choices=["Complete Genome", "Chromosome", "Scaffold", "Contig"],
+                    help="Minimum assembly completeness (default 'Complete Genome'; "
+                         "'Chromosome' = the prefer-complete rspc sets)")
+    dl.add_argument("--max-assemblies", type=int, help="Cap assemblies per library")
+    dl.add_argument("--mask", action="store_true",
+                    help="Hard-mask low-complexity regions (native windowed-entropy filter replacing k2mask)")
+    dl.add_argument("-j", "--jobs", type=int, default=4, help="Parallel downloads")
     return ap
 
 
@@ -112,7 +162,8 @@ def main(argv=None):
     args = _build_parser().parse_args(argv)
     from . import get_device
 
-    device = get_device(args.device)
+    # compare, inputCheck and download do no device work and take no --device
+    device = get_device(args.device) if "device" in args else None
     t0 = time.time()
     try:
         rc = COMMANDS[args.command](args, device)
@@ -131,6 +182,12 @@ def cmd_build(args, device):
     tax = Taxonomy.load(args.taxonomy)
     lib = GenomeLibrary.from_directory(args.library)
     print(f"Discovered {len(lib.files)} genome files")
+    if args.check:
+        from .inputs import check_input
+
+        check_input(lib, args.k)
+        print(json.dumps(lib.input_stats(tax), indent=2))
+        return 0
     params = IndexParams(k=args.k, m=args.m, spaces=args.spaces, buckets=args.partitions,
                          ordering=args.ordering)
     ordering_lut = None
@@ -145,6 +202,8 @@ def cmd_build(args, device):
                               keep_records=args.full_records)
     idx.save(args.index)
     print(f"Saved {idx.num_records} records to {args.index}")
+    _show_index_stats(idx)
+    print(json.dumps(lib.input_stats(tax), indent=2))
     return 0
 
 
@@ -225,6 +284,22 @@ def cmd_classify2(args, device):
     return 0
 
 
+def cmd_bracken_build(args, device):
+    from .bracken import BrackenWeights
+    from .index import KeyValueIndex
+    from .inputs import GenomeLibrary
+
+    idx = KeyValueIndex.load(args.index).to(device)
+    lib = GenomeLibrary.from_directory(args.library)
+    out = f"{args.index}_bracken/database{args.read_len}mers.kmer_distrib"
+    bw = BrackenWeights(idx, args.read_len, device=device)
+    # gradual (chunked, durable, resumable) by default, as the reference CLI
+    # (Slacken.scala:276): a rerun after a kill resumes from the chunk files
+    bw.build_and_write_weights(lib, lib.taxon_set(idx.taxonomy), out, gradual=not args.no_gradual)
+    print(f"Wrote {out}")
+    return 0
+
+
 def cmd_respace(args, device):
     from .index import KeyValueIndex
 
@@ -295,13 +370,68 @@ def cmd_inspect(args, device):
     return 0
 
 
+def cmd_compare_index(args, device):
+    from .analysis.migration import MinimizerMigration
+    from .index import KeyValueIndex
+
+    idx = KeyValueIndex.load(args.index)
+    ref = KeyValueIndex.load(args.reference)
+    MinimizerMigration(idx, ref, device).run(args.output)
+    return 0
+
+
+def cmd_compare(args, device):
+    from .analysis.mapping_comparison import MappingComparison
+    from .taxonomy import Taxonomy
+
+    tax = Taxonomy.load(args.taxonomy)
+    mc = MappingComparison(tax, args.id_col, args.taxon_col, args.header, args.min_count, bool(args.multi_dirs))
+    if args.test_files:
+        mc.process_files(args.test_files, args.output, args.reference)
+    else:
+        mc.process_directories(args.multi_dirs, args.output, args.reference)
+    return 0
+
+
+def cmd_input_check(args, device):
+    from .inputs import GenomeLibrary
+    from .taxonomy import Taxonomy
+
+    tax = Taxonomy.load(args.taxonomy)
+    if args.labels:
+        lib = GenomeLibrary([], args.labels)
+        print(json.dumps(lib.input_stats(tax), indent=2))
+    return 0
+
+
+def cmd_download(args, device):
+    from .download import LibraryDownloader
+
+    dl = LibraryDownloader(args.db, parallel=args.jobs)
+    for what in args.what:
+        if what == "taxonomy":
+            dl.download_taxonomy()
+        elif what == "standard":
+            dl.download_standard(level=args.level)
+        else:
+            n_asm, n_seq = dl.download_library(what, level=args.level, max_assemblies=args.max_assemblies,
+                                               mask=args.mask)
+            print(f"{what}: {n_asm} assemblies, {n_seq} sequences")
+    return 0
+
+
 COMMANDS = {
     "build": cmd_build,
     "classify": cmd_classify,
     "classify2": cmd_classify2,
+    "bracken-build": cmd_bracken_build,
     "respace": cmd_respace,
     "stats": cmd_stats,
     "inspect": cmd_inspect,
+    "compareIndex": cmd_compare_index,
+    "compare": cmd_compare,
+    "inputCheck": cmd_input_check,
+    "download": cmd_download,
 }
 
 

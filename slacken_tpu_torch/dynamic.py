@@ -325,9 +325,11 @@ class Dynamic:
         packed_factory: optional zero-arg callable yielding native
         PackedReads batches for the SAME reads — the final classification
         then takes the fast streaming path (classify_and_write_packed, the
-        same writer the 1-step CLI uses)."""
-        if bracken_read_length:
-            raise NotImplementedError("bracken weights are not ported yet (ROADMAP.md)")
+        same writer the 1-step CLI uses).
+
+        bracken_read_length: also write the Bracken weights of the dynamic
+        index for reads of this length, over the taxa it was made from, to
+        <output_location>/database<R>mers.kmer_distrib."""
         if callable(fragments):
             factory = fragments
         else:
@@ -340,6 +342,19 @@ class Dynamic:
             from .stats import write_inspect_reports
 
             write_inspect_reports(dynamic_index, self.output + "_dynamic")
+
+        if bracken_read_length:
+            from .bracken import BrackenWeights
+
+            t = Timer("Build library and Bracken weights")
+            bw = BrackenWeights(dynamic_index, bracken_read_length, device=self.device)
+            os.makedirs(self.output, exist_ok=True)
+            bw.build_and_write_weights(
+                self.genomes,
+                used_taxa,
+                os.path.join(self.output, f"database{bracken_read_length}mers.kmer_distrib"),
+            )
+            t.finish()
 
         t = Timer("Classify reads")
         cls = Classifier(dynamic_index, self.device)

@@ -101,6 +101,12 @@ class IndexParams:
             buckets=d.get("buckets", 200), ordering=d.get("ordering", "xor"),
         )
 
+    def compatibility_check(self, other: "IndexParams"):
+        if (self.k, self.m, self.spaces, self.toggle_mask, self.canonical, self.ordering) != (
+            other.k, other.m, other.spaces, other.toggle_mask, other.canonical, other.ordering,
+        ):
+            raise ValueError(f"Incompatible index parameters: {self} vs {other}")
+
 
 def _rank_table(params: IndexParams, ordering_lut: Optional[np.ndarray]) -> Optional[np.ndarray]:
     """The uint32 rank table a build with `params` uses, or None for "xor":

@@ -13,8 +13,11 @@ import os
 import re
 from typing import Iterable, Iterator, List, Optional, Tuple
 
+import numpy as np
+
 from . import native
 from .classify import Fragment
+from .ops import encode
 from .zio import open_gz_subprocess
 
 DEFAULT_MAX_FRAGMENT = 1 << 20
@@ -42,6 +45,11 @@ def expand_file_list(paths: Iterable[str]) -> List[str]:
         else:
             out.append(p)
     return out
+
+
+def is_fasta(path: str) -> bool:
+    base = re.sub(r"\.(gz|bz2)$", "", path)
+    return base.endswith((".fasta", ".fa", ".fna", ".ffn", ".faa", ".frn"))
 
 
 def is_fastq(path: str) -> bool:
@@ -234,6 +242,10 @@ def read_fai(path: str):
     return out
 
 
+def has_fai(path: str) -> bool:
+    return os.path.exists(path + ".fai")
+
+
 def read_fasta_indexed(path: str, max_chunk: int = DEFAULT_MAX_FRAGMENT, k: int = 35):
     """Stream (header, sequence chunk, offset) from an indexed FASTA in
     chunks overlapping by k-1."""
@@ -288,7 +300,7 @@ class GenomeLibrary:
     def sequences(self, max_chunk: Optional[int] = None, k: int = 35) -> Iterator[Tuple[int, str, str]]:
         """Yield (taxon, header, sequence) for labelled sequences."""
         for path in self.files:
-            if os.path.exists(path + ".fai") and not path.endswith((".gz", ".bz2")):
+            if has_fai(path) and not path.endswith((".gz", ".bz2")):
                 for header, seq, _ in read_fasta_indexed(path, max_chunk or DEFAULT_MAX_FRAGMENT, k):
                     taxon = self.labels.get(header)
                     if taxon is not None:
@@ -311,3 +323,40 @@ class GenomeLibrary:
             if t < len(taxonomy.primary):
                 base.add(int(taxonomy.primary[t]))
         return taxonomy.taxa_with_ancestors([t for t in base if taxonomy.is_defined(t)])
+
+    def input_stats(self, taxonomy) -> dict:
+        """Label-file statistics (GenomeLibrary.scala:81-107)."""
+        total = len(self.labels)
+        distinct = set(self.labels.values())
+        defined = {t for t in distinct if t < taxonomy.size and taxonomy.is_defined(t)}
+        return {
+            "sequences": total,
+            "distinct_taxa": len(distinct),
+            "defined_taxa": len(defined),
+            "undefined_taxa": len(distinct - defined),
+        }
+
+
+def check_input(library: GenomeLibrary, k: int) -> List[str]:
+    """Report sequences that would produce no minimizers, those with no
+    valid run of at least k bases (KeyValueIndex.checkInput,
+    KeyValueIndex.scala:56-76)."""
+    bad = []
+    for _, header, seq in library.sequences():
+        codes = encode.encode_seq(seq)
+        valid = codes < encode.INVALID
+        if len(valid) < k:
+            bad.append(header)
+            continue
+        # longest valid run via cumulative reset counting
+        idx = np.arange(len(valid))
+        last_reset = np.maximum.accumulate(np.where(~valid, idx, -1))
+        if int((idx - last_reset).max()) < k:
+            bad.append(header)
+    if bad:
+        print(f"Some input sequences had no minimizers (total {len(bad)}):")
+        for h in bad[:20]:
+            print(f"  {h}")
+    else:
+        print("Input sequences checked, all had minimizers.")
+    return bad

@@ -54,6 +54,34 @@ def scale_library(total_bp: int, n_taxa: int, seed=SCALE_SEED) -> Iterator[Tuple
         yield 10 + i, _ACGT[codes].tobytes().decode("ascii")
 
 
+def related_library(total_bp: int, n_taxa: int, seed=SCALE_SEED,
+                    rates=(0.05, 0.03, 0.01)) -> Iterator[Tuple[int, str]]:
+    """Genomes of related species on scale_taxonomy_deep's tree, sized as
+    scale_library's: one random ancestor; each family's genome is the
+    ancestor with a share rates[0] of its bases substituted, each genus's is
+    its family's with rates[1], each species's its genus's with rates[2]
+    (about 98% identity within a genus, 92% within a family, 83% across
+    families), cut to the species' size."""
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, n_taxa + 1)
+    sizes = np.maximum((total_bp * w / w.sum()).astype(np.int64), 50_000)
+
+    def mutated(codes, rate, n):
+        out = codes[:n].copy()
+        hit = np.flatnonzero(rng.random(n) < rate)
+        out[hit] = (out[hit] + rng.integers(1, 4, len(hit), dtype=np.uint8)) % 4
+        return out
+
+    ancestor = rng.integers(0, 4, int(sizes.max()), dtype=np.int64).astype(np.uint8)
+    family = genus = None
+    for i, n in enumerate(sizes):  # sizes fall with i: the first of a group is its longest
+        if i % 16 == 0:
+            family = mutated(ancestor, rates[0], int(n))
+        if i % 4 == 0:
+            genus = mutated(family, rates[1], int(n))
+        yield 10 + i, _ACGT[mutated(genus, rates[2], int(n))].tobytes().decode("ascii")
+
+
 def scale_taxonomy(n_taxa: int) -> Taxonomy:
     return _star_taxonomy(range(10, 10 + n_taxa))
 
@@ -122,6 +150,25 @@ def write_fastq(reads: List[native.PackedReads], path: str) -> None:
     with open(path, "w") as f:
         for title, seq in read_sequences(reads):
             f.write(f"@{title}\n{seq}\n+\n{'I' * len(seq)}\n")
+
+
+class GenomeList:
+    """The genome library interface (inputs.GenomeLibrary's `sequences`,
+    `taxa_sequences` and `taxon_set`) over (taxon, sequence) pairs held in
+    memory."""
+
+    def __init__(self, genomes):
+        self.genomes = genomes
+
+    def sequences(self):
+        for i, (taxon, seq) in enumerate(self.genomes):
+            yield taxon, f"seq{i}", seq
+
+    def taxa_sequences(self):
+        return iter(self.genomes)
+
+    def taxon_set(self, taxonomy):
+        return taxonomy.taxa_with_ancestors([t for t, _ in self.genomes])
 
 
 def write_library(genomes, location: str) -> None:

@@ -355,3 +355,86 @@ def test_restricted_build_respace_and_span_hits_on_the_card(cuda, kind, tmp_path
     for a, b in zip(distinct_pairs(*hits[cuda][:2]), distinct_pairs(*hits["cpu"][:2])):
         assert torch.equal(a, b)
     assert torch.equal(hits[cuda][0], hits["cpu"][0]) and torch.equal(hits[cuda][1], hits["cpu"][1])
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_fragment_pass_of_long_rows_matches_the_twins(cuda, kind):
+    """bracken.fragment_pass at [4, 1 << 20], a batch of four rows of the
+    longest fragment: the scan kernel and the probe kernel (of this kind of
+    index) each launched once, all four outputs equal to the twins'."""
+    from slacken_tpu_torch import bracken
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    tax, genomes, params = _small_library(kind)
+    idx = KeyValueIndex.build(iter(genomes), params, tax, "cpu")
+    codes = _codes((4, 1 << 20), seed=41)
+    for r in range(4):  # genome sequence near both ends of each row, so that it hits the index there
+        for off in (1000 * r, (1 << 20) - 7000 + 1000 * r):
+            codes[r, off : off + 3000] = encode.encode_seq(genomes[r][1])
+    scan = {"narrow": "scan", "wide": "scan_wide", "lexicographic": "scan_lut"}[kind]
+    before = dict(cuda_kernels.LAUNCHES)
+    got = bracken.fragment_pass(idx, codes, cuda)
+    assert {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]} == {
+        scan: 1, "probe_wide" if kind == "wide" else "probe": 1}
+    want = bracken.fragment_pass(idx, codes, "cpu")
+    for g, w in zip(got, want):
+        assert g.shape == (4, 1 << 20) and torch.equal(g.cpu(), w)
+    assert int((want.looked[:, -7000:] > 0).sum()) > 1000
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+@pytest.mark.parametrize("few_taxa", [64, 1])
+def test_bracken_device_path_matches_numpy_on_the_card(cuda, kind, few_taxa, monkeypatch):
+    """BrackenWeights on the card (the device window classifier serves every
+    row) equal to the numpy path on the CPU; fragments split at 2,048 bases
+    so that several rows share a batch; with FEW_TAXA of 1 the rows that hit
+    two taxa or more (some in every batch) are classified in a group of
+    their own."""
+    from slacken_tpu_torch import bracken
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.workloads import GenomeList
+
+    monkeypatch.setattr(bracken, "FRAGMENT_MAX", 2048)
+    tax, genomes, params = _small_library(kind)
+    lib, taxa = GenomeList(genomes), {t for t, _ in genomes}
+    want = bracken.BrackenWeights(KeyValueIndex.build(iter(genomes), params, tax, "cpu"), 100,
+                                  device="cpu").build_weights(lib, taxa)
+    idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+    monkeypatch.setattr(bracken, "FEW_TAXA", few_taxa)
+    calls = []
+    real = bracken.window_classify
+    monkeypatch.setattr(bracken, "window_classify",
+                        lambda scan, *a: calls.append((scan.looked.shape[0], a[-1])) or real(scan, *a))
+    assert bracken.BrackenWeights(idx, 100, device=cuda).build_weights(lib, taxa) == want
+    rows = sum(1 for _ in bracken.BrackenWeights(idx, 100, device=cuda)._iter_fragments(lib, taxa))
+    assert sum(r for r, _ in calls) == rows and max(n for _, n in calls) > 1
+
+
+def test_window_counts_match_numpy_on_random_rows_on_the_card(cuda):
+    """bracken.window_dest_counts on the card against the numpy path on the
+    CPU, row by row, on random fragment-pass outputs over a random
+    200-node taxonomy: runs of taxa from pools of 2 to 90 nodes (ties and
+    LCAs abound), misses, invalid windows, random span starts and flags;
+    rows of 2^16 positions, the widest above FEW_TAXA."""
+    from types import SimpleNamespace
+
+    from slacken_tpu_torch import bracken
+    from slacken_tpu_torch.index import IndexParams
+    from slacken_tpu_torch.taxonomy import Taxonomy
+
+    rng = np.random.default_rng(5)
+    nodes = [(1, 1, "root")] + [(t, int(rng.integers(1, t)), "no rank") for t in range(2, 201)]
+    tax = Taxonomy.from_nodes_and_names(nodes, [(t, f"t{t}") for t, _, _ in nodes])
+    b, l = 8, 1 << 16
+    looked = np.zeros((b, l), np.int32)
+    for row in range(b):
+        pool = rng.choice(np.arange(1, 201), size=90 if row == 0 else int(rng.integers(2, 60)), replace=False)
+        looked[row] = np.repeat(rng.choice(np.append(pool, 0), size=l), rng.integers(1, 3 if row == 0 else 12, l))[:l]
+    flags = [rng.random((b, l)) < p for p in (0.97, 0.3, 0.8)]
+    host = bracken.FragmentScan(torch.from_numpy(looked), *(torch.from_numpy(f) for f in flags))
+    lengths = [l - 7 * r for r in range(b)]
+    index = SimpleNamespace(taxonomy=tax, params=IndexParams())
+    on_card = bracken.BrackenWeights(index, 100, device=cuda)
+    got = on_card._dest_counts(bracken.FragmentScan(*(x.to(cuda) for x in host)), lengths)
+    want = bracken.BrackenWeights(index, 100, device="cpu")._dest_counts(host, lengths)
+    assert got == want and int(bracken.hit_taxa_per_row(host).max()) > bracken.FEW_TAXA
