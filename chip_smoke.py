@@ -105,7 +105,7 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, by_kernel=False):
     """Device time of one call of fn alone: the mean duration that
     torch.profiler records for each kernel or copy of fn over `iters` calls,
     times its launches a call, summed. The host's time to enqueue a launch,
@@ -113,7 +113,8 @@ def device_ms(fn, iters=20):
     count. The mean is taken over the events the trace holds, because a trace
     can come back short of one (19 of 20 launches, seen on the H100 once a
     process has traced often); a plain sum over `iters` would then read low.
-    None if the profiler saw no device time."""
+    None if the profiler saw no device time. by_kernel: {kernel name: ms}
+    in place of the sum."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -124,8 +125,10 @@ def device_ms(fn, iters=20):
             fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    per_call = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters)) for e in rows)
-    return per_call / 1e3 if rows else None
+    each = {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3 for e in rows}
+    if by_kernel:
+        return each
+    return sum(each.values()) if rows else None
 
 
 def fmt_ms(ms):
@@ -165,18 +168,35 @@ WIDE_INDEXES = [("2M random wide keys, random queries", 2_000_000, 62),
                 ("120M random wide keys (hi64 below 2^26), random queries", 120_000_000, 26)]
 
 
-def scan_equals_twin(rng, dev, shape, mp, lut=None, table=""):
+#: the segment lengths forced on segment-adversarial rows
+#: (workloads.segment_rows): the shortest, and one with a shorter last segment
+FORCED_SEGMENTS = (128, 384)
+
+def scan_equals_twin(rng, dev, shape, mp, lut=None, table="", codes=None, segment=None):
     """The scan kernel for these parameters == its twin, bit for bit, on
-    random rows with invalid bases."""
+    random rows with invalid bases (or on `codes`), with the rows cut into
+    segments of `segment` positions when given (the stitch then launched
+    once)."""
     import torch
 
-    from slacken_tpu_torch.ops import encode, minimizers
+    from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
 
-    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
-    got = minimizers.window_minimizers_packed(packed, valid, mp, lut)
+    if codes is None:
+        codes = random_codes(rng, shape)
+    shape = codes.shape
+    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(codes))
+    stitched = cuda_kernels.LAUNCHES["scan_stitch"]
+    if segment is None:
+        got = minimizers.window_minimizers_packed(packed, valid, mp, lut)
+    else:
+        got = minimizers.WindowMinimizers(*cuda_kernels.window_minimizers_cuda(packed, valid, mp, lut, _segment=segment))
+    stitched = cuda_kernels.LAUNCHES["scan_stitch"] - stitched
     want = minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp, lut)
     torch.cuda.synchronize()
-    what = f"{list(shape)} k={mp.k} m={mp.m} s={mp.spaces} canonical={mp.canonical}" + table
+    what = (f"{list(shape)} k={mp.k} m={mp.m} s={mp.spaces} canonical={mp.canonical}" + table
+            + ("" if segment is None else f", segment-adversarial rows in segments of {segment}"))
+    if stitched != int((segment or cuda_kernels.segment_length(*shape, cuda_kernels.scan_warps(dev))) < shape[1]):
+        fail(f"the scan stitch was launched {stitched} times at {what}")
     for name in ("valid", "span_start", "distinct"):
         if not torch.equal(getattr(got, name), getattr(want, name)):
             fail(f"scan {name} differs from the twin at {what}")
@@ -188,32 +208,119 @@ def scan_equals_twin(rng, dev, shape, mp, lut=None, table=""):
         f"span starts {int(got.span_start.sum())}, max_abs_err 0")
 
 
+def segments_equal_twin(rng, dev, mp, lut=None, table=""):
+    """scan_equals_twin on workloads.segment_rows at each forced segment
+    length."""
+    from slacken_tpu_torch import workloads
+
+    for segment in FORCED_SEGMENTS:
+        scan_equals_twin(rng, dev, None, mp, lut, table, workloads.segment_rows(rng, segment, mp.k), segment)
+
+
+def table_bytes(lut, codes, mp):
+    """Device-memory bytes of a rank table that a scan of `codes` must read:
+    a random 4-byte load costs a whole 32-byte sector, and each sector that
+    the positions' masked canonical m-mers touch is read at least once (the
+    L2 may serve it after). A spaced seed leaves only 4^(m - s) of the 4^m
+    ranks reachable, so the sectors are counted from the run's data: the
+    twin's priorities through an identity table are the indices the kernel
+    loads, one at every position, valid or not."""
+    import torch
+
+    from slacken_tpu_torch.ops import minimizers
+
+    identity = torch.arange(lut.numel(), dtype=torch.int32, device=lut.device)
+    idx = minimizers.priorities(torch.from_numpy(codes).to(lut.device), mp, identity)
+    sectors = torch.unique(idx // (32 // lut.element_size())).numel()
+    return min(lut.numel() * lut.element_size(), 32 * sectors)
+
+
+def time_stitch(rng, dev, shape, mp, lut=None, table=""):
+    """The stitch at the segments the wrapper chooses for rows of `shape`,
+    on rows that give it work (workloads.carry_rows: N runs that end at
+    segment starts, some followed by the bases before them): the whole scan
+    == twin there, then the stitch kernel == twin on the summaries of the
+    scan's first pass, which must clear distinct bytes; kernel ms back to
+    back and alone, the twin's ms and the bound. Bytes: the summaries read
+    once; the minimizer read and the distinct byte written at each
+    segment's first window that needs the carry."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
+
+    codes = workloads.carry_rows(rng, shape, cuda_kernels.segment_length(*shape, cuda_kernels.scan_warps(dev)), mp.k)
+    scan_equals_twin(rng, dev, None, mp, lut, table + ", rows whose stitch clears distinct bytes", codes)
+    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(codes))
+    mn, flags, summary = cuda_kernels.scan_pass1_cuda(packed, valid, mp, lut)
+    want = minimizers.stitch_segments(mn, flags[2], summary)
+    distinct = flags[2].clone()
+    got = cuda_kernels.scan_stitch_cuda(mn, distinct, summary)
+    torch.cuda.synchronize()
+    what = f"{list(shape)} k={mp.k} m={mp.m}{table}"
+    if not torch.equal(got, want):
+        fail(f"the scan stitch differs from its twin at {what}")
+    cleared = int((flags[2] & ~want).sum())
+    if not cleared:
+        fail(f"the scan stitch cleared no distinct byte at {what}: the rows give it no work")
+    run = lambda: cuda_kernels.scan_stitch_cuda(mn, distinct, summary)  # noqa: E731 (clears the same bytes again)
+    ms, dev_ms = cuda_ms(run), device_ms(run)
+    plain = cuda_ms(lambda: minimizers.stitch_segments(mn, flags[2], summary), iters=3)
+    n_need = int((summary[..., 1] >= 0).sum())
+    n_bytes = tensor_bytes(summary) + n_need * 8 * (2 if mp.wide else 1) + cleared
+    bound_ms, by = bound(n_bytes, 8 * summary.shape[0] * summary.shape[1])
+    log(f"scan stitch {list(summary.shape[:2])} segments (k={mp.k} m={mp.m}{'' if lut is None else ', rank table'}): "
+        f"{n_need} first windows needed the carry, {cleared} distinct bytes cleared; kernel "
+        f"{ms:.4f} ms back to back, {fmt_ms(dev_ms)} alone, plain PyTorch on the card {plain:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({by}, {n_bytes} bytes); kernel == twin, max_abs_err 0")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by, library_ms=None,
+                segments=list(summary.shape[:2]), needing_carry=n_need, cleared=cleared)
+
+
 def time_scan(rng, dev, shape, mp, lut=None):
     """Kernel ms back to back and alone, the twin's ms and the bound at one
-    shape. Bytes: packed codes and validity bits in; minimizers (8 bytes, 16
-    for a wide m) and three flag bytes a position out; with a rank table 4
-    bytes of it a position, or all of it if that is less. Operations: about
-    48 32-bit integer operations a position suffice (rolling forward and
-    reverse m-mers, spaced mask, toggle, canonical min, a min over k-m+1
-    windows, the three flags), twice that on two limbs."""
+    shape; where the wrapper cuts these rows into segments, the scan's own
+    time alone and the stitch's (`time_stitch`) beside it. Bytes: packed
+    codes and validity bits in; minimizers (8 bytes, 16 for a wide m) and
+    three flag bytes a position out; with a rank table what `table_bytes`
+    counts. Operations: about 48 32-bit integer operations a position
+    suffice (rolling forward and reverse m-mers, spaced mask, toggle,
+    canonical min, a min over k-m+1 windows, the three flags), twice that on
+    two limbs."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
 
-    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(random_codes(rng, shape)))
+    codes = random_codes(rng, shape)
+    packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(codes))
     run = lambda: cuda_kernels.window_minimizers_cuda(packed, valid, mp, lut)  # noqa: E731
-    ms, dev_ms = cuda_ms(run), device_ms(run)
+    segment = cuda_kernels.segment_length(*shape, cuda_kernels.scan_warps(dev))
+    ms = cuda_ms(run)
+    if segment < shape[1]:
+        scans = []
+        for _ in range(2):  # a trace late in a long process now and then misses the kernel
+            scans = [v for name, v in device_ms(run, by_kernel=True).items() if "scan" in name and "stitch" not in name]
+            if scans:
+                break
+        dev_ms = sum(scans) if scans else None
+    else:
+        dev_ms = device_ms(run)
     plain = cuda_ms(lambda: minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp, lut), iters=3)
     n_pos = shape[0] * shape[1]
     n_bytes = tensor_bytes(packed, valid) + n_pos * ((16 if mp.wide else 8) + 3)
     if lut is not None:
-        n_bytes += min(tensor_bytes(lut), 4 * n_pos)
+        n_bytes += table_bytes(lut, codes, mp)
     bound_ms, by = bound(n_bytes, (96 if mp.wide else 48) * n_pos)
-    log(f"scan {list(shape)} k={mp.k} m={mp.m} s={mp.spaces}{'' if lut is None else ' with a rank table'}: "
-        f"kernel {ms:.4f} ms back to back through the wrapper, {fmt_ms(dev_ms)} "
-        f"on the device alone, plain PyTorch on the card {plain:.4f} ms, bound {bound_ms:.4f} ms ({by}, "
-        f"{n_bytes / 1e6:.1f} MB); no single library call computes it")
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by)
+    log(f"scan {list(shape)} k={mp.k} m={mp.m} s={mp.spaces}{'' if lut is None else ' with a rank table'}"
+        f"{'' if segment == shape[1] else f' in segments of {segment}'}: kernel {ms:.4f} ms back to back through the "
+        f"wrapper{'' if segment == shape[1] else ' (the stitch included)'}, {fmt_ms(dev_ms)} on the device alone"
+        f"{'' if segment == shape[1] else ' (the scan kernel)'}, plain PyTorch on the card {plain:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB); no single library call computes it")
+    out = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by)
+    if segment < shape[1]:
+        out["segment"] = segment
+        out["stitch"] = time_stitch(rng, dev, shape, mp, lut)
+    return out
 
 
 def check_scan(rng, dev, results):
@@ -226,7 +333,10 @@ def check_scan(rng, dev, results):
     # random shapes and the main path's with the default k, m, s; then other
     # parameter sets: a window inside one lane (W = 1), non-canonical, m = 1
     # (W = k), windows that reach 2 to 9 lanes ahead, k > 61 (validity over
-    # several words) and rows shorter than one chunk
+    # several words) and rows shorter than one chunk; then rows cut into
+    # segments, with N runs over whole segments and first valid windows at
+    # segment starts, for Kraken 2's default instance and the generic one
+    # (W = 1, k - m = 120)
     cases = [(shape, default) for shape in [(4096, 128), (512, 1024), *SCAN_SHAPES]]
     cases += [((512, 1024), mp) for mp in (
         P(21, 15, 3), P(31, 31, 0), P(35, 31, 7, canonical=False), P(35, 1, 0), P(12, 5, 1, canonical=False),
@@ -234,12 +344,16 @@ def check_scan(rng, dev, results):
     cases += [((37, 8), P(5, 3, 1)), ((37, 72), default), (LONG_ROWS, default)]
     for shape, mp in cases:
         scan_equals_twin(rng, dev, shape, mp)
+    for mp in (default, P(21, 15, 3, canonical=False), P(31, 31, 0), P(151, 31, 0)):
+        segments_equal_twin(rng, dev, mp)
     shapes = {str(list(shape)): time_scan(rng, dev, shape, default) for shape in (*SCAN_SHAPES, LONG_ROWS)}
     results["scan"] = dict(max_abs_err=0.0, **shapes[str(list(SCAN_SHAPES[0]))], library_ms=None, shapes=shapes)
+    stitch = {f"{list(LONG_ROWS)} (35, 31, 7)": shapes[str(list(LONG_ROWS))]["stitch"]}
 
     # the rank-table instance, each m with the lexicographic, the signature
     # and a random order; rows shorter than k (8 < 21) and than one chunk, and
-    # the main path's shapes, bracken's fragment rows with the timed m
+    # the main path's shapes, bracken's fragment rows and segment-adversarial
+    # rows with the timed m
     shapes = {}
     timed = LUT_SCANS[-1][1]
     for mp in (P(*kms) for kms in LUT_SCANS):
@@ -250,25 +364,33 @@ def check_scan(rng, dev, results):
             lut = torch.from_numpy(table.astype(np.int32)).to(dev)
             for shape in [(512, 1024), (37, 8), (37, 72), *SCAN_SHAPES, *([LONG_ROWS] if mp.m == timed else [])]:
                 scan_equals_twin(rng, dev, shape, mp, lut, f", {name} table of {n} ranks")
+            if mp.m == timed:
+                segments_equal_twin(rng, dev, mp, lut, f", {name} table of {n} ranks")
         for shape in (*SCAN_SHAPES, LONG_ROWS) if mp.m == timed else SCAN_SHAPES[:1]:  # `lut`: the random one
             shapes[f"{list(shape)} m={mp.m}"] = time_scan(rng, dev, shape, mp, lut)
         del lut
     results["scan_lut"] = dict(max_abs_err=0.0, **shapes[f"{list(SCAN_SHAPES[0])} m={timed}"], library_ms=None, shapes=shapes)
+    stitch[f"{list(LONG_ROWS)} {tuple(LUT_SCANS[-1])}, rank table"] = shapes[f"{list(LONG_ROWS)} m={timed}"]["stitch"]
 
     # the wide kernel: m = 32 (the key is all of lo64) and 33, the widest m,
-    # spaced and not, W = 1, 3, 4, 6 and 18
+    # spaced and not, W = 1, 3, 4, 6 and 18; segment-adversarial rows with
+    # W = 1 and k - m = 120 too
     wide = (P(35, 32, 0), P(35, 33, 0), P(50, 45, 7), P(80, 63, 7), P(63, 63, 0))
     for mp in wide:
         for shape in [(512, 1024), (37, 8), (37, 72), *SCAN_SHAPES]:
             scan_equals_twin(rng, dev, shape, mp)
     scan_equals_twin(rng, dev, (512, 1024), P(50, 45, 7, canonical=False))
     scan_equals_twin(rng, dev, LONG_ROWS, P(50, 45, 7))
+    for mp in (P(50, 45, 7), P(63, 63, 0, canonical=False), P(183, 63, 31)):
+        segments_equal_twin(rng, dev, mp)
     shapes = {f"{list(shape)} (50, 45, 7)": time_scan(rng, dev, shape, P(50, 45, 7))
               for shape in (*SCAN_SHAPES, LONG_ROWS)}
     for mp in (P(35, 33, 0), P(80, 63, 7)):
         shapes[f"{list(SCAN_SHAPES[0])} ({mp.k}, {mp.m}, {mp.spaces})"] = time_scan(rng, dev, SCAN_SHAPES[0], mp)
     results["scan_wide"] = dict(max_abs_err=0.0, **shapes[f"{list(SCAN_SHAPES[0])} (50, 45, 7)"], library_ms=None,
                                 shapes=shapes)
+    stitch[f"{list(LONG_ROWS)} (50, 45, 7)"] = shapes[f"{list(LONG_ROWS)} (50, 45, 7)"]["stitch"]
+    results["scan_stitch"] = dict(max_abs_err=0.0, **stitch[f"{list(LONG_ROWS)} (35, 31, 7)"], shapes=stitch)
 
 
 def time_probe(label, keys, taxa, directory, queries, name="probe"):
@@ -607,12 +729,12 @@ def twins_forbidden():
     def refuse(*args, **kwargs):
         fail("a kernel's plain twin was called on the card's path")
 
-    saved = minimizers.window_minimizers, lookup.lookup_taxa
-    minimizers.window_minimizers = lookup.lookup_taxa = refuse
+    saved = minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa
+    minimizers.window_minimizers = minimizers.stitch_segments = lookup.lookup_taxa = refuse
     try:
         yield
     finally:
-        minimizers.window_minimizers, lookup.lookup_taxa = saved
+        minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa = saved
 
 
 def output_tree(prefix):
@@ -682,7 +804,7 @@ def phase_bench(dev, out, results):
     med = statistics.median(times)
     log(f"bench classify on the card, reports mode: {n_reads} reads, runs "
         f"{[round(t, 4) for t in times]} s, median {n_reads / med:.1f} reads/s")
-    require_launches("reports mode (3 runs)", launches)
+    require_launches("reports mode (3 runs)", launches, never=("scan_stitch",))  # rows of 128: a warp a row
     profile_run(lambda: cls.classify_and_write_packed(reads, os.path.join(out, "prof"), cpar), "reports mode")
 
     t0 = time.perf_counter()
@@ -729,7 +851,7 @@ def phase_detailed(dev, out, bench):
     log(f"bench classify on the card, per-read mode: {n_reads} reads, runs "
         f"{[round(t, 4) for t in times]} s, median {rate:.1f} reads/s "
         f"({rate / bench['reports_rate']:.3f} of reports mode's {bench['reports_rate']:.1f})")
-    require_launches("per-read mode (3 runs)", launches)
+    require_launches("per-read mode (3 runs)", launches, never=("scan_stitch",))
     profile_run(lambda: cls.classify_and_write_packed(reads, os.path.join(out, "detprof"), cpar),
                 "per-read mode")
     t0 = time.perf_counter()
@@ -1612,7 +1734,7 @@ def phase_bracken(dev, out, bases):
             torch.cuda.synchronize()
             walls["wall"] = time.perf_counter() - t0
         launches = dict(cuda_kernels.LAUNCHES)
-        require_launches(f"bracken {kind}", launches, kernels[kind],
+        require_launches(f"bracken {kind}", launches, (*kernels[kind], "scan_stitch"),
                          [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide") if k not in kernels[kind]])
         add_launches(total, launches)
         t0 = time.perf_counter()
@@ -1655,7 +1777,7 @@ def phase_bracken(dev, out, bases):
         finally:
             bracken.BrackenWeights.build_weights = real
     launches = dict(cuda_kernels.LAUNCHES)
-    require_launches("bracken-build CLI", launches)
+    require_launches("bracken-build CLI", launches, ("scan", "scan_stitch", "probe"))
     add_launches(total, launches)
     written = os.path.join(f"{idx_dir}_bracken", "database100mers.kmer_distrib")
     bracken.write_kmer_distrib(chunked, os.path.join(out, "br_chunked.kmer_distrib"))
@@ -1674,9 +1796,9 @@ def phase_bracken(dev, out, bases):
 SAMPLE_POSITIONS = 1 << 18
 
 
-def bracken_at_scale(dev, out, label, genomes, records=None):
+def bracken_at_scale(dev, out, label, genomes, params, records=None):
     """Bracken weights at R = 100 of one 400 Mbp library on the card: its
-    narrow index built there (scale_taxonomy_deep), then the weights with
+    index with `params` built there (scale_taxonomy_deep), then the weights with
     the wall of the fragment passes and of the device window classifier
     timed apart, each source's reads equal to its read windows, the rows'
     hit taxa and the peak device memory; last the device classifier held to
@@ -1685,7 +1807,7 @@ def bracken_at_scale(dev, out, label, genomes, records=None):
     import torch
 
     from slacken_tpu_torch import bracken, workloads
-    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.index import KeyValueIndex
     from slacken_tpu_torch.ops import cuda_kernels, encode
 
     tax = workloads.scale_taxonomy_deep(SCALE_TAXA)
@@ -1693,7 +1815,7 @@ def bracken_at_scale(dev, out, label, genomes, records=None):
     cuda_kernels.reset_launch_counts()
     with twins_forbidden():
         t0 = time.perf_counter()
-        idx = KeyValueIndex.build(iter(genomes), IndexParams(k=35, m=31, spaces=7), tax, dev)
+        idx = KeyValueIndex.build(iter(genomes), params, tax, dev)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         if records is not None and idx.num_records != records:
@@ -1723,13 +1845,15 @@ def bracken_at_scale(dev, out, label, genomes, records=None):
             bracken.hit_taxa_per_row = real_taxa
         peak = torch.cuda.max_memory_allocated()
         launches = dict(cuda_kernels.LAUNCHES)
-        require_launches(f"bracken at scale, {label}", launches)
+        names, never = ((("scan_wide", "probe_wide"), ("scan", "scan_lut", "probe")) if idx.wide
+                        else (("scan", "probe"), ("scan_wide", "scan_lut", "probe_wide")))
+        require_launches(f"bracken at scale, {label}", launches, (*names, "scan_stitch"), never)
         # the device classifier against the numpy counts on one long row
         codes = encode.encode_seq(genomes[0][1][:SAMPLE_POSITIONS])[None, :]
         scan = bracken.fragment_pass(idx, codes, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        on_card = bracken.window_dest_counts(scan, bw._rpath_table(), 100, 35, [SAMPLE_POSITIONS - 99])[0]
+        on_card = bracken.window_dest_counts(scan, bw._rpath_table(), 100, params.k, [SAMPLE_POSITIONS - 99])[0]
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
     host = [x.cpu().numpy()[0] for x in scan]
@@ -1746,7 +1870,8 @@ def bracken_at_scale(dev, out, label, genomes, records=None):
     row_taxa = torch.cat(row_taxa)
     many = int((row_taxa > bracken.FEW_TAXA).sum())
     mw = lambda s: n_windows / s / 1e6  # noqa: E731
-    log(f"bracken at scale, {label}, R = 100: {sum(len(g) for _, g in genomes) / 1e6:.0f} Mbp, index of "
+    log(f"bracken at scale, {label}, R = 100: {sum(len(g) for _, g in genomes) / 1e6:.0f} Mbp, index "
+        f"(k={params.k} m={params.m} s={params.spaces}) of "
         f"{idx.num_records} records built on the card in {build_s:.2f} s; {n_fragments} fragments, {n_windows} read "
         f"windows, {len(counts)} (destination, source) pairs, each source's reads equal to its read windows")
     log(f"bracken at scale, {label}: wall {seconds['wall']:.3f} s ({mw(seconds['wall']):.2f} Mwindows/s), fragment "
@@ -1767,12 +1892,19 @@ def phase_bracken_scale(dev, out, genomes):
     species in 16 genera in 4 families: scale_library's disjoint random
     genomes (every read window goes to its own species), and
     related_library's mutated copies (windows shared within genera and
-    families, many hit taxa a row, ties). Returns the launch counts."""
+    families, many hit taxa a row, ties), each with a narrow index; then the
+    disjoint library with a wide (50, 45, 7) index (the wide scan on the
+    fragment rows). Returns the launch counts."""
     from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.index import IndexParams
 
-    launches = bracken_at_scale(dev, out, "disjoint genomes", genomes, SCALE_RECORDS)
+    narrow = IndexParams(k=35, m=31, spaces=7)
+    launches = bracken_at_scale(dev, out, "disjoint genomes", genomes, narrow, SCALE_RECORDS)
     related = list(workloads.related_library(SCALE_BP, SCALE_TAXA))
-    add_launches(launches, bracken_at_scale(dev, out, "related genomes", related))
+    add_launches(launches, bracken_at_scale(dev, out, "related genomes", related, narrow))
+    del related
+    add_launches(launches, bracken_at_scale(dev, out, "disjoint genomes, wide index", genomes,
+                                            IndexParams(k=50, m=45, spaces=7)))
     return launches
 
 
@@ -1914,11 +2046,13 @@ def main():
             fail(f"the port imported {mod}")
     idioms = ("slacken_tpu_torch/ops/kernels/mask_idioms.cu", "scripts/tpu_session.py:")
     # the rank-table and wide kernels replace code that the JAX package left
-    # to XLA, not a Pallas kernel: their lines name that code
+    # to XLA, not a Pallas kernel: their lines name that code (the stitch:
+    # _carry_forward, whose carry it takes across segments)
     scan_cu, probe_cu = "slacken_tpu_torch/ops/kernels/scan.cu", "slacken_tpu_torch/ops/kernels/probe.cu"
     sources = {"scan": (scan_cu, "slacken_tpu/ops/pallas_kernels.py:26"),
                "scan_lut": (scan_cu, "slacken_tpu/ops/minimizers.py:195"),
                "scan_wide": (scan_cu, "slacken_tpu/ops/minimizers.py:372"),
+               "scan_stitch": (scan_cu, "slacken_tpu/ops/minimizers.py:417"),
                "probe": (probe_cu, "slacken_tpu/ops/pallas_kernels.py:98"),
                "probe_wide": (probe_cu, "slacken_tpu/ops/lookup.py:161"),
                **{name: (idioms[0], idioms[1] + str(line)) for name, line in

@@ -37,12 +37,25 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "
 MASK_IDIOMS = ("select", "astype", "concat", "carry", "sum_bool")
 
 #: scan: the XOR-ordered narrow scan; scan_lut: its rank-table instance;
-#: scan_wide, probe_wide: the kernels for m > 31
+#: scan_wide, probe_wide: the kernels for m > 31; scan_stitch: the second
+#: pass of a scan whose rows are cut into segments
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide", *MASK_IDIOMS)
+    name: 0 for name in ("scan", "scan_lut", "scan_wide", "scan_stitch", "probe", "probe_wide", *MASK_IDIOMS)
 }
 
+#: warps a scan launch should have in flight on each SM: four a scheduler,
+#: four schedulers an SM. Fewer rows than `scan_warps` are cut into
+#: segments, one warp each
+SCAN_WARPS_PER_SM = 16
+#: the shortest segment: its warm-up chunk (128 positions computed and not
+#: written) then costs at most 6%
+MIN_SEGMENT = 2048
+#: a segment length is a multiple of the scan's chunk
+CHUNK = 128
+
 _lib = None
+#: device index -> scan_warps
+_scan_warps: Dict[int, int] = {}
 #: (device, stream) -> [the sum_bool kernel's two counters, the next launch's parity]
 _sum_bool_counters: Dict[tuple, list] = {}
 #: (seconds, compiler output) of the build this process ran, if any
@@ -110,11 +123,12 @@ def _load():
         return _lib
     lib = ctypes.CDLL(build())
     p, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-    lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, u64, u64, p, p, p, p, p, p]
-    lib.stpu_scan_wide.argtypes = [p, p, i64, i32, i32, i32, i32, u64, u64, u64, u64, p, p, p, p, p]
+    lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, p, p, p, p, p, p, p]
+    lib.stpu_scan_wide.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, u64, u64, p, p, p, p, p, p]
+    lib.stpu_scan_stitch.argtypes = [p, i64, i32, i32, p, p, p]
     for fn in (lib.stpu_probe, lib.stpu_probe_wide):
         fn.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
-    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide):
+    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_scan_stitch, lib.stpu_probe, lib.stpu_probe_wide):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -143,13 +157,43 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None):
-    """Fused unpack + minimizer scan (kernels/scan.cu) over pack_2bit's
-    [B, L/4] codes and [B, L/8] validity bits. Returns (minimizer, valid,
-    span_start, distinct bool [B, L]); the minimizer is int64 [B, L], or
-    int64 [B, L, 2] (hi64, lo64) for a wide m, and -1 in every limb at an
-    invalid window. `lut` is an int32 rank table of 4^m entries on the same
-    device (explicit orderings, m <= 15)."""
+def scan_warps(device: torch.device) -> int:
+    """The warps a scan launch on this CUDA device should have in flight:
+    SCAN_WARPS_PER_SM on each of its SMs (2,112 on an H100 SXM's 132)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _scan_warps:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _scan_warps[index] = SCAN_WARPS_PER_SM * sms
+    return _scan_warps[index]
+
+
+def segment_length(rows: int, L: int, warps: int) -> int:
+    """The positions a warp of the scan takes: the whole row (L) when the
+    rows alone give `warps` warps (`scan_warps`), or when L is short; else
+    the largest multiple of CHUNK that still gives that many, but no less
+    than MIN_SEGMENT. With an H100's 2,112 warps, [32768, 128], [16384, 264]
+    and [8192, 4096] take L; bracken's [4, 2^20] takes 2,048 (512 segments
+    a row)."""
+    per_row = -(-warps // max(rows, 1))  # segments a row needs
+    if per_row == 1:
+        return L
+    # ceil(L / s) >= per_row  <=>  s * (per_row - 1) < L
+    s = max(MIN_SEGMENT, (L - 1) // (per_row - 1) // CHUNK * CHUNK)
+    return L if s >= L else s
+
+
+def scan_pass1_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None, segment=None):
+    """Pass 1 of the minimizer scan (kernels/scan.cu) over pack_2bit's
+    [B, L/4] codes and [B, L/8] validity bits, one warp a row or, when
+    `segment` (a multiple of CHUNK; default `segment_length`) is below L, a
+    warp a segment of that many positions. Returns (minimizer, flags,
+    summary): the minimizer int64 [B, L] (or [B, L, 2] for a wide m), flags
+    bool [3, B, L] (valid, span_start, distinct), and int64 [B, nseg, 4]
+    segment summaries for `scan_stitch_cuda`, or None for one segment a row.
+    Until the stitch runs, `distinct` may be 1 at the first valid window of
+    a segment where it should be 0."""
     _require(packed, "packed", torch.uint8, 2)
     _require(valid, "valid", torch.uint8, 2)
     b, l4 = packed.shape
@@ -168,11 +212,18 @@ def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lu
                 f"a rank table takes m <= 15 and 4^m entries on {packed.device}, got m={m} "
                 f"and {lut.shape[0]} entries on {lut.device}"
             )
+    if segment is None:
+        segment = segment_length(b, L, scan_warps(packed.device))
+    elif segment < 1 or (segment % CHUNK and segment < L):
+        raise ValueError(f"a segment is a positive multiple of {CHUNK} positions, got {segment}")
+    segment = min(segment, L)
+    nseg = -(-L // segment) if segment else 1
     lib = _load()
     flags = torch.empty((3, b, L), dtype=torch.bool, device=packed.device)
+    summary = torch.empty((b, nseg, 4), dtype=torch.int64, device=packed.device) if nseg > 1 else None
     f0 = flags.data_ptr()
-    outs = (f0, f0 + b * L, f0 + 2 * b * L, _stream(packed))
-    common = (packed.data_ptr(), valid.data_ptr(), b, L, k, m, int(bool(params.canonical)))
+    outs = (f0, f0 + b * L, f0 + 2 * b * L, None if summary is None else summary.data_ptr(), _stream(packed))
+    common = (packed.data_ptr(), valid.data_ptr(), b, L, segment, k, m, int(bool(params.canonical)))
     smask = space_mask_int(m, params.spaces)
     if params.wide:
         name = "scan_wide"
@@ -189,6 +240,47 @@ def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lu
         )
     _check(rc, name)
     LAUNCHES[name] += 1
+    return mn, flags, summary
+
+
+def scan_stitch_cuda(minimizer: torch.Tensor, distinct: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
+    """Pass 2 of a scan cut into segments (kernels/scan.cu,
+    scan_stitch_kernel): clears, in place, the `distinct` byte of each
+    segment's first valid window whose last valid window before lies in an
+    earlier segment with the same minimizer. minimizer int64 [B, L] or
+    [B, L, 2], distinct bool [B, L] (contiguous views), summary int64
+    [B, nseg, 4] from `scan_pass1_cuda`. Twin: minimizers.stitch_segments.
+    Returns `distinct`."""
+    _require(summary, "summary", torch.int64, 3)
+    _require(distinct, "distinct", torch.bool, 2)
+    _require(minimizer, "minimizer", torch.int64, minimizer.dim())
+    b, nseg, four = summary.shape
+    if (four != 4 or distinct.shape[0] != b or tuple(minimizer.shape[:2]) != tuple(distinct.shape)
+            or tuple(minimizer.shape[2:]) not in ((), (2,))
+            or len({minimizer.device, distinct.device, summary.device}) != 1):
+        raise ValueError(
+            f"summary [{b}, nseg, 4], minimizer [{b}, L] or [{b}, L, 2] and distinct [{b}, L] on one "
+            f"device, got {tuple(summary.shape)}, {tuple(minimizer.shape)} and {tuple(distinct.shape)}"
+        )
+    rc = _load().stpu_scan_stitch(summary.data_ptr(), b * nseg, nseg, minimizer.dim() - 1, minimizer.data_ptr(),
+                                  distinct.data_ptr(), _stream(summary))
+    _check(rc, "scan_stitch")
+    LAUNCHES["scan_stitch"] += 1
+    return distinct
+
+
+def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None, *, _segment=None):
+    """Fused unpack + minimizer scan (kernels/scan.cu) over pack_2bit's
+    [B, L/4] codes and [B, L/8] validity bits. Returns (minimizer, valid,
+    span_start, distinct bool [B, L]); the minimizer is int64 [B, L], or
+    int64 [B, L, 2] (hi64, lo64) for a wide m, and -1 in every limb at an
+    invalid window. `lut` is an int32 rank table of 4^m entries on the same
+    device (explicit orderings, m <= 15). Few long rows are cut into
+    segments (`segment_length`; `_segment` forces a length, for tests) and
+    take a second launch, the stitch."""
+    mn, flags, summary = scan_pass1_cuda(packed, valid, params, lut, _segment)
+    if summary is not None:
+        scan_stitch_cuda(mn, flags[2], summary)
     return (mn, *flags.unbind(0))
 
 

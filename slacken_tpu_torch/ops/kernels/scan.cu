@@ -1,5 +1,6 @@
 // Fused minimizer scans: narrow minimizers (m <= 31) in XOR order or through
-// a rank table, and wide minimizers (31 < m <= 63, at the end of this file).
+// a rank table, and wide minimizers (31 < m <= 63), one kernel template; and
+// the stitch that joins a long row's segments.
 //
 // Replaces the Pallas kernel `_scan_kernel` / `window_minimizers_pallas`
 // (slacken_tpu/ops/pallas_kernels.py:26,42), which runs the doubling scans of
@@ -17,20 +18,24 @@
 // a swap inside each pair, a shift). A priority therefore costs two funnel
 // shifts, one `brev` and a dozen logic operations, not a loop over m bases,
 // and a window's validity is one k-bit slice of the validity stream compared
-// with all ones. One warp owns a row and walks it in chunks of 128 window
-// positions, four consecutive positions a lane, four rows a block; nothing
-// is shared between warps, so there is no shared memory and no block-wide
-// barrier. A lane cuts its 4 + m - 1 bases from three aligned 32-bit loads.
-// The minimum over the W = k - m + 1 priorities of a window reaches into the
-// next lanes, and past lane 31 into the next chunk: the warp computes the
+// with all ones. One warp owns a row (or a segment of one, below) and walks
+// it in chunks of 128 window positions, four consecutive positions a lane,
+// four warps a block; nothing is shared between warps, so there is no shared
+// memory and no block-wide barrier. A lane cuts its 4 + m - 1 bases from
+// three aligned 32-bit loads (five for a wide m). The minimum over the
+// W = k - m + 1 priorities of a window is the rest of the lane (an in-lane
+// suffix minimum), whole lanes between (their full minima, by shuffles) and
+// the start of the lane where the window ends (an in-lane prefix minimum);
+// past lane 31 it reaches into the next chunk: the warp computes the
 // priorities of chunk c + 1 before it emits chunk c, so every priority is
 // computed once and a shuffle picks the neighbour's value from either chunk.
 // `span_start` takes the window before from the lane below; `distinct`
 // needs the minimizer of the last valid window before each position,
 // possibly many chunks back: a ballot of the lanes that hold a valid window
 // names the lane to ask, and the carry across chunks stays in registers.
-// A lane stores its four minimizers as two 16-byte words and each flag array
-// as one 4-byte word, so a warp writes 1,024 and 3 x 128 contiguous bytes.
+// A lane stores its four minimizers as two 16-byte words (four for a wide m)
+// and each flag array as one 4-byte word, so a warp writes 1,024 (2,048) and
+// 3 x 128 contiguous bytes.
 //
 // Kraken 2's default k = 35, m = 31 gets an instance of its own, in which the
 // window's shape and every mask are constants; any other k and m run the
@@ -38,19 +43,53 @@
 //
 // Explicit orderings (ops/ordering.py, m <= 15) get a third instance: after
 // the canonical choice and the spaced mask, the priority is one `__ldg` of a
-// rank table of 4^m int32 entries in place of the XOR. Minima, validity,
-// `span_start` and `distinct` are the same code. The table is 64 MiB at
+// rank table of 4^m int32 entries in place of the XOR. The table is 64 MiB at
 // m = 12, 256 MiB at m = 13 and 4 GiB at m = 15, beyond the 50 MB L2 from
 // m = 12 on: this instance is then bound by scattered 4-byte loads, one
-// 32-byte sector a window position, not by the 11 bytes it writes.
+// 32-byte sector from device memory a window position for the share of the
+// table that the L2 cannot hold, not by the 11 bytes it writes.
+//
+// Wide minimizers (31 < m <= 63) replace the wide branch of
+// `window_minimizers_impl` (slacken_tpu/ops/minimizers.py:372-379:
+// priorities_at_starts_wide :266, sliding_min_u128 :285, there over four
+// 32-bit limbs), which XLA compiled. A priority is a 2m-bit value in two
+// 64-bit limbs (hi below 2^62, lo unsigned), compared as one unsigned 128-bit
+// value; the code is the narrow one on such pairs. A lane reverses the pairs
+// of its 160 bits of stream once and cuts the four forward m-mers from that
+// by funnel shifts. A pair moves between lanes in four 32-bit shuffles.
+// Every k and m share one instance. Pairs are chosen limb by limb
+// (`choose`): a conditional between two pairs selects an address, and puts
+// the arrays that hold them in local memory.
+// Limit: k - m <= 120, as for the narrow scan.
+//
+// Long rows. One warp a row leaves the card idle when rows are few and long:
+// bracken's batch of four 2^20-wide fragment rows would be one block on one
+// SM of 132. The wrapper then cuts every row into segments of S positions
+// (a multiple of the chunk; the row's last segment may be shorter), one warp
+// a (row, segment). A warp starts one chunk early and discards it: that
+// warm-up chunk gives the window before the segment (`span_start`) exactly,
+// and the last valid minimizer (`distinct`) whenever the chunk holds a valid
+// window. The look-ahead reads the row past the segment's end: only the
+// row's end zeroes it. What the warm-up cannot see is a valid window further
+// back. Only the segment's first valid window can need it, and only when the
+// warm-up holds none; pass 1 then writes `distinct` = `span_start` = 1 there.
+// Each warp writes a summary of its segment: whether it holds a valid window,
+// the minimizer of its last, and the flat position of that first window when
+// it needs the carry. `scan_stitch_kernel`, one thread a segment, walks back
+// to the nearest earlier segment of the row that holds a valid window and
+// clears that one `distinct` byte when the two minimizers are equal: the
+// carry of `_carry_forward` (slacken_tpu/ops/minimizers.py:417, called at
+// :397) across segments. A row that is one segment takes one launch and no
+// summary.
 //
 // Bound: device-memory bytes written, 11 a position (an int64 minimizer and
-// three flag bytes) against 3/8 byte read. What limits the kernel on an H100
-// is instruction throughput: about 125 integer instructions and 6 shuffles a
-// position in the default instance, half of them the 64-bit compares and
-// selects of the minima and of the canonical choice. It reaches 51% of the
-// byte bound on 128-wide rows, 45% on 264-wide and 62% on 4,096-wide ones
-// (PERF.md, Findings).
+// three flag bytes; 19 for a wide m) against 3/8 byte read. What limits the
+// kernel on an H100 is instruction throughput: about 125 integer
+// instructions and 6 shuffles a position in the default instance, half of
+// them the 64-bit compares and selects of the minima and of the canonical
+// choice, and about twice that in the wide one. It reaches 51% of the byte
+// bound on 128-wide rows, 45% on 264-wide and 62% on 4,096-wide ones; the
+// wide instance 31-47% (PERF.md, Findings).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,11 +98,47 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int WARPS = 4;   // rows per block (2 to 16 time alike on an H100)
+constexpr int WARPS = 4;   // warps per block (2 to 16 time alike on an H100)
 constexpr int CH = 128;    // window positions per warp and chunk, four a lane
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ u64 min64(u64 a, u64 b) { return a < b ? a : b; }
+// the three orders of priorities: XOR with the toggle mask, a rank table,
+// and XOR over two limbs for a wide m
+enum Order { XOR = 0, LUT = 1, WIDE = 2 };
+
+// A wide priority: hi64 (below 2^62) over lo64, compared as unsigned limbs.
+struct K2 {
+  u64 hi, lo;
+};
+
+template <int ORDER> struct KeyOf { typedef u64 T; };
+template <> struct KeyOf<WIDE> { typedef K2 T; };
+
+__device__ __forceinline__ bool less2(const K2& a, const K2& b) {
+  return ((unsigned __int128)a.hi << 64 | a.lo) < ((unsigned __int128)b.hi << 64 | b.lo);
+}
+
+__device__ __forceinline__ K2 choose(bool c, K2 a, K2 b) { return {c ? a.hi : b.hi, c ? a.lo : b.lo}; }
+
+__device__ __forceinline__ u64 kmin(u64 a, u64 b) { return a < b ? a : b; }
+__device__ __forceinline__ K2 kmin(K2 a, K2 b) { return choose(less2(b, a), b, a); }
+
+__device__ __forceinline__ bool differ(u64 a, u64 b) { return a != b; }
+__device__ __forceinline__ bool differ(const K2& a, const K2& b) { return a.hi != b.hi || a.lo != b.lo; }
+
+__device__ __forceinline__ void fill(u64& v, u64 x) { v = x; }
+__device__ __forceinline__ void fill(K2& v, u64 x) { v = {x, x}; }
+
+// Shuffles of a narrow priority or a wide pair.
+__device__ __forceinline__ u64 shfl(u64 v, int src) { return __shfl_sync(FULL, v, src); }
+__device__ __forceinline__ K2 shfl(const K2& v, int src) {
+  return {__shfl_sync(FULL, v.hi, src), __shfl_sync(FULL, v.lo, src)};
+}
+
+__device__ __forceinline__ u64 shfl_up(u64 v) { return __shfl_up_sync(FULL, v, 1); }
+__device__ __forceinline__ K2 shfl_up(const K2& v) {
+  return {__shfl_up_sync(FULL, v.hi, 1), __shfl_up_sync(FULL, v.lo, 1)};
+}
 
 // A row's bytes seen as aligned 32-bit words. Rows start at any byte, so the
 // first word may begin up to 3 bytes before the row (`skew`), and a word that
@@ -89,7 +164,7 @@ struct Words {
 // the row whose packed bytes are `row`. Bits past the row's end are 0.
 // With a rank table `lut` the priority is the rank of the masked canonical
 // m-mer (2m <= 30 bits, always inside the table) and `toggle` is unused.
-template <bool LUT>
+template <bool USE_LUT>
 __device__ __forceinline__ void priorities(const Words& row, int p0, int m, int canonical,
                                            u64 toggle, u64 smask, const int* __restrict__ lut,
                                            u64 (&q)[4]) {
@@ -110,11 +185,72 @@ __device__ __forceinline__ void priorities(const Words& row, int p0, int m, int 
     const u64 fwd = r >> (64 - 2 * m);
     const u64 rc = ~s & mask;
     const u64 v = (canonical && rc < fwd) ? rc : fwd;
-    if constexpr (LUT) {
+    if constexpr (USE_LUT) {
       q[j] = (u64)__ldg(lut + (v & smask));
     } else {
       q[j] = (v ^ toggle) & smask;
     }
+  }
+}
+
+// Wide priorities (32 <= m <= 63) of the four m-mers at p0 .. p0 + 3
+// (p0 % 4 == 0): the 4 + m - 1 <= 66 bases from p0 lie in five aligned words
+// (at most 24 bits of skew + 132 bits), and the 128 bits from base p0 + j are
+// four funnel shifts of them by 8 * skew + 2j <= 30 bits. Bits past the
+// row's end are 0.
+__device__ __forceinline__ void priorities_wide(const Words& row, int p0, int m, int canonical,
+                                                const K2& toggle, const K2& smask, K2 (&q)[4]) {
+  const int at = row.skew + (p0 >> 2), i = at >> 2;
+  const unsigned sh = 8 * (at & 3);
+  const uint32_t w0 = row[i], w1 = row[i + 1], w2 = row[i + 2], w3 = row[i + 3], w4 = row[i + 4];
+  const u64 hi_mask = m == 32 ? 0ull : (1ull << (2 * m - 64)) - 1;
+  // the 160 bits from base p0 with their 80 pairs in reverse order, R, once a
+  // lane; the forward m-mer at p0 + j is R >> 2 (80 - m - j), cut to 2m bits:
+  // here F = R >> 2 (77 - m) (6 + 2m bits), and then F >> 2 (3 - j)
+  const uint32_t x[5] = {__funnelshift_r(w0, w1, sh), __funnelshift_r(w1, w2, sh),
+                         __funnelshift_r(w2, w3, sh), __funnelshift_r(w3, w4, sh), w4 >> sh};
+  uint32_t r[7];
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    const uint32_t b = __brev(x[4 - t]);
+    r[t] = ((b >> 1) & 0x55555555u) | ((b & 0x55555555u) << 1);
+  }
+  r[5] = r[6] = 0;
+  const int cut = 2 * (77 - m), wq = cut >> 5;  // 28 .. 90 bits: word 0, 1 or 2
+  uint32_t f[5];
+#pragma unroll
+  for (int t = 0; t < 5; ++t) {
+    const uint32_t a = wq == 0 ? r[t] : wq == 1 ? r[t + 1] : r[t + 2];
+    const uint32_t b = wq == 0 ? r[t + 1] : wq == 1 ? r[t + 2] : (t + 3 < 7 ? r[t + 3] : 0u);
+    f[t] = __funnelshift_r(a, b, cut & 31);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const unsigned s = sh + 2 * j;
+    // 128 bits of the stream from base p0 + j, cut to the m-mer's 2m
+    const u64 s_lo = ((u64)__funnelshift_r(w1, w2, s) << 32) | __funnelshift_r(w0, w1, s);
+    const u64 s_hi = (((u64)__funnelshift_r(w3, w4, s) << 32) | __funnelshift_r(w2, w3, s)) & hi_mask;
+    K2 v;
+    const unsigned u = 2 * (3 - j);
+    v.lo = ((u64)__funnelshift_r(f[1], f[2], u) << 32) | __funnelshift_r(f[0], f[1], u);
+    v.hi = (((u64)__funnelshift_r(f[3], f[4], u) << 32) | __funnelshift_r(f[2], f[3], u)) & hi_mask;
+    const K2 rc = {~s_hi & hi_mask, ~s_lo};
+    v = choose(canonical && less2(rc, v), rc, v);
+    q[j].hi = (v.hi ^ toggle.hi) & smask.hi;
+    q[j].lo = (v.lo ^ toggle.lo) & smask.lo;
+  }
+}
+
+template <int ORDER>
+__device__ __forceinline__ void priorities4(const Words& row, int p0, int m, int canonical,
+                                            const typename KeyOf<ORDER>::T& toggle,
+                                            const typename KeyOf<ORDER>::T& smask,
+                                            const int* __restrict__ lut,
+                                            typename KeyOf<ORDER>::T (&q)[4]) {
+  if constexpr (ORDER == WIDE) {
+    priorities_wide(row, p0, m, canonical, toggle, smask, q);
+  } else {
+    priorities<ORDER == LUT>(row, p0, m, canonical, toggle, smask, lut, q);
   }
 }
 
@@ -132,11 +268,17 @@ __device__ __forceinline__ u64 valid64(const Words& row, int L, int p) {
 // The value that the lane `d` lanes ahead holds (1 <= d <= 31): `e` while
 // that lane is in this chunk, `n`, the next chunk's, past lane 31.
 __device__ __forceinline__ u64 ahead(u64 e, u64 n, int d, int lane) {
-  return __shfl_sync(FULL, lane >= d ? e : n, (lane + d) & 31);
+  return shfl(lane >= d ? e : n, (lane + d) & 31);
+}
+__device__ __forceinline__ K2 ahead(K2 e, K2 n, int d, int lane) {
+  return shfl(choose(lane >= d, e, n), (lane + d) & 31);
 }
 
 __device__ __forceinline__ u64 pick(const u64 (&a)[4], int i) {
   return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+__device__ __forceinline__ K2 pick(const K2 (&a)[4], int i) {
+  return choose(i == 0, a[0], choose(i == 1, a[1], choose(i == 2, a[2], a[3])));
 }
 
 // One byte of 0 or 1 for each of the four low bits.
@@ -145,77 +287,107 @@ __device__ __forceinline__ uint32_t spread4(unsigned bits) {
 }
 
 // K, M: k and m when the compiler should know them (the window's shape and
-// every mask fold to constants), 0 to read them from the arguments. LUT: the
-// priority is a rank read from `lut`.
-template <int K, int M, bool LUT>
-__global__ void __launch_bounds__(32 * WARPS)
-scan_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits, long long B,
-            int L, int k_arg, int m_arg, int canonical, u64 toggle, u64 smask,
-            const int* __restrict__ lut, long long* __restrict__ out_min, uint8_t* __restrict__ out_valid,
-            uint8_t* __restrict__ out_start, uint8_t* __restrict__ out_distinct) {
+// every mask fold to constants), 0 to read them from the arguments. ORDER:
+// XOR (u64 priorities, minimizers int64 [B, L]), LUT (a rank read from
+// `lut`) or WIDE (K2 priorities, minimizers (hi64, lo64) [B, L, 2]). SEG:
+// rows in segments: warp w scans segment w % nseg of row w / nseg,
+// positions [s0, s1) with s0 = S * segment, and writes its summary (int64
+// [B * nseg, 4]); without SEG, warp w scans row w and nothing else changes.
+template <int K, int M, int ORDER, bool SEG>
+__device__ __forceinline__ void
+scan_rows(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits, long long B,
+          int L, int S, int nseg, int k_arg, int m_arg, int canonical,
+          typename KeyOf<ORDER>::T toggle, typename KeyOf<ORDER>::T smask,
+          const int* __restrict__ lut, void* __restrict__ out_min, uint8_t* __restrict__ out_valid,
+          uint8_t* __restrict__ out_start, uint8_t* __restrict__ out_distinct,
+          long long* __restrict__ summary) {
+  typedef typename KeyOf<ORDER>::T Key;
   const int k = K ? K : k_arg, m = M ? M : m_arg;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1;  // the lanes below this one
   const int W = k - m + 1;
   // a window's last priority is W - 1 ahead of its first: D0 whole lanes and e0 more
   const int D0 = (W - 1) >> 2, e0 = (W - 1) & 3;
-  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (row >= B) return;  // the whole warp
+  const long long warp = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  long long row = warp;
+  int seg = 0, s0 = 0, s1 = L;
+  if constexpr (SEG) {
+    if (warp >= B * nseg) return;  // the whole warp; B * nseg < 2^31 (launch)
+    row = (unsigned)warp / (unsigned)nseg;
+    seg = (int)(warp - row * nseg);
+    s0 = seg * S;
+    s1 = min(L, s0 + S);
+  } else if (row >= B) {
+    return;  // the whole warp
+  }
   const Words rp(packed + row * (L / 4), L / 4);
   const Words rv(vbits + row * (L / 8), L / 8);
 
   // carries across chunks, equal in every lane
   int c_prev_valid = 0, c_has_last = 0;
-  u64 c_prev_min = 0, c_last_min = 0;
+  Key c_prev_min{}, c_last_min{};
+  // the segment's summary: a valid window in [s0, s1); the flat position of
+  // its first when nothing before it in the warp's reach is valid
+  int seg_has = 0;
+  long long first = -1;
 
-  u64 qn[4];
-  priorities<LUT>(rp, 4 * lane, m, canonical, toggle, smask, lut, qn);
-  for (int cs = 0; cs < L; cs += CH) {
+  // every segment but a row's first starts with a warm-up chunk
+  const int begin = seg ? s0 - CH : 0;
+  Key qn[4];
+  priorities4<ORDER>(rp, begin + 4 * lane, m, canonical, toggle, smask, lut, qn);
+  for (int cs = begin; cs < s1; cs += CH) {
     const int p0 = cs + 4 * lane;
     const bool more = cs + CH < L;
-    u64 q[4];
+    Key q[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) q[j] = qn[j];
-    if (more) {
-      priorities<LUT>(rp, p0 + CH, m, canonical, toggle, smask, lut, qn);
+    if (more) {  // the row past the segment's end too: windows near it look there
+      priorities4<ORDER>(rp, p0 + CH, m, canonical, toggle, smask, lut, qn);
     } else {  // only windows that run past the row's end look there
 #pragma unroll
-      for (int j = 0; j < 4; ++j) qn[j] = 0;
+      for (int j = 0; j < 4; ++j) fill(qn[j], 0);
     }
 
     // window minima: the rest of this lane, whole lanes between, the start
     // of the lane where the window ends
-    u64 pe[4], pn[4], se[4];
+    Key pe[4], pn[4], se[4];
     pe[0] = q[0];
     pn[0] = qn[0];
     se[3] = q[3];
 #pragma unroll
     for (int j = 1; j < 4; ++j) {
-      pe[j] = min64(pe[j - 1], q[j]);
-      pn[j] = min64(pn[j - 1], qn[j]);
-      se[3 - j] = min64(se[4 - j], q[3 - j]);
+      pe[j] = kmin(pe[j - 1], q[j]);
+      pn[j] = kmin(pn[j - 1], qn[j]);
+      se[3 - j] = kmin(se[4 - j], q[3 - j]);
     }
-    u64 between = ~0ull;  // lanes 1 .. D0 - 1 ahead
-    for (int d = 1; d < D0; ++d) between = min64(between, ahead(pe[3], pn[3], d, lane));
-    u64 between1 = between;  // and lane D0 ahead, for windows that end in lane D0 + 1
-    if (D0 >= 1 && e0 > 0) between1 = min64(between, ahead(pe[3], pn[3], D0, lane));
-    u64 mn[4];
+    Key between;  // lanes 1 .. D0 - 1 ahead
+    fill(between, ~0ull);
+    for (int d = 1; d < D0; ++d) between = kmin(between, ahead(pe[3], pn[3], d, lane));
+    // all of lane D0 ahead: for the window that ends at its last position, and
+    // (with the lanes between) for those that end in lane D0 + 1
+    Key whole_d0 = between;
+    if (D0 >= 1) whole_d0 = ahead(pe[3], pn[3], D0, lane);
+    Key between1 = whole_d0;
+    if (D0 > 1) between1 = kmin(between, whole_d0);
+    Key mn[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int last = e0 + j;  // index of the window's last priority in lane D0 ahead
       if (last < 4 && D0 == 0) {  // the window lies inside this lane
-        u64 r = q[j];
+        Key r = q[j];
 #pragma unroll
         for (int t = j + 1; t < 4; ++t)
-          if (t <= last) r = min64(r, q[t]);
+          if (t <= last) r = kmin(r, q[t]);
         mn[j] = r;
       } else if (last < 4) {
-        u64 r = min64(se[j], ahead(pick(pe, last), pick(pn, last), D0, lane));
-        if (D0 > 1) r = min64(r, between);
+        Key a = whole_d0;
+        if (last < 3) a = ahead(pick(pe, last), pick(pn, last), D0, lane);
+        Key r = kmin(se[j], a);
+        if (D0 > 1) r = kmin(r, between);
         mn[j] = r;
       } else {
-        u64 r = min64(se[j], ahead(pick(pe, last - 4), pick(pn, last - 4), D0 + 1, lane));
-        if (D0 >= 1) r = min64(r, between1);
+        Key r = kmin(se[j], ahead(pick(pe, last - 4), pick(pn, last - 4), D0 + 1, lane));
+        if (D0 >= 1) r = kmin(r, between1);
         mn[j] = r;
       }
     }
@@ -244,7 +416,7 @@ scan_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbit
 
     // span_start: against the window before (lane below, or the chunk before)
     int prev_valid = __shfl_up_sync(FULL, (int)(ok >> 3), 1);
-    u64 prev_min = __shfl_up_sync(FULL, mn[3], 1);
+    Key prev_min = shfl_up(mn[3]);
     if (lane == 0) {
       prev_valid = c_prev_valid;
       prev_min = c_prev_min;
@@ -253,17 +425,17 @@ scan_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbit
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int v = (ok >> j) & 1;
-      if (v && (!prev_valid || mn[j] != prev_min)) start |= 1u << j;
+      if (v && (!prev_valid || differ(mn[j], prev_min))) start |= 1u << j;
       prev_valid = v;
       prev_min = mn[j];
     }
 
     // distinct: against the last valid window before, which the highest
     // lane below that holds a valid window knows
-    const u64 lane_last = pick(mn, ok ? 31 - __clz((int)ok) : 0);  // this lane's last valid
+    const Key lane_last = pick(mn, ok ? 31 - __clz((int)ok) : 0);  // this lane's last valid
     const unsigned holders = __ballot_sync(FULL, ok != 0);
     const int before = 31 - __clz((int)(holders & below));  // -1: none in this chunk
-    u64 before_min = __shfl_sync(FULL, lane_last, before & 31);
+    Key before_min = shfl(lane_last, before & 31);
     int has = 1;
     if (before < 0) {
       has = c_has_last;
@@ -272,196 +444,138 @@ scan_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbit
     unsigned distinct = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      if (((start >> j) & 1) && (!has || mn[j] != before_min)) distinct |= 1u << j;
+      if (((start >> j) & 1) && (!has || differ(mn[j], before_min))) distinct |= 1u << j;
       if ((ok >> j) & 1) {
         has = 1;
         before_min = mn[j];
       }
     }
 
-    if (p0 < L) {  // L % 8 == 0: all four positions, 16- and 4-byte aligned
+    const bool warm = SEG && cs < s0;  // the warm-up chunk is computed, not written
+    if (!warm && p0 < s1) {  // s1 % 8 == 0: all four positions, 16- and 4-byte aligned
       const long long o = row * L + p0;
-      longlong2* om = reinterpret_cast<longlong2*>(out_min + o);
-      om[0] = make_longlong2(ok & 1 ? (long long)mn[0] : -1, ok & 2 ? (long long)mn[1] : -1);
-      om[1] = make_longlong2(ok & 4 ? (long long)mn[2] : -1, ok & 8 ? (long long)mn[3] : -1);
+      if constexpr (ORDER == WIDE) {
+        ulonglong2* om = static_cast<ulonglong2*>(out_min) + o;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          om[j] = (ok >> j) & 1 ? make_ulonglong2(mn[j].hi, mn[j].lo) : make_ulonglong2(~0ull, ~0ull);
+      } else {
+        ulonglong2* om = reinterpret_cast<ulonglong2*>(static_cast<u64*>(out_min) + o);
+        om[0] = make_ulonglong2(ok & 1 ? mn[0] : ~0ull, ok & 2 ? mn[1] : ~0ull);
+        om[1] = make_ulonglong2(ok & 4 ? mn[2] : ~0ull, ok & 8 ? mn[3] : ~0ull);
+      }
       *reinterpret_cast<uint32_t*>(out_valid + o) = spread4(ok);
       *reinterpret_cast<uint32_t*>(out_start + o) = spread4(start);
       *reinterpret_cast<uint32_t*>(out_distinct + o) = spread4(distinct);
     }
 
-    if (more) {
+    if (SEG && !warm && holders) {
+      if (!c_has_last && seg > 0) {  // the segment's first valid window, with no valid window in reach
+        const int fl = __ffs(holders) - 1;
+        const unsigned fok = __shfl_sync(FULL, ok, fl);
+        first = row * L + cs + 4 * fl + __ffs(fok) - 1;
+      }
+      seg_has = 1;
+    }
+
+    if (more || SEG) {
       c_prev_valid = __shfl_sync(FULL, (int)(ok >> 3), 31);
-      c_prev_min = __shfl_sync(FULL, mn[3], 31);
-      const u64 last_min = __shfl_sync(FULL, lane_last, (31 - __clz((int)holders)) & 31);
+      c_prev_min = shfl(mn[3], 31);
+      const Key last_min = shfl(lane_last, (31 - __clz((int)holders)) & 31);
       if (holders) {
         c_has_last = 1;
         c_last_min = last_min;
       }
     }
   }
-}
 
-// ---------------------------------------------------------------------------
-// Wide minimizers (31 < m <= 63)
-// ---------------------------------------------------------------------------
-//
-// Computes what `window_minimizers_impl` (slacken_tpu/ops/minimizers.py:367)
-// computes on its wide branch (priorities_at_starts_wide :266,
-// sliding_min_u128 :285, there over four 32-bit limbs), bit for bit the plain
-// twin `slacken_tpu_torch.ops.minimizers.window_minimizers` for a wide m.
-//
-// Design. A priority is a 2m-bit value in two 64-bit limbs (hi below 2^62, lo
-// unsigned). As in the narrow kernel the wire format is the m-mer: the 2m
-// bits from bit 2p, cut from five aligned 32-bit loads, are the reverse
-// complement before complementing, and the forward m-mer is the same 128
-// bits with their pairs in reverse order. One warp owns a row and walks it
-// in chunks of 32 window positions, one a lane. Each priority is computed
-// once and kept in a ring of 256 entries in shared memory, one ring a warp:
-// the warp writes the priorities of the chunk `ahead` positions further on,
-// then every lane takes the minimum over the W = k - m + 1 entries of its
-// window. That loop is O(W) a position: simple, and cheap at the small
-// windows wide minimizers are used with (W = 3 to 18 here). `span_start`
-// and `distinct` follow the narrow kernel: the window before from the lane
-// below, the last valid window from a ballot, carries in registers. A lane
-// stores its minimizer as one 16-byte word (hi, lo).
-//
-// Limit: k - m <= 120 (the ring holds 32 + 128 priorities of lookahead).
-//
-// Bound: device-memory bytes written, 19 a position (two int64 limbs and
-// three flag bytes) against 3/8 byte read.
-
-struct K2 {
-  u64 hi, lo;
-};
-
-__device__ __forceinline__ bool less2(const K2& a, const K2& b) {
-  return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
-}
-
-__device__ __forceinline__ bool differ2(const K2& a, const K2& b) {
-  return a.hi != b.hi || a.lo != b.lo;
-}
-
-// the 32 bit pairs of a 64-bit word in reverse order
-__device__ __forceinline__ u64 reverse_pairs(u64 s) {
-  const u64 r = __brevll(s);
-  return ((r >> 1) & 0x5555555555555555ull) | ((r & 0x5555555555555555ull) << 1);
-}
-
-// Priority of the m-mer at position p (32 <= m <= 63). Bits past the row's
-// end are 0.
-__device__ __forceinline__ K2 priority_wide(const Words& row, int p, int m, int canonical,
-                                            K2 toggle, K2 smask) {
-  const int at = row.skew + (p >> 2), i = at >> 2;
-  const unsigned sh = 8 * (at & 3) + 2 * (p & 3);  // at most 30
-  const uint32_t w0 = row[i], w1 = row[i + 1], w2 = row[i + 2], w3 = row[i + 3], w4 = row[i + 4];
-  // 128 bits of the stream from base p, cut to the m-mer's 2m
-  const u64 hi_mask = m == 32 ? 0ull : (1ull << (2 * m - 64)) - 1;
-  const u64 s_lo = ((u64)__funnelshift_r(w1, w2, sh) << 32) | __funnelshift_r(w0, w1, sh);
-  const u64 s_hi = (((u64)__funnelshift_r(w3, w4, sh) << 32) | __funnelshift_r(w2, w3, sh)) & hi_mask;
-  // forward: all 64 pairs reversed (the limbs change places), right-aligned
-  const u64 r_hi = reverse_pairs(s_lo), r_lo = reverse_pairs(s_hi);
-  const int t = 128 - 2 * m;  // 2 .. 64
-  K2 v;
-  v.hi = t == 64 ? 0ull : r_hi >> t;
-  v.lo = t == 64 ? r_hi : (r_lo >> t) | (r_hi << (64 - t));
-  const K2 rc = {~s_hi & hi_mask, ~s_lo};
-  if (canonical && less2(rc, v)) v = rc;
-  v.hi = (v.hi ^ toggle.hi) & smask.hi;
-  v.lo = (v.lo ^ toggle.lo) & smask.lo;
-  return v;
-}
-
-constexpr int RING = 256;  // priorities a warp keeps: a chunk and up to 128 of lookahead
-
-__global__ void __launch_bounds__(32 * WARPS)
-scan_wide_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
-                 long long B, int L, int k, int m, int canonical, K2 toggle, K2 smask,
-                 ulonglong2* __restrict__ out_min, uint8_t* __restrict__ out_valid,
-                 uint8_t* __restrict__ out_start, uint8_t* __restrict__ out_distinct) {
-  __shared__ ulonglong2 rings[WARPS][RING];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1;
-  const int W = k - m + 1;
-  const int ahead_by = (W + 30) & ~31;  // W - 1 rounded up to whole chunks
-  const long long row = (long long)blockIdx.x * WARPS + warp;
-  if (row >= B) return;  // the whole warp
-  const Words rp(packed + row * (L / 4), L / 4);
-  const Words rv(vbits + row * (L / 8), L / 8);
-  ulonglong2* ring = rings[warp];
-
-  for (int c = 0; c < ahead_by; c += 32) {
-    const K2 q = priority_wide(rp, c + lane, m, canonical, toggle, smask);
-    ring[(c + lane) & (RING - 1)] = make_ulonglong2(q.hi, q.lo);
-  }
-
-  // carries across chunks, equal in every lane
-  int c_prev_valid = 0, c_has_last = 0;
-  K2 c_prev_min = {0, 0}, c_last_min = {0, 0};
-
-  for (int cs = 0; cs < L; cs += 32) {
-    const int p = cs + lane;
-    {
-      // positions past the row's end give priorities of zero bits, which
-      // only windows that are invalid anyway look at
-      const K2 q = priority_wide(rp, p + ahead_by, m, canonical, toggle, smask);
-      ring[(p + ahead_by) & (RING - 1)] = make_ulonglong2(q.hi, q.lo);
-    }
-    __syncwarp();
-    K2 mn = {~0ull, ~0ull};
-    for (int t = 0; t < W; ++t) {
-      const ulonglong2 e = ring[(p + t) & (RING - 1)];
-      const K2 q = {e.x, e.y};
-      if (less2(q, mn)) mn = q;
-    }
-
-    // window validity: the k validity bits from p all set
-    int ok = p < L;
-    for (int base = 0; base < k && ok; base += 64) {
-      const int nbits = min(64, k - base);
-      const u64 want = nbits == 64 ? ~0ull : (1ull << nbits) - 1;
-      if (~valid64(rv, L, p + base) & want) ok = 0;
-    }
-
-    // span_start: against the window before (lane below, or the chunk before)
-    int prev_valid = __shfl_up_sync(FULL, ok, 1);
-    K2 prev_min = {__shfl_up_sync(FULL, mn.hi, 1), __shfl_up_sync(FULL, mn.lo, 1)};
-    if (lane == 0) {
-      prev_valid = c_prev_valid;
-      prev_min = c_prev_min;
-    }
-    const int start = ok && (!prev_valid || differ2(mn, prev_min));
-
-    // distinct: against the last valid window before, which the highest
-    // lane below that holds a valid window knows
-    const unsigned holders = __ballot_sync(FULL, ok);
-    const int before = 31 - __clz((int)(holders & below));  // -1: none in this chunk
-    K2 before_min = {__shfl_sync(FULL, mn.hi, before & 31), __shfl_sync(FULL, mn.lo, before & 31)};
-    int has = 1;
-    if (before < 0) {
-      has = c_has_last;
-      before_min = c_last_min;
-    }
-    const int distinct = start && (!has || differ2(mn, before_min));
-
-    if (p < L) {
-      const long long o = row * L + p;
-      out_min[o] = ok ? make_ulonglong2(mn.hi, mn.lo) : make_ulonglong2(~0ull, ~0ull);
-      out_valid[o] = (uint8_t)ok;
-      out_start[o] = (uint8_t)start;
-      out_distinct[o] = (uint8_t)distinct;
-    }
-
-    c_prev_valid = __shfl_sync(FULL, ok, 31);
-    c_prev_min.hi = __shfl_sync(FULL, mn.hi, 31);
-    c_prev_min.lo = __shfl_sync(FULL, mn.lo, 31);
-    const int last_holder = (31 - __clz((int)holders)) & 31;
-    const K2 last_min = {__shfl_sync(FULL, mn.hi, last_holder), __shfl_sync(FULL, mn.lo, last_holder)};
-    if (holders) {
-      c_has_last = 1;
-      c_last_min = last_min;
+  if (SEG && lane == 0) {
+    long long* out = summary + 4 * warp;
+    out[0] = seg_has;
+    out[1] = first;
+    if constexpr (ORDER == WIDE) {
+      out[2] = (long long)c_last_min.hi;
+      out[3] = (long long)c_last_min.lo;
+    } else {
+      out[2] = 0;
+      out[3] = (long long)c_last_min;
     }
   }
+}
+
+#define SCAN_PARAMS(Key)                                                                     \
+  const uint8_t *__restrict__ packed, const uint8_t *__restrict__ vbits, long long B, int L, \
+      int S, int nseg, int k, int m, int canonical, Key toggle, Key smask,                   \
+      const int *__restrict__ lut, void *__restrict__ out_min, uint8_t *__restrict__ out_valid, \
+      uint8_t *__restrict__ out_start, uint8_t *__restrict__ out_distinct,                  \
+      long long *__restrict__ summary
+#define SCAN_ARGS                                                                              \
+  packed, vbits, B, L, S, nseg, k, m, canonical, toggle, smask, lut, out_min, out_valid, out_start, \
+      out_distinct, summary
+
+// The narrow instances: XOR or LUT.
+template <int K, int M, int ORDER, bool SEG>
+__global__ void __launch_bounds__(32 * WARPS) scan_kernel(SCAN_PARAMS(u64)) {
+  scan_rows<K, M, ORDER, SEG>(SCAN_ARGS);
+}
+
+// The wide instances: 121 and 128 registers a thread, no stack frame.
+template <int K, int M, bool SEG>
+__global__ void __launch_bounds__(32 * WARPS) scan_wide_kernel(SCAN_PARAMS(K2)) {
+  scan_rows<K, M, WIDE, SEG>(SCAN_ARGS);
+}
+
+// Pass 2 of a row cut into segments, one thread a segment: a segment whose
+// first valid window had no valid window in its warp's reach (summary[g][1]
+// >= 0, its flat position o) looks back over the row's earlier segments for
+// the nearest one that holds a valid window (summary[.][0]) and clears
+// distinct[o] when that segment's last valid minimizer (summary[.][2:4],
+// hi64 and lo64; hi64 is 0 for a narrow m) equals the minimizer at o. A
+// segment that holds no valid window is passed over by at most one thread
+// (the walk stops at any segment that holds one), so the walks of a row sum
+// to at most its segments.
+__global__ void scan_stitch_kernel(const long long* __restrict__ summary, long long G, int nseg,
+                                   int limbs, const long long* __restrict__ out_min,
+                                   uint8_t* __restrict__ out_distinct) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= G) return;
+  const long long o = summary[4 * g + 1];
+  if (o < 0) return;
+  const long long row_first = g - g % nseg;
+  for (long long j = g - 1; j >= row_first; --j) {
+    if (summary[4 * j]) {
+      const bool same = limbs == 1 ? out_min[o] == summary[4 * j + 3]
+                                   : out_min[2 * o] == summary[4 * j + 2] &&
+                                         out_min[2 * o + 1] == summary[4 * j + 3];
+      if (same) out_distinct[o] = 0;
+      return;
+    }
+  }
+}
+
+template <int K, int M, int ORDER>
+int launch(const void* packed, const void* vbits, long long B, int L, int S,
+           int k, int m, int canonical, typename KeyOf<ORDER>::T toggle,
+           typename KeyOf<ORDER>::T smask, const void* lut, void* out_min, void* out_valid,
+           void* out_start, void* out_distinct, void* summary, void* stream) {
+  if (B <= 0) return 0;
+  if (S < L && (S <= 0 || S % CH)) return (int)cudaErrorInvalidValue;
+  const int nseg = S >= L ? 1 : (L + S - 1) / S;
+  if ((nseg > 1) != (summary != nullptr) || (nseg > 1 && B * nseg >= (1ll << 31)))
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (B * nseg + WARPS - 1) / WARPS;
+  const auto go = [&](auto kernel) {
+    kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)packed, (const uint8_t*)vbits, B, L, S, nseg, k, m, canonical, toggle, smask,
+        (const int*)lut, out_min, (uint8_t*)out_valid, (uint8_t*)out_start, (uint8_t*)out_distinct,
+        (long long*)summary);
+  };
+  if constexpr (ORDER == WIDE) {
+    go(nseg > 1 ? scan_wide_kernel<K, M, true> : scan_wide_kernel<K, M, false>);
+  } else {
+    go(nseg > 1 ? scan_kernel<K, M, ORDER, true> : scan_kernel<K, M, ORDER, false>);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -470,35 +584,42 @@ scan_wide_kernel(const uint8_t* __restrict__ packed, const uint8_t* __restrict__
 // 1 <= m <= 31, m <= k <= m + 120. lut: null for the XOR order, else a rank
 // table of 4^m int32 (m <= 15; toggle is then unused). Outputs [B, L]: int64
 // minimizer (16-byte aligned), u8 valid / span_start / distinct (4-byte aligned).
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int stpu_scan(const void* packed, const void* vbits, long long B, int L,
+// S: the segment length, L for a warp a row, else a multiple of 128 below L;
+// summary: int64 [B, ceil(L / S), 4] when S < L, else null. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int stpu_scan(const void* packed, const void* vbits, long long B, int L, int S,
                          int k, int m, int canonical, unsigned long long toggle,
                          unsigned long long smask, const void* lut, void* out_min,
-                         void* out_valid, void* out_start, void* out_distinct, void* stream) {
-  if (B <= 0) return 0;
-  const long long blocks = (B + WARPS - 1) / WARPS;
+                         void* out_valid, void* out_start, void* out_distinct, void* summary,
+                         void* stream) {
   // Kraken 2's default k and m get their own instance, a rank table another
-  auto kernel = lut ? scan_kernel<0, 0, true>
-                    : (k == 35 && m == 31) ? scan_kernel<35, 31, false> : scan_kernel<0, 0, false>;
-  kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, (const uint8_t*)vbits, B, L, k, m, canonical, toggle, smask,
-      (const int*)lut, (long long*)out_min, (uint8_t*)out_valid, (uint8_t*)out_start, (uint8_t*)out_distinct);
-  return (int)cudaGetLastError();
+  auto fn = lut ? launch<0, 0, LUT> : (k == 35 && m == 31) ? launch<35, 31, XOR> : launch<0, 0, XOR>;
+  return fn(packed, vbits, B, L, S, k, m, canonical, toggle, smask, lut, out_min, out_valid,
+            out_start, out_distinct, summary, stream);
 }
 
 // The wide scan: 32 <= m <= 63, m <= k <= m + 120; toggle and smask are the
 // (hi64, lo64) limbs of the 2m-bit masks. out_min: [B, L, 2] int64 (hi64,
-// lo64), 16-byte aligned; the flags as above, any alignment.
-extern "C" int stpu_scan_wide(const void* packed, const void* vbits, long long B, int L,
+// lo64), 16-byte aligned; the rest as above.
+extern "C" int stpu_scan_wide(const void* packed, const void* vbits, long long B, int L, int S,
                               int k, int m, int canonical, unsigned long long toggle_hi,
                               unsigned long long toggle_lo, unsigned long long smask_hi,
                               unsigned long long smask_lo, void* out_min, void* out_valid,
-                              void* out_start, void* out_distinct, void* stream) {
-  if (B <= 0) return 0;
-  const long long blocks = (B + WARPS - 1) / WARPS;
-  scan_wide_kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, (const uint8_t*)vbits, B, L, k, m, canonical,
-      K2{toggle_hi, toggle_lo}, K2{smask_hi, smask_lo}, (ulonglong2*)out_min,
-      (uint8_t*)out_valid, (uint8_t*)out_start, (uint8_t*)out_distinct);
+                              void* out_start, void* out_distinct, void* summary, void* stream) {
+  return launch<0, 0, WIDE>(packed, vbits, B, L, S, k, m, canonical, K2{toggle_hi, toggle_lo},
+                            K2{smask_hi, smask_lo}, nullptr, out_min, out_valid, out_start,
+                            out_distinct, summary, stream);
+}
+
+// Pass 2 over the G = B * nseg segment summaries of a scan cut into nseg
+// segments a row: clears distinct bytes in place. limbs: 1 for int64 [B, L]
+// minimizers, 2 for [B, L, 2].
+extern "C" int stpu_scan_stitch(const void* summary, long long G, int nseg, int limbs,
+                                const void* out_min, void* out_distinct, void* stream) {
+  if (G <= 0) return 0;
+  if (nseg < 1 || (limbs != 1 && limbs != 2)) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  scan_stitch_kernel<<<(unsigned)((G + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
+      (const long long*)summary, G, nseg, limbs, (const long long*)out_min, (uint8_t*)out_distinct);
   return (int)cudaGetLastError();
 }

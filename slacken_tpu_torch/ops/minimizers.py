@@ -27,7 +27,9 @@ replicated over the limbs as the reference does (`wide_toggle_mask`).
 
 `window_minimizers` is the plain PyTorch twin of the CUDA scan kernels;
 `window_minimizers_packed` is the entry point the pipeline calls: it launches
-a kernel for CUDA tensors and runs the twin only for CPU tensors.
+a kernel for CUDA tensors and runs the twin only for CPU tensors. On the card
+few long rows are scanned in segments, a warp each, and `stitch_segments` is
+the twin of the second pass that joins them.
 """
 
 from __future__ import annotations
@@ -274,6 +276,30 @@ def window_minimizers(codes: torch.Tensor, params: MinimizerParams, lut=None) ->
     else:
         out = torch.where(win_valid, win_min, -1)
     return WindowMinimizers(out, win_valid, span_start, distinct)
+
+
+def stitch_segments(minimizer: torch.Tensor, distinct: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the scan's second pass over rows cut into segments
+    (cuda_kernels.scan_stitch_cuda). summary int64 [B, nseg, 4], a row of
+    it for each segment: whether the segment holds a valid window, the flat
+    index into [B, L] of its first valid window when nothing valid lay in
+    the reach of its own scan (else -1), and the (hi64, lo64) limbs of the
+    minimizer of its last valid window (hi64 0 for a narrow m). Such a first
+    window's `distinct` is cleared when the nearest earlier segment of the
+    row that holds a valid window ended on the same minimizer. minimizer
+    int64 [B, L] or [B, L, 2]; returns a new distinct bool [B, L]."""
+    b, nseg, _ = summary.shape
+    has, first = summary[..., 0] != 0, summary[..., 1]
+    seg = torch.arange(nseg, device=summary.device).expand(b, nseg)
+    last_with = torch.cummax(torch.where(has, seg, -1), dim=1).values
+    before = _behind(last_with, 1, -1)  # the nearest earlier segment that holds a valid window
+    limbs = minimizer.reshape(b * minimizer.shape[1], -1)  # [B * L, 1 or 2]
+    prev = torch.gather(summary[..., 4 - limbs.shape[1]:], 1,
+                        before.clamp(min=0)[..., None].expand(b, nseg, limbs.shape[1]))
+    same = (limbs[first.clamp(min=0)] == prev).all(-1)
+    out = distinct.clone()
+    out.view(-1)[first[(first >= 0) & (before >= 0) & same]] = False
+    return out
 
 
 def window_minimizers_packed(

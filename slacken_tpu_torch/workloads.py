@@ -135,6 +135,68 @@ def scale_reads(total_bp: int, n_taxa: int, n_reads: int = 200_000, library=None
     return sim
 
 
+def segment_rows(rng, segment: int, k: int, n_segments: int = 6) -> np.ndarray:
+    """Codes uint8 [8, L] that stress a minimizer scan cut into segments of
+    `segment` positions (a multiple of 128; L is n_segments and a half
+    segments, so the last is shorter) for windows of k bases. Row 0: random
+    with 5% N; 1: all N; 2: an N run over three whole segments, after which
+    the first valid window repeats the bases of the last one before it; 3:
+    the same with the run ending exactly at a segment start and covering the
+    128 positions before it; 4: such a run followed by other bases; 5: valid
+    bases only in the last segment; 6: a motif of 23 bases repeated, whose
+    windows share minimizers across segment starts, with an N run after
+    which the sequence goes on in phase; 7: N runs of k/2 to 3k bases at
+    random."""
+    S, N = segment, encode.INVALID
+    L = n_segments * S + S // 2
+    codes = rng.integers(0, 4, (8, L)).astype(np.uint8)
+
+    def run(r, a, b, repeat):
+        codes[r, a:b] = N
+        if repeat:
+            codes[r, b : b + k] = codes[r, a - k : a]
+
+    codes[0, rng.random(L) < 0.05] = N
+    codes[1] = N
+    a = max(S + 40, k + 8)
+    run(2, a, a + 3 * S, True)
+    j = max(2, -(-(k + 128) // S))  # the first segment start with k bases before its warm-up chunk
+    run(3, j * S - 128, j * S, True)
+    run(4, j * S - S - 128, (j + 1) * S, False)
+    codes[5, : (n_segments - 1) * S + 8] = N
+    codes[6] = np.resize(rng.integers(0, 4, 23).astype(np.uint8), L)
+    a = 3 * S - 60
+    b = a + S
+    codes[6, a : b + (a - k - b) % 23] = N
+    starts = np.flatnonzero(rng.random(L) < 1 / (4 * k))
+    for a, n in zip(starts, rng.integers(k // 2, 3 * k + 1, len(starts))):
+        codes[7, a : a + n] = N
+    return codes
+
+
+
+def carry_rows(rng, shape: Tuple[int, int], segment: int, k: int) -> np.ndarray:
+    """Codes uint8 `shape` (random bases) for a scan cut into segments of
+    `segment` positions (>= k + 64) for windows of k bases, in which the
+    second pass has work at every third segment start s = 3 S, 6 S, ....
+    By turns: an N run over the 128 positions before s, the k bases before
+    the run repeated from s (the carry comes from the segment before and
+    clears s's distinct byte); an N run over the whole segment before too,
+    repeated (the walk passes over a segment without a valid window, and
+    clears); the same run not repeated (nothing to clear)."""
+    if segment < k + 64:
+        raise ValueError(f"carry_rows needs segments of at least k + 64 = {k + 64} positions, got {segment}")
+    S, N = segment, encode.INVALID
+    codes = rng.integers(0, 4, shape).astype(np.uint8)
+    for r in range(shape[0]):
+        for j in range(3, shape[1] // S, 3):
+            s, kind = j * S, (j // 3 + r) % 3
+            a = s - 128 if kind == 0 else s - S - 128
+            codes[r, a:s] = N
+            if kind < 2:
+                codes[r, s : s + k] = codes[r, a - k : a]
+    return codes
+
 _LETTERS = np.frombuffer(b"ACGTN", np.uint8)
 
 

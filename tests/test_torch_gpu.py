@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from slacken_tpu_torch import diagnostics
+from scan_cases import hand_made_summaries
+from slacken_tpu_torch import diagnostics, workloads
 from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, mask_idioms, minimizers, ordering
 
 torch.set_num_threads(1)
@@ -31,15 +32,24 @@ def _codes(shape, seed=5):
     return codes
 
 
-def _assert_scan_matches_twin(cuda, codes, mp, lut=None):
+def _assert_scan_matches_twin(cuda, codes, mp, lut=None, segment=None):
     """The kernel for these parameters (scan, scan_lut with a rank table,
-    scan_wide for m > 31) launched once and equal to the twin in all four
-    outputs."""
+    scan_wide for m > 31) launched once, and the stitch once where the rows
+    are cut into segments (of `segment` positions when given, else as the
+    wrapper chooses), and equal to the twin in all four outputs."""
     packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
     name = "scan_wide" if mp.wide else "scan" if lut is None else "scan_lut"
+    b, L = codes.shape
+    launches = {name: 1}
+    if (segment or cuda_kernels.segment_length(b, L, cuda_kernels.scan_warps(cuda))) < L:
+        launches["scan_stitch"] = 1
     before = dict(cuda_kernels.LAUNCHES)
-    got = minimizers.window_minimizers_packed(packed, valid, mp, None if lut is None else lut.to(cuda))
-    assert {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]} == {name: 1}
+    if segment is None:
+        got = minimizers.window_minimizers_packed(packed, valid, mp, None if lut is None else lut.to(cuda))
+    else:
+        got = minimizers.WindowMinimizers(*cuda_kernels.window_minimizers_cuda(
+            packed, valid, mp, None if lut is None else lut.to(cuda), _segment=segment))
+    assert {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]} == launches
     want = minimizers.window_minimizers(torch.from_numpy(codes), mp, lut)
     assert torch.equal(got.valid.cpu(), want.valid)
     assert torch.equal(got.span_start.cpu(), want.span_start)
@@ -114,6 +124,66 @@ def test_scan_kernel_rows_at_any_byte(cuda):
     want = minimizers.window_minimizers(torch.from_numpy(codes[1:]), mp)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+#: (k, m, s, canonical, table) of each scan instance on segment-adversarial
+#: rows: scan<35, 31>, the generic narrow scan (W = 1, k - m = 120), scan_lut
+#: and scan_wide (W = 1, k - m = 120)
+SEGMENT_CASES = [
+    (35, 31, 7, True, None), (21, 15, 3, False, None), (31, 31, 0, True, None), (151, 31, 0, True, None),
+    (12, 6, 1, True, "random"), (35, 13, 3, True, "signature"),
+    (50, 45, 7, True, None), (63, 63, 0, False, None), (183, 63, 31, True, None),
+]
+
+
+def _segment_table(m, table):
+    if table is None:
+        return None
+    lut = ordering.signature_lut(m) if table == "signature" else np.random.default_rng(m).permutation(1 << (2 * m))
+    return torch.from_numpy(lut.astype(np.int32))
+
+
+@pytest.mark.parametrize("segment", [128, 384])
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_scan_kernel_in_segments_matches_twin(cuda, case, segment):
+    """Every instance with its rows forced into short segments, on rows with
+    N runs over whole segments, first valid windows at segment starts, an
+    all-invalid row and a short last segment: the scan and the stitch each
+    launched once, all four outputs equal to the twin's."""
+    *kms, canonical, table = case
+    mp = minimizers.MinimizerParams(*kms, canonical=canonical)
+    codes = workloads.segment_rows(np.random.default_rng(kms[0] + segment), segment, mp.k)
+    _assert_scan_matches_twin(cuda, codes, mp, _segment_table(mp.m, table), segment)
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_scan_stitch_kernel_matches_twin(cuda, case):
+    """The stitch kernel against its twin on the summaries that the scan's
+    first pass wrote on the card: both clear the same distinct bytes, and
+    the result is the whole-row twin's."""
+    *kms, canonical, table = case
+    mp = minimizers.MinimizerParams(*kms, canonical=canonical)
+    codes = workloads.segment_rows(np.random.default_rng(kms[0]), 256, mp.k)
+    lut = _segment_table(mp.m, table)
+    packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
+    mn, flags, summary = cuda_kernels.scan_pass1_cuda(packed, valid, mp, None if lut is None else lut.to(cuda), 256)
+    assert summary is not None and summary.shape == (8, -(-codes.shape[1] // 256), 4)
+    want = minimizers.stitch_segments(mn, flags[2], summary)
+    before = cuda_kernels.LAUNCHES["scan_stitch"]
+    got = cuda_kernels.scan_stitch_cuda(mn, flags[2].clone(), summary)
+    assert cuda_kernels.LAUNCHES["scan_stitch"] == before + 1
+    assert torch.equal(got, want) and not torch.equal(got, flags[2])
+    assert torch.equal(got.cpu(), minimizers.window_minimizers(torch.from_numpy(codes), mp, lut).distinct)
+
+
+def test_scan_stitch_kernel_on_hand_made_summaries(cuda):
+    """The walks of the hand-made summaries (their twin's test is in
+    tests/test_torch_scan_segments.py) on the card, one limb and two."""
+    minimizer, distinct, summary = (t.to(cuda) for t in hand_made_summaries())
+    for mn in (minimizer, minimizer[..., 1].contiguous()):
+        want = minimizers.stitch_segments(mn, distinct, summary)
+        got = cuda_kernels.scan_stitch_cuda(mn, distinct.clone(), summary)
+        assert torch.equal(got, want) and int((~got).sum()) == (1 if mn.dim() == 3 else 2)
 
 
 def test_scan_kernel_refuses_what_it_does_not_take(cuda):
@@ -360,8 +430,9 @@ def test_restricted_build_respace_and_span_hits_on_the_card(cuda, kind, tmp_path
 @pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
 def test_fragment_pass_of_long_rows_matches_the_twins(cuda, kind):
     """bracken.fragment_pass at [4, 1 << 20], a batch of four rows of the
-    longest fragment: the scan kernel and the probe kernel (of this kind of
-    index) each launched once, all four outputs equal to the twins'."""
+    longest fragment: the scan kernel (512 segments a row), the stitch and
+    the probe kernel (of this kind of index) each launched once, all four
+    outputs equal to the twins'."""
     from slacken_tpu_torch import bracken
     from slacken_tpu_torch.index import KeyValueIndex
 
@@ -375,7 +446,7 @@ def test_fragment_pass_of_long_rows_matches_the_twins(cuda, kind):
     before = dict(cuda_kernels.LAUNCHES)
     got = bracken.fragment_pass(idx, codes, cuda)
     assert {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]} == {
-        scan: 1, "probe_wide" if kind == "wide" else "probe": 1}
+        scan: 1, "scan_stitch": 1, "probe_wide" if kind == "wide" else "probe": 1}
     want = bracken.fragment_pass(idx, codes, "cpu")
     for g, w in zip(got, want):
         assert g.shape == (4, 1 << 20) and torch.equal(g.cpu(), w)
