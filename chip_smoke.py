@@ -5,8 +5,9 @@ Run from the repository root: `python3 chip_smoke.py`. It builds the CUDA
 kernels from ops/kernels/*.cu, checks each kernel bit-exact against its
 plain PyTorch twin on the card (the scan, its rank-table instance and the
 wide scan at every main-path shape (bracken's [4, 2^20] rows too) and at other k, m, s; the probe and the
-wide probe on random, one-prefix and tiny indexes, and later on the bench and
-the scale indexes), then drives the port's paths, each with the kernels'
+wide probe on random, one-prefix and tiny indexes, the wide probe over slot
+tables of both field modes and with a raised directory, and later on the
+bench and the scale indexes), then drives the port's paths, each with the kernels'
 launch counts set to 0 just before it and read just after:
 
   * reports mode: build the bench library's index on the card (2,623,028
@@ -396,23 +397,33 @@ def check_scan(rng, dev, results):
 def time_probe(label, keys, taxa, directory, queries, name="probe"):
     """Kernel == twin on these queries, then the kernel's time beside the
     twin's and, for narrow keys, torch.searchsorted's (a yardstick: the port
-    never calls it on the card; it has no form for two-limb keys). Returns
-    the numbers of one entry of the probe's `shapes`."""
+    never calls it on the card; it has no form for two-limb keys). A wide
+    index passes its slot table as `directory` (what the kernel reads) and
+    its keys and taxa (what the twin reads). The bound counts the same work
+    for both kinds and before the slot table as since: keys, taxa and a
+    directory of BUCKET_KEYS keys a bucket. Returns the numbers of one entry
+    of the probe's `shapes`."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, lookup
 
     wide = keys.dim() == 2
+    table = directory
+    if wide:
+        directory = lookup.build_directory(keys)
     before = cuda_kernels.LAUNCHES[name]
-    got = lookup.probe(keys, taxa, directory, queries)
+    got = lookup.probe(None if wide else keys, None if wide else taxa, table, queries)
     if cuda_kernels.LAUNCHES[name] != before + 1:
         fail(f"the probe of {label} did not launch the {name} kernel")
     want = lookup.lookup_taxa(keys, taxa, queries)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
+    if wide:
+        err = max(err, int((lookup.lookup_taxa_slots(table, queries) - want).abs().max()))
     if err:
         fail(f"{name} differs from the twin on {label} (max abs err {err})")
-    run = lambda: cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)  # noqa: E731
+    run = ((lambda: cuda_kernels.lookup_taxa_slots_cuda(table, queries)) if wide  # noqa: E731
+           else (lambda: cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)))
     ms, dev_ms = cuda_ms(run), device_ms(run)
     plain = cuda_ms(lambda: lookup.lookup_taxa(keys, taxa, queries), iters=5)
     library = None if wide else cuda_ms(lambda: torch.searchsorted(keys, queries))
@@ -430,7 +441,10 @@ def time_probe(label, keys, taxa, directory, queries, name="probe"):
     n_bytes = min(tensor_bytes(queries, keys, taxa, directory.starts) + 4 * nq,
                   (key_bytes + 4) * nq + (key_bytes + 4) * inside + 4 * hits)
     bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq)
-    log(f"{name}, {label}: {keys.shape[0]} keys ({directory.buckets} buckets, shift {directory.shift}), {nq} queries, "
+    d = table.directory if wide else directory
+    slots = (f" of slots with a {table.c}-bit field, {'direct' if table.codes is None else 'codes'}"
+             f"{'' if table.codes is None else f' ({table.codes.shape[0]} taxa)'}") if wide else ""
+    log(f"{name}, {label}: {keys.shape[0]} keys ({d.buckets} buckets{slots}, shift {d.shift}), {nq} queries, "
         f"{hits} hits, {inside} inside the keys' range, max_abs_err 0; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the "
         f"device alone), plain twin {plain:.4f} ms, " +
         ("no library call: torch.searchsorted takes one-limb keys only, " if wide
@@ -546,6 +560,19 @@ def random_wide_queries(dev, keys, nq, seed):
     return q[torch.randperm(nq, generator=gen, device=dev)].contiguous()
 
 
+def bucket_neighbours(keys, shift):
+    """keys +- 2^shift as 128-bit values (int64 [2n, 2] bit patterns,
+    wrapped): each key's remainder in the next and in the previous bucket,
+    where the slot that the kernel loads for alignment is the last of the
+    bucket before."""
+    u = keys.view(np.uint64)
+    d_hi, d_lo = (np.uint64(1 << (shift - 64)), np.uint64(0)) if shift >= 64 else (np.uint64(0), np.uint64(1 << shift))
+    up_lo, dn_lo = u[:, 1] + d_lo, u[:, 1] - d_lo
+    up = np.stack([u[:, 0] + d_hi + (up_lo < u[:, 1]), up_lo], 1)
+    dn = np.stack([u[:, 0] - d_hi - (dn_lo > u[:, 1]), dn_lo], 1)
+    return np.concatenate([up, dn]).view(np.int64)
+
+
 def check_probe_wide(rng, dev, results):
     import torch
 
@@ -554,10 +581,13 @@ def check_probe_wide(rng, dev, results):
     # adversarial wide indexes: empty, one key, every key under one hi64,
     # hi64 = 0 throughout (m = 32), few hi64, lo64 differing only in the top
     # bit; queries at every key, beside it in either limb, with the top bit of
-    # lo64 flipped, an invalid window's -1, random
+    # lo64 flipped, at its remainder in the neighbouring buckets, an invalid
+    # window's -1, random. The slot tables reach both field modes (taxa below
+    # 2^20 fit the field at hi64 below 2^26, not at 126-bit keys) and, with
+    # one bucket asked for at 126-bit keys, a raised directory.
     one = np.array([[0, 1]], np.int64)
     edge = np.array([[-1, -1], [0, 0], [0, -1], [(1 << 62) - 1, -1], [-(1 << 63), 0], [1 << 61, 0]], np.int64)
-    n_cases = 0
+    n_cases, reached = 0, set()
     for n in (0, 1, 2, 3, 127, 128, 129, 100_003):
         lo = rng.integers(-(1 << 63), (1 << 63) - 1, 2 * n + 4, dtype=np.int64)
         lo[:4] = [0, 1, -(1 << 63), -1]
@@ -574,24 +604,34 @@ def check_probe_wide(rng, dev, results):
             taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
             q = np.concatenate([keys, keys + one, keys - one, keys + one[:, ::-1], keys ^ np.array([[0, -(1 << 63)]]),
                                 edge, rng.integers(-(1 << 63), (1 << 63) - 1, (2000, 2), dtype=np.int64)])
-            k_d, t_d, q_d = (torch.from_numpy(a).to(dev) for a in (keys, taxa, q))
+            k_d, t_d = (torch.from_numpy(a).to(dev) for a in (keys, taxa))
             for bucket_keys in (1, lookup.BUCKET_KEYS, 1 << 30):
                 d = lookup.build_directory(k_d, bucket_keys)
-                got, want = lookup.probe(k_d, t_d, d, q_d), lookup.lookup_taxa(k_d, t_d, q_d)
+                table = lookup.build_slots(k_d, t_d, d)
+                q_d = torch.from_numpy(np.concatenate([q, bucket_neighbours(keys, table.directory.shift)])).to(dev)
+                got, want = lookup.probe(None, None, table, q_d), lookup.lookup_taxa(k_d, t_d, q_d)
                 torch.cuda.synchronize()
-                if not torch.equal(got, want) or not torch.equal(lookup.lookup_taxa_directory(k_d, t_d, d, q_d), want):
-                    fail(f"wide probe differs from the twin: {len(keys)} keys, {kind}, {d.buckets} buckets")
+                if not (torch.equal(got, want) and torch.equal(lookup.lookup_taxa_slots(table, q_d), want)
+                        and torch.equal(lookup.lookup_taxa_directory(k_d, t_d, d, q_d), want)):
+                    fail(f"wide probe differs from the twins: {len(keys)} keys, {kind}, {d.buckets} buckets")
                 if int((want > 0).sum()) < len(keys):
                     fail(f"the wide twin misses keys of the index: {len(keys)} keys, {kind}")
+                reached.add("direct" if table.codes is None else "codes")
+                if table.directory.buckets > d.buckets:
+                    reached.add("raised directory")
                 n_cases += 1
-    log(f"wide probe kernel == twin == directory twin on {n_cases} adversarial indexes (0 to 100,003 keys; uniform, "
-        "hi64 below 2^26, one hi64, hi64 = 0, three hi64; 1, 4 and all keys a bucket), max_abs_err 0")
+    if reached != {"direct", "codes", "raised directory"}:
+        fail(f"the adversarial slot tables reached only {sorted(reached)}")
+    log(f"wide probe kernel == slot twin == twin == directory twin on {n_cases} adversarial indexes (0 to 100,003 "
+        "keys; uniform, hi64 below 2^26, one hi64, hi64 = 0, three hi64; 1, 4 and all keys a bucket; slot fields "
+        "direct and codes, and a raised directory), max_abs_err 0")
     shapes = {}
     for label, n, hi_bits in WIDE_INDEXES:
         k_d, t_d = random_wide_index(dev, n, hi_bits, n)
         q_d = random_wide_queries(dev, k_d, 1 << 22, n + 1)
-        shapes[label] = time_probe(label, k_d, t_d, lookup.build_directory(k_d), q_d, "probe_wide")
-        del k_d, t_d, q_d
+        table = lookup.build_slots(k_d, t_d)
+        shapes[label] = time_probe(label, k_d, t_d, table, q_d, "probe_wide")
+        del k_d, t_d, q_d, table
     results["probe_wide"] = dict(shapes[WIDE_INDEXES[0][0]], shapes=shapes)
 
 
@@ -729,12 +769,13 @@ def twins_forbidden():
     def refuse(*args, **kwargs):
         fail("a kernel's plain twin was called on the card's path")
 
-    saved = minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa
-    minimizers.window_minimizers = minimizers.stitch_segments = lookup.lookup_taxa = refuse
+    saved = minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa, lookup.lookup_taxa_slots
+    minimizers.window_minimizers = minimizers.stitch_segments = lookup.lookup_taxa = lookup.lookup_taxa_slots = refuse
     try:
         yield
     finally:
-        minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa = saved
+        (minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa,
+         lookup.lookup_taxa_slots) = saved
 
 
 def output_tree(prefix):
@@ -1221,8 +1262,8 @@ def phase_wide(dev, out, reads, results, genomes, bases):
         if tag == "w45":
             label = "wide bench index (50, 45, 7), one batch's dense minimizers"
             q = batch_queries(cls, reads)[2].minimizer.flatten(0, 1)
-            results["probe_wide"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q,
-                                                                "probe_wide")
+            results["probe_wide"]["shapes"][label] = time_probe(  # the loaded index's keys lie on the host
+                label, idx.keys_t.to(dev), idx.taxa_t.to(dev), cls._directory, q, "probe_wide")
             bases["wide"] = (idx, idx_cpu)
         del idx, cls, idx_cpu
 
@@ -1264,7 +1305,8 @@ def phase_wide(dev, out, reads, results, genomes, bases):
         ("wide scale index, random queries", random_wide_queries(dev, idx.keys_t, 1 << 22, SCALE_RECORDS)),
         ("wide scale index, one batch's dense minimizers", batch_queries(cls, reads)[2].minimizer.flatten(0, 1)),
     ):
-        results["probe_wide"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q, "probe_wide")
+        results["probe_wide"]["shapes"][label] = time_probe(label, idx.keys_t, idx.taxa_t, cls._directory, q,
+                                                            "probe_wide")
     return total
 
 

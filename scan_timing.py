@@ -1,17 +1,26 @@
 #!/usr/bin/env python3
-"""Time the minimizer-scan kernels on one NVIDIA GPU at the main path's
-shapes, to compare two versions of the kernels inside one run on one card.
+"""Time the minimizer-scan kernels and the wide probe on one NVIDIA GPU at
+the main path's shapes, to compare two versions of the kernels inside one
+run on one card.
 
-    python3 scan_timing.py [--root DIR]
+    python3 scan_timing.py [--root DIR] [--cases all|scan|probe]
 
 `--root` imports slacken_tpu_torch from DIR, another checkout of the
 repository (the parent commit unpacked into a git-ignored directory, say);
 by default this one. It builds that checkout's kernels, prints the scan
-instances' registers and stack frames (ptxas), then one line a (kernel,
-parameters, shape): the device time alone (torch.profiler, as
+and probe kernels' registers and stack frames (ptxas), then one line a
+(kernel, parameters, shape): the device time alone (torch.profiler, as
 chip_smoke.device_ms) and back to back through the wrapper (CUDA events, as
-chip_smoke.cuda_ms). The rows are random codes with 5% N (seed 20260816).
-Run parent, change, change, parent in one command to compare two trees.
+chip_smoke.cuda_ms). The scan's rows are random codes with 5% N (seed
+20260816). The wide probe (`--cases probe`) runs at chip_smoke.py's four
+shapes: 4,194,304 random queries into 2M and into 120M random wide keys,
+and one 4 Mbp batch's dense minimizers on the bench and the 400 Mbp scale
+library's (50, 45, 7) indexes (also random queries there), each checked
+against `lookup_taxa` first; it prints the device memory of the scale
+index's probe arrays, the peak while they are made, and the build's peak. A tree whose lookup has
+no `build_slots` probes its keys, taxa and directory, as before the slot
+table. Run parent, change, change, parent in one command to compare two
+trees.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ CASES = [
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--cases", choices=("all", "scan", "probe"), default="all")
     args = ap.parse_args(argv)
 
     import torch
@@ -58,9 +68,13 @@ def main(argv=None):
     cuda_kernels.build(verbose=True)
     lines = cuda_kernels.build_info[1].splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "scan" in line:
+        if "Compiling entry function" in line and ("scan" in line or "probe" in line):
             used = next((x.strip() for x in lines[i + 1:i + 4] if "Used" in x), "")
             print(f"[{name}] {line.split(chr(39))[1][-60:]}: {used}", flush=True)
+    if args.cases != "scan":
+        time_probe_wide(name, dev)
+    if args.cases == "probe":
+        return 0
     rng = np.random.default_rng(20260816)
     for label, kms, lut_m, shapes in CASES:
         mp = MinimizerParams(*kms)
@@ -78,6 +92,81 @@ def main(argv=None):
             print(f"[{name}] {label} {kms} {list(shape)}: back to back {ms:.4f} ms; alone {alone}", flush=True)
         del lut
     return 0
+
+
+#: keys a bucket of the slot tables timed beside the default's
+BUCKET_SWEEP = (2, 4, 8)
+
+
+def probe_arrays(keys, taxa, bucket_keys=None):
+    """What this tree's wide probe kernel reads: (None, None, slot table),
+    or (keys, taxa, directory) in a tree without lookup.build_slots; its
+    default directory, or one of about `bucket_keys` keys a bucket."""
+    from slacken_tpu_torch.ops import lookup
+
+    if not hasattr(lookup, "build_slots"):
+        return keys, taxa, lookup.build_directory(keys)
+    d = None if bucket_keys is None else lookup.build_directory(keys, bucket_keys)
+    return None, None, lookup.build_slots(keys, taxa, d)
+
+
+def time_probe_wide(name, dev):
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import lookup
+
+    def timed(label, keys, taxa, arrays, queries):
+        for bucket_keys in (None, *BUCKET_SWEEP):
+            if bucket_keys is not None:  # the directory's one parameter, on the slots
+                if not hasattr(lookup, "build_slots"):
+                    break
+                arrays = probe_arrays(keys, taxa, bucket_keys)
+            run = lambda: lookup.probe(*arrays, queries)  # noqa: E731
+            if not torch.equal(run(), lookup.lookup_taxa(keys, taxa, queries)):
+                raise SystemExit(f"scan_timing: probe_wide differs from lookup_taxa on {label}")
+            ms, alone = chip_smoke.cuda_ms(run), chip_smoke.device_ms(run)
+            size = "" if bucket_keys is None else f", about {bucket_keys} keys a bucket"
+            print(f"[{name}] probe_wide {label}{size}: back to back {ms:.4f} ms; alone {chip_smoke.fmt_ms(alone)}",
+                  flush=True)
+
+    for label, n, hi_bits in chip_smoke.WIDE_INDEXES:
+        keys, taxa = chip_smoke.random_wide_index(dev, n, hi_bits, n)
+        queries = chip_smoke.random_wide_queries(dev, keys, 1 << 22, n + 1)
+        timed(label, keys, taxa, probe_arrays(keys, taxa), queries)
+        del keys, taxa, queries
+    torch.cuda.empty_cache()
+    params = IndexParams(k=50, m=45, spaces=7)
+    bench = KeyValueIndex.build(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)), params,
+                                workloads.bench_taxonomy(), dev)
+    cls = Classifier(bench, dev)
+    queries = chip_smoke.batch_queries(cls, workloads.bench_reads())[2].minimizer.flatten(0, 1)
+    label = "wide bench index (50, 45, 7), one batch's dense minimizers"
+    timed(label, bench.keys_t, bench.taxa_t, bench.device_arrays(dev), queries)
+    del bench, cls, queries
+    genomes = list(workloads.scale_library(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    idx = KeyValueIndex.build(iter(genomes), params, workloads.scale_taxonomy(chip_smoke.SCALE_TAXA), dev)
+    torch.cuda.synchronize()
+    before, build_peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cls = Classifier(idx, dev)  # the probe's arrays on the card: KeyValueIndex.device_arrays
+    torch.cuda.synchronize()
+    print(f"[{name}] wide scale index: {idx.num_records} records; the probe's arrays "
+          f"{torch.cuda.memory_allocated() - before} bytes beside the index's {before}, "
+          f"{torch.cuda.max_memory_allocated() - before} at the peak of their making; the build's peak "
+          f"{build_peak} bytes", flush=True)
+    reads = workloads.scale_reads(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA, library=genomes)
+    for label, queries in (
+        ("wide scale index, random queries",
+         chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.SCALE_RECORDS)),
+        ("wide scale index, one batch's dense minimizers", chip_smoke.batch_queries(cls, reads)[2].minimizer.flatten(0, 1)),
+    ):
+        timed(label, idx.keys_t, idx.taxa_t, idx.device_arrays(dev), queries)
+
 
 if __name__ == "__main__":
     sys.exit(main())

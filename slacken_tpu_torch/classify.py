@@ -128,7 +128,8 @@ def classify_batch(packed, valid, ambig, keys, taxa, directory, table, req_lut, 
                    lut=None):
     """The device body for one batch: (bundle [B, 3+nthr], window taxa [B, L]).
     `lut` is the index's rank table on the device (explicit orderings); in a
-    wide index `keys` and the minimizers are rows of two limbs."""
+    wide index `keys` and the minimizers are rows of two limbs, and on the
+    card `directory` is its slot table (keys and taxa None)."""
     wm = window_minimizers_packed(packed, valid, mp, lut)
     b, l = wm.valid.shape
     looked = probe(keys, taxa, directory, wm.minimizer.flatten(0, 1)).reshape(b, l)

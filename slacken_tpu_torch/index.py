@@ -45,7 +45,7 @@ import torch
 from . import storage, to_device
 from .ops import encode, ordering
 from .ops.lca import segment_lca_table
-from .ops.lookup import Directory, build_directory
+from .ops.lookup import Directory, SlotTable, build_directory, build_slots
 from .ops.minimizers import (
     DEFAULT_TOGGLE_MASK,
     INT64_MIN,
@@ -306,12 +306,17 @@ class KeyValueIndex:
             self.record_taxa_t = self.record_taxa_t.to(device)
         return self
 
-    def device_arrays(self, device) -> Tuple[torch.Tensor, torch.Tensor, Directory]:
-        """(keys, taxa, prefix directory) on `device`, copied or built there once."""
+    def device_arrays(self, device) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Directory | SlotTable]:
+        """What `lookup.probe` reads on `device`, copied or built there once:
+        (keys, taxa, prefix directory); for a wide index on the card
+        (None, None, slot table), whose rows hold key and taxon together."""
         device = torch.device(device)
         if device not in self._on:
-            keys = self.keys_t.to(device)
-            self._on[device] = (keys, self.taxa_t.to(device), build_directory(keys))
+            keys, taxa = self.keys_t.to(device), self.taxa_t.to(device)
+            if self.wide and device.type == "cuda":
+                self._on[device] = (None, None, build_slots(keys, taxa))
+            else:
+                self._on[device] = (keys, taxa, build_directory(keys))
         return self._on[device]
 
     def device_lut(self, device) -> Optional[torch.Tensor]:

@@ -25,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .lookup import Directory
+from .lookup import Directory, SlotTable
 from .minimizers import space_mask_int, wide_toggle_mask
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -126,8 +126,8 @@ def _load():
     lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, p, p, p, p, p, p, p]
     lib.stpu_scan_wide.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, u64, u64, p, p, p, p, p, p]
     lib.stpu_scan_stitch.argtypes = [p, i64, i32, i32, p, p, p]
-    for fn in (lib.stpu_probe, lib.stpu_probe_wide):
-        fn.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
+    lib.stpu_probe.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
+    lib.stpu_probe_wide.argtypes = [p, p, p, i64, i32, i32, p, i64, p, p]
     for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_scan_stitch, lib.stpu_probe, lib.stpu_probe_wide):
         fn.restype = i32
     for name in MASK_IDIOMS:
@@ -288,39 +288,69 @@ def lookup_taxa_directory_cuda(
     keys: torch.Tensor, taxa: torch.Tensor, directory: Directory, queries: torch.Tensor
 ) -> torch.Tensor:
     """Exact-match probe (kernels/probe.cu): int32 taxon per query, 0 on a
-    miss. keys sorted int64 [N] with int64 [Q] queries, or wide: int64
-    [N, 2] rows (hi64, lo64) with [Q, 2] queries; taxa int32 [N], directory
-    = lookup.build_directory(keys)."""
+    miss. keys sorted int64 [N] with int64 [Q] queries, taxa int32 [N],
+    directory = lookup.build_directory(keys). A wide index is probed through
+    its slot table (`lookup_taxa_slots_cuda`)."""
     starts, shift = directory
-    wide = keys.dim() == 2
-    _require(keys, "keys", torch.int64, 1 + wide)
+    if keys.dim() == 2 and keys.device.type == "cuda":
+        raise ValueError("a wide probe on the card reads the index's slot table (lookup.build_slots), not its keys")
+    _require(keys, "keys", torch.int64, 1)
     _require(taxa, "taxa", torch.int32, 1)
     _require(starts, "directory.starts", torch.int32, 1)
-    _require(queries, "queries", torch.int64, 1 + wide)
-    if wide and (keys.shape[1] != 2 or queries.shape[1] != 2):
-        raise ValueError(
-            f"wide keys and queries are [N, 2] and [Q, 2], got {tuple(keys.shape)} and {tuple(queries.shape)}"
-        )
+    _require(queries, "queries", torch.int64, 1)
     n, buckets = keys.shape[0], directory.buckets
-    if (taxa.shape[0] != n or buckets < 1 or buckets & (buckets - 1)
-            or not 0 <= shift <= (127 if wide else 63)):
+    if taxa.shape[0] != n or buckets < 1 or buckets & (buckets - 1) or not 0 <= shift <= 63:
         raise ValueError(
             f"taxa [{taxa.shape[0]}] or a directory of {buckets} buckets and shift {shift} "
             f"do not fit {n} keys"
         )
-    if keys.data_ptr() % 16 or (wide and queries.data_ptr() % 16):
+    if keys.data_ptr() % 16:
         raise ValueError("keys must be 16-byte aligned (the probe loads 16 bytes at a time)")
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
     if n == 0:  # an empty index: every query misses
         return out.zero_()
-    lib = _load()
-    name = "probe_wide" if wide else "probe"
-    rc = (lib.stpu_probe_wide if wide else lib.stpu_probe)(
+    rc = _load().stpu_probe(
         keys.data_ptr(), taxa.data_ptr(), n, starts.data_ptr(), buckets, shift,
         queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
     )
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _check(rc, "probe")
+    LAUNCHES["probe"] += 1
+    return out
+
+
+def lookup_taxa_slots_cuda(table: SlotTable, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of a wide index through its slot table
+    (kernels/probe.cu, probe_wide_kernel): int32 taxon per int64 [Q, 2]
+    query (hi64, lo64), 0 on a miss. Twin: lookup.lookup_taxa_slots."""
+    slots, c, codes, directory = table
+    starts, shift = directory
+    _require(slots, "slots", torch.int64, 2)
+    _require(starts, "directory.starts", torch.int32, 1)
+    _require(queries, "queries", torch.int64, 2)
+    if codes is not None:
+        _require(codes, "codes", torch.int32, 1)
+    n, buckets = slots.shape[0], directory.buckets
+    if slots.shape[1] != 2 or queries.shape[1] != 2:
+        raise ValueError(f"slots and queries are [N, 2] and [Q, 2], got {tuple(slots.shape)} and {tuple(queries.shape)}")
+    if (buckets < 1 or buckets & (buckets - 1) or not 0 <= shift <= 127
+            or not 1 <= c <= min(32, 128 - shift) or (codes is not None and codes.shape[0] == 0)):
+        raise ValueError(
+            f"a slot table of {n} rows with a field of {c} bits and codes "
+            f"{None if codes is None else codes.shape[0]} does not fit a directory of {buckets} buckets and shift {shift}"
+        )
+    if len({slots.device, starts.device, queries.device, *(() if codes is None else (codes.device,))}) != 1:
+        raise ValueError("slots, directory, codes and queries must be on one device")
+    if slots.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("slots and queries must be 16-byte aligned (the probe loads 16 bytes at a time)")
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    if n == 0:  # an empty index: every query misses
+        return out.zero_()
+    rc = _load().stpu_probe_wide(
+        slots.data_ptr(), None if codes is None else codes.data_ptr(), starts.data_ptr(), buckets, shift, c,
+        queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
+    )
+    _check(rc, "probe_wide")
+    LAUNCHES["probe_wide"] += 1
     return out
 
 

@@ -36,13 +36,20 @@
 // which leaves the L2 to the index.
 //
 // Wide keys (m > 31; `lookup_taxa_routed_wide`, slacken_tpu/ops/lookup.py:161,
-// a bisection over four 32-bit limbs there) take the same walk over 16-byte
-// keys: rows (hi64, lo64) of an interleaved [n, 2] array, so a key is one
-// 16-byte load, two keys one sector, where the narrow walk has four. The
-// prefix is the top of the 128-bit query; an invalid window's query, -1 in
-// both limbs, has a prefix beyond every bucket and misses without a load.
-// The same number of scattered loads a hit as the narrow kernel, twice the
-// key bytes a scan step.
+// a bisection over four 32-bit limbs there) are probed through the index's
+// slot table (lookup.build_slots), 16 bytes a record: inside bucket p every
+// key is (p << shift) | r, so a slot holds the 128-bit (r << c) | f, the
+// remainder above a c-bit field that is the taxon itself or its code (the
+// taxon's position in a small sorted table of the index's distinct taxa,
+// which stays in the L2). A hit reads its taxon with its key: the walk's
+// dependent loads are the directory (starts[p] and starts[p + 1], one
+// sector) and one or two sectors of slots, two slots a sector, where a
+// separate taxa array cost a third, last load. The walk stops at the
+// bucket's end, since the next bucket's slots do not carry its prefix; a
+// slot below starts[p], loaded for the sake of 16-byte alignment, belongs
+// to the previous bucket and is never matched. The query's prefix is the top
+// of the 128-bit query; an invalid window's -1 in both limbs has a prefix
+// beyond every bucket and misses without a load.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,59 +92,57 @@ probe_kernel(const long long* __restrict__ keys, const int* __restrict__ taxa, l
   __stcs(out + qi, taxon);
 }
 
-struct K2 {
+struct U128 {
   unsigned long long hi, lo;
 };
 
-__device__ __forceinline__ K2 load2(const ulonglong2* p) {
-  const ulonglong2 v = __ldg(p);
-  return K2{v.x, v.y};
-}
-
-__device__ __forceinline__ bool less2(const K2& a, const K2& b) {
-  return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
-}
-
-__device__ __forceinline__ bool equal2(const K2& a, const K2& b) {
-  return a.hi == b.hi && a.lo == b.lo;
+__device__ __forceinline__ bool below(const ulonglong2& s, const U128& q) {
+  return s.x < q.hi || (s.x == q.hi && s.y < q.lo);
 }
 
 __global__ void __launch_bounds__(THREADS)
-probe_wide_kernel(const ulonglong2* __restrict__ keys, const int* __restrict__ taxa, long long n,
-                  const int* __restrict__ starts, unsigned long long buckets, int shift,
+probe_wide_kernel(const ulonglong2* __restrict__ slots, const int* __restrict__ codes,
+                  const int* __restrict__ starts, unsigned long long buckets, int shift, int c,
                   const ulonglong2* __restrict__ queries, long long nq, int* __restrict__ out) {
   const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (qi >= nq) return;
-  const ulonglong2 raw = __ldcs(queries + qi);  // streamed: the index keeps the L2
-  const K2 x = {raw.x, raw.y};
+  const ulonglong2 x = __ldcs(queries + qi);  // streamed: the index keeps the L2
   // the 128-bit query >> shift, as the 64 bits that can name a bucket and
-  // whatever lies above them
+  // whatever lies above them; and r, the query modulo 2^shift
   unsigned long long p, above;
+  U128 r;
   if (shift >= 64) {
-    p = x.hi >> (shift - 64);
+    p = x.x >> (shift - 64);
     above = 0;
+    r = {x.x & ((1ull << (shift - 64)) - 1), x.y};
   } else if (shift == 0) {
-    p = x.lo;
-    above = x.hi;
+    p = x.y;
+    above = x.x;
+    r = {0, 0};
   } else {
-    p = (x.hi << (64 - shift)) | (x.lo >> shift);
-    above = x.hi >> shift;
+    p = (x.x << (64 - shift)) | (x.y >> shift);
+    above = x.x >> shift;
+    r = {0, x.y & ((1ull << shift) - 1)};
   }
   int taxon = 0;
   if (above == 0 && p < buckets) {
-    long long i = __ldg(starts + p) & ~1;  // even: two keys are one aligned sector
-    while (i + 1 < n) {
-      const K2 a = load2(keys + i), b = load2(keys + i + 1);
-      if (less2(b, x)) {  // both below x
-        i += 2;
-        continue;
+    const long long start = __ldg(starts + p), end = __ldg(starts + p + 1);
+    // Q = r << c (shift + c <= 128): the hit is the slot s with
+    // Q <= s < Q + 2^c, that is s.hi == Q.hi and s.lo ^ Q.lo < 2^c
+    const unsigned long long field = (1ull << c) - 1;
+    const U128 q = {(r.hi << c) | (r.lo >> (64 - c)), r.lo << c};
+    // even: two slots are one aligned sector; an empty bucket loads none
+    for (long long i = start < end ? start & ~1 : end; i < end; i += 2) {
+      const ulonglong2 a = __ldg(slots + i), b = __ldg(slots + min(i + 1, end - 1));
+      const bool at_a = i >= start && !below(a, q);  // slot i - 1 < start is another bucket's
+      if (!at_a && (i + 1 >= end || below(b, q))) continue;
+      // limb by limb: a select of a whole pair would put both in local memory
+      const unsigned long long hi = at_a ? a.x : b.x, lo = at_a ? a.y : b.y;
+      if (hi == q.hi && (lo ^ q.lo) <= field) {
+        const int f = (int)(lo & field);
+        taxon = codes ? __ldg(codes + f) : f;
       }
-      if (equal2(a, x)) taxon = __ldg(taxa + i);
-      else if (equal2(b, x)) taxon = __ldg(taxa + i + 1);
-      i = n;  // found, or passed where x would be
-    }
-    if (i + 1 == n) {  // the last key of an index of odd length
-      if (equal2(load2(keys + i), x)) taxon = __ldg(taxa + i);
+      break;  // found, or passed where the query would be
     }
   }
   __stcs(out + qi, taxon);
@@ -160,18 +165,19 @@ extern "C" int stpu_probe(const void* keys, const void* taxa, long long n, const
   return (int)cudaGetLastError();
 }
 
-// keys: [n, 2] unsigned (hi64, lo64) rows sorted by value, hi64 below 2^63,
-// 16-byte aligned; taxa: int32 [n]; starts: int32 [buckets + 1], the prefix
-// directory of the 128-bit keys >> shift (0 <= shift <= 127); queries:
-// [nq, 2], 16-byte aligned; out: int32 [nq].
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int stpu_probe_wide(const void* keys, const void* taxa, long long n,
-                               const void* starts, long long buckets, int shift,
-                               const void* queries, long long nq, void* out, void* stream) {
+// slots: [n, 2] unsigned (hi64, lo64) rows, lookup.build_slots's (r << c) | f
+// in key order, 16-byte aligned; codes: int32 table of the distinct taxa, or
+// null when the field is the taxon; starts: int32 [buckets + 1], the prefix
+// directory of the 128-bit keys >> shift (0 <= shift <= 127), with
+// 1 <= c <= 32 and shift + c <= 128; queries: [nq, 2], 16-byte aligned;
+// out: int32 [nq]. Returns the cudaError_t of the launch (0 on success).
+extern "C" int stpu_probe_wide(const void* slots, const void* codes, const void* starts,
+                               long long buckets, int shift, int c, const void* queries,
+                               long long nq, void* out, void* stream) {
   if (nq <= 0) return 0;
   const long long blocks = (nq + THREADS - 1) / THREADS;
   probe_wide_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const ulonglong2*)keys, (const int*)taxa, n, (const int*)starts,
-      (unsigned long long)buckets, shift, (const ulonglong2*)queries, nq, (int*)out);
+      (const ulonglong2*)slots, (const int*)codes, (const int*)starts,
+      (unsigned long long)buckets, shift, c, (const ulonglong2*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }

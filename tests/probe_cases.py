@@ -1,0 +1,80 @@
+"""Wide indexes and queries for the slot table's tests, shared by its
+twin's (test_torch_probe_slots.py) and its kernel's (test_torch_gpu.py)."""
+
+import numpy as np
+
+from slacken_tpu_torch.ops import lookup
+
+TOP = (1 << 31) - 1  # the widest taxon
+
+#: (label, m, n, taxa, keys a bucket, the field mode, whether b rises)
+NAMED = [
+    ("m = 45, wide taxa: shift <= 96 holds any taxon", 45, 3000, "wide", lookup.BUCKET_KEYS, "direct", False),
+    ("m = 32, one bucket: shift 64, 32 bits of field", 32, 3000, "distinct", 1 << 30, "direct", False),
+    ("m = 63, small taxa in the 12 bits left", 63, 3000, "small", lookup.BUCKET_KEYS, "direct", False),
+    ("m = 63, wide taxa: codes", 63, 3000, "wide", lookup.BUCKET_KEYS, "code", False),
+    ("m = 63, distinct taxa: codes", 63, 3000, "distinct", lookup.BUCKET_KEYS, "code", False),
+    ("m = 56, distinct taxa in one bucket: 16 bits hold 3,000 codes", 56, 3000, "distinct", 1 << 30, "code", False),
+    ("m = 63, distinct taxa in one bucket: b rises", 63, 3000, "distinct", 1 << 30, "code", True),
+    ("m = 63, small taxa in one bucket: b rises", 63, 129, "small", 1 << 30, "code", True),
+    ("m = 49, one key a bucket: shift 90", 49, 129, "wide", 1, "direct", False),
+    ("m = 56, one key a bucket, wide taxa: codes", 56, 129, "wide", 1, "code", False),
+]
+
+
+def wide_keys(rng, m, n):
+    """n sorted unique keys below 4^m as uint64 [n, 2] rows (hi64, lo64);
+    a long run of equal hi64, and lo64 that differ only in the top bit."""
+    hi_bits = 2 * m - 64
+    hi = rng.integers(0, 1 << hi_bits, 2 * n + 4, dtype=np.uint64) if hi_bits else np.zeros(2 * n + 4, np.uint64)
+    hi[: n // 2] = hi[0]
+    lo = rng.integers(0, 1 << 64, 2 * n + 4, dtype=np.uint64)
+    lo[:4] = [0, 1, 1 << 63, (1 << 64) - 1]
+    rows = np.unique(np.stack([hi, lo], 1), axis=0)  # sorted by (hi64, lo64), unsigned
+    return rows[np.sort(rng.permutation(len(rows))[:n])]
+
+
+def taxa_of(rng, kind, n):
+    """small: below 1,000; wide: some 2^31 - 1, which forces codes at m = 63;
+    distinct: n different taxa up to 2^31 - 1, the most codes."""
+    if kind == "small":
+        return rng.integers(1, 1000, n).astype(np.int32)
+    if kind == "wide":
+        taxa = rng.integers(1, 1000, n).astype(np.int32)
+        taxa[rng.random(n) < 0.3] = TOP
+        return taxa
+    return rng.permutation(np.unique(rng.integers(1, TOP, 2 * n + 8))[:n]).astype(np.int32)
+
+
+def add128(rows, hi, lo, sign):
+    """rows + sign * (hi, lo) as 128-bit values, wrapped: uint64 [n, 2]."""
+    r_lo = rows[:, 1] + np.uint64(lo) if sign > 0 else rows[:, 1] - np.uint64(lo)
+    carry = ((r_lo < rows[:, 1]) if sign > 0 else (r_lo > rows[:, 1])).astype(np.uint64)
+    r_hi = rows[:, 0] + np.uint64(hi) + carry if sign > 0 else rows[:, 0] - np.uint64(hi) - carry
+    return np.stack([r_hi, r_lo], 1)
+
+
+def neighbours(keys, shift):
+    """Each key's remainder in the next and in the previous bucket: key +-
+    2^shift. The slot before a bucket, which the kernel loads for alignment,
+    holds the remainder of the previous bucket's last key."""
+    d = (1 << (shift - 64), 0) if shift >= 64 else (0, 1 << shift)
+    return np.concatenate([add128(keys, *d, 1), add128(keys, *d, -1)])
+
+
+def queries_of(rng, keys, m):
+    """uint64 [Q, 2] queries that do not depend on the directory: every key,
+    +-1 in either limb, with lo64's top bit flipped, other keys below 4^m,
+    the edges of the key space, random rows and invalid windows' -1."""
+    top = (1 << (2 * m - 64)) - 1
+    return np.concatenate([
+        keys, add128(keys, 0, 1, 1), add128(keys, 0, 1, -1), add128(keys, 1, 0, 1), add128(keys, 1, 0, -1),
+        keys ^ np.array([[0, 1 << 63]], np.uint64), wide_keys(rng, m, 300),
+        np.array([[0, 0], [0, (1 << 64) - 1], [top, (1 << 64) - 1]], np.uint64),
+        rng.integers(0, 1 << 64, (300, 2), dtype=np.uint64),
+        np.full((3, 2), (1 << 64) - 1, np.uint64),
+    ])
+
+
+def mode(table):
+    return "direct" if table.codes is None else "code"

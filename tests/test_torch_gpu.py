@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import probe_cases
 from scan_cases import hand_made_summaries
 from slacken_tpu_torch import diagnostics, workloads
 from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, mask_idioms, minimizers, ordering
@@ -277,13 +278,70 @@ def test_probe_wide_kernel_adversarial(cuda, n, kind, bucket_keys):
                         rng.integers(-(1 << 63), (1 << 63) - 1, (500, 2), dtype=np.int64)])
     k_d, t_d, q_d = (torch.from_numpy(a).to(cuda) for a in (keys, taxa, q))
     d = lookup.build_directory(k_d, bucket_keys)
+    table = lookup.build_slots(k_d, t_d, d)
     before = cuda_kernels.LAUNCHES["probe_wide"]
-    got = lookup.probe(k_d, t_d, d, q_d)
+    got = lookup.probe(None, None, table, q_d)
     assert cuda_kernels.LAUNCHES["probe_wide"] == before + (1 if len(keys) else 0)
     want = lookup.lookup_taxa(torch.from_numpy(keys), torch.from_numpy(taxa), torch.from_numpy(q))
     assert torch.equal(got.cpu(), want)
+    assert torch.equal(lookup.lookup_taxa_slots(table, q_d).cpu(), want)
     assert torch.equal(lookup.lookup_taxa_directory(k_d, t_d, d, q_d).cpu(), want)
     assert int((want > 0).sum()) >= len(keys)
+
+
+def _slot_case(cuda, keys, taxa, q, bucket_keys):
+    """The slot kernel on the card == its twin on the card == lookup_taxa on
+    the CPU, with the keys' neighbours in the table's own buckets among the
+    queries; returns the table."""
+    k_d, t_d = torch.from_numpy(keys.view(np.int64)).to(cuda), torch.from_numpy(taxa).to(cuda)
+    table = lookup.build_slots(k_d, t_d, lookup.build_directory(k_d, bucket_keys))
+    q = np.concatenate([q, probe_cases.neighbours(keys, table.directory.shift)]).view(np.int64)
+    q_d = torch.from_numpy(q).to(cuda)
+    before = cuda_kernels.LAUNCHES["probe_wide"]
+    got = lookup.probe(None, None, table, q_d)
+    assert cuda_kernels.LAUNCHES["probe_wide"] == before + (1 if len(keys) else 0)
+    want = lookup.lookup_taxa(torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), torch.from_numpy(q))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(lookup.lookup_taxa_slots(table, q_d).cpu(), want)
+    return table
+
+
+@pytest.mark.parametrize("m", [32, 33, 45, 56, 63])
+@pytest.mark.parametrize("kind", ["small", "wide", "distinct"])
+@pytest.mark.parametrize("bucket_keys", [1, lookup.BUCKET_KEYS, 1 << 30])
+def test_probe_wide_kernel_over_slot_tables(cuda, m, kind, bucket_keys):
+    """Small, wide and distinct taxa (both field modes, and at m = 63 in one
+    bucket a raised directory), 1 to 3,000 keys."""
+    rng = np.random.default_rng(m)
+    for n in (1, 2, 3, 129, 3000):
+        keys = probe_cases.wide_keys(rng, m, n)
+        _slot_case(cuda, keys, probe_cases.taxa_of(rng, kind, n), probe_cases.queries_of(rng, keys, m), bucket_keys)
+
+
+@pytest.mark.parametrize("case", probe_cases.NAMED, ids=[c[0] for c in probe_cases.NAMED])
+def test_probe_wide_kernel_field_modes(cuda, case):
+    """Each field mode, and the raised directory, reached by name."""
+    _, m, n, kind, bucket_keys, field, rises = case
+    rng = np.random.default_rng(n)
+    keys = probe_cases.wide_keys(rng, m, n)
+    table = _slot_case(cuda, keys, probe_cases.taxa_of(rng, kind, n), probe_cases.queries_of(rng, keys, m),
+                       bucket_keys)
+    default = lookup.build_directory(torch.from_numpy(keys.view(np.int64)), bucket_keys)
+    assert probe_cases.mode(table) == field and (table.directory.buckets > default.buckets) == rises
+
+
+def test_probe_wide_kernel_refuses_what_it_does_not_take(cuda):
+    keys = torch.tensor([[0, 5], [1, 7], [2, 1], [3, 0]], device=cuda)
+    taxa = torch.ones(4, dtype=torch.int32, device=cuda)
+    table = lookup.build_slots(keys, taxa, lookup.build_directory(keys))
+    with pytest.raises(ValueError, match="slot table"):
+        lookup.probe(keys, taxa, lookup.build_directory(keys), keys)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_kernels.lookup_taxa_slots_cuda(table._replace(slots=table.slots.flatten()[1:7].view(3, 2)), keys)
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.lookup_taxa_slots_cuda(table._replace(c=33), keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.lookup_taxa_slots_cuda(table, torch.cat([keys, keys], 1)[:, :2])
 
 
 def test_probe_kernel_refuses_what_it_does_not_take(cuda):
