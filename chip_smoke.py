@@ -46,7 +46,18 @@ launch counts set to 0 just before it and read just after:
     windows;
   * compareIndex: the bench index against its restriction to two genomes,
     narrow and wide, card against CPU; the CLI's compareIndex, inputCheck and
-    build --check.
+    build --check;
+  * the device mesh in one process, eight shards on the one card
+    (Mesh([cuda] * 8)): at bench size MeshClassifier replicated and ring in
+    both modes for the narrow, the wide and the signature index (files equal
+    to the single-device card runs and to the mesh over eight CPU shards),
+    build_distributed with the sidecar, classify2 over the ring, and the CLI
+    with --devices torch.cuda.device_count() (build --shards 4, classify,
+    classify2); at scale build_distributed of the 400 Mbp library (131,190,899
+    records, equal to the single-device build) and the ring classify of the
+    200,000 reads (the single-device kreport), with walls, peak memory and
+    the device's busy share. On a machine of several cards the bench reads
+    also go over distinct cards.
 
 It prints the measured numbers, one JSON line of per-kernel results (time
 beside its bound, the plain twin's time and a library call's where there is
@@ -1096,9 +1107,10 @@ def breakdown(cls, reads, cpar, results):
 def phase_scale(dev, out, results, genomes):
     """Build and classify at scale; the probe against an index far larger
     than L2, on random queries and on a real batch's. Returns the launch
-    counts of the build and the classify. The library's (taxon, sequence)
-    pairs are appended to `genomes` as the build draws them, for the later
-    phases."""
+    counts of the build and the classify, and the index with its keys and
+    taxa on the card (phase_mesh_scale holds its own build to it). The
+    library's (taxon, sequence) pairs are appended to `genomes` as the build
+    draws them, for the later phases."""
     import torch
 
     from slacken_tpu_torch import workloads
@@ -1157,7 +1169,7 @@ def phase_scale(dev, out, results, genomes):
         f"reduce): {spaced.num_records} records in {time.perf_counter() - t0:.3f} s")
     if not 0 < spaced.num_records <= idx.num_records or spaced.params.spaces != 9:
         fail(f"the respaced scale index holds {spaced.num_records} records at s = {spaced.params.spaces}")
-    return launches
+    return launches, idx
 
 
 def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least, table=None, keep_records=False):
@@ -2024,6 +2036,255 @@ def phase_compare_index(dev, out, bases):
     return total
 
 
+MESH_SHARDS = 8
+
+
+def phase_mesh(dev, out, reads, bases):
+    """The device mesh at bench size, with the twins forbidden on the card:
+    MeshClassifier over Mesh([cuda] * 8) in the replicated and the ring
+    layout, reports and per-read mode, for the narrow bench index, the wide
+    (50, 45, 7) and the (35, 13, 3) signature index that the earlier phases
+    saved, against their single-device card runs' files and, per-read (whose
+    files include the kreports), the same mesh over [cpu] * 8;
+    build_distributed over 8 shards against the single-device builds with
+    their sidecars; Dynamic over the ring (span hits; with and without the
+    sidecar, so the dynamic index also by build_distributed) against the
+    single-device run; the CLI with --devices torch.cuda.device_count() (build
+    --shards 4, classify ring and replicated, classify2) against the
+    single-device CLI, and --devices one above the count refused. Returns the
+    card's launch counts."""
+    import torch
+
+    from slacken_tpu_torch import cli, dynamic, workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier, build_distributed
+    from slacken_tpu_torch.parallel.mesh import Mesh
+
+    mesh, cpu_mesh = Mesh([dev] * MESH_SHARDS), Mesh(["cpu"] * MESH_SHARDS)
+    n_reads = sum(len(p) for p in reads)
+    modes = {"rep": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=False),
+             "det": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=True)}
+    # kind -> (saved index, its single-device card runs in reports and per-read mode, scan, probe)
+    kinds = {"narrow": ("idx", "gpu", "det", "scan", "probe"),
+             "wide (50, 45, 7)": ("w45_idx", "w45_rep", "w45_det", "scan_wide", "probe_wide"),
+             "signature (35, 13, 3)": ("signature_idx", "signature_rep", "signature_det", "scan_lut", "probe")}
+    total = {}
+    for kind, (idx_dir, rep_dir, det_dir, scan, probe) in kinds.items():
+        idx = KeyValueIndex.load(os.path.join(out, idx_dir))
+        idx_card = idx.with_records(idx.keys_t.to(dev), idx.taxa_t.to(dev))
+        want = {"rep": output_tree(os.path.join(out, rep_dir)), "det": output_tree(os.path.join(out, det_dir))}
+        for layout in ("replicated", "ring"):
+            tag = f"mesh_{idx_dir}_{layout}"
+            cuda_kernels.reset_launch_counts()
+            with twins_forbidden():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cls = MeshClassifier(idx_card, mesh, layout)
+                torch.cuda.synchronize()
+                setup_s = time.perf_counter() - t0
+                cls.classify_and_write_packed(reads[:1], os.path.join(out, f"{tag}_warm"), modes["rep"])
+                walls = {mode: timed_runs(lambda r: cls.classify_and_write_packed(
+                    reads, os.path.join(out, f"{tag}_{mode}"), cpar), n=1)[0] for mode, cpar in modes.items()}
+            launches = dict(cuda_kernels.LAUNCHES)
+            require_launches(f"mesh {kind} {layout}", launches, (scan, probe),
+                             [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide") if k not in (scan, probe)])
+            add_launches(total, launches)
+            for mode in modes:
+                got = output_tree(os.path.join(out, f"{tag}_{mode}"))
+                if got != want[mode] or len(got) != (2 if mode == "rep" else 4):
+                    fail(f"mesh {kind} {layout}: the {mode} output differs from the single-device card run's")
+            t0 = time.perf_counter()
+            MeshClassifier(idx, cpu_mesh, layout).classify_and_write_packed(
+                reads, os.path.join(out, f"{tag}_detcpu"), modes["det"])
+            cpu_s = time.perf_counter() - t0
+            if output_tree(os.path.join(out, f"{tag}_detcpu")) != want["det"]:
+                fail(f"mesh {kind} {layout}: the mesh over [cpu] * {MESH_SHARDS} differs from the card's")
+            log(f"mesh {kind}, {layout} over Mesh([{dev}] * {MESH_SHARDS}): kreports and per-read lines "
+                f"byte-identical to the single-device card run and to the CPU mesh ({cpu_s:.1f} s per-read); "
+                f"set-up {setup_s:.3f} s, {n_reads / walls['rep']:.1f} reads/s in reports mode, "
+                f"{n_reads / walls['det']:.1f} per-read (one warm run each); launches {launches}")
+        del idx, idx_card, cls
+
+    # build_distributed against the single-device builds with their sidecars
+    tax = workloads.bench_taxonomy()
+    library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
+    cuda_kernels.reset_launch_counts()
+    for kind, (card_idx, host_idx) in bases.items():
+        with twins_forbidden():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            built = build_distributed(library(), card_idx.params, tax, mesh, ordering_lut=card_idx.ordering_lut,
+                                      keep_records=True)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        if not (index_equal(built, host_idx) and torch.equal(built.record_keys_t.cpu(), host_idx.record_keys_t)
+                and torch.equal(built.record_taxa_t.cpu(), host_idx.record_taxa_t)):
+            fail(f"build_distributed {kind}: keys, taxa or sidecar differ from the single-device build")
+        log(f"build_distributed over Mesh([{dev}] * {MESH_SHARDS}), {kind} ({card_idx.params.k}, {card_idx.params.m}, "
+            f"{card_idx.params.spaces}, {card_idx.params.ordering}): {built.num_records} records and "
+            f"{built.record_taxa_t.shape[0]} sidecar pairs equal to the single-device build in {build_s:.3f} s "
+            f"({8e6 / build_s / 1e6:.2f} Mbp/s incl. library generation and host packing)")
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("build_distributed at bench size", launches, ("scan", "scan_wide", "scan_lut"))
+    add_launches(total, launches)
+
+    # two-step classification over the ring against the single-device run
+    genomes = list(library())
+    present = [p for i, p in enumerate(reads) if i % 3 != 2]
+    fragments = [Fragment(t, s) for t, s in workloads.read_sequences(present)]
+    narrow = bases["narrow"][0]
+    cpar = ClassifyParams(thresholds=[0.0], per_read_output=True)
+    cuda_kernels.reset_launch_counts()
+    for sidecar in (True, False):
+        base = narrow if sidecar else narrow.with_records(narrow.keys_t, narrow.taxa_t)
+        made, walls = {}, {}
+        for where, devices, layout in (("one", None, None), ("ring", mesh, "ring")):
+            d = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, dynamic.MinimizerDistinctCount(500), cpar,
+                                None, os.path.join(out, f"mesh_c2_{sidecar}_{where}", "dyn"), dev,
+                                devices=devices, layout=layout)
+            with twins_forbidden():
+                t0 = time.perf_counter()
+                made[where] = d.two_step_classify_and_write(fragments)
+                torch.cuda.synchronize()
+                walls[where] = time.perf_counter() - t0
+        got = files_under(os.path.join(out, f"mesh_c2_{sidecar}_ring", "dyn"))
+        want = files_under(os.path.join(out, f"mesh_c2_{sidecar}_one", "dyn"))
+        if got != want or len(got) != 3 or not index_equal(made["ring"], made["one"]):
+            fail(f"classify2 over the ring ({'sidecar' if sidecar else 'no sidecar'}) differs from one device")
+        log(f"classify2 over Mesh([{dev}] * {MESH_SHARDS}), ring, MinimizerDistinctCount(500), dynamic index "
+            f"{'from the sidecar' if sidecar else 'by build_distributed'}: taxon set "
+            f"{got['_taxonSet.txt'].decode().split()}, kreport and per-read lines byte-identical to one device; "
+            f"{walls['ring']:.2f} s against {walls['one']:.2f} s")
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("classify2 over the ring", launches)
+    add_launches(total, launches)
+
+    # the CLI on every card of the machine
+    count = torch.cuda.device_count()
+    lib_dir, fastq = os.path.join(out, "c2lib"), os.path.join(out, "c2reads.fastq")
+    lib = ["-l", lib_dir, "-t", os.path.join(out, "c2idx_s7", "taxonomy")]
+    mesh_args = ["--devices", str(count)]
+    on = ["--device", dev.type]
+    cuda_kernels.reset_launch_counts()
+    runs = {"build1": ["build", "-i", os.path.join(out, "mcli_idx1"), *lib],
+            "buildN": ["build", "-i", os.path.join(out, "mcli_idxN"), *lib, *mesh_args, "--shards", "4"]}
+    for layout in ("ring", "replicated"):
+        runs[f"one_{layout}"] = ["classify", fastq, "-i", os.path.join(out, "mcli_idx1"), "-c", "0.0", "0.15",
+                                 "-o", os.path.join(out, f"mcli_one_{layout}", "o")]
+        runs[f"mesh_{layout}"] = ["classify", fastq, "-i", os.path.join(out, "mcli_idxN"), "-c", "0.0", "0.15",
+                                  "-o", os.path.join(out, f"mcli_mesh_{layout}", "o"), *mesh_args, "--layout", layout]
+    runs["c2_one"] = ["classify2", fastq, "-i", os.path.join(out, "mcli_idx1"), "-l", lib_dir, "-D", "500",
+                      "-o", os.path.join(out, "mcli_c2_one", "o")]
+    runs["c2_mesh"] = ["classify2", fastq, "-i", os.path.join(out, "mcli_idxN"), "-l", lib_dir, "-D", "500",
+                       "-o", os.path.join(out, "mcli_c2_mesh", "o"), *mesh_args, "--layout", "ring"]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed), twins_forbidden():
+        for name, argv in runs.items():
+            t0 = time.perf_counter()
+            if cli.main([*argv, *on]) != 0:
+                fail(f"the mesh CLI failed: {argv}")
+            runs[name] = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches(f"the CLI with --devices {count}", launches)
+    add_launches(total, launches)
+    one, many = KeyValueIndex.load(os.path.join(out, "mcli_idx1")), KeyValueIndex.load(os.path.join(out, "mcli_idxN"))
+    if not index_equal(one, many) or sorted(os.listdir(os.path.join(out, "mcli_idxN")))[:4] != [
+            f"keys.{i:05d}.npy" for i in range(4)]:
+        fail(f"build --devices {count} --shards 4 differs from the single-device build")
+    for a, b in (("mcli_one_ring", "mcli_mesh_ring"), ("mcli_one_replicated", "mcli_mesh_replicated"),
+                 ("mcli_c2_one", "mcli_c2_mesh")):
+        got, want = files_under(os.path.join(out, b, "")), files_under(os.path.join(out, a, ""))
+        if got != want or len(got) < 3:
+            fail(f"the CLI's {b} differs from {a}: {sorted(got)} against {sorted(want)}")
+    log(f"CLI with --devices {count} ({'distinct cards' if count > 1 else 'the one card'}): build --shards 4 "
+        f"({one.num_records} records), classify --layout ring and replicated, classify2 --layout ring byte-identical "
+        "to the single-device CLI; walls " + ", ".join(f"{k} {v:.2f} s" for k, v in runs.items()))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["classify", fastq, "-i", os.path.join(out, "mcli_idx1"), "-o", os.path.join(out, "mcli_over"),
+                      "--devices", str(count + 1), "--layout", "ring"])
+    except ValueError as e:
+        log(f"--devices {count + 1} refused: {e}")
+    else:
+        fail(f"--devices {count + 1} on a machine of {count} cards did not raise")
+    if count > 1:
+        from slacken_tpu_torch.parallel.mesh import make_mesh
+
+        for layout in ("replicated", "ring"):
+            cls = MeshClassifier(bases["narrow"][0], make_mesh(count, "cuda"), layout)
+            cls.classify_and_write_packed(reads, os.path.join(out, f"mesh_cards_{layout}"), modes["det"])
+            if output_tree(os.path.join(out, f"mesh_cards_{layout}")) != output_tree(os.path.join(out, "det")):
+                fail(f"the mesh over {count} cards, {layout}, differs from one card")
+        log(f"the bench reads over {count} distinct cards, replicated and ring: byte-identical to one card")
+    return total
+
+
+def phase_mesh_scale(dev, out, genomes, scale_idx):
+    """The mesh at full size: build_distributed of the 400 Mbp scale library
+    (`genomes`) over Mesh([cuda] * 8) against phase_scale's index
+    (`scale_idx`), then the 200,000 scale reads classified by the ring over
+    8 shards against phase_scale's kreport; walls, peak device memory and the
+    device's busy share. Returns the launch counts."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import ClassifyParams
+    from slacken_tpu_torch.index import IndexParams
+    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier, build_distributed
+    from slacken_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh([dev] * MESH_SHARDS)
+    tax = workloads.scale_taxonomy(SCALE_TAXA)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    with twins_forbidden():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = build_distributed(iter(genomes), IndexParams(k=35, m=31, spaces=7), tax, mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        build_peak = torch.cuda.max_memory_allocated() - before
+        if idx.num_records != SCALE_RECORDS:
+            fail(f"build_distributed at scale gave {idx.num_records} records, expected {SCALE_RECORDS}")
+        if not (torch.equal(idx.keys_t, scale_idx.keys_t) and torch.equal(idx.taxa_t, scale_idx.taxa_t)):
+            fail("build_distributed at scale differs from the single-device build")
+        log(f"build_distributed at scale over Mesh([{dev}] * {MESH_SHARDS}): {idx.num_records} records equal to "
+            f"the single-device build in {build_s:.2f} s ({SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. host packing, "
+            f"the library made before); peak torch.cuda.max_memory_allocated {build_peak} bytes above the "
+            f"{before} bytes held before")
+        reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
+        n_reads = sum(len(p) for p in reads)
+        cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cls = MeshClassifier(idx, mesh, "ring")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        cls.classify_and_write_packed(reads[:1], os.path.join(out, "mscale_warm"), cpar)
+        dt = timed_runs(lambda r: cls.classify_and_write_packed(reads, os.path.join(out, "mscale"), cpar), n=1)[0]
+        ring_peak = torch.cuda.max_memory_allocated() - before
+    launches = dict(cuda_kernels.LAUNCHES)
+    want = open(os.path.join(out, "scale_c0.0", "all_kreport.txt"), "rb").read()
+    if open(os.path.join(out, "mscale_c0.0", "all_kreport.txt"), "rb").read() != want:
+        fail("the ring over 8 shards at scale wrote another kreport than the single-device classify")
+    c, total = classified_count(os.path.join(out, "mscale_c0.0", "all_kreport.txt"))
+    log(f"ring classify at scale over Mesh([{dev}] * {MESH_SHARDS}): kreport byte-identical to the single-device "
+        f"run; shards and their directories {setup_s:.3f} s; {n_reads} reads in {dt:.3f} s, {n_reads / dt:.1f} "
+        f"reads/s, classified {c} of {total}; peak torch.cuda.max_memory_allocated {ring_peak} bytes above the "
+        f"{before} held before")
+    require_launches("mesh at scale (build_distributed, ring classify)", launches)
+    device_busy(lambda: build_distributed(iter(genomes), IndexParams(k=35, m=31, spaces=7), tax, mesh),
+                "build_distributed at scale over 8 shards")
+    device_busy(lambda: cls.classify_and_write_packed(reads, os.path.join(out, "mscale_prof"), cpar),
+                "ring classify at scale over 8 shards")
+    return launches
+
+
 def main():
     import torch
 
@@ -2073,12 +2334,15 @@ def main():
     bases = {"narrow": (None, bench["idx_cpu"])}  # kind -> (card's, CPU's) base index with its sidecar
     del bench
     genomes = []
-    by_path["scale"] = phase_scale(dev, out, results, genomes)
+    by_path["scale"], scale_idx = phase_scale(dev, out, results, genomes)
+    by_path["mesh"] = phase_mesh_scale(dev, out, genomes, scale_idx)
+    del scale_idx
     by_path["wide"] = phase_wide(dev, out, reads, results, genomes, bases)
     by_path["ordering"] = phase_ordering(dev, out, reads, bases)
     by_path["classify2"] = phase_classify2(dev, out, reads, bases)
     by_path["bracken"] = phase_bracken(dev, out, bases)
     by_path["compare_index"] = phase_compare_index(dev, out, bases)
+    add_launches(by_path["mesh"], phase_mesh(dev, out, reads, bases))
     del bases
     add_launches(by_path["classify2"], phase_classify2_scale(dev, out, genomes))
     add_launches(by_path["bracken"], phase_bracken_scale(dev, out, genomes))

@@ -124,15 +124,18 @@ def finalize(
     )
 
 
-def classify_batch(packed, valid, ambig, keys, taxa, directory, table, req_lut, mp, max_taxa,
-                   lut=None):
-    """The device body for one batch: (bundle [B, 3+nthr], window taxa [B, L]).
-    `lut` is the index's rank table on the device (explicit orderings); in a
-    wide index `keys` and the minimizers are rows of two limbs, and on the
-    card `directory` is its slot table (keys and taxa None)."""
+def scan_probe(packed, valid, keys, taxa, directory, mp, lut=None):
+    """The first half of a batch on one device: the minimizer scan and the
+    probe of every window position. Returns (WindowMinimizers, looked-up
+    taxon [B, L] int32, 0 on a miss)."""
     wm = window_minimizers_packed(packed, valid, mp, lut)
     b, l = wm.valid.shape
-    looked = probe(keys, taxa, directory, wm.minimizer.flatten(0, 1)).reshape(b, l)
+    return wm, probe(keys, taxa, directory, wm.minimizer.flatten(0, 1)).reshape(b, l)
+
+
+def postprocess(wm, looked, ambig, table, req_lut, max_taxa):
+    """The second half: window taxa, hit groups, compaction, resolveTree and
+    the per-threshold finalize. Returns (bundle [B, 3+nthr], window taxa [B, L])."""
     window_taxa = torch.where(wm.valid, looked, INVALID_WINDOW)
     # hit groups: spans whose minimizer is distinct AND found in the index
     num_distinct = (wm.span_start & wm.distinct & (looked > 0) & wm.valid).sum(
@@ -144,6 +147,16 @@ def classify_batch(packed, valid, ambig, keys, taxa, directory, table, req_lut, 
         res, num_distinct, ch.n_hit_kmers, ch.n_none_kmers, ch.overflow, ambig, req_lut
     )
     return bundle, window_taxa
+
+
+def classify_batch(packed, valid, ambig, keys, taxa, directory, table, req_lut, mp, max_taxa,
+                   lut=None):
+    """The device body for one batch: (bundle [B, 3+nthr], window taxa [B, L]).
+    `lut` is the index's rank table on the device (explicit orderings); in a
+    wide index `keys` and the minimizers are rows of two limbs, and on the
+    card `directory` is its slot table (keys and taxa None)."""
+    wm, looked = scan_probe(packed, valid, keys, taxa, directory, mp, lut)
+    return postprocess(wm, looked, ambig, table, req_lut, max_taxa)
 
 
 # ---------------------------------------------------------------------------
@@ -368,10 +381,7 @@ class Classifier:
         self._cuda = self.device.type == "cuda"
         # 4 Mbp batches on the card, 1 Mbp on the CPU (cache residency)
         self.target_batch_bp = (1 << 22) if self._cuda else (1 << 20)
-        self._keys, self._taxa, self._directory = index.device_arrays(self.device)
-        self._lut = index.device_lut(self.device)
-        # indexed by raw taxon ID: [max_id + 1, D], copied to the device once
-        self._table = torch.from_numpy(index.taxonomy.rpath_table()).to(self.device)
+        self._place_index()
         self._req_luts: Dict[tuple, torch.Tensor] = {}
         self._thresholds: tuple = (0.0,)
         #: set per call by the entry points: the dense window taxa reach the
@@ -382,26 +392,56 @@ class Classifier:
         #: at most PIPELINE_DEPTH + 1 exist per shape.
         self._pinned_free: Dict[tuple, List[torch.Tensor]] = {}
 
+    def _place_index(self) -> None:
+        """Put what a batch reads on the device, once: the index's probe
+        arrays, its rank table and the taxonomy's rpath table."""
+        self._keys, self._taxa, self._directory = self.index.device_arrays(self.device)
+        self._lut = self.index.device_lut(self.device)
+        # indexed by raw taxon ID: [max_id + 1, D], copied to the device once
+        self._table = torch.from_numpy(self.index.taxonomy.rpath_table()).to(self.device)
+
     def _rows_target(self, width: int) -> int:
         return max(8, self.target_batch_bp // width)
 
-    def _req_lut(self, tmax: int) -> torch.Tensor:
-        """[nthr, tmax+1] int32 ceil_f64(t * total) for every possible total."""
-        key = (self._thresholds, tmax)
-        if key not in self._req_luts:
-            totals = np.arange(tmax + 1, dtype=np.float64)
-            lut = np.stack([np.ceil(t * totals) for t in self._thresholds]).astype(np.int32)
-            self._req_luts[key] = torch.from_numpy(lut).to(self.device)
-        return self._req_luts[key]
-
-    def _dispatch(self, codes: np.ndarray, titles, splits, row_lens):
-        """Launch one batch; pair with _harvest. Rows pad to a power of two
-        (INVALID rows) and the width to a multiple of 8 (INVALID columns,
-        which no valid window touches) for the 2-bit wire format."""
-        n, width = codes.shape
+    def _padded_rows(self, n: int) -> int:
+        """Rows a batch of n reads pads to: a power of two, at least 8."""
         rows = 8
         while rows < n:
             rows *= 2
+        return rows
+
+    def _req_lut(self, tmax: int, device=None) -> torch.Tensor:
+        """[nthr, tmax+1] int32 ceil_f64(t * total) for every possible total,
+        on `device` (default the classifier's)."""
+        device = self.device if device is None else torch.device(device)
+        key = (self._thresholds, tmax, device)
+        if key not in self._req_luts:
+            totals = np.arange(tmax + 1, dtype=np.float64)
+            lut = np.stack([np.ceil(t * totals) for t in self._thresholds]).astype(np.int32)
+            self._req_luts[key] = torch.from_numpy(lut).to(device)
+        return self._req_luts[key]
+
+    def scan_probe(self, packed: np.ndarray, valid: np.ndarray):
+        """The scan and the probe of pack_2bit's arrays on the device:
+        [(WindowMinimizers, looked-up taxa)], one pair a device, in row order."""
+        return [scan_probe(to_device(packed, self.device), to_device(valid, self.device),
+                           self._keys, self._taxa, self._directory,
+                           self.index.params.minimizer_params, self._lut)]
+
+    def _classify_packed_rows(self, packed, valid, ambig, tmax: int):
+        """(bundle, window taxa) of one batch of pack_2bit's arrays."""
+        return classify_batch(
+            to_device(packed, self.device), to_device(valid, self.device), to_device(ambig, self.device),
+            self._keys, self._taxa, self._directory, self._table, self._req_lut(tmax),
+            self.index.params.minimizer_params, self.max_taxa, self._lut,
+        )
+
+    def _dispatch(self, codes: np.ndarray, titles, splits, row_lens):
+        """Launch one batch; pair with _harvest. Rows pad to `_padded_rows`
+        (INVALID rows) and the width to a multiple of 8 (INVALID columns,
+        which no valid window touches) for the 2-bit wire format."""
+        n, width = codes.shape
+        rows = self._padded_rows(n)
         w8 = -(-width // 8) * 8
         if (rows, w8) != (n, width):
             padded = np.full((rows, w8), encode.INVALID, np.uint8)
@@ -409,12 +449,7 @@ class Classifier:
             codes = padded
         ambig = _ambig_array(codes, splits, row_lens, self.index.params.k, n)
         packed, valid = encode.pack_2bit(codes)
-        bundle, window_taxa = classify_batch(
-            to_device(packed, self.device), to_device(valid, self.device),
-            to_device(ambig, self.device),
-            self._keys, self._taxa, self._directory, self._table, self._req_lut(w8),
-            self.index.params.minimizer_params, self.max_taxa, self._lut,
-        )
+        bundle, window_taxa = self._classify_packed_rows(packed, valid, ambig, w8)
         pinned = None
         if self._cuda:
             host = torch.empty(bundle.shape, dtype=bundle.dtype, pin_memory=True)
@@ -426,7 +461,7 @@ class Classifier:
                 pinned[:n].copy_(window_taxa[:n], non_blocking=True)
                 window_taxa = pinned
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(self.device))
         else:
             host, done = bundle, None
         return titles, host, done, window_taxa, pinned, codes[:n], splits, row_lens

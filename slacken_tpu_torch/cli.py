@@ -6,9 +6,13 @@ only, -p for paired files), `classify2` (two-step classification with a
 dynamic index, --bracken-length for its Bracken weights), `bracken-build`,
 `respace`, `stats`, `inspect`, `compareIndex`, `compare`, `inputCheck` and
 `download`. Run as `python -m slacken_tpu_torch.cli <subcommand>`; options
-match slacken_tpu's single-device CLI, plus --device (default cuda) on every
-subcommand that works on a device (`compare`, `inputCheck` and `download`
-do not)."""
+match slacken_tpu's CLI, plus --device (default cuda) on every subcommand
+that works on a device (`compare`, `inputCheck` and `download` do not).
+`build --devices N [--shards S]`, `classify --devices N --layout
+replicated|ring` and `classify2 --devices N --layout ...` run over a mesh of
+N devices of --device's kind (N cards, or N shards of the CPU with --device
+cpu) in one process; N above the machine's number of cards raises. The
+multi-host options and --probe are not ported."""
 
 from __future__ import annotations
 
@@ -38,6 +42,9 @@ def _build_parser():
                         "the library and prefers rare minimizers; signature = KMC2/3 signature ordering)")
     b.add_argument("--full-records", action="store_true",
                    help="Also store the full (minimizer, taxon) records, enabling fast dynamic (classify2) rebuilds")
+    b.add_argument("--devices", type=int, help="Build with the key-range shuffle on an n-device mesh")
+    b.add_argument("--shards", type=int,
+                   help="Save the index as N contiguous key-range shard files (the save_sharded layout)")
     _add_device(b)
 
     c = sub.add_parser("classify", help="Classify genomic sequences")
@@ -140,6 +147,10 @@ def _add_classify_opts(p):
     p.add_argument("-c", "--confidence", type=float, nargs="+", default=[0.0],
                    help="Confidence thresholds in [0,1]")
     p.add_argument("--sample-regex", help="Regex extracting sample ID from read headers")
+    p.add_argument("--devices", type=int, help="Classify over an n-device mesh (default: single device)")
+    p.add_argument("--layout", choices=["replicated", "ring"],
+                   help="Mesh index layout: replicated (the index on every device) or ring "
+                        "(range-sharded index, queries going round the devices)")
     _add_device(p)
 
 
@@ -198,17 +209,27 @@ def cmd_build(args, device):
         counts = ordering.sample_mmer_counts(
             (encode.encode_seq(seq) for _, seq in lib.taxa_sequences()), params.minimizer_params, device)
         ordering_lut = ordering.frequency_lut(counts, args.m)
-    idx = KeyValueIndex.build(lib.taxa_sequences(), params, tax, device, ordering_lut=ordering_lut,
-                              keep_records=args.full_records)
-    idx.save(args.index)
-    print(f"Saved {idx.num_records} records to {args.index}")
+    if args.devices:
+        from .parallel.classifier import build_distributed
+        from .parallel.mesh import make_mesh
+
+        idx = build_distributed(lib.taxa_sequences(), params, tax, make_mesh(args.devices, device),
+                                ordering_lut=ordering_lut, keep_records=args.full_records)
+    else:
+        idx = KeyValueIndex.build(lib.taxa_sequences(), params, tax, device, ordering_lut=ordering_lut,
+                                  keep_records=args.full_records)
+    if args.shards:
+        idx.save_sharded(args.index, n_shards=args.shards)
+        print(f"Saved {idx.num_records} records to {args.index} ({args.shards} shards)")
+    else:
+        idx.save(args.index)
+        print(f"Saved {idx.num_records} records to {args.index}")
     _show_index_stats(idx)
     print(json.dumps(lib.input_stats(tax), indent=2))
     return 0
 
 
 def cmd_classify(args, device):
-    from .classify import Classifier
     from .index import KeyValueIndex
     from .inputs import (
         MatesOutOfOrder,
@@ -217,10 +238,11 @@ def cmd_classify(args, device):
         packed_pairs_from_files,
         packed_reads_from_file,
     )
+    from .parallel.classifier import make_classifier
 
     cpar = _cpar(args)  # validate before any heavy work
     idx = KeyValueIndex.load(args.index)
-    cls = Classifier(idx, device)
+    cls = make_classifier(idx, device, args.devices, args.layout)
     files = expand_file_list(args.inputs)
     if not args.paired:
         stream = (p for path in files for p in packed_reads_from_file(path))
@@ -261,7 +283,7 @@ def cmd_classify2(args, device):
         promote = RANK_DEPTH.get(args.promote_gold_set) if args.promote_gold_set else None
         gold = GoldSetOptions(args.gold_set, promote, args.classify_with_gold)
     dyn = Dynamic(idx, lib, RANK_DEPTH.get(args.rank, 8), criteria_from_args(args), cpar, gold,
-                  args.output, device)
+                  args.output, device, devices=args.devices, layout=args.layout)
     files_factory = lambda: fragments_from_files(args.inputs, paired=args.paired, k=idx.params.k)  # noqa: E731
     # the final classification takes the native packed streaming path (the
     # same writer the 1-step CLI uses); the dynamic-criteria pass keeps the

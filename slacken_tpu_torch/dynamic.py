@@ -1,5 +1,5 @@
 """Two-step dynamic classification (counterpart of slacken_tpu/dynamic.py;
-reference: Dynamic.scala), on one device.
+reference: Dynamic.scala), on one device or over a device mesh.
 
 Step 1: detect a taxon set present in the sample, by one of four criteria
 (total minimizer hits, distinct minimizer hits, the distinct hits' share of
@@ -14,6 +14,12 @@ index comes from the base index's full-records sidecar where it has one
 (`KeyValueIndex.build_restricted`, no second scan of the genomes), else from
 the library with a taxon filter; either way its keys and taxa stay on the
 device and the final classification probes them there.
+
+With `devices` and `layout` (as the classify CLI's --devices and --layout)
+every step runs over the mesh, as in the reference every step is a
+distributed job (Dynamic.scala:320-354): the span hits and step 1's
+classification through a MeshClassifier, the dynamic index (without a
+sidecar) through build_distributed, and the final classification.
 """
 
 from __future__ import annotations
@@ -24,12 +30,11 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
-from . import get_device, to_device
+from . import get_device
 from .classify import Classifier, ClassifyParams, Fragment, _row_length_bucket
 from .index import KeyValueIndex, distinct_pairs, taxon_counts
 from .ops import encode
-from .ops.lookup import probe
-from .ops.minimizers import window_minimizers_packed
+from .parallel.classifier import build_distributed, make_classifier, requested_mesh
 from .report import TreeAggregator
 from .taxonomy import Taxonomy
 from .utils import Timer
@@ -96,7 +101,10 @@ def criteria_from_args(args):
 
 
 class Dynamic:
-    """Two-step classification (Dynamic.scala:78) on `device`."""
+    """Two-step classification (Dynamic.scala:78) on `device`, or over the
+    mesh that `devices` (a number of devices of `device`'s kind, or a
+    mesh.Mesh) and `layout` ask for, as parallel.classifier.make_classifier
+    takes them."""
 
     def __init__(
         self,
@@ -108,6 +116,8 @@ class Dynamic:
         gold: Optional[GoldSetOptions],
         output_location: str,
         device="cuda",
+        devices=None,
+        layout: Optional[str] = None,
     ):
         self.base = base
         self.genomes = genomes
@@ -117,17 +127,22 @@ class Dynamic:
         self.gold = gold
         self.output = output_location
         self.device = get_device(device)
+        self.devices = devices
+        self.layout = layout
         self._base_classifier: Optional[Classifier] = None
 
     @property
     def taxonomy(self) -> Taxonomy:
         return self.base.taxonomy
 
+    def _make_classifier(self, idx: KeyValueIndex) -> Classifier:
+        return make_classifier(idx, self.device, self.devices, self.layout)
+
     def _classifier(self) -> Classifier:
-        """The base index's Classifier, made once: it puts the index and its
-        directory on the device."""
+        """The base index's classifier, made once: it puts the index and its
+        directory on the device (or the mesh)."""
         if self._base_classifier is None:
-            self._base_classifier = Classifier(self.base, self.device)
+            self._base_classifier = self._make_classifier(self.base)
         return self._base_classifier
 
     # -- counting methods (Dynamic.scala:95-142) ----------------------------
@@ -135,31 +150,30 @@ class Dynamic:
     def _span_hits(self, fragments: Sequence[Fragment]) -> Tuple[torch.Tensor, torch.Tensor]:
         """Per-span (minimizer key, LCA taxon) pairs against the base index,
         for spans whose taxon is at depth >= the reclassify rank, as tensors
-        on the device: int64 [S] keys (int64 [S, 2] rows of (hi64, lo64) for
-        a wide index) and int32 [S] taxa."""
-        idx = self.base
-        mp = idx.params.minimizer_params
+        on the classifier's (first) device: int64 [S] keys (int64 [S, 2] rows
+        of (hi64, lo64) for a wide index) and int32 [S] taxa. Over a mesh
+        each device keeps its rows' hits, and they are gathered in row order."""
         cls = self._classifier()
-        keys, taxa, directory = idx.device_arrays(self.device)
-        lut = idx.device_lut(self.device)
-        depth = torch.from_numpy(self.taxonomy.depth_std).to(self.device)
+        home = cls.device
+        depth = torch.from_numpy(self.taxonomy.depth_std)
+        depths = {}
         out_keys: List[torch.Tensor] = []
         out_taxa: List[torch.Tensor] = []
         for bucket, frags in _bucketize(fragments, cls):
             packed, valid = encode.pack_2bit(cls._pack_rows(frags, bucket).codes)
-            wm = window_minimizers_packed(
-                to_device(packed, self.device), to_device(valid, self.device), mp, lut)
-            b, l = wm.valid.shape
-            looked = probe(keys, taxa, directory, wm.minimizer.flatten(0, 1)).reshape(b, l)
-            # span_start implies valid: the scan sets it on valid windows only
-            # (kernels and twin alike), and an invalid window's -1 finds nothing
-            keep = wm.span_start & (looked > 0) & (depth[looked.long()] >= self.rank_depth)
-            out_keys.append(wm.minimizer[keep])
-            out_taxa.append(looked[keep])
+            for wm, looked in cls.scan_probe(packed, valid):
+                dev = looked.device
+                if dev not in depths:
+                    depths[dev] = depth.to(dev)
+                # span_start implies valid: the scan sets it on valid windows only
+                # (kernels and twin alike), and an invalid window's -1 finds nothing
+                keep = wm.span_start & (looked > 0) & (depths[dev][looked.long()] >= self.rank_depth)
+                out_keys.append(wm.minimizer[keep].to(home, non_blocking=True))
+                out_taxa.append(looked[keep].to(home, non_blocking=True))
         if not out_keys:
             return (
-                torch.zeros((0, 2) if idx.wide else 0, dtype=torch.int64, device=self.device),
-                torch.zeros(0, dtype=torch.int32, device=self.device),
+                torch.zeros((0, 2) if self.base.wide else 0, dtype=torch.int64, device=home),
+                torch.zeros(0, dtype=torch.int32, device=home),
             )
         return torch.cat(out_keys), torch.cat(out_taxa)
 
@@ -295,9 +309,19 @@ class Dynamic:
             taxon_set = self.find_taxon_set(fragments, self.output + "_taxonSet.txt")
 
         t = Timer("Build dynamic index")
+        mesh = requested_mesh(self.device, self.devices, self.layout)
         if self.base.record_keys_t is not None:
             # fast path: filter + re-reduce the base index's full records
             dynamic = self.base.build_restricted(taxon_set, self.device)
+        elif mesh is not None:
+            dynamic = build_distributed(
+                self.genomes.taxa_sequences(),
+                self.base.params,
+                self.taxonomy,
+                mesh,
+                taxon_filter=taxon_set,
+                ordering_lut=self.base.ordering_lut,
+            )
         else:
             dynamic = KeyValueIndex.build(
                 self.genomes.taxa_sequences(),
@@ -357,7 +381,7 @@ class Dynamic:
             t.finish()
 
         t = Timer("Classify reads")
-        cls = Classifier(dynamic_index, self.device)
+        cls = self._make_classifier(dynamic_index)
         if packed_factory is not None:
             cls.classify_and_write_packed(packed_factory(), self.output, self.cpar)
         else:

@@ -12,6 +12,10 @@ Same on-disk layout, so each package loads the other's index:
                             the full-records sidecar of a keep_records build
     <loc>/taxonomy/         nodes.dmp, names.dmp, merged.dmp
 
+or, saved in S contiguous key ranges (`save_sharded`, "shards" in
+params.json holding each range's record count), keys.<i:05d>.npy and
+taxa.<i:05d>.npy for i < S in place of keys.npy and taxa.npy.
+
 With an explicit ordering (ops/ordering.py, m <= 15) a key is the rank of
 its minimizer in the index's table. The build is one pass for every kind:
 scan each batch of genome rows (a CUDA scan kernel on the card), keep the
@@ -464,19 +468,14 @@ class KeyValueIndex:
             meta = json.load(f)
         params = IndexParams.from_json(meta)
         if "shards" in meta:
-            raise NotImplementedError(
-                "sharded indexes are not ported yet (ROADMAP.md, port queue: multi-GPU)"
-            )
+            return cls.load_shards(location, taxonomy=taxonomy)
         keys = storage.np_load(storage.join(location, "keys.npy"), mmap=False).astype(np.uint64)
         taxa = storage.np_load(storage.join(location, "taxa.npy"), mmap=False).astype(np.int32)
         if taxonomy is None:
             taxonomy = Taxonomy.load(storage.join(location, "taxonomy"))
-        lut = None
-        if storage.exists(storage.join(location, "ordering_lut.npy")):
-            lut = storage.np_load(storage.join(location, "ordering_lut.npy"), mmap=False).astype(np.uint32)
         idx = cls(
             torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), params,
-            taxonomy, location, lut,
+            taxonomy, location, _saved_lut(location),
         )
         rk = storage.join(location, "record_keys.npy")
         if storage.exists(rk):
@@ -485,3 +484,54 @@ class KeyValueIndex:
             idx.record_keys_t = torch.from_numpy(rec_keys.view(np.int64))
             idx.record_taxa_t = torch.from_numpy(rec_taxa)
         return idx
+
+    def save_sharded(self, location: str, n_shards: Optional[int] = None):
+        """Save as `n_shards` (default params.buckets) contiguous key ranges,
+        np.linspace bounds over the records, so that each process of a
+        multi-host run can load only its ranges (the bucketed layout of the
+        reference, KeyValueIndex.scala:125-139). The files are byte for byte
+        slacken_tpu's save_sharded's; the full-records sidecar is not saved."""
+        n_shards = n_shards or self.params.buckets
+        storage.makedirs(location)
+        bounds = np.linspace(0, self.num_records, n_shards + 1).astype(np.int64)
+        meta = self.params.to_json()
+        meta["num_records"] = self.num_records
+        meta["shards"] = [int(bounds[i + 1] - bounds[i]) for i in range(n_shards)]
+        with storage.open_file(storage.join(location, "params.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+        keys, taxa = self.keys, self.taxa
+        for i in range(n_shards):
+            storage.np_save(storage.join(location, f"keys.{i:05d}.npy"), keys[bounds[i] : bounds[i + 1]])
+            storage.np_save(storage.join(location, f"taxa.{i:05d}.npy"), taxa[bounds[i] : bounds[i + 1]])
+        if self.ordering_lut is not None:
+            # rank-table keys are ranks: without the table they would probe nothing
+            storage.np_save(storage.join(location, "ordering_lut.npy"), self.ordering_lut)
+        self.taxonomy.save(storage.join(location, "taxonomy"))
+
+    @classmethod
+    def load_shards(cls, location: str, shard_ids: Optional[List[int]] = None,
+                    taxonomy: Optional[Taxonomy] = None) -> "KeyValueIndex":
+        """The index of the shards `shard_ids` (default: all, in order) of a
+        save_sharded layout; the keys of shards given in order are sorted."""
+        with storage.open_file(storage.join(location, "params.json")) as f:
+            meta = json.load(f)
+        params = IndexParams.from_json(meta)
+        ids = list(range(len(meta["shards"]))) if shard_ids is None else list(shard_ids)
+        if ids:
+            keys = np.concatenate([storage.np_load(storage.join(location, f"keys.{i:05d}.npy"), mmap=False)
+                                   for i in ids]).astype(np.uint64)
+            taxa = np.concatenate([storage.np_load(storage.join(location, f"taxa.{i:05d}.npy"), mmap=False)
+                                   for i in ids]).astype(np.int32)
+        else:
+            keys = np.zeros((0, 2) if params.m > 31 else 0, np.uint64)
+            taxa = np.zeros(0, np.int32)
+        if taxonomy is None:
+            taxonomy = Taxonomy.load(storage.join(location, "taxonomy"))
+        return cls(torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), params, taxonomy, location,
+                   _saved_lut(location))
+
+
+def _saved_lut(location: str) -> Optional[np.ndarray]:
+    """The rank table saved with an index, or None (the XOR order)."""
+    path = storage.join(location, "ordering_lut.npy")
+    return storage.np_load(path, mmap=False).astype(np.uint32) if storage.exists(path) else None

@@ -157,6 +157,14 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(t: torch.Tensor, fn, *args) -> int:
+    """fn(*args) with t's card as the current device: the runtime launches a
+    kernel on the current device, into a stream (`_stream(t)`) that must be
+    that device's, and a mesh's devices need not be the current one."""
+    with torch.cuda.device(t.device):
+        return fn(*args)
+
+
 def scan_warps(device: torch.device) -> int:
     """The warps a scan launch on this CUDA device should have in flight:
     SCAN_WARPS_PER_SM on each of its SMs (2,112 on an H100 SXM's 132)."""
@@ -199,8 +207,8 @@ def scan_pass1_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None,
     b, l4 = packed.shape
     L = 4 * l4
     k, m = params.k, params.m
-    if tuple(valid.shape) != (b, L // 8) or L % 8:
-        raise ValueError(f"valid must be [{b}, {L // 8}], got {tuple(valid.shape)}")
+    if tuple(valid.shape) != (b, L // 8) or L % 8 or valid.device != packed.device:
+        raise ValueError(f"valid must be [{b}, {L // 8}] on {packed.device}, got {tuple(valid.shape)} on {valid.device}")
     if not 1 <= m <= 63 or not 0 <= k - m <= 120:
         raise ValueError(
             f"the scan kernels take 1 <= m <= 63 and m <= k <= m + 120, got k={k} m={m}"
@@ -230,12 +238,12 @@ def scan_pass1_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None,
         mn = torch.empty((b, L, 2), dtype=torch.int64, device=packed.device)
         limbs = [x for mask in (wide_toggle_mask(m, params.toggle_mask), smask)
                  for x in (mask >> 64, mask & ((1 << 64) - 1))]
-        rc = lib.stpu_scan_wide(*common, *limbs, mn.data_ptr(), *outs)
+        rc = _launch(packed, lib.stpu_scan_wide, *common, *limbs, mn.data_ptr(), *outs)
     else:
         name = "scan" if lut is None else "scan_lut"
         mn = torch.empty((b, L), dtype=torch.int64, device=packed.device)
-        rc = lib.stpu_scan(
-            *common, params.toggle_mask & ((1 << (2 * m)) - 1), smask,
+        rc = _launch(
+            packed, lib.stpu_scan, *common, params.toggle_mask & ((1 << (2 * m)) - 1), smask,
             None if lut is None else lut.data_ptr(), mn.data_ptr(), *outs,
         )
     _check(rc, name)
@@ -262,8 +270,8 @@ def scan_stitch_cuda(minimizer: torch.Tensor, distinct: torch.Tensor, summary: t
             f"summary [{b}, nseg, 4], minimizer [{b}, L] or [{b}, L, 2] and distinct [{b}, L] on one "
             f"device, got {tuple(summary.shape)}, {tuple(minimizer.shape)} and {tuple(distinct.shape)}"
         )
-    rc = _load().stpu_scan_stitch(summary.data_ptr(), b * nseg, nseg, minimizer.dim() - 1, minimizer.data_ptr(),
-                                  distinct.data_ptr(), _stream(summary))
+    rc = _launch(summary, _load().stpu_scan_stitch, summary.data_ptr(), b * nseg, nseg, minimizer.dim() - 1,
+                 minimizer.data_ptr(), distinct.data_ptr(), _stream(summary))
     _check(rc, "scan_stitch")
     LAUNCHES["scan_stitch"] += 1
     return distinct
@@ -304,13 +312,15 @@ def lookup_taxa_directory_cuda(
             f"taxa [{taxa.shape[0]}] or a directory of {buckets} buckets and shift {shift} "
             f"do not fit {n} keys"
         )
+    if len({keys.device, taxa.device, starts.device, queries.device}) != 1:
+        raise ValueError("keys, taxa, directory and queries must be on one device")
     if keys.data_ptr() % 16:
         raise ValueError("keys must be 16-byte aligned (the probe loads 16 bytes at a time)")
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
     if n == 0:  # an empty index: every query misses
         return out.zero_()
-    rc = _load().stpu_probe(
-        keys.data_ptr(), taxa.data_ptr(), n, starts.data_ptr(), buckets, shift,
+    rc = _launch(
+        queries, _load().stpu_probe, keys.data_ptr(), taxa.data_ptr(), n, starts.data_ptr(), buckets, shift,
         queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
     )
     _check(rc, "probe")
@@ -345,8 +355,8 @@ def lookup_taxa_slots_cuda(table: SlotTable, queries: torch.Tensor) -> torch.Ten
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
     if n == 0:  # an empty index: every query misses
         return out.zero_()
-    rc = _load().stpu_probe_wide(
-        slots.data_ptr(), None if codes is None else codes.data_ptr(), starts.data_ptr(), buckets, shift, c,
+    rc = _launch(
+        queries, _load().stpu_probe_wide, slots.data_ptr(), None if codes is None else codes.data_ptr(), starts.data_ptr(), buckets, shift, c,
         queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
     )
     _check(rc, "probe_wide")
@@ -379,11 +389,11 @@ def mask_idiom_cuda(name: str, x: torch.Tensor, out: Optional[torch.Tensor] = No
         if key not in _sum_bool_counters:
             _sum_bool_counters[key] = [torch.zeros(2, dtype=torch.int32, device=x.device), 0]
         state = _sum_bool_counters[key]
-        rc = fn(x.data_ptr(), out.data_ptr(), state[0].data_ptr(), state[1], rows, cols, _stream(x))
+        rc = _launch(x, fn, x.data_ptr(), out.data_ptr(), state[0].data_ptr(), state[1], rows, cols, _stream(x))
         if rc == 0:
             state[1] ^= 1
     else:
-        rc = fn(x.data_ptr(), out.data_ptr(), rows, cols, _stream(x))
+        rc = _launch(x, fn, x.data_ptr(), out.data_ptr(), rows, cols, _stream(x))
     _check(rc, name)
     LAUNCHES[name] += 1
     return out

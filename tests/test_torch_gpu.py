@@ -567,3 +567,156 @@ def test_window_counts_match_numpy_on_random_rows_on_the_card(cuda):
     got = on_card._dest_counts(bracken.FragmentScan(*(x.to(cuda) for x in host)), lengths)
     want = bracken.BrackenWeights(index, 100, device="cpu")._dest_counts(host, lengths)
     assert got == want and int(bracken.hit_taxa_per_row(host).max()) > bracken.FEW_TAXA
+
+
+@pytest.mark.parametrize("layout", ["replicated", "ring"])
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_mesh_classifier_on_the_card(cuda, kind, layout):
+    """MeshClassifier over Mesh([cuda:0] * 8) against the same over [cpu] * 8
+    and the single-device classifier on the card, per-read mode; each of the
+    8 row chunks of a batch launches its scan, and the ring probes every
+    visiting chunk in every shard."""
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier
+
+    tax, genomes, params = _small_library(kind)
+    idx = KeyValueIndex.build(iter(genomes), params, tax, "cpu")
+    frags = [Fragment(f"r{i}", genomes[i % 6][1][i * 20 : i * 20 + 101]) for i in range(100)]
+    frags += [Fragment(f"p{i}", genomes[4][1][i * 10 : i * 10 + 90], genomes[4][1][i * 10 + 200 : i * 10 + 300])
+              for i in range(40)]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15])
+    card = MeshClassifier(idx, [torch.device("cuda", 0)] * 8, layout)
+    before = dict(cuda_kernels.LAUNCHES)
+    got = card.classify(frags, cpar)
+    launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
+    scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
+    probe = "probe_wide" if kind == "wide" else "probe"
+    batches = 2  # single reads in 128-wide rows, pairs in 256-wide rows
+    assert launched == {scan: 8 * batches, probe: (64 if layout == "ring" else 8) * batches}
+    assert got == MeshClassifier(idx, ["cpu"] * 8, layout).classify(frags, cpar)
+    assert got == Classifier(idx, cuda).classify(frags, cpar)
+    assert sum(r.classified for r in got[0.0]) > 100
+
+
+@pytest.mark.parametrize("layout", ["replicated", "ring"])
+def test_mesh_with_empty_shards_on_the_card(cuda, layout):
+    """Three keys over 8 shards on the card: the empty shards' probes answer
+    0 without a launch."""
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier
+
+    tax, genomes, params = _small_library("narrow")
+    idx = KeyValueIndex.build(iter(genomes), params, tax, "cpu")
+    small = idx.with_records(idx.keys_t[100:103].clone(), idx.taxa_t[100:103].clone())
+    frags = [Fragment(f"r{i}", genomes[i % 6][1][i * 20 : i * 20 + 101]) for i in range(60)]
+    cpar = ClassifyParams(thresholds=[0.0])
+    got = MeshClassifier(small, [torch.device("cuda", 0)] * 8, layout).classify(frags, cpar)
+    assert got == Classifier(small, "cpu").classify(frags, cpar)
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_build_distributed_on_the_card(cuda, kind):
+    """build_distributed over Mesh([cuda:0] * 8) against the same over
+    [cpu] * 8 and the single-device build on the card: keys, taxa, sidecar."""
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import build_distributed
+
+    tax, genomes, params = _small_library(kind)
+    batch = dict(batch_rows=16, row_len=1024)
+    got = build_distributed(iter(genomes), params, tax, [torch.device("cuda", 0)] * 8, keep_records=True, **batch)
+    on_cpu = build_distributed(iter(genomes), params, tax, ["cpu"] * 8, keep_records=True, **batch)
+    single = KeyValueIndex.build(iter(genomes), params, tax, cuda, keep_records=True)
+    assert got.keys_t.device.type == "cuda" and got.num_records > 1000
+    for want in (on_cpu, single):
+        for a, b in ((got.keys_t, want.keys_t), (got.taxa_t, want.taxa_t),
+                     (got.record_keys_t, want.record_keys_t), (got.record_taxa_t, want.record_taxa_t)):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.parametrize("layout", ["replicated", "ring"])
+def test_span_hits_over_the_mesh_on_the_card(cuda, layout, tmp_path):
+    """Dynamic._span_hits with devices=Mesh([cuda:0] * 8) against the
+    single-device run on the card."""
+    from slacken_tpu_torch import dynamic
+    from slacken_tpu_torch.classify import ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.mesh import Mesh
+
+    tax, genomes, params = _small_library("narrow")
+    idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+    frags = [Fragment(f"r{i}", genomes[i % 3][1][i * 20 : i * 20 + 101]) for i in range(100)]
+    hits = []
+    for devices in (None, Mesh([torch.device("cuda", 0)] * 8)):
+        dyn = dynamic.Dynamic(idx, None, 8, dynamic.MinimizerDistinctCount(5), ClassifyParams(), None,
+                              str(tmp_path / "d"), cuda, devices=devices, layout=layout if devices else None)
+        hits.append(dyn._span_hits(frags))
+    assert len(hits[0][1]) > 100
+    assert torch.equal(hits[0][0], hits[1][0]) and torch.equal(hits[0][1], hits[1][1])
+
+
+def test_mesh_over_distinct_cards(cuda, tmp_path):
+    """On a machine of two or more cards (skips on one): build_distributed,
+    MeshClassifier replicated and ring, and two-step classification over
+    make_mesh(every card), where every hop and every owner's slice is a copy
+    between cards, against one card; and the CLI's --devices."""
+    import gzip
+    import os
+
+    from slacken_tpu_torch import cli, dynamic, workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier, build_distributed
+    from slacken_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = make_mesh(n, "cuda")
+    assert list(mesh) == [torch.device("cuda", i) for i in range(n)]
+    tax, genomes, params = _small_library("narrow")
+    batch = dict(batch_rows=16, row_len=1024)
+    single = KeyValueIndex.build(iter(genomes), params, tax, cuda, keep_records=True, **batch)
+    built = build_distributed(iter(genomes), params, tax, mesh, keep_records=True, **batch)
+    for a, b in ((built.keys_t, single.keys_t), (built.taxa_t, single.taxa_t),
+                 (built.record_keys_t, single.record_keys_t), (built.record_taxa_t, single.record_taxa_t)):
+        assert torch.equal(a.cpu(), b.cpu())
+    frags = [Fragment(f"r{i}", genomes[i % 6][1][i * 13 % 2800 : i * 13 % 2800 + 101]) for i in range(200)]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15])
+    want = Classifier(single, cuda).classify(frags, cpar)
+    assert sum(r.classified for r in want[0.0]) > 150
+    for layout in ("replicated", "ring"):
+        cls = MeshClassifier(built, mesh, layout)
+        if layout == "ring":
+            assert [s[0].device for s in cls._arrays] == list(mesh)
+        assert cls.classify(frags, cpar) == want
+    files = {}
+    for where, devices in (("one", None), ("cards", mesh)):
+        base = single.with_records(single.keys_t, single.taxa_t)  # no sidecar: build_distributed makes the dynamic index
+        d = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, dynamic.MinimizerDistinctCount(5),
+                            ClassifyParams(thresholds=[0.0]), None, str(tmp_path / where / "dyn"), cuda,
+                            devices=devices, layout="ring" if devices else None)
+        d.two_step_classify_and_write(frags)
+        files[where] = sorted((os.path.relpath(os.path.join(r, f), tmp_path / where), open(os.path.join(r, f), "rb").read())
+                              for r, _, fs in os.walk(tmp_path / where) for f in fs)
+    assert files["cards"] == files["one"] and len(files["one"]) == 3
+    workloads.write_library(genomes, str(tmp_path / "lib"))
+    tax.save(str(tmp_path / "tax"))
+    fastq = str(tmp_path / "r.fastq")
+    with open(fastq, "w") as f:
+        f.writelines(f"@{x.title}\n{x.seq}\n+\n{'I' * len(x.seq)}\n" for x in frags)
+    lib = ["-l", str(tmp_path / "lib"), "-t", str(tmp_path / "tax")]
+    assert cli.main(["build", "-i", str(tmp_path / "i1"), *lib]) == 0
+    assert cli.main(["build", "-i", str(tmp_path / "iN"), *lib, "--devices", str(n), "--shards", str(n)]) == 0
+    out = {}
+    for tag, extra in (("one", ["-i", str(tmp_path / "i1")]),
+                       ("ring", ["-i", str(tmp_path / "iN"), "--devices", str(n), "--layout", "ring"]),
+                       ("replicated", ["-i", str(tmp_path / "iN"), "--devices", str(n)])):
+        assert cli.main(["classify", fastq, "-o", str(tmp_path / f"c_{tag}" / "o"), *extra]) == 0
+        out[tag] = {os.path.relpath(os.path.join(r, f), tmp_path / f"c_{tag}"): gzip.open(os.path.join(r, f)).read()
+                    if f.endswith(".gz") else open(os.path.join(r, f), "rb").read()
+                    for r, _, fs in os.walk(tmp_path / f"c_{tag}") for f in fs}
+    assert out["ring"] == out["one"] == out["replicated"] and len(out["one"]) == 2
+    with pytest.raises(ValueError, match="mesh"):
+        make_mesh(n + 1, "cuda")
