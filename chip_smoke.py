@@ -57,7 +57,20 @@ launch counts set to 0 just before it and read just after:
     records, equal to the single-device build) and the ring classify of the
     200,000 reads (the single-device kreport), with walls, peak memory and
     the device's busy share. On a machine of several cards the bench reads
-    also go over distinct cards.
+    also go over distinct cards;
+  * several processes (parallel/multihost.py; ranks spawned with
+    torch.multiprocessing, each reporting its launches through a file): the
+    three bench indexes saved as 8 shard files, classified in both modes by
+    one rank with a process group under NCCL, by two ranks sharing the card
+    over gloo with two ring entries each (a ring of 4 crossing between the
+    processes; an odd count of reads gives one rank an all-padding batch),
+    and by the CLI with --coordinator --num-processes 1; the 400 Mbp index in
+    8 shard files classified by two ranks; every output byte-identical to
+    the single-device files (part files joined in name order), with walls,
+    P2P bytes a batch, busy share and peak memory a rank. On a machine of
+    several cards also min(4, cards) ranks under NCCL, one card each, which
+    `python3 chip_smoke.py --across-cards` runs alone with what it is held
+    to.
 
 It prints the measured numbers, one JSON line of per-kernel results (time
 beside its bound, the plain twin's time and a library call's where there is
@@ -93,6 +106,8 @@ API_READS = 3_000
 # operations too
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+#: walls of earlier phases that phase_multihost sets beside its own: what -> seconds
+WALLS = {}
 
 
 def log(*a):
@@ -1146,6 +1161,7 @@ def phase_scale(dev, out, results, genomes):
     cls.classify_and_write_packed(reads, os.path.join(out, "scale"), cpar)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    WALLS["scale"] = dt
     c, total = classified_count(os.path.join(out, "scale_c0.0", "all_kreport.txt"))
     log(f"scale classify on the card: {n_reads} reads in {dt:.3f} s, {n_reads / dt:.1f} reads/s, "
         f"classified {c} ({100.0 * c / n_reads:.2f}%)")
@@ -2087,6 +2103,7 @@ def phase_mesh(dev, out, reads, bases):
                 cls.classify_and_write_packed(reads[:1], os.path.join(out, f"{tag}_warm"), modes["rep"])
                 walls = {mode: timed_runs(lambda r: cls.classify_and_write_packed(
                     reads, os.path.join(out, f"{tag}_{mode}"), cpar), n=1)[0] for mode, cpar in modes.items()}
+                WALLS[f"mesh {kind} {layout}"] = walls
             launches = dict(cuda_kernels.LAUNCHES)
             require_launches(f"mesh {kind} {layout}", launches, (scan, probe),
                              [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide") if k not in (scan, probe)])
@@ -2267,6 +2284,7 @@ def phase_mesh_scale(dev, out, genomes, scale_idx):
         setup_s = time.perf_counter() - t0
         cls.classify_and_write_packed(reads[:1], os.path.join(out, "mscale_warm"), cpar)
         dt = timed_runs(lambda r: cls.classify_and_write_packed(reads, os.path.join(out, "mscale"), cpar), n=1)[0]
+        WALLS["mesh scale ring"] = dt
         ring_peak = torch.cuda.max_memory_allocated() - before
     launches = dict(cuda_kernels.LAUNCHES)
     want = open(os.path.join(out, "scale_c0.0", "all_kreport.txt"), "rb").read()
@@ -2282,6 +2300,387 @@ def phase_mesh_scale(dev, out, genomes, scale_idx):
                 "build_distributed at scale over 8 shards")
     device_busy(lambda: cls.classify_and_write_packed(reads, os.path.join(out, "mscale_prof"), cpar),
                 "ring classify at scale over 8 shards")
+    return launches
+
+
+MH_SHARDS = 8
+MH_TIMEOUT = 600  # seconds that one spawned group of ranks may take
+#: kind -> (saved index, its single-device card runs in reports and per-read mode, scan, probe)
+MH_KINDS = {"narrow": ("idx", "gpu", "det", "scan", "probe"),
+            "wide (50, 45, 7)": ("w45_idx", "w45_rep", "w45_det", "scan_wide", "probe_wide"),
+            "signature (35, 13, 3)": ("signature_idx", "signature_rep", "signature_det", "scan_lut", "probe")}
+#: each kind's index parameters (the earlier phases build them so)
+MH_PARAMS = {"narrow": dict(k=35, m=31, spaces=7), "wide (50, 45, 7)": dict(k=50, m=45, spaces=7),
+             "signature (35, 13, 3)": dict(k=35, m=13, spaces=3, ordering="signature")}
+#: the padding job: an odd count of reads in batches of MH_ODD_ROWS, so that
+#: in two ranks the smaller share is one batch short of the larger
+MH_ODD_READS, MH_ODD_ROWS = 4097, 2048
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def first_reads(reads, n):
+    """The first n reads of single-read chunks, as chunks."""
+    from slacken_tpu_torch import native
+
+    got = []
+    for p in reads:
+        take = min(n - sum(len(g) for g in got), len(p))
+        if take <= 0:
+            break
+        got.append(native.PackedReads(p.codes[:take], p.lengths[:take], list(p.titles)[:take]))
+    return got
+
+
+def joined_parts(files):
+    """An output tree with the per-read part files of each directory joined
+    in name order, under the first part's name."""
+    out = {}
+    for name in sorted(files):
+        d, base = os.path.split(name)
+        key = os.path.join(d, "part-00000.txt.gz") if base.startswith("part-") else name
+        out[key] = out.get(key, b"") + files[name]
+    return out
+
+
+def mh_rank(rank, spec):
+    """One spawned rank of phase_multihost. Library jobs first: join the
+    group that `spec` describes once, then for each job a
+    MultiHostRingClassifier, a warm run of one chunk and a timed run of the
+    job's reads (and, where the job asks, a run under the profiler); leave
+    the group. Then CLI jobs: cli.main with --coordinator on a port of the
+    job's own. All with the twins forbidden; the rank's launches, walls,
+    lockstep, bytes sent and peak device memory of each job go, in the
+    order of the jobs, to spec["report"] % rank."""
+    import torch
+
+    from slacken_tpu_torch import cli
+    from slacken_tpu_torch.classify import ClassifyParams
+    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec["world"]))
+    cuda = spec["device"].startswith("cuda")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    lib = [job for job in spec["jobs"] if "argv" not in job]
+    done = []
+    with twins_forbidden() if cuda else contextlib.nullcontext():  # the twins are the CPU's path
+        if lib:
+            ctx = multihost.initialize(spec["url"], spec["world"], rank, spec["device"], spec["devices"],
+                                       spec["backend"])
+        for job in lib:
+            reads = spec["reads"][job["reads"]]
+            cpar = ClassifyParams(thresholds=job["thresholds"], per_read_output=job["per_read"])
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated() if cuda else 0
+            t0 = time.perf_counter()
+            cls = multihost.MultiHostRingClassifier(job["index"], ctx)
+            sync()
+            setup = time.perf_counter() - t0
+            # the first boundary hops build the P2P channels: outside the walls
+            cls.classify_and_write_stream(lambda: iter(reads[:1]), job["out"] + "_warm", cpar, job.get("rows"))
+            cuda_kernels.reset_launch_counts()
+            sent = cls.p2p_bytes
+            sync()
+            multihost.allgather_objects(None)  # every rank starts the wall together
+            t0 = time.perf_counter()
+            cls.classify_and_write_stream(lambda: iter(reads), job["out"], cpar, job.get("rows"))
+            sync()
+            wall = time.perf_counter() - t0
+            done.append({"tag": job["tag"], "setup": setup, "wall": wall, "launches": dict(cuda_kernels.LAUNCHES),
+                         "lockstep": cls.lockstep, "padding": cls.padding_dispatches, "p2p": cls.p2p_bytes - sent,
+                         "peak": torch.cuda.max_memory_allocated() - before if cuda else None})
+            if job.get("profile") and cuda:
+                device_busy(lambda: cls.classify_and_write_stream(lambda: iter(reads), job["out"] + "_prof", cpar,
+                                                                  job.get("rows")),
+                            f"rank {rank} of {spec['world']} ({ctx.backend}, local {ctx.mesh}), {job['tag']}")
+            del cls
+        if lib:
+            multihost.shutdown()
+        for job in spec["jobs"][len(lib):]:
+            argv = [*job["argv"], "--coordinator", f"127.0.0.1:{job['port']}",
+                    "--num-processes", str(spec["world"]), "--process-id", str(rank)]
+            cuda_kernels.reset_launch_counts()
+            said = io.StringIO()
+            sync()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(said):
+                rc = cli.main(argv)
+            sync()
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"rank {rank}: the CLI exited {rc}: {argv}")
+            done.append({"tag": job["tag"], "wall": wall, "launches": dict(cuda_kernels.LAUNCHES),
+                         "said": [x for x in said.getvalue().splitlines() if x.startswith("process ")]})
+    with open(spec["report"] % rank, "w") as f:
+        json.dump(done, f)
+
+
+def spawn_ranks(out, name, world, spec):
+    """mh_rank in `world` spawned processes; a rank that fails or a group
+    that outlasts MH_TIMEOUT fails the script. Returns each rank's report
+    and the wall of the whole group (process start-up included)."""
+    import torch.multiprocessing as mp
+
+    spec = dict(spec, world=world, report=os.path.join(out, f"mh_{name}_rank%d.json"))
+    t0 = time.perf_counter()
+    procs = mp.start_processes(mh_rank, args=(spec,), nprocs=world, join=False, start_method="spawn")
+    try:
+        while not procs.join(timeout=5):
+            if time.perf_counter() - t0 > MH_TIMEOUT:
+                fail(f"multihost {name}: the ranks did not finish in {MH_TIMEOUT} s")
+    except (mp.ProcessExitedException, mp.ProcessRaisedException) as e:
+        fail(f"multihost {name}: {e}")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+    reports = []
+    for r in range(world):
+        with open(spec["report"] % r) as f:
+            reports.append(json.load(f))
+    return reports, time.perf_counter() - t0
+
+
+def mh_jobs(out, variant, idx_prefix, odd=False):
+    """The library jobs at bench size: every kind in reports and per-read
+    mode, and with `odd` the padding job (narrow, per-read). Each names the
+    output prefix it writes and the single-device run it must equal."""
+    jobs = []
+    for kind, (idx_dir, rep_dir, det_dir, _, _) in MH_KINDS.items():
+        for mode, want in (("rep", rep_dir), ("det", det_dir)):
+            prefix = os.path.join(out, f"mh_{variant}_{idx_dir}_{mode}")
+            jobs.append({"tag": f"{kind} {mode}", "kind": kind, "index": os.path.join(out, idx_prefix + idx_dir),
+                         "reads": "bench", "out": prefix, "prefix": prefix, "want": want, "per_read": mode == "det",
+                         "thresholds": [0.0, 0.15], "profile": kind == "narrow" and mode == "rep"})
+    if odd:
+        prefix = os.path.join(out, f"mh_{variant}_odd")
+        jobs.append({"tag": f"padding: {MH_ODD_READS} reads in batches of {MH_ODD_ROWS}", "kind": "narrow",
+                     "index": os.path.join(out, idx_prefix + "idx"), "reads": "odd", "out": prefix, "prefix": prefix,
+                     "want": "mh_single_odd", "per_read": True, "thresholds": [0.0, 0.15], "rows": MH_ODD_ROWS})
+    return jobs
+
+
+def mh_scale_job(out, variant):
+    """The scale job: the 400 Mbp index's 8 shard files, the 200,000 scale
+    reads in reports mode, against phase_scale's kreport."""
+    prefix = os.path.join(out, f"mh_{variant}_scale")
+    return {"tag": "scale reports", "kind": "narrow", "index": os.path.join(out, "idx8_scale"), "reads": "scale",
+            "out": prefix, "prefix": prefix, "want": "scale", "per_read": False, "thresholds": [0.0], "profile": True}
+
+
+def mh_cli_jobs(out, variant, fastq, device, kinds):
+    """The CLI's jobs: classify --coordinator of the bench FASTQ against each
+    kind's 8 shard files in both modes (the rank adds its group's options)."""
+    jobs = []
+    for kind in kinds:
+        idx_dir, rep_dir, det_dir = MH_KINDS[kind][:3]
+        for mode, want in (("rep", rep_dir), ("det", det_dir)):
+            prefix = os.path.join(out, f"mh{variant}_{idx_dir}_{mode}", "o")
+            argv = ["classify", fastq, "-i", os.path.join(out, f"mh_{idx_dir}"), "-c", "0.0", "0.15", "-o", prefix,
+                    "--device", device, *(["--no-detailed"] if mode == "rep" else [])]
+            jobs.append({"tag": f"{kind} {mode}", "kind": kind, "argv": argv, "port": free_port(), "prefix": prefix,
+                         "want": want, "per_read": mode == "det"})
+    return jobs
+
+
+def check_mh(out, what, jobs, reports, total, single_walls):
+    """Hold every job of a multihost variant to its single-device files
+    (the part files joined in name order), require its kind's kernels on
+    every rank, add the launches to `total`, and log the walls beside the
+    single-device ones, the lockstep, the bytes a batch and the memory."""
+    world = len(reports)
+    for j, job in enumerate(jobs):
+        recs = [r[j] for r in reports]
+        scan, probe = MH_KINDS[job["kind"]][3:]
+        for r, rec in enumerate(recs):
+            require_launches(f"multihost {what}, rank {r}, {job['tag']}", rec["launches"], (scan, probe),
+                             [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide")
+                              if k not in (scan, probe)])
+            add_launches(total, rec["launches"])
+        got = output_tree(job["prefix"])
+        want = output_tree(os.path.join(out, job["want"]))
+        parts = sum("part-" in k for k in got)
+        if joined_parts(got) != want or not want or (world > 1 and job["per_read"] and parts < 2):
+            fail(f"multihost {what}, {job['tag']}: the output differs from the single-device files "
+                 f"({sorted(got)} against {sorted(want)})")
+        wall = max(rec["wall"] for rec in recs)
+        line = (f"multihost {what}, {job['tag']}: byte-identical to one device ({len(got)} files, {parts} part "
+                f"files); wall {wall:.3f} s (ranks {[round(rec['wall'], 3) for rec in recs]})")
+        if job["tag"] in single_walls:
+            line += f" against {single_walls[job['tag']]:.3f} s on one device"
+        if "lockstep" in recs[0]:
+            n_disp, rows, bucket = recs[0]["lockstep"]
+            line += (f"; {n_disp} batches of {rows} x {bucket} a rank, all-padding {[rec['padding'] for rec in recs]}, "
+                     f"P2P bytes a batch sent by each rank {[rec['p2p'] // n_disp for rec in recs]}; shards and "
+                     f"directories {max(rec['setup'] for rec in recs):.3f} s; peak device memory a rank "
+                     f"{[rec['peak'] for rec in recs]} bytes")
+        else:
+            line += "; " + " | ".join(x for rec in recs for x in rec["said"])
+        log(line)
+
+
+def mh_prepare(dev, out, reads):
+    """What the multihost runs are held to and timed against: each bench
+    kind's index saved again as 8 shard files; its single-device walls of the
+    bench reads in both modes (job tag -> s); the padding job's reads and
+    their single-device files; the bench reads as a FASTQ file."""
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    modes = {"rep": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=False),
+             "det": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=True)}
+    odd = first_reads(reads, MH_ODD_READS)
+    single = {}
+    for kind, (idx_dir, *_) in MH_KINDS.items():
+        idx = KeyValueIndex.load(os.path.join(out, idx_dir))
+        idx.save_sharded(os.path.join(out, f"mh_{idx_dir}"), MH_SHARDS)
+        cls = Classifier(idx, dev)
+        cls.classify_and_write_packed(reads[:1], os.path.join(out, "mh_single_warm"), modes["rep"])
+        for mode, cpar in modes.items():
+            single[f"{kind} {mode}"] = timed_runs(lambda r: cls.classify_and_write_packed(
+                reads, os.path.join(out, f"mh_single_{idx_dir}_{mode}"), cpar), n=1)[0]
+        if kind == "narrow":
+            cls.classify_and_write_packed(odd, os.path.join(out, "mh_single_odd"), modes["det"])
+        del idx, cls
+    fastq = os.path.join(out, "bench.fastq")
+    workloads.write_fastq(reads, fastq)
+    return dict(single=single, odd=odd, fastq=fastq)
+
+
+def phase_multihost(dev, out, reads, genomes, prep):
+    """Several processes (parallel/multihost.py, spawned ranks) on the one
+    card at bench size and at scale, every output held to the single-device
+    files of the earlier phases, the part files joined in name order: the
+    narrow, wide (50, 45, 7) and signature (35, 13, 3) bench indexes in 8
+    shard files (`mh_prepare`), classified in reports and per-read mode (1)
+    by one rank with a process group under NCCL, then in the same process by
+    the CLI with --coordinator --num-processes 1; (2) by two ranks sharing the
+    card over gloo, two ring entries each (a ring of 4 crossing between the
+    processes), which then classify an odd count of reads (the smaller share
+    issues an all-padding batch) and the 200,000 scale reads against the 400
+    Mbp index in 8 shard files (phase_scale's kreport). Walls beside the
+    single-device walls of the same reads, P2P bytes a batch, the device's
+    busy share and the peak device memory a rank. Returns the launch
+    counts."""
+    from slacken_tpu_torch import cli, workloads
+
+    card = "cuda:0" if dev.type == "cuda" else "cpu"
+    nccl = "nccl" if dev.type == "cuda" else "gloo"
+    single, odd, fastq = prep["single"], prep["odd"], prep["fastq"]
+    total, cli_single = {}, {}
+    with contextlib.redirect_stdout(io.StringIO()), twins_forbidden():
+        for mode in ("rep", "det"):  # the single-device CLI, beside the CLI's runs
+            t0 = time.perf_counter()
+            if cli.main(["classify", fastq, "-i", os.path.join(out, "idx"), "-c", "0.0", "0.15", "--device", dev.type,
+                         "-o", os.path.join(out, f"mhcli_single_{mode}", "o"),
+                         *(["--no-detailed"] if mode == "rep" else [])]) != 0:
+                fail("the single-device CLI failed")
+            cli_single[f"narrow {mode}"] = time.perf_counter() - t0
+    # one process under NCCL (a group of one): the library, then the CLI with --num-processes 1
+    lib_jobs, cli_jobs = mh_jobs(out, "world1", "mh_"), mh_cli_jobs(out, "cli1", fastq, dev.type, MH_KINDS)
+    reports, group_s = spawn_ranks(out, "world1", 1, dict(
+        url=f"tcp://127.0.0.1:{free_port()}", device=card, devices=1, backend=nccl, reads={"bench": reads},
+        jobs=lib_jobs + cli_jobs))
+    n = len(lib_jobs)
+    check_mh(out, f"1 rank on {card}, {nccl}, 1 ring entry (process {group_s:.1f} s with start-up and the CLI)",
+             lib_jobs, [r[:n] for r in reports], total, single)
+    check_mh(out, f"the CLI, --num-processes 1 ({nccl})", cli_jobs, [r[n:] for r in reports], total, cli_single)
+    # two ranks sharing the card over gloo, two ring entries each: the bench jobs, the padding job, the scale job
+    jobs = mh_jobs(out, "gloo2", "mh_", odd=True) + [mh_scale_job(out, "gloo2")]
+    scale = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
+    reports, group_s = spawn_ranks(out, "gloo2", 2, dict(
+        url=f"tcp://127.0.0.1:{free_port()}", device=card, devices=2, backend="gloo",
+        reads={"bench": reads, "odd": odd, "scale": scale}, jobs=jobs))
+    what = f"2 ranks on {card}, gloo, 2 ring entries each (group {group_s:.1f} s with start-up)"
+    check_mh(out, what, jobs, reports, total, dict(single, **{"scale reports": WALLS["scale"]}))
+    if not any(r[len(jobs) - 2]["padding"] for r in reports):
+        fail(f"multihost {what}: no rank issued an all-padding batch")
+    log(f"multihost at scale against the one-process ring over 8 shards (phase_mesh_scale, this run): "
+        f"{max(r[-1]['wall'] for r in reports):.3f} s against {WALLS['mesh scale ring']:.3f} s")
+    for kind in MH_KINDS:
+        ring = WALLS.get(f"mesh {kind} ring")
+        if ring:
+            log(f"one-process ring over 8 shards, {kind} (phase_mesh, this run): reports {ring['rep']:.3f} s, "
+                f"per-read {ring['det']:.3f} s")
+    return total
+
+
+def phase_multihost_cards(dev, out, reads, genomes, prep):
+    """On a machine of two or more cards: min(4, cards) ranks under NCCL, one
+    card each, the boundary hops between cards: the bench jobs of
+    phase_multihost (three kinds, both modes, the padding job) and the scale
+    job in one group, then the CLI (narrow, both modes), each against the
+    single-device files. Returns the launch counts."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+
+    world = min(4, torch.cuda.device_count())
+    total = {}
+    scale = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
+    jobs = mh_jobs(out, "cards", "mh_", odd=True) + [mh_scale_job(out, "cards")]
+    reports, group_s = spawn_ranks(out, "cards", world, dict(
+        url=f"tcp://127.0.0.1:{free_port()}", device="cuda", devices=1, backend="nccl",
+        reads={"bench": reads, "odd": prep["odd"], "scale": scale}, jobs=jobs))
+    walls = dict(prep["single"], **{"scale reports": WALLS["scale"]})
+    check_mh(out, f"{world} ranks, one card each, nccl (group {group_s:.1f} s with start-up)", jobs, reports, total,
+             walls)
+    jobs = mh_cli_jobs(out, "clicards", prep["fastq"], "cuda", ["narrow"])
+    reports, group_s = spawn_ranks(out, "clicards", world, dict(device="cuda", jobs=jobs))
+    check_mh(out, f"the CLI, --num-processes {world}, one card each (group {group_s:.1f} s with start-up)", jobs,
+             reports, total, {})
+    return total
+
+
+def main_across_cards(dev, out):
+    """`chip_smoke.py --across-cards`, on a machine of two or more cards:
+    only what phase_multihost_cards runs and what it is held to. The three
+    bench indexes built on the card and classified there (the single-device
+    files), the scale library built and classified, then
+    phase_multihost_cards. Returns its launch counts."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+
+    if torch.cuda.device_count() < 2:
+        fail(f"--across-cards needs two or more cards, the machine has {torch.cuda.device_count()}")
+    reads = workloads.bench_reads()
+    library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
+    for kind, (idx_dir, rep_dir, det_dir, _, _) in MH_KINDS.items():
+        KeyValueIndex.build(library(), IndexParams(**MH_PARAMS[kind]), workloads.bench_taxonomy(), dev).save(
+            os.path.join(out, idx_dir))
+        cls = Classifier(KeyValueIndex.load(os.path.join(out, idx_dir)), dev)
+        for d, per_read in ((rep_dir, False), (det_dir, True)):
+            cls.classify_and_write_packed(reads, os.path.join(out, d),
+                                          ClassifyParams(thresholds=[0.0, 0.15], per_read_output=per_read))
+    genomes = list(workloads.scale_library(SCALE_BP, SCALE_TAXA))
+    idx = KeyValueIndex.build(iter(genomes), IndexParams(), workloads.scale_taxonomy(SCALE_TAXA), dev)
+    if idx.num_records != SCALE_RECORDS:
+        fail(f"scale index has {idx.num_records} records, expected {SCALE_RECORDS}")
+    idx.save_sharded(os.path.join(out, "idx8_scale"), MH_SHARDS)
+    cls = Classifier(idx, dev)
+    scale = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
+    cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
+    cls.classify_and_write_packed(scale[:1], os.path.join(out, "scale_warm"), cpar)
+    WALLS["scale"] = timed_runs(lambda r: cls.classify_and_write_packed(scale, os.path.join(out, "scale"), cpar),
+                                n=1)[0]
+    log(f"scale index on the card: {idx.num_records} records; one device classifies the {sum(map(len, scale))} "
+        f"reads in {WALLS['scale']:.3f} s")
+    del idx, cls
+    launches = phase_multihost_cards(dev, out, reads, genomes, mh_prepare(dev, out, reads))
+    require_launches("multihost across cards", launches)
     return launches
 
 
@@ -2317,15 +2716,21 @@ def main():
         f"(g++ build and load {time.perf_counter() - t0:.2f} s)")
     if not native.available():
         fail("the native packer did not build: rates would be the numpy fallback's")
+    out = os.path.join(HERE, ".smoke_out")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    if sys.argv[1:] == ["--across-cards"]:
+        main_across_cards(dev, out)
+        shutil.rmtree(out, ignore_errors=True)
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                "count": torch.cuda.device_count()}}))
+        return 0
     rng = np.random.default_rng(20260816)
     results = {}
     check_scan(rng, dev, results)
     check_probe(rng, dev, results)
     check_mask_idioms(dev, results)
     check_resolve(rng, dev)
-    out = os.path.join(HERE, ".smoke_out")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
     bench = phase_bench(dev, out, results)
     by_path = {"reports": bench["launches"], "per_read": phase_detailed(dev, out, bench),
                "paired": phase_paired(dev, out, bench), "api": phase_api(dev, out, bench),
@@ -2336,6 +2741,7 @@ def main():
     genomes = []
     by_path["scale"], scale_idx = phase_scale(dev, out, results, genomes)
     by_path["mesh"] = phase_mesh_scale(dev, out, genomes, scale_idx)
+    scale_idx.save_sharded(os.path.join(out, "idx8_scale"), MH_SHARDS)  # for phase_multihost
     del scale_idx
     by_path["wide"] = phase_wide(dev, out, reads, results, genomes, bases)
     by_path["ordering"] = phase_ordering(dev, out, reads, bases)
@@ -2344,6 +2750,11 @@ def main():
     by_path["compare_index"] = phase_compare_index(dev, out, bases)
     add_launches(by_path["mesh"], phase_mesh(dev, out, reads, bases))
     del bases
+    prep = mh_prepare(dev, out, reads)
+    by_path["multihost"] = phase_multihost(dev, out, reads, genomes, prep)
+    if torch.cuda.device_count() > 1:
+        add_launches(by_path["multihost"], phase_multihost_cards(dev, out, reads, genomes, prep))
+    del prep
     add_launches(by_path["classify2"], phase_classify2_scale(dev, out, genomes))
     add_launches(by_path["bracken"], phase_bracken_scale(dev, out, genomes))
     shutil.rmtree(out, ignore_errors=True)

@@ -302,10 +302,10 @@ def format_threshold(t: float, thresholds: Sequence[float]) -> str:
 
 
 def write_per_sample_output(
-    reads: List[ClassifiedRead], location: str, cpar: ClassifyParams, taxonomy: Taxonomy
+    reads: List[ClassifiedRead], location: str, cpar: ClassifyParams, taxonomy: Taxonomy, part: int = 0
 ) -> List[str]:
     """Write gzip per-read outputs partitioned by sample and a kreport per
-    sample (<loc>/sample=<id>/part-00000.txt.gz and <loc>/<id>_kreport.txt)."""
+    sample (<loc>/sample=<id>/part-<part:05d>.txt.gz and <loc>/<id>_kreport.txt)."""
     os.makedirs(location, exist_ok=True)
     by_sample: Dict[str, List[ClassifiedRead]] = {}
     for r in reads:
@@ -315,7 +315,7 @@ def write_per_sample_output(
         if cpar.per_read_output:
             d = os.path.join(location, f"sample={sample}")
             os.makedirs(d, exist_ok=True)
-            with ParallelGzipWriter(os.path.join(d, "part-00000.txt.gz"), level=1) as f:
+            with ParallelGzipWriter(os.path.join(d, f"part-{part:05d}.txt.gz"), level=1) as f:
                 chunk = 1 << 14
                 for i in range(0, len(rs), chunk):
                     f.write("\n".join(r.output_line() for r in rs[i : i + chunk]) + "\n")
@@ -391,6 +391,8 @@ class Classifier:
         #: at dispatch and comes back once its batch has been consumed, so
         #: at most PIPELINE_DEPTH + 1 exist per shape.
         self._pinned_free: Dict[tuple, List[torch.Tensor]] = {}
+        #: the number in the per-read part files' names (one a process)
+        self._part_index = 0
 
     def _place_index(self) -> None:
         """Put what a batch reads on the device, once: the index's probe
@@ -685,13 +687,13 @@ class Classifier:
         out = {}
         for t, reads in self.classify(fragments, cpar).items():
             loc = output_location + "_c" + format_threshold(t, cpar.thresholds)
-            out[t] = write_per_sample_output(reads, loc, cpar, self.index.taxonomy)
+            out[t] = write_per_sample_output(reads, loc, cpar, self.index.taxonomy, self._part_index)
         return out
 
     def classify_and_write_packed(self, packed_iter, output_location: str, cpar: ClassifyParams):
         """Classify native-packed reads and write, under
         <output_location>_c<threshold>/, one kreport per sample and, in
-        per-read mode, sample=<sample>/part-00000.txt.gz with one Kraken line
+        per-read mode, sample=<sample>/part-<_part_index:05d>.txt.gz with one Kraken line
         per read. Returns {threshold: [sample ids]}. Everything streams: per
         (sample, taxon) counts aggregate, and lines are written, as batches
         arrive."""
@@ -707,7 +709,7 @@ class Classifier:
                     f"sample={sample}")
                 os.makedirs(d, exist_ok=True)
                 writers[(t, sample)] = ParallelGzipWriter(
-                    os.path.join(d, "part-00000.txt.gz"), level=1)
+                    os.path.join(d, f"part-{self._part_index:05d}.txt.gz"), level=1)
             return writers[(t, sample)]
 
         try:

@@ -11,8 +11,11 @@ that works on a device (`compare`, `inputCheck` and `download` do not).
 `build --devices N [--shards S]`, `classify --devices N --layout
 replicated|ring` and `classify2 --devices N --layout ...` run over a mesh of
 N devices of --device's kind (N cards, or N shards of the CPU with --device
-cpu) in one process; N above the machine's number of cards raises. The
-multi-host options and --probe are not ported."""
+cpu) in one process; N above the machine's number of cards raises.
+`classify --coordinator host:port --num-processes P --process-id p` runs
+over P processes (parallel/multihost.py: one ring of index shards through
+every process's --devices entries, default 1, the rank's card). --probe is
+not ported."""
 
 from __future__ import annotations
 
@@ -49,6 +52,11 @@ def _build_parser():
 
     c = sub.add_parser("classify", help="Classify genomic sequences")
     _add_classify_opts(c)
+    c.add_argument("--coordinator",
+                   help="Multi-process mode: the process group's rendezvous address (host:port, served by process "
+                        "0); run the same command in every process")
+    c.add_argument("--num-processes", type=int, help="Multi-process mode: total process count")
+    c.add_argument("--process-id", type=int, help="Multi-process mode: this process's id")
 
     c2 = sub.add_parser("classify2", help="Two-step classification with a dynamic index built on the fly")
     _add_classify_opts(c2)
@@ -241,6 +249,8 @@ def cmd_classify(args, device):
     from .parallel.classifier import make_classifier
 
     cpar = _cpar(args)  # validate before any heavy work
+    if args.coordinator or args.num_processes:
+        return _classify_multihost(args, cpar, device)
     idx = KeyValueIndex.load(args.index)
     cls = make_classifier(idx, device, args.devices, args.layout)
     files = expand_file_list(args.inputs)
@@ -259,6 +269,45 @@ def cmd_classify(args, device):
             samples = cls.classify_and_write(frags, args.output, cpar)
     for t, ss in samples.items():
         print(f"threshold {t}: samples {ss}")
+    return 0
+
+
+def _classify_multihost(args, cpar, device):
+    """classify over several processes, one a rank of a torch.distributed
+    group (NCCL on the card, gloo on the CPU), the index range-sharded across
+    them and the queries going round one ring through every process's
+    --devices entries (default 1: the rank's card, cuda:<local rank>). Needs
+    a sharded index (build --shards S, S a multiple of the ring's entries).
+    Every process reads the inputs whole and classifies its contiguous share
+    of the reads; each writes its part files, process 0 the merged
+    kreports."""
+    import os
+
+    from .inputs import expand_file_list, packed_reads_from_file
+    from .parallel import multihost as mh
+
+    if args.paired:
+        raise SystemExit("multi-host classify does not support --paired yet")
+    if args.layout == "replicated":
+        raise SystemExit("multi-host classify does not support --layout replicated (the index is range-sharded "
+                         "across the processes: the ring layout)")
+    ctx = mh.initialize(args.coordinator, args.num_processes, args.process_id, device, args.devices)
+    try:
+        files = expand_file_list(args.inputs)
+        cls = mh.MultiHostRingClassifier(args.index, ctx)
+        rows = os.environ.get("STPU_MH_ROWS")
+        samples = cls.classify_and_write_stream(
+            lambda: (p for path in files for p in packed_reads_from_file(path)), args.output, cpar,
+            int(rows) if rows else None)
+        n_disp, rows, bucket = cls.lockstep
+        print(f"process {ctx.process_index} of {ctx.process_count} ({ctx.backend}, local {ctx.mesh}): {n_disp} "
+              f"batches of {rows} x {bucket}, {cls.padding_dispatches} all padding; {cls.p2p_bytes} bytes sent to "
+              "the next process", file=sys.stderr)
+        if ctx.process_index == 0:
+            for t, ss in samples.items():
+                print(f"threshold {t}: samples {ss}")
+    finally:
+        mh.shutdown()
     return 0
 
 

@@ -66,7 +66,11 @@ class MeshClassifier(Classifier):
         if self.layout == "replicated":
             self._arrays = [idx.device_arrays(d) for d in self.mesh]
         else:
-            self._arrays = pmesh.shard_index(idx, self.mesh)
+            self._arrays = self._ring_shards()
+
+    def _ring_shards(self):
+        """The ring's shards, one a mesh entry: the index cut into key ranges."""
+        return pmesh.shard_index(self.index, self.mesh)
 
     def _padded_rows(self, n: int) -> int:
         """A power of two and a multiple of the mesh size: chunks of equal rows."""

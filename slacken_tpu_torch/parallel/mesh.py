@@ -29,7 +29,9 @@ here updates a tensor in place):
     each owner receives its slice of every device's records (`by_owner`).
 
 The psum of per-taxon report counts has no counterpart: the host counts
-reports from the bundles, as it does for one device.
+reports from the bundles, as it does for one device. Across processes
+(multihost.py) the ring's hop from a process's last entry to the next
+process's first is a `torch.distributed` send and receive (`boundary`).
 """
 
 from __future__ import annotations
@@ -106,14 +108,16 @@ def shard_index(index, mesh: Mesh):
     its device (keys, taxa and directory, or a slot table for a wide index
     on the card). A shard may be empty."""
     bounds = np.linspace(0, index.num_records, len(mesh) + 1).astype(np.int64)
-    shards = []
-    for i, dev in enumerate(mesh):
-        keys = index.keys_t[bounds[i]:bounds[i + 1]].to(dev)
-        taxa = index.taxa_t[bounds[i]:bounds[i + 1]].to(dev)
-        if keys.data_ptr() % 16:  # the probe kernels load 16 bytes at a time
-            keys = keys.clone()
-        shards.append(index.with_records(keys, taxa).device_arrays(dev))
-    return shards
+    return [place_shard(index.with_records(index.keys_t[bounds[i]:bounds[i + 1]], index.taxa_t[bounds[i]:bounds[i + 1]]),
+                        dev) for i, dev in enumerate(mesh)]
+
+
+def place_shard(shard, dev):
+    """One shard (an index of a key range) as `lookup.probe` reads it on `dev`."""
+    keys, taxa = shard.keys_t.to(dev), shard.taxa_t.to(dev)
+    if keys.data_ptr() % 16:  # the probe kernels load 16 bytes at a time
+        keys = keys.clone()
+    return shard.with_records(keys, taxa).device_arrays(dev)
 
 
 def scan_chunks(mesh: Mesh, packed: np.ndarray, valid: np.ndarray, luts: Dict):
@@ -131,29 +135,45 @@ def scan_probe_replicated(mesh: Mesh, arrays, luts: Dict, packed: np.ndarray, va
             for i, (p, v, lut) in enumerate(scan_chunks(mesh, packed, valid, luts))]
 
 
-def ring_lookup(mesh: Mesh, shards, queries: List[torch.Tensor]) -> List[torch.Tensor]:
+def _hop(mesh: Mesh, items, boundary):
+    """items[i], a tuple of tensors on mesh[i], moved one step round the ring:
+    a copy from mesh[i - 1] to mesh[i], and from the last entry to mesh[0]
+    through `boundary` (the next process's entry 0 receives it, and this
+    process's entry 0 what the previous process's last entry sent) or, in
+    one process, by a copy."""
+    last = items[-1]
+    first = tuple(t.to(mesh[0], non_blocking=True) for t in last) if boundary is None else boundary(last)
+    return [first] + [tuple(t.to(mesh[i], non_blocking=True) for t in items[i - 1]) for i in range(1, len(mesh))]
+
+
+def ring_lookup(mesh: Mesh, shards, queries: List[torch.Tensor], boundary=None) -> List[torch.Tensor]:
     """The ring: queries[i] (int64 [Q_i] or [Q_i, 2], on mesh[i]) visit every
     shard, one hop from mesh[i] to mesh[i + 1] a step, and each shard probes
     the queries that visit it; answers[i], on mesh[i], is each query's taxon
-    in the shard that holds its key, or 0. Out of place throughout: on a
-    repeated device a hop returns the same tensor."""
+    in the shard that holds its key, or 0. With a `boundary`
+    (multihost.BoundaryHop) the ring runs through boundary.world processes,
+    len(mesh) entries each, every one with queries of one shape: the hops
+    number len(mesh) * world - 1, then one brings the answers home. Out of
+    place throughout: on a repeated device a hop returns the same tensor."""
     n = len(mesh)
+    steps = n * (1 if boundary is None else boundary.world)
     qs = list(queries)
     acc = [probe(*shards[i], qs[i]) for i in range(n)]
-    for _ in range(n - 1):
-        qs = [qs[i - 1].to(mesh[i], non_blocking=True) for i in range(n)]
-        acc = [torch.maximum(acc[i - 1].to(mesh[i], non_blocking=True), probe(*shards[i], qs[i]))
-               for i in range(n)]
-    if n > 1:  # one last hop brings the answers home
-        acc = [acc[i - 1].to(mesh[i], non_blocking=True) for i in range(n)]
+    for _ in range(steps - 1):
+        moved = _hop(mesh, list(zip(qs, acc)), boundary)
+        qs = [q for q, _ in moved]
+        acc = [torch.maximum(a, probe(*shards[i], q)) for i, (q, a) in enumerate(moved)]
+    if steps > 1:  # one last hop brings the answers home
+        acc = [a for (a,) in _hop(mesh, [(a,) for a in acc], boundary)]
     return acc
 
 
-def scan_probe_ring(mesh: Mesh, shards, luts: Dict, packed: np.ndarray, valid: np.ndarray, mp):
+def scan_probe_ring(mesh: Mesh, shards, luts: Dict, packed: np.ndarray, valid: np.ndarray, mp, boundary=None):
     """scan_probe_replicated for the ring: each device scans its rows, and
-    their dense minimizers go round the ring of index shards."""
+    their dense minimizers go round the ring of index shards (through
+    `boundary` across processes, as ring_lookup)."""
     wms = [window_minimizers_packed(p, v, mp, lut) for p, v, lut in scan_chunks(mesh, packed, valid, luts)]
-    looked = ring_lookup(mesh, shards, [wm.minimizer.flatten(0, 1) for wm in wms])
+    looked = ring_lookup(mesh, shards, [wm.minimizer.flatten(0, 1) for wm in wms], boundary)
     return [(wm, a.reshape(wm.valid.shape)) for wm, a in zip(wms, looked)]
 
 

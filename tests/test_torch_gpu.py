@@ -720,3 +720,93 @@ def test_mesh_over_distinct_cards(cuda, tmp_path):
     assert out["ring"] == out["one"] == out["replicated"] and len(out["one"]) == 2
     with pytest.raises(ValueError, match="mesh"):
         make_mesh(n + 1, "cuda")
+
+
+def _multihost_run(tmp_path, kind, world, **spec):
+    """The small library's index in 8 shard files and 201 reads of it,
+    classified (per-read mode, batches of 20 rows) by `world` spawned ranks
+    (multihost_ranks.run_rank) and on one card; returns the ranks' reports
+    after holding their files (part files joined in name order) to the
+    single card's."""
+    import gzip
+    import os
+    import socket
+
+    import multihost_ranks
+    from slacken_tpu_torch import native
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    tax, genomes, params = _small_library(kind)
+    KeyValueIndex.build(iter(genomes), params, tax, "cpu").save_sharded(str(tmp_path / "idx8"), 8)
+    seqs = [encode.encode_seq(genomes[i % 6][1][i * 13 % 2800 : i * 13 % 2800 + 101]) for i in range(201)]
+    codes, lens = encode.pack_batch(seqs, 128)
+    reads = [native.PackedReads(codes, lens, [f"r{i}" for i in range(201)])]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15])
+    Classifier(KeyValueIndex.load(str(tmp_path / "idx8")), torch.device("cuda", 0)).classify_and_write_packed(
+        reads, str(tmp_path / "one" / "o"), cpar)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        url = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    seen = multihost_ranks.spawn(world, dict(spec, url=url, index=str(tmp_path / "idx8"),
+                                             reads=multihost_ranks.chunks_of(reads), out=str(tmp_path / "mh" / "o"),
+                                             thresholds=[0.0, 0.15], per_read=True, rows=20,
+                                             report=str(tmp_path / "rank%d.json")))
+
+    def files(loc):
+        out = {}
+        for root, _, names in os.walk(loc):
+            for name in sorted(names):
+                with (gzip.open if name.endswith(".gz") else open)(os.path.join(root, name), "rb") as f:
+                    key = os.path.relpath(os.path.join(root, "part" if name.startswith("part-") else name), loc)
+                    out[key] = out.get(key, b"") + f.read()
+        return out
+
+    want = files(tmp_path / "one")
+    assert files(tmp_path / "mh") == want and len(want) == 4
+    scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
+    probe = "probe_wide" if kind == "wide" else "probe"
+    assert all(set(s["launched"]) == {scan, probe} for s in seen)
+    return seen
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_multihost_world_of_one_under_nccl(cuda, tmp_path, kind):
+    """One rank with a process group under NCCL, two ring entries on its
+    card: the single card's files; no byte crosses between processes."""
+    seen = _multihost_run(tmp_path, kind, 1, device="cuda", devices=2, backend=None)
+    assert seen[0]["backend"] == "nccl" and seen[0]["mesh"] == ["cuda:0", "cuda:0"] and seen[0]["p2p"] == 0
+    assert seen[0]["counts"] == [0, 1, 2, 3, 4] and seen[0]["gathered"] == [{"rank": 0}]
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_multihost_two_ranks_share_the_card_over_gloo(cuda, tmp_path, kind):
+    """Two ranks on cuda:0, two ring entries each, gloo (each boundary hop
+    through host memory): 6 batches of 20 rows a rank, one of them all
+    padding for rank 0 (100 reads against 101)."""
+    seen = _multihost_run(tmp_path, kind, 2, device="cuda:0", devices=2, backend="gloo")
+    assert [s["backend"] for s in seen] == ["gloo"] * 2 and [s["padding"] for s in seen] == [1, 0]
+    width = 2 if kind == "wide" else 1
+    assert [s["p2p"] for s in seen] == [6 * (3 * 10 * 128 * (8 * width + 4) + 10 * 128 * 4)] * 2
+    assert [s["counts"] for s in seen] == [[0, 3, 6, 9, 12]] * 2
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
+    """Why two ranks that share a card take gloo: NCCL refuses a group whose
+    ranks are on one card when it connects (initialize passes device_id)."""
+    import torch.multiprocessing as mp
+
+    with pytest.raises(mp.ProcessRaisedException, match="Duplicate GPU detected"):
+        _multihost_run(tmp_path, "narrow", 2, device="cuda:0", devices=1, backend=None)
+
+
+def test_multihost_ranks_one_card_each(cuda, tmp_path):
+    """On a machine of two or more cards (skips on one): min(4, cards)
+    ranks under NCCL, one card each, the boundary hops between cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    world = min(4, n)
+    seen = _multihost_run(tmp_path, "narrow", world, device="cuda", devices=1, backend=None)
+    assert [s["mesh"] for s in seen] == [[f"cuda:{r}"] for r in range(world)]
+    assert all(s["backend"] == "nccl" and s["p2p"] > 0 for s in seen)

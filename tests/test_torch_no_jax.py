@@ -28,7 +28,7 @@ import chip_smoke
 assert len(names) >= 35 and "slacken_tpu_torch.ops.ordering" in names, names
 assert "slacken_tpu_torch.dynamic" in names and "slacken_tpu_torch.stats" in names, names
 for name in ("bracken", "analysis.migration", "analysis.experiment", "download",
-             "parallel", "parallel.mesh", "parallel.classifier"):
+             "parallel", "parallel.mesh", "parallel.classifier", "parallel.multihost"):
     assert "slacken_tpu_torch." + name in names, names
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "slacken_tpu", "bench", "scale_bench"))
@@ -55,7 +55,7 @@ def test_no_source_names_the_jax_package():
     for name in (os.path.join("ops", "ordering.py"), "dynamic.py", "stats.py", "bracken.py", "download.py",
                  os.path.join("analysis", "migration.py"), os.path.join("analysis", "experiment.py"),
                  os.path.join("parallel", "__init__.py"), os.path.join("parallel", "mesh.py"),
-                 os.path.join("parallel", "classifier.py")):
+                 os.path.join("parallel", "classifier.py"), os.path.join("parallel", "multihost.py")):
         assert os.path.join(ROOT, "slacken_tpu_torch", name) in files
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|slacken_tpu|bench|scale_bench)\b", re.M)
     for path in files:
