@@ -70,7 +70,32 @@ launch counts set to 0 just before it and read just after:
     P2P bytes a batch, busy share and peak memory a rank. On a machine of
     several cards also min(4, cards) ranks under NCCL, one card each, which
     `python3 chip_smoke.py --across-cards` runs alone with what it is held
-    to.
+    to;
+  * the bounded build (index.MergeTree, after phase_scale): the bytes a
+    record costs in one device sort and reduce, held to index.MERGE_BYTES;
+    the 400 Mbp library built under the default budget (no leaf off the
+    card, the build's phase split), under a budget forced to leaves of 8M
+    records (at least 8 leave the card) and so with spill_dir, each equal to
+    phase_scale's index; at bench size the forced budget and spill routes for
+    wide (35, 32, 7) and (50, 45, 7) and signature (35, 13, 3) indexes with
+    their sidecars against the CPU, the CLI's build --spill-dir against
+    build, and build_distributed over eight shards with spill_dir (launches
+    under "build_bounded").
+
+`python3 chip_smoke.py --beyond-card` runs alone: it builds
+workloads.scale_library(4e9, 256), whose one-sort build would need more
+memory than the card has (about 1.31e9 records at 77.8 bytes a record),
+under the default budget (keys strictly increasing, every taxon defined),
+then under a quarter of the budget through host leaves and through
+spill_dir (all three equal, each peak within its budget), and classifies
+200,000 reads against it on the card (at least 99% classified). It first
+reads the host's memory and disk and takes the largest library above 3.4
+Gbp that fits them where 4 Gbp does not.
+
+`python3 chip_smoke.py --classify2-scale` runs only two-step classification
+at full size (phase_classify2_scale on the 400 Mbp library), for comparing
+its step walls between two checkouts: copy the script into the other
+checkout and run it there and here, in one call.
 
 It prints the measured numbers, one JSON line of per-kernel results (time
 beside its bound, the plain twin's time and a library call's where there is
@@ -108,6 +133,20 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 #: walls of earlier phases that phase_multihost sets beside its own: what -> seconds
 WALLS = {}
+#: phase_build_bounded: the leaf size (records) of its forced budget at
+#: scale, and the rows of its builds' batches there (about 2.7M records a
+#: batch, so that leaves merge before they leave the card)
+FORCED_LEAF = 8 << 20
+FORCED_ROWS = 2048
+#: peak device memory of the 400 Mbp build with one sort, before the merge
+#: tree (measured by this script on an NVIDIA H100 80GB HBM3, PERF.md)
+ONE_SORT_PEAK = 10_211_318_272
+ONE_SORT_BYTES_PER_RECORD = ONE_SORT_PEAK / SCALE_RECORDS
+#: --beyond-card: the library's size (bp), the least size it may be cut to
+#: where the host's memory or disk hold less, and its species
+BEYOND_BP = 4_000_000_000
+BEYOND_MIN_BP = 3_400_000_000
+BEYOND_TAXA = 256
 
 
 def log(*a):
@@ -1148,7 +1187,9 @@ def phase_scale(dev, out, results, genomes):
     build_s = time.perf_counter() - t0
     log(f"scale build on the card: {SCALE_BP / 1e6:.0f} Mbp, {idx.num_records} records "
         f"(JAX package: {SCALE_RECORDS} at 400 Mbp) in {build_s:.2f} s, "
-        f"{SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. library generation and host packing")
+        f"{SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. library generation and host packing; "
+        f"peak torch.cuda.max_memory_allocated of the build {torch.cuda.max_memory_allocated()} bytes "
+        f"(with one sort: {ONE_SORT_PEAK})")
     if idx.num_records != SCALE_RECORDS:
         fail(f"scale index has {idx.num_records} records, expected {SCALE_RECORDS}")
     reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
@@ -1186,6 +1227,208 @@ def phase_scale(dev, out, results, genomes):
     if not 0 < spaced.num_records <= idx.num_records or spaced.params.spaces != 9:
         fail(f"the respaced scale index holds {spaced.num_records} records at s = {spaced.params.spaces}")
     return launches, idx
+
+
+def merge_bytes(dev, tax, scale_idx):
+    """Peak bytes a record takes in one device sort and reduce
+    (MergeTree._reduce), its inputs, transients and outputs included, at
+    index.RANGE_ENTRIES records: narrow (keys of the scale index) and wide
+    (random 90-bit keys), reduced by LCA, into distinct pairs, and in a
+    keep_records build's final merge (the pairs and the index reduced from
+    them). Several readings of each: two seeds, each with distinct keys and
+    with every key twice under two taxa. Each must stay within
+    index.MERGE_BYTES, on which the budget's sizes rest; the largest of each
+    width is printed beside it."""
+    import torch
+
+    from slacken_tpu_torch.index import MERGE_BYTES, RANGE_ENTRIES, MergeTree
+
+    n = min(RANGE_ENTRIES, scale_idx.num_records)
+    above, most = [], {False: 0.0, True: 0.0}
+    for seed in (11, 12):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for wide in (False, True):
+            for twice in (False, True):
+                for mode in ("by LCA", "into distinct pairs", "final merge with the sidecar"):
+                    tree = MergeTree(dev, tax, 45 if wide else 31, pairs=mode != "by LCA")
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    base = torch.cuda.memory_allocated()
+                    m = n // 2 if twice else n
+                    if wide:
+                        keys = torch.stack([torch.randint(0, 1 << 26, (m,), device=dev, generator=gen),
+                                            torch.randint(-(1 << 63), (1 << 63) - 1, (m,), device=dev, generator=gen)], 1)
+                    else:
+                        keys = scale_idx.keys_t[torch.randperm(scale_idx.num_records, device=dev, generator=gen)[:m]]
+                    if twice:
+                        keys = keys.repeat(2, *([1] * (keys.dim() - 1)))
+                    taxa = torch.randint(10, 10 + SCALE_TAXA, (n,), device=dev, generator=gen, dtype=torch.int32)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    out = tree._reduce(keys, taxa, final=mode.startswith("final"))
+                    torch.cuda.synchronize()
+                    per = (torch.cuda.max_memory_allocated() - base) / n
+                    most[wide] = max(most[wide], per)
+                    log(f"one device sort and reduce of {n} {'wide' if wide else 'narrow'} records "
+                        f"({'every key twice' if twice else 'distinct keys'}, seed {seed}) {mode}: peak {per:.2f} "
+                        f"bytes a record (inputs {keys.element_size() * keys[0].numel() + 4} of them, "
+                        f"{int(out[0].shape[0])} out; index.MERGE_BYTES {MERGE_BYTES[wide]})")
+                    if per > MERGE_BYTES[wide]:
+                        above.append(f"{per:.2f} bytes a record {'wide' if wide else 'narrow'}, {mode}")
+                    del keys, taxa, out
+    log(f"one device sort and reduce, the largest of {2 * 2 * 3} readings a width: narrow {most[False]:.2f} bytes a "
+        f"record (index.MERGE_BYTES {MERGE_BYTES[False]}), wide {most[True]:.2f} ({MERGE_BYTES[True]})")
+    if above:
+        fail(f"a device sort and reduce takes more than index.MERGE_BYTES: {above}")
+
+
+def phase_build_bounded(dev, out, genomes, scale_idx):
+    """The bounded build at scale (index.MergeTree), after phase_scale: the
+    bytes a record costs in one device sort and reduce (merge_bytes); then
+    the 400 Mbp library (`genomes`, in memory) built three times, each equal
+    to phase_scale's index (`scale_idx`) key for key: under the default
+    budget (no leaf leaves the card, the index stays there; the build's
+    phase split), under a budget forced to leaves of FORCED_LEAF records (at
+    least 8 leave the card; the index ends on the host), and the same with
+    spill_dir under `out` (the directory gone after). Walls, peak device
+    memory above what was held before each build, leaves off the card and
+    bytes spilled. Returns the launch counts."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.index import HELD_BYTES, IndexParams, KeyValueIndex, default_device_budget
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    tax = workloads.scale_taxonomy(SCALE_TAXA)
+    merge_bytes(dev, tax, scale_idx)
+    forced = dict(device_budget=FORCED_LEAF * 8 * HELD_BYTES[False], batch_rows=FORCED_ROWS)
+    spill = os.path.join(out, "bb_spill")
+    total = {}
+    for label, kw in (("default budget", {}), ("forced budget", forced),
+                      ("forced budget, spill_dir", dict(forced, spill_dir=spill))):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        budget = kw.get("device_budget") or default_device_budget(dev)
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with twins_forbidden():
+            idx = KeyValueIndex.build(iter(genomes), IndexParams(), tax, dev, trace=not kw, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - held
+        s = idx.build_stats
+        log(f"bounded scale build, {label}: {idx.num_records} records in {wall:.2f} s "
+            f"({SCALE_BP / wall / 1e6:.2f} Mbp/s, the library in host memory), index on {idx.keys_t.device}; "
+            f"peak torch.cuda.max_memory_allocated {peak} bytes above the {held} held (budget {budget} bytes; "
+            f"memory_reserved {torch.cuda.memory_reserved()}; the one-sort build's peak: {ONE_SORT_PEAK}); "
+            f"leaves {s['leaves']}, merges {s['merges']}, leaves off the card {s['leaves_off']}, spilled "
+            f"{s['spilled_bytes']} bytes in {s['spill_ranges']} ranges; leaf limit {s['leaf_entries']} records, "
+            f"range {s['range_entries']}, superbatch {s['superbatch']}")
+        if idx.build_phases:
+            log("  build phases (s, synchronized): " + ", ".join(f"{k} {v:.3f}" for k, v in idx.build_phases.items()))
+        if not index_equal(idx, scale_idx):
+            fail(f"the bounded scale build ({label}) differs from phase_scale's index")
+        if peak > budget:
+            fail(f"the bounded scale build ({label}) took {peak} bytes, above its budget of {budget}")
+        if not kw and (s["leaves_off"] or idx.keys_t.device.type != dev.type):
+            fail(f"under the default budget {s['leaves_off']} leaves left the card, the index is on {idx.keys_t.device}")
+        if kw and s["leaves_off"] < 8:
+            fail(f"the forced budget moved {s['leaves_off']} leaves off the card, fewer than 8")
+        if "spill_dir" in kw and (os.path.exists(spill) or not s["spilled_bytes"]):
+            fail(f"spill_dir: {s['spilled_bytes']} bytes spilled, directory left: {os.path.exists(spill)}")
+        require_launches(f"bounded scale build, {label}", launches, ("scan",),
+                         ("scan_lut", "scan_wide", "probe", "probe_wide"))
+        add_launches(total, launches)
+        del idx
+    return total
+
+
+BOUNDED_BENCH = {"wide (35, 32, 7)": dict(k=35, m=32, spaces=7), "wide (50, 45, 7)": dict(k=50, m=45, spaces=7),
+                 "signature (35, 13, 3)": dict(k=35, m=13, spaces=3, ordering="signature")}
+
+
+def phase_build_bounded_bench(dev, out, bases):
+    """The bounded build at bench size, after phase_ordering: for each kind
+    of BOUNDED_BENCH, with its sidecar, the card's build under a budget
+    forced to leaves of a sixth of the index (batches of 256 rows) and the
+    same with spill_dir, against the CPU's build (the wide (50, 45, 7) one of
+    phase_wide, in `bases`); the CLI's build --spill-dir on the card against
+    its build without it (files byte for byte); build_distributed over
+    MESH_SHARDS shards of the card with spill_dir and a forced budget against
+    the CPU's narrow index. Returns the launch counts."""
+    import torch
+
+    from slacken_tpu_torch import cli, workloads
+    from slacken_tpu_torch.index import HELD_BYTES, IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.parallel.classifier import build_distributed
+    from slacken_tpu_torch.parallel.mesh import Mesh
+
+    tax = workloads.bench_taxonomy()
+    lib = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
+    spill = os.path.join(out, "bbb_spill")
+    total = {}
+    kernel = {False: ("scan", "probe"), True: ("scan_wide", "probe_wide")}
+
+    def run(what, names, fn):
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with twins_forbidden():
+            result = fn()
+        torch.cuda.synchronize()
+        launches = dict(cuda_kernels.LAUNCHES)
+        require_launches(what, launches, names)
+        add_launches(total, launches)
+        return result, time.perf_counter() - t0
+
+    def same(a, b):
+        return index_equal(a, b) and all(torch.equal(x.cpu(), y.cpu()) for x, y in (
+            (a.record_keys_t, b.record_keys_t), (a.record_taxa_t, b.record_taxa_t)))
+
+    for label, kms in BOUNDED_BENCH.items():
+        params = IndexParams(**kms)
+        want = (bases["wide"][1] if kms["m"] == 45 else
+                KeyValueIndex.build(iter(lib), params, tax, "cpu", keep_records=True))
+        leaf = want.num_records // 6
+        budget = leaf * 8 * HELD_BYTES[params.m > 31]
+        scan = "scan_lut" if "ordering" in kms else kernel[params.m > 31][0]
+        for route, extra in (("forced budget", {}), ("spill_dir", {"spill_dir": spill})):
+            got, wall = run(f"bounded bench build, {label}, {route}", (scan,), lambda: KeyValueIndex.build(
+                iter(lib), params, tax, dev, keep_records=True, batch_rows=256, device_budget=budget, **extra))
+            st = got.build_stats
+            log(f"bounded bench build {label}, {route}: {got.num_records} records, {got.record_taxa_t.shape[0]} "
+                f"pairs in {wall:.2f} s on the card; leaves {st['leaves']}, merges {st['merges']}, off the card "
+                f"{st['leaves_off']}, spilled {st['spilled_bytes']} bytes; the CPU's build equal: {same(got, want)}")
+            if not same(got, want) or st["leaves_off"] < 2 or os.path.exists(spill):
+                fail(f"bounded bench build {label}, {route}: equal {same(got, want)}, {st['leaves_off']} leaves "
+                     f"off the card, spill directory left {os.path.exists(spill)}")
+            del got
+    lib_dir, tax_dir = os.path.join(out, "bb_lib"), os.path.join(out, "bb_tax")
+    workloads.write_library(lib, lib_dir)
+    tax.save(tax_dir)
+    argv = ["build", "-l", lib_dir, "-t", tax_dir, "--full-records", "--device", "cuda"]
+    for name, extra in (("bb_cli", []), ("bb_cli_spill", ["--spill-dir", spill])):
+        rc, _ = run(f"the CLI's build {' '.join(extra)}", ("scan",),
+                    lambda: cli.main([*argv, "-i", os.path.join(out, name), *extra]))
+        if rc != 0:
+            fail(f"the CLI's build {extra} exited {rc}")
+    a, b = files_under(os.path.join(out, "bb_cli") + os.sep), files_under(os.path.join(out, "bb_cli_spill") + os.sep)
+    if a != b or len(a) < 5 or os.path.exists(spill):
+        fail(f"build --spill-dir wrote other files than build: {sorted(a)} / {sorted(b)}")
+    log(f"the CLI's build --spill-dir on the card: {len(a)} files byte-identical to its build without it")
+    leaf = bases["narrow"][1].num_records // (4 * MESH_SHARDS)  # an owner holds an eighth of the records
+    got, wall = run("bounded build_distributed over 8 shards with spill_dir", ("scan",), lambda: build_distributed(
+        iter(lib), IndexParams(), tax, Mesh([dev] * MESH_SHARDS), keep_records=True, batch_rows=256,
+        spill_dir=spill, device_budget=MESH_SHARDS * leaf * 8 * HELD_BYTES[False]))
+    off = sum(st["leaves_off"] for st in got.build_stats)
+    log(f"build_distributed over {MESH_SHARDS} shards of the card with spill_dir: {got.num_records} records in "
+        f"{wall:.2f} s, {off} leaves off the card; the CPU's narrow index equal: {same(got, bases['narrow'][1])}")
+    if not same(got, bases["narrow"][1]) or off < MESH_SHARDS or os.path.exists(spill):
+        fail("build_distributed with spill_dir differs from the CPU's index, or spilled too little")
+    return total
 
 
 def card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, least, table=None, keep_records=False):
@@ -2684,6 +2927,125 @@ def main_across_cards(dev, out):
     return launches
 
 
+def beyond_card_bp(out):
+    """The --beyond-card library's size: BEYOND_BP where the host holds it,
+    else the largest size above BEYOND_MIN_BP that it holds (in steps of 100
+    Mbp). Host memory: the library (1 byte a base), the host leaves (12
+    bytes a record) and a host index's pieces and their concatenation (24);
+    disk under `out`: the spilled leaves (12); records at the scale
+    library's 0.328 a base, with a fifth more for room. Prints `free -g` and
+    `df`."""
+    for cmd in (["free", "-g"], ["df", "-h", out]):
+        log(subprocess.run(cmd, capture_output=True, text=True).stdout.rstrip())
+    ram = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_AVPHYS_PAGES")
+    disk = shutil.disk_usage(out).free
+    per_bp = SCALE_RECORDS / SCALE_BP * 1.2
+    for bp in range(BEYOND_BP, BEYOND_MIN_BP - 1, -100_000_000):
+        need_ram, need_disk = bp * (1 + 36 * per_bp), bp * 12 * per_bp
+        if need_ram <= ram and need_disk <= disk:
+            log(f"--beyond-card: {bp} bp (host memory {ram} bytes free, needs about {need_ram:.0f}; disk {disk} "
+                f"bytes free, needs about {need_disk:.0f})")
+            return bp
+    fail(f"--beyond-card: neither host memory ({ram} bytes) nor disk ({disk} bytes) holds a {BEYOND_MIN_BP} bp library")
+
+
+def main_beyond_card(dev, out):
+    """`chip_smoke.py --beyond-card`: a library whose one-sort build the card
+    could not hold, built three times: under the default budget (the index
+    stays on the card; keys strictly increasing, every taxon defined), and
+    under a quarter of the budget then left, beside that index, through host
+    leaves and through spill_dir (leaves leave the card; the index comes
+    back on the host). All three equal, each build's peak device memory
+    within its budget. Then 200,000 reads classified against the index on
+    the card. Returns the launch counts."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex, default_device_budget
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    bp = beyond_card_bp(out)
+    tax = workloads.scale_taxonomy(BEYOND_TAXA)
+    t0 = time.perf_counter()
+    genomes = list(workloads.scale_library(bp, BEYOND_TAXA))
+    log(f"library: {bp} bp in {len(genomes)} genomes, made in {time.perf_counter() - t0:.1f} s")
+    card = torch.cuda.get_device_properties(dev).total_memory
+    cuda_kernels.reset_launch_counts()
+    first = None
+    for route, kw in (("default budget", {}), ("host leaves", {"quarter": True}),
+                      ("spill_dir", {"quarter": True, "spill_dir": os.path.join(out, "beyond_spill")})):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        budget = default_device_budget(dev) // (4 if kw.pop("quarter", False) else 1)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with twins_forbidden():
+            idx = KeyValueIndex.build(iter(genomes), IndexParams(), tax, dev, trace=True, device_budget=budget, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        s = idx.build_stats
+        log(f"beyond-card build, {route}: {idx.num_records} records in {wall:.2f} s ({bp / wall / 1e6:.2f} Mbp/s, "
+            f"the library in host memory), index on {idx.keys_t.device}; peak torch.cuda.max_memory_allocated "
+            f"{peak} bytes above the {held} held, budget {budget} bytes, memory_reserved "
+            f"{torch.cuda.memory_reserved()}; a one-sort build at {ONE_SORT_BYTES_PER_RECORD:.1f} bytes a record "
+            f"would take {idx.num_records * ONE_SORT_BYTES_PER_RECORD:.0f} of the card's {card}; leaves "
+            f"{s['leaves']}, merges {s['merges']}, off the card {s['leaves_off']}, spilled {s['spilled_bytes']} "
+            f"bytes in {s['spill_ranges']} ranges; leaf limit {s['leaf_entries']}, range {s['range_entries']}")
+        log("  build phases (s, synchronized): " + ", ".join(f"{k} {v:.3f}" for k, v in idx.build_phases.items()))
+        if idx.num_records * ONE_SORT_BYTES_PER_RECORD <= card:
+            fail(f"{idx.num_records} records would fit a one-sort build on the card")
+        if peak > budget:
+            fail(f"beyond-card build, {route}: peak {peak} bytes above the budget {budget}")
+        if first is None:
+            if idx.keys_t.device.type != dev.type:
+                fail(f"under the default budget the beyond-card index came back on {idx.keys_t.device}")
+            keys, defined = idx.keys_t, torch.tensor(sorted(tax.taxa()), dtype=torch.int32, device=dev)
+            if not bool((keys[1:] > keys[:-1]).all()) or not bool(torch.isin(idx.taxa_t, defined).all()):
+                fail("the beyond-card index has keys out of order or repeated, or an undefined taxon")
+            del keys, defined
+            first = idx
+            continue
+        if s["leaves_off"] < 2 or ("spill_dir" in kw and (os.path.exists(kw["spill_dir"]) or not s["spilled_bytes"])):
+            fail(f"beyond-card build, {route}: {s['leaves_off']} leaves off the card, {s['spilled_bytes']} bytes "
+                 "spilled, or the spill directory was left")
+        same = all(torch.equal(x, y.to(dev)) for x, y in ((first.keys_t, idx.keys_t), (first.taxa_t, idx.taxa_t)))
+        if not same:
+            fail(f"the beyond-card build through {route} differs from the one under the default budget")
+        del idx
+    log(f"beyond-card: the three builds give the same {first.num_records} records, keys strictly increasing, every "
+        "taxon defined")
+    reads = workloads.scale_reads(bp, BEYOND_TAXA, library=genomes)
+    del genomes
+    n_reads = sum(len(p) for p in reads)
+    t0 = time.perf_counter()
+    cls = Classifier(first, dev)
+    cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
+    cls.classify_and_write_packed(reads[:1], os.path.join(out, "beyond_warm"), cpar)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dt = timed_runs(lambda r: cls.classify_and_write_packed(reads, os.path.join(out, "beyond"), cpar), n=1)[0]
+    c, total = classified_count(os.path.join(out, "beyond_c0.0", "all_kreport.txt"))
+    log(f"beyond-card classify on the card: {n_reads} reads in {dt:.3f} s ({n_reads / dt:.1f} reads/s; the "
+        f"directory and a warm batch {load_s:.2f} s), classified {c} ({100.0 * c / n_reads:.2f}%); peak "
+        f"torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    if total != n_reads or c < 0.99 * n_reads:
+        fail(f"beyond-card classified {c} of {total} reads")
+    launches = dict(cuda_kernels.LAUNCHES)
+    require_launches("beyond-card builds and classify", launches)
+    return launches
+
+
+def main_classify2_scale(dev, out):
+    """--classify2-scale: phase_classify2_scale alone, on the scale library
+    made in host memory."""
+    from slacken_tpu_torch import workloads
+
+    phase_classify2_scale(dev, out, list(workloads.scale_library(SCALE_BP, SCALE_TAXA)))
+
+
 def main():
     import torch
 
@@ -2719,8 +3081,9 @@ def main():
     out = os.path.join(HERE, ".smoke_out")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    if sys.argv[1:] == ["--across-cards"]:
-        main_across_cards(dev, out)
+    if sys.argv[1:] in (["--across-cards"], ["--beyond-card"], ["--classify2-scale"]):
+        {"--across-cards": main_across_cards, "--beyond-card": main_beyond_card,
+         "--classify2-scale": main_classify2_scale}[sys.argv[1]](dev, out)
         shutil.rmtree(out, ignore_errors=True)
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                 "count": torch.cuda.device_count()}}))
@@ -2740,11 +3103,13 @@ def main():
     del bench
     genomes = []
     by_path["scale"], scale_idx = phase_scale(dev, out, results, genomes)
+    by_path["build_bounded"] = phase_build_bounded(dev, out, genomes, scale_idx)
     by_path["mesh"] = phase_mesh_scale(dev, out, genomes, scale_idx)
     scale_idx.save_sharded(os.path.join(out, "idx8_scale"), MH_SHARDS)  # for phase_multihost
     del scale_idx
     by_path["wide"] = phase_wide(dev, out, reads, results, genomes, bases)
     by_path["ordering"] = phase_ordering(dev, out, reads, bases)
+    add_launches(by_path["build_bounded"], phase_build_bounded_bench(dev, out, bases))
     by_path["classify2"] = phase_classify2(dev, out, reads, bases)
     by_path["bracken"] = phase_bracken(dev, out, bases)
     by_path["compare_index"] = phase_compare_index(dev, out, bases)

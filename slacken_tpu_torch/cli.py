@@ -1,7 +1,8 @@
 """Command-line interface of the port: `build` (--ordering for an explicit
 minimizer ordering, -m up to 63 for wide keys, --full-records for the
-sidecar that makes dynamic builds a filter, --check to only check the
-inputs), `classify` (per-read output by default, --no-detailed for reports
+sidecar that makes dynamic builds a filter, --spill-dir for range files in
+place of host memory where the build's leaves leave the device, --check to
+only check the inputs), `classify` (per-read output by default, --no-detailed for reports
 only, -p for paired files), `classify2` (two-step classification with a
 dynamic index, --bracken-length for its Bracken weights), `bracken-build`,
 `respace`, `stats`, `inspect`, `compareIndex`, `compare`, `inputCheck` and
@@ -45,6 +46,9 @@ def _build_parser():
                         "the library and prefers rare minimizers; signature = KMC2/3 signature ordering)")
     b.add_argument("--full-records", action="store_true",
                    help="Also store the full (minimizer, taxon) records, enabling fast dynamic (classify2) rebuilds")
+    b.add_argument("--spill-dir",
+                   help="Range-partitioned on-disk spill directory for beyond-RAM builds: leaves that leave the "
+                        "device go to range files there in place of host memory (removed after the build)")
     b.add_argument("--devices", type=int, help="Build with the key-range shuffle on an n-device mesh")
     b.add_argument("--shards", type=int,
                    help="Save the index as N contiguous key-range shard files (the save_sharded layout)")
@@ -222,10 +226,10 @@ def cmd_build(args, device):
         from .parallel.mesh import make_mesh
 
         idx = build_distributed(lib.taxa_sequences(), params, tax, make_mesh(args.devices, device),
-                                ordering_lut=ordering_lut, keep_records=args.full_records)
+                                ordering_lut=ordering_lut, keep_records=args.full_records, spill_dir=args.spill_dir)
     else:
         idx = KeyValueIndex.build(lib.taxa_sequences(), params, tax, device, ordering_lut=ordering_lut,
-                                  keep_records=args.full_records)
+                                  keep_records=args.full_records, spill_dir=args.spill_dir)
     if args.shards:
         idx.save_sharded(args.index, n_shards=args.shards)
         print(f"Saved {idx.num_records} records to {args.index} ({args.shards} shards)")

@@ -8,12 +8,14 @@ a sample-tailored index restricted to that taxon set (plus descendants) and
 classify all reads against it.
 
 The span hits behind the minimizer criteria are made and counted on the
-device: the scan kernel, the probe kernel, one mask (span start, found, deep
-enough) and a select; only the per-taxon counts reach the host. The dynamic
-index comes from the base index's full-records sidecar where it has one
-(`KeyValueIndex.build_restricted`, no second scan of the genomes), else from
-the library with a taxon filter; either way its keys and taxa stay on the
-device and the final classification probes them there.
+device a batch at a time: the scan kernel, the probe kernel, one mask (span
+start, found, deep enough) and a select; total counts add up batch by batch
+on the device, and each batch's (key, taxon) hits go into a bounded merge
+tree of distinct pairs (index.MergeTree); only the per-taxon counts reach the
+host. The dynamic index comes from the base index's full-records sidecar
+where it has one (`KeyValueIndex.build_restricted`, no second scan of the
+genomes), else from the library with a taxon filter; either way its keys and
+taxa stay on the device and the final classification probes them there.
 
 With `devices` and `layout` (as the classify CLI's --devices and --layout)
 every step runs over the mesh, as in the reference every step is a
@@ -32,7 +34,7 @@ import torch
 
 from . import get_device
 from .classify import Classifier, ClassifyParams, Fragment, _row_length_bucket
-from .index import KeyValueIndex, distinct_pairs, taxon_counts
+from .index import KeyValueIndex, MergeTree, taxon_counts
 from .ops import encode
 from .parallel.classifier import build_distributed, make_classifier, requested_mesh
 from .report import TreeAggregator
@@ -118,6 +120,7 @@ class Dynamic:
         device="cuda",
         devices=None,
         layout: Optional[str] = None,
+        device_budget: Optional[int] = None,
     ):
         self.base = base
         self.genomes = genomes
@@ -129,6 +132,9 @@ class Dynamic:
         self.device = get_device(device)
         self.devices = devices
         self.layout = layout
+        #: bytes of the merge tree that collects distinct span hits (None:
+        #: index.default_device_budget)
+        self.device_budget = device_budget
         self._base_classifier: Optional[Classifier] = None
 
     @property
@@ -147,18 +153,16 @@ class Dynamic:
 
     # -- counting methods (Dynamic.scala:95-142) ----------------------------
 
-    def _span_hits(self, fragments: Sequence[Fragment]) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _span_hit_batches(self, fragments: Sequence[Fragment]):
         """Per-span (minimizer key, LCA taxon) pairs against the base index,
-        for spans whose taxon is at depth >= the reclassify rank, as tensors
-        on the classifier's (first) device: int64 [S] keys (int64 [S, 2] rows
-        of (hi64, lo64) for a wide index) and int32 [S] taxa. Over a mesh
-        each device keeps its rows' hits, and they are gathered in row order."""
+        for spans whose taxon is at depth >= the reclassify rank, a batch's
+        rows at a time (over a mesh, a device's chunk of them), as tensors on
+        the classifier's (first) device: int64 [S] keys (int64 [S, 2] rows
+        of (hi64, lo64) for a wide index) and int32 [S] taxa."""
         cls = self._classifier()
         home = cls.device
         depth = torch.from_numpy(self.taxonomy.depth_std)
         depths = {}
-        out_keys: List[torch.Tensor] = []
-        out_taxa: List[torch.Tensor] = []
         for bucket, frags in _bucketize(fragments, cls):
             packed, valid = encode.pack_2bit(cls._pack_rows(frags, bucket).codes)
             for wm, looked in cls.scan_probe(packed, valid):
@@ -168,20 +172,38 @@ class Dynamic:
                 # span_start implies valid: the scan sets it on valid windows only
                 # (kernels and twin alike), and an invalid window's -1 finds nothing
                 keep = wm.span_start & (looked > 0) & (depths[dev][looked.long()] >= self.rank_depth)
-                out_keys.append(wm.minimizer[keep].to(home, non_blocking=True))
-                out_taxa.append(looked[keep].to(home, non_blocking=True))
-        if not out_keys:
+                yield wm.minimizer[keep].to(home, non_blocking=True), looked[keep].to(home, non_blocking=True)
+
+    def _span_hits(self, fragments: Sequence[Fragment]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every span hit of `_span_hit_batches`, gathered in row order (for
+        the tests; the counts below never hold them all at once)."""
+        batches = list(self._span_hit_batches(fragments))
+        if not batches:
+            home = self._classifier().device
             return (
                 torch.zeros((0, 2) if self.base.wide else 0, dtype=torch.int64, device=home),
                 torch.zeros(0, dtype=torch.int32, device=home),
             )
-        return torch.cat(out_keys), torch.cat(out_taxa)
+        return torch.cat([k for k, _ in batches]), torch.cat([t for _, t in batches])
 
     def total_minimizers_per_taxon(self, fragments) -> Dict[int, int]:
-        return taxon_counts(self._span_hits(fragments)[1])
+        """Span hits per taxon, in taxon order: each batch's counts added on
+        the classifier's device, read once at the end."""
+        total = torch.zeros(len(self.taxonomy.depth_std), dtype=torch.int64, device=self._classifier().device)
+        for _, taxa in self._span_hit_batches(fragments):
+            total.index_add_(0, taxa.long(), torch.ones_like(taxa, dtype=torch.int64))
+        found = torch.nonzero(total).flatten()
+        return dict(zip(found.tolist(), total[found].tolist()))
 
     def distinct_minimizers_per_taxon(self, fragments) -> Dict[int, int]:
-        return taxon_counts(distinct_pairs(*self._span_hits(fragments))[1])
+        """Distinct (key, taxon) span hits per taxon, in taxon order: each
+        batch's hits go into a MergeTree of pairs on the classifier's device,
+        bounded by `device_budget`, whose leaves and merges drop repeats."""
+        tree = MergeTree(self._classifier().device, self.taxonomy, self.base.params.m, pairs=True,
+                         device_budget=self.device_budget)
+        for keys, taxa in self._span_hit_batches(fragments):
+            tree.add(keys, taxa)
+        return taxon_counts(tree.finish(index=False)[1])
 
     def classified_reads_per_taxon(self, fragments, confidence: float) -> Dict[int, int]:
         cpar = ClassifyParams(

@@ -18,18 +18,27 @@ taxa.<i:05d>.npy for i < S in place of keys.npy and taxa.npy.
 
 With an explicit ordering (ops/ordering.py, m <= 15) a key is the rank of
 its minimizer in the index's table. The build is one pass for every kind:
-scan each batch of genome rows (a CUDA scan kernel on the card), keep the
-span-start minimizers with their row's taxon, then one sort by key (two
-stable torch.sort passes over the limbs of wide keys) and a segment LCA
-per run of equal keys. Every valid window's minimizer is the minimizer
-of its span's start, so these records hold exactly each sequence's distinct
-valid-window minimizers; LCA ignores order and duplicates, so no
-(key, taxon) pair sort or dedup is needed.
+scan each batch of genome rows (a CUDA scan kernel on the card) and keep the
+span-start minimizers with their row's taxon. Every valid window's minimizer
+is the minimizer of its span's start, so these records hold exactly each
+sequence's distinct valid-window minimizers; LCA ignores order and
+duplicates, so no (key, taxon) pair sort or dedup is needed.
+
+The records go through a merge tree within a device memory budget
+(`MergeTree`, the device_reduce route of slacken_tpu's build): every
+`superbatch` raw records are sorted (two stable torch.sort passes over the
+limbs of wide keys) and reduced, a segment LCA per run of equal keys, into a
+leaf; leaves merge pairwise; a leaf that reaches the budget's leaf size
+leaves the device, to host memory or with `spill_dir` to a `SpillCollector`'s
+range files; and the last merge runs range by range on the device. LCA is
+associative, so this is the index of one sort over every record. An index
+within the budget ends on the build's device, a larger one on the host.
 
 A keep_records build also keeps the distinct (key, taxon) pairs, sorted by
 key and then taxon (one more stable sort pass, the taxon first): the sidecar
 from which `build_restricted` makes the index of a taxon subset by a mask, a
-select and the same run reduce, without a second scan of the genomes.
+select and the same run reduce, without a second scan of the genomes. Its
+leaves hold such pairs, and the index is reduced from them range by range.
 `respace` is one mask over the keys, a sort and that reduce again.
 
 IndexParams and the host-side fragment splitting follow
@@ -39,7 +48,10 @@ slacken_tpu/index.py's.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
+import os
+import shutil
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
@@ -59,6 +71,7 @@ from .ops.minimizers import (
     window_minimizers_packed,
 )
 from .taxonomy import Taxonomy
+from .utils import PhaseTimers
 
 FORMAT_VERSION = 1
 ORDERINGS = ("xor", "lexicographic", "signature", "frequency", "given")
@@ -185,17 +198,442 @@ def taxon_counts(taxa: torch.Tensor) -> Dict[int, int]:
     return dict(zip(t.tolist(), c.tolist()))
 
 
-def _reduce_sorted(keys: torch.Tensor, taxa: torch.Tensor, taxonomy: Taxonomy):
+def _reduce_sorted(keys: torch.Tensor, taxa: torch.Tensor, taxonomy: Taxonomy,
+                   table: Optional[torch.Tensor] = None):
     """(distinct keys, the LCA of each key's taxa) of records sorted by key:
-    the tail that build, build_restricted and respace share."""
+    the tail that build, build_restricted and respace share. `table` is the
+    taxonomy's rpath table on the records' device, copied there if None."""
     if keys.shape[0] == 0:
         return keys, taxa
     new = torch.ones_like(taxa, dtype=torch.bool)
     new[1:] = _differs(keys)
     run_ids = torch.cumsum(new, 0) - 1
     uniq = keys[new]
-    table = torch.from_numpy(taxonomy.rpath_table()).to(keys.device)
+    if table is None:
+        table = torch.from_numpy(taxonomy.rpath_table()).to(keys.device)
     return uniq, segment_lca_table(run_ids, taxa, table, int(uniq.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# Key ranges: boundaries, owners, cuts of sorted runs
+# ---------------------------------------------------------------------------
+
+
+def _wide_pattern(v: int) -> Tuple[int, int]:
+    """(hi64, lo64) of a non-negative 128-bit value as int64 bit patterns."""
+    lo = v & ((1 << 64) - 1)
+    return v >> 64, lo - (1 << 64) if lo >> 63 else lo
+
+
+def sample_boundaries(keys: torch.Tensor, n: int, m: int) -> list:
+    """n - 1 range boundaries from a sample of span keys (int64 [S], or
+    [S, 2] for a wide m): the keys at positions i * S // n of the sorted
+    sample, as slacken_tpu's sample_shuffle_boundaries takes them; without a
+    sample, n-quantiles of the 2m-bit key space. Python ints (narrow) or
+    (hi64, lo64) pairs of int64 bit patterns (wide)."""
+    wide = keys.dim() == 2
+    s = keys.shape[0]
+    if s == 0:
+        if wide:
+            return [_wide_pattern((i << (2 * m)) // n) for i in range(1, n)]
+        return [i * ((1 << 62) // n) for i in range(1, n)]
+    keys = keys[sort_order(*key_columns(keys))]
+    picked = keys[torch.tensor([i * s // n for i in range(1, n)], dtype=torch.long, device=keys.device)]
+    return [tuple(row) for row in picked.tolist()] if wide else picked.tolist()
+
+
+def owners(keys: torch.Tensor, bounds: list) -> torch.Tensor:
+    """int64 [S]: the owner of each key, the number of boundaries at or below
+    it (wide keys: hi64, then lo64 unsigned)."""
+    dest = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    if keys.dim() == 1:
+        for b in bounds:
+            dest += keys >= b
+        return dest
+    hi, lo = keys[:, 0], keys[:, 1] ^ INT64_MIN
+    for b_hi, b_lo in bounds:
+        dest += (hi > b_hi) | ((hi == b_hi) & (lo >= (b_lo ^ INT64_MIN)))
+    return dest
+
+
+def by_owner(keys: torch.Tensor, taxa: torch.Tensor, bounds: list, n: int):
+    """[(keys, taxa)] of each owner 0..n-1, on the records' device."""
+    dest, order = torch.sort(owners(keys, bounds), stable=True)
+    counts = torch.bincount(dest, minlength=n).tolist()
+    return list(zip(torch.split(keys[order], counts), torch.split(taxa[order], counts)))
+
+
+def _bounds_tensor(bounds: list, wide: bool) -> torch.Tensor:
+    """Boundaries as sample_boundaries gives them, as an int64 [n] or [n, 2]
+    tensor on the host."""
+    t = torch.tensor(bounds, dtype=torch.int64)
+    return t.reshape(-1, 2) if wide else t.reshape(-1)
+
+
+def _positions(keys: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """int64 [n]: in sorted keys ([R] or [R, 2], ordered as key_columns
+    orders them), the first position whose key is at or above each of the
+    sorted `bounds` (on the keys' device). Wide keys: the run of equal hi64
+    by searchsorted, then lo64 (unsigned) inside it, a bound at a time."""
+    if keys.dim() == 1:
+        return torch.searchsorted(keys, bounds)
+    hi = keys[:, 0].contiguous()
+    first = torch.searchsorted(hi, bounds[:, 0].contiguous())
+    last = torch.searchsorted(hi, bounds[:, 0].contiguous(), right=True)
+    out = first.clone()
+    for j in torch.nonzero(last > first).flatten().tolist():
+        a, b = int(first[j]), int(last[j])
+        lo = keys[a:b, 1] ^ INT64_MIN
+        out[j] = a + torch.searchsorted(lo, bounds[j : j + 1, 1] ^ INT64_MIN)[0]
+    return out
+
+
+def _range_cuts(runs: List[torch.Tensor], limit: int) -> List[List[int]]:
+    """Cut positions [0, p_1, ..., n] in each sorted run of keys (on any
+    device) at common boundary keys, so that no key spans two ranges and each
+    range holds at most `limit` entries of all the runs together (save one
+    key alone holding more, which only pairs of one key with many taxa
+    could). The boundaries come from a sample of every run at a stride s of
+    limit / (4 runs): a range holding j sample keys holds fewer than
+    (j + runs) s entries, so a range takes at most limit / s - runs of them."""
+    step = max(1, limit // (4 * len(runs)))
+    per_range = max(1, limit // step - len(runs))
+    sample = torch.cat([k[::step].cpu() for k in runs])
+    rows = sample[sort_order(*key_columns(sample))].tolist()
+    bounds, held = [], 0
+    for i, row in enumerate(rows):
+        if held >= per_range and row != rows[i - 1]:
+            bounds.append(row)
+            held = 0
+        held += 1
+    if not bounds:
+        return [[0, int(k.shape[0])] for k in runs]
+    b = _bounds_tensor(bounds, runs[0].dim() == 2)
+    return [[0, *_positions(k, b.to(k.device)).tolist(), int(k.shape[0])] for k in runs]
+
+
+# ---------------------------------------------------------------------------
+# The bounded build: the leaf merge tree and the spill collector
+# ---------------------------------------------------------------------------
+
+#: bytes a record held on a device takes: an int64 key (two for a wide m)
+#: and an int32 taxon
+HELD_BYTES = {False: 12, True: 20}
+#: peak bytes a record takes in one device sort and reduce
+#: (MergeTree._reduce), its inputs, the sort's transients and the outputs
+#: included: the largest of 12 readings a width at 2^25 records on an NVIDIA
+#: H100 (chip_smoke.py's merge_bytes: by LCA, into pairs and a keep_records
+#: final merge, with distinct keys and with every key twice; narrow 87.00,
+#: wide 111.00, each by LCA and in the final merge), plus about 10%
+MERGE_BYTES = {False: 96, True: 124}
+#: the most records one device sort takes: a merge of more goes range by
+#: range, so that a merge's transients stay small beside the leaves
+RANGE_ENTRIES = 1 << 25
+#: device memory that the build leaves out of its budget: the scan batch
+#: (about 1 GB at 8192 x 4096 positions) and what runs beside the build
+DEVICE_RESERVE = 4 << 30
+
+
+def default_device_budget(device) -> Optional[int]:
+    """Bytes of device memory that a build's merge tree may take on `device`:
+    on a card what is free now (mem_get_info's free bytes, and the blocks
+    that PyTorch's caching allocator holds unused) less DEVICE_RESERVE; None
+    on the CPU, where leaves off the device would land in the same memory."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return max(free + cached - DEVICE_RESERVE, 0)
+
+
+class MergeTree:
+    """(key, taxon) records collected on one device within a memory budget:
+    the device_reduce route of slacken_tpu's KeyValueIndex.build
+    (slacken_tpu/index.py:1005-1311, `_reduce_chunks_kernel`), with
+    explicit sizes in place of its STPU_BUILD_SUPERBATCH and
+    STPU_BUILD_DEVICE_BUDGET.
+
+      * Raw records `add`ed batch by batch gather until `superbatch` of them,
+        then one sort and reduce makes them a leaf.
+      * The two newest leaves merge while the older holds at most twice the
+        newer (`reduce_raw`), never one growing carry against each batch,
+        which is quadratic.
+      * A leaf that reaches `leaf_entries` leaves the device: to host
+        memory, or with `spill_dir` to a SpillCollector's range files.
+      * `finish` merges what is left: on the device if nothing left it, else
+        from the host or the range files, range by range on the device.
+
+    A leaf holds distinct keys with the LCA of their taxa so far, or with
+    `pairs` the distinct (key, taxon) pairs sorted by key, then taxon. LCA is
+    associative and ignores duplicates, so any grouping of the records into
+    leaves reduces to the index of one sort over them all.
+
+    Sizes from a budget of B bytes (h = HELD_BYTES, c = MERGE_BYTES; the
+    default B is default_device_budget, none on the CPU):
+      * one device sort takes at most range_entries = min(RANGE_ENTRIES,
+        B / 4c) records: a quarter of B for a merge's sort and reduce;
+        larger merges go range by range, cut at common keys;
+      * leaf_entries = B / 8h. The leaves on the device hold fewer than 2
+        leaf_entries records (each older leaf holds over twice the next), a
+        merge writes at most as many again in range pieces and, once its
+        inputs are freed, their concatenation: under 4 leaf_entries records
+        held, B / 2;
+      * raw chunks reach superbatch (default range_entries) and one batch;
+      * the final merge writes to the device where its output, pieces and
+        concatenation, takes at most B / 2.
+    On an H100 with 84 GB free, B is about 80 GB: leaves of up to 835M
+    narrow records stay on the card, and a sort takes 33.5M.
+    `stats` counts leaves, merges, leaves off the device and bytes spilled;
+    `phases` (utils.PhaseTimers) times leaf reduce, leaf merges, leaves off
+    the card, spill writes and the final range merge."""
+
+    def __init__(self, device, taxonomy: Taxonomy, m: int, pairs: bool = False,
+                 superbatch: Optional[int] = None, device_budget: Optional[int] = None,
+                 spill_dir: Optional[str] = None, phases: Optional[PhaseTimers] = None):
+        self.device = torch.device(device)
+        self.taxonomy = taxonomy
+        self.wide = m > 31
+        self.pairs = pairs
+        self.budget = default_device_budget(self.device) if device_budget is None else device_budget
+        held, merge = HELD_BYTES[self.wide], MERGE_BYTES[self.wide]
+        if self.budget is None:
+            self.range_entries, self.leaf_entries = RANGE_ENTRIES, None
+        else:
+            self.range_entries = max(1, min(RANGE_ENTRIES, self.budget // (4 * merge)))
+            self.leaf_entries = max(1, self.budget // (8 * held))
+        self.superbatch = superbatch or self.range_entries
+        self.phases = phases or PhaseTimers()
+        self.spill = SpillCollector(spill_dir, m=m) if spill_dir else None
+        self._table: Optional[torch.Tensor] = None
+        self._index = True  # finish's reduce also makes the index from pairs
+        self.chunks: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.raw = 0
+        self.leaves: List[tuple] = []  # on the device, oldest first
+        self.off: List[tuple] = []  # leaves in host memory
+        self.stats = {"leaves": 0, "merges": 0, "leaves_off": 0, "spilled_bytes": 0, "spill_ranges": 0,
+                      "leaf_entries": self.leaf_entries, "range_entries": self.range_entries,
+                      "superbatch": self.superbatch, "budget": self.budget}
+
+    def _empty(self, device) -> tuple:
+        keys = torch.zeros((0, 2) if self.wide else 0, dtype=torch.int64, device=device)
+        return keys, torch.zeros(0, dtype=torch.int32, device=device)
+
+    def _columns(self) -> int:
+        return 4 if self.pairs and self._index else 2
+
+    def add(self, keys: torch.Tensor, taxa: torch.Tensor) -> None:
+        """Raw records on the tree's device: int64 [R] (or [R, 2]) keys, int32
+        [R] taxa."""
+        if keys.shape[0] == 0:
+            return
+        self.chunks.append((keys, taxa))
+        self.raw += int(keys.shape[0])
+        if self.raw >= self.superbatch:
+            self._leaf_from_chunks()
+
+    def _reduce(self, keys: torch.Tensor, taxa: torch.Tensor, final: bool = False) -> tuple:
+        """One sort and reduce on the device: (distinct keys, their LCA) or
+        with `pairs` the distinct pairs; `final` with pairs adds the index
+        reduced from the pairs in front of them."""
+        if self._table is None:
+            self._table = torch.from_numpy(self.taxonomy.rpath_table()).to(self.device)
+        if not self.pairs:
+            return _reduce_sorted(*_sort_records(keys, taxa), self.taxonomy, self._table)
+        keys, taxa = distinct_pairs(keys, taxa)
+        if final and self._index:
+            return (*_reduce_sorted(keys, taxa, self.taxonomy, self._table), keys, taxa)
+        return keys, taxa
+
+    def _leaf_from_chunks(self) -> None:
+        """Reduce the raw chunks into a leaf, merge the newest leaves while
+        within 2x of each other, and move a leaf at leaf_entries off."""
+        with self.phases.phase("leaf reduce"):
+            keys = torch.cat([k for k, _ in self.chunks])
+            taxa = torch.cat([t for _, t in self.chunks])
+            self.chunks, self.raw = [], 0
+            self.leaves.append(self._reduce(keys, taxa))
+            del keys, taxa
+        self.stats["leaves"] += 1
+        while len(self.leaves) > 1 and _n(self.leaves[-2]) <= 2 * _n(self.leaves[-1]):
+            with self.phases.phase("leaf merges"):
+                self.leaves.append(self._merge([self.leaves.pop(-2), self.leaves.pop()], self.device))
+            self.stats["merges"] += 1
+        # older leaves hold over twice the newest, and each was below
+        # leaf_entries when it was the newest
+        while self.leaves and self.leaf_entries is not None and _n(self.leaves[-1]) >= self.leaf_entries:
+            self._move_off(self.leaves.pop())
+
+    def _move_off(self, leaf: tuple) -> None:
+        self.stats["leaves_off"] += 1
+        with self.phases.phase("leaves off the card"):
+            if self.spill is None:
+                # .cpu() copies synchronously: the host arrays are complete
+                self.off.append(tuple(x.cpu() for x in leaf))
+                return
+            with self.phases.phase("spill writes"):
+                self.spill.add(*leaf, sorted=True)
+
+    def _pieces(self, runs: list, out, final: bool = False) -> List[tuple]:
+        """Merge sorted runs of (keys, taxa) (on the device or the host):
+        one sort where they hold at most range_entries records, else range
+        by range, each range's slices copied to the device, reduced there and
+        moved to `out`. `runs` is emptied before the pieces are returned."""
+        total = sum(_n(r) for r in runs)
+        if total <= self.range_entries:
+            cuts = [[0, _n(r)] for r in runs]
+        else:
+            cuts = _range_cuts([k for k, _ in runs], self.range_entries)
+        pieces = []
+        for j in range(len(cuts[0]) - 1 if cuts else 0):
+            parts = [(k[c[j] : c[j + 1]], t[c[j] : c[j + 1]]) for (k, t), c in zip(runs, cuts) if c[j + 1] > c[j]]
+            if not parts:
+                continue
+            keys = torch.cat([k.to(self.device) for k, _ in parts])
+            taxa = torch.cat([t.to(self.device) for _, t in parts])
+            del parts
+            pieces.append(tuple(x.to(out) for x in self._reduce(keys, taxa, final)))
+            del keys, taxa
+        runs.clear()
+        return pieces
+
+    def _merge(self, runs: list, out, final: bool = False) -> tuple:
+        return _concat(self._pieces(runs, out, final), self._columns() if final else 2, self._empty(out))
+
+    def _out(self, entries: int) -> torch.device:
+        """Where the final merge writes: the device, where the result (at
+        most `entries` records a column pair), its pieces and their
+        concatenation take at most half the budget; else the host."""
+        fits = self.budget is None or entries * HELD_BYTES[self.wide] * self._columns() <= self.budget // 2
+        return self.device if fits else torch.device("cpu")
+
+    def finish(self, index: bool = True) -> tuple:
+        """The merged records: (keys, taxa) of the index, or with `pairs` the
+        distinct pairs after the index's two columns (without `index`, the
+        pairs alone). On the device where they fit within the budget, else
+        on the host. Removes the spill directory once merged."""
+        self._index = index
+        if self.chunks:
+            self._leaf_from_chunks()
+        with self.phases.phase("final range merge"):
+            if not self.stats["leaves_off"]:
+                result = self._finish_resident()
+            else:
+                while self.leaves:
+                    self._move_off(self.leaves.pop())
+                if self.spill is None:
+                    result = self._merge(self.off, self._out(sum(_n(r) for r in self.off)), final=True)
+                else:
+                    out = self._out(self.spill.entries)
+                    pieces = [p for runs in self.spill.ranges() for p in self._pieces(runs, out, final=True)]
+                    result = _concat(pieces, self._columns(), self._empty(out))
+                    self.stats["spilled_bytes"] = self.spill.bytes
+                    self.stats["spill_ranges"] = sum(1 for r in self.spill.runs if r)
+        if self.spill is not None:
+            self.spill.cleanup()
+        return result
+
+    def _finish_resident(self) -> tuple:
+        """finish where every leaf stayed on the device. One leaf is the
+        result as it is (slacken_tpu's reduce_chunks), with pairs and the
+        index the index reduced from it (sorted already) in front."""
+        if not self.leaves:
+            return _concat([], self._columns(), self._empty(self.device))
+        if len(self.leaves) == 1:
+            leaf = self.leaves.pop()
+            if self._columns() == 4:
+                return (*_reduce_sorted(*leaf, self.taxonomy, self._table), *leaf)
+            return leaf
+        return self._merge(self.leaves, self.device, final=True)
+
+
+def _n(records: tuple) -> int:
+    return int(records[0].shape[0])
+
+
+def _concat(pieces: List[tuple], columns: int, empty: tuple) -> tuple:
+    """Pieces of `columns` columns concatenated column by column; `empty`'s
+    (keys, taxa) shapes for each pair of columns where there is none."""
+    if not pieces:
+        return empty * (columns // 2)
+    if len(pieces) == 1:
+        return pieces[0]
+    return tuple(torch.cat([p[c] for p in pieces]) for c in range(columns))
+
+
+class SpillCollector:
+    """Records cut into key ranges on disk, for builds beyond device and host
+    memory (counterpart of slacken_tpu/index.py's SpillCollector). Each
+    batch of records `add`ed is sorted, cut at fixed range boundaries and
+    appended to the range's files k{r:04d}.bin (uint64 keys, [N] or [N, 2]
+    rows) and t{r:04d}.bin (int32 taxa); each add's part of a range is one
+    sorted run, whose length is kept. `ranges` then reads one range at a
+    time, for MergeTree to merge on the device (a range larger than its
+    range limit is cut again at its own quantiles). The boundaries are the
+    n_ranges-quantiles of the first batch's keys (sample_boundaries), not
+    slacken_tpu's uniform bounds of the key space, under which rank-table
+    keys (all below 4^m) would fill one range. A crashed build's range files
+    in the directory are removed first; `cleanup` removes the directory."""
+
+    def __init__(self, directory: str, n_ranges: int = 64, m: int = 31):
+        os.makedirs(directory, exist_ok=True)
+        for stale in glob.glob(os.path.join(directory, "k[0-9]*.bin")) + glob.glob(
+                os.path.join(directory, "t[0-9]*.bin")):
+            os.unlink(stale)
+        self.dir = directory
+        self.n_ranges = n_ranges
+        self.m = m
+        self.wide = m > 31
+        self.bounds: Optional[torch.Tensor] = None
+        self.runs: List[List[int]] = [[] for _ in range(n_ranges)]  # lengths of the runs of each range
+        self.entries = 0
+        self.bytes = 0
+
+    def _paths(self, r: int) -> Tuple[str, str]:
+        return os.path.join(self.dir, f"k{r:04d}.bin"), os.path.join(self.dir, f"t{r:04d}.bin")
+
+    def add(self, keys, taxa, sorted: bool = False) -> None:
+        """Records as tensors (anywhere) or host arrays (uint64 keys, int32
+        taxa); `sorted` if they are sorted by key already."""
+        if isinstance(keys, np.ndarray):
+            keys = torch.from_numpy(np.ascontiguousarray(keys, np.uint64).view(np.int64))
+            taxa = torch.from_numpy(np.ascontiguousarray(taxa, np.int32))
+        if keys.shape[0] == 0:
+            return
+        if not sorted:
+            keys, taxa = _sort_records(keys, taxa)
+        if self.bounds is None:
+            sample = keys[:: max(1, keys.shape[0] >> 16)]
+            self.bounds = _bounds_tensor(sample_boundaries(sample, self.n_ranges, self.m), self.wide)
+        cuts = [0, *_positions(keys, self.bounds.to(keys.device)).tolist(), int(keys.shape[0])]
+        keys, taxa = keys.cpu().numpy(), taxa.cpu().numpy()
+        for r in range(self.n_ranges):
+            a, b = cuts[r], cuts[r + 1]
+            if a == b:
+                continue
+            kp, tp = self._paths(r)
+            with open(kp, "ab") as kf, open(tp, "ab") as tf:
+                kf.write(keys[a:b].tobytes())
+                tf.write(taxa[a:b].tobytes())
+            self.runs[r].append(b - a)
+            self.entries += b - a
+            self.bytes += keys[a:b].nbytes + taxa[a:b].nbytes
+
+    def ranges(self):
+        """Each non-empty range, in key order, as its runs: [(keys, taxa)]
+        host tensors read from its files."""
+        for r, runs in enumerate(self.runs):
+            if not runs:
+                continue
+            kp, tp = self._paths(r)
+            keys = torch.from_numpy(np.fromfile(kp, dtype=np.int64))
+            taxa = torch.from_numpy(np.fromfile(tp, dtype=np.int32))
+            if self.wide:
+                keys = keys.reshape(-1, 2)
+            yield list(zip(torch.split(keys, runs), torch.split(taxa, runs)))
+
+    def cleanup(self) -> None:
+        shutil.rmtree(self.dir, ignore_errors=True)
 
 
 def _default_batch(device: torch.device) -> Tuple[int, int]:
@@ -271,6 +709,9 @@ class KeyValueIndex:
         self.ordering_lut = ordering_lut
         self.record_keys_t: Optional[torch.Tensor] = None
         self.record_taxa_t: Optional[torch.Tensor] = None
+        #: a build's MergeTree counts, and with trace its phase walls (seconds)
+        self.build_stats: Optional[dict] = None
+        self.build_phases: Optional[Dict[str, float]] = None
         self._on = {}
         self._luts = {}
 
@@ -345,11 +786,24 @@ class KeyValueIndex:
         ordering_lut: Optional[np.ndarray] = None,
         taxon_filter: Optional[Set[int]] = None,
         keep_records: bool = False,
+        spill_dir: Optional[str] = None,
+        superbatch: Optional[int] = None,
+        device_budget: Optional[int] = None,
+        trace: bool = False,
     ) -> "KeyValueIndex":
         """Build from (taxon, sequence) pairs on `device`. `ordering_lut` is
         the rank table of a "frequency" or "given" ordering; `taxon_filter`
         drops sequences whose taxon is outside the set (dynamic builds);
-        `keep_records` keeps the full-records sidecar for build_restricted."""
+        `keep_records` keeps the full-records sidecar for build_restricted.
+        The records go through a MergeTree on `device`: `device_budget`
+        (bytes; default default_device_budget) and `superbatch` (raw records
+        a leaf) size it, and `spill_dir` sends its leaves off the device to
+        a SpillCollector's range files there in place of host memory (the
+        directory is removed after the build). The index ends on `device`
+        where it fits within the budget, else on the host. `trace` records
+        the walls of the build's phases (fragment source, packing, scan
+        dispatch and the tree's) in `build_phases`; `build_stats` holds the
+        tree's counts."""
         device = torch.device(device)
         mp = params.minimizer_params.validate()
         ordering_lut = _rank_table(params, ordering_lut)
@@ -361,27 +815,30 @@ class KeyValueIndex:
         row_len = row_len or d_len
         if row_len % 8 or row_len < params.k:
             raise ValueError(f"row_len must be a multiple of 8 and >= k, got {row_len}")
-        keys_parts, taxa_parts = [], []
-        for codes, row_taxa, _ in _batches(fragments, params, taxonomy, batch_rows, row_len, taxon_filter):
-            packed, valid = encode.pack_2bit(codes)
-            wm = window_minimizers_packed(to_device(packed, device), to_device(valid, device), mp, lut)
-            rt = torch.from_numpy(row_taxa).to(device)
-            keys_parts.append(wm.minimizer[wm.span_start])
-            taxa_parts.append(rt[:, None].expand(-1, row_len)[wm.span_start])
-        if keys_parts:
-            keys = torch.cat(keys_parts)
-            taxa = torch.cat(taxa_parts)
-        else:
-            keys = torch.zeros((0, 2) if mp.wide else 0, dtype=torch.int64, device=device)
-            taxa = torch.zeros(0, dtype=torch.int32, device=device)
-        del keys_parts, taxa_parts
-        keys, taxa = distinct_pairs(keys, taxa) if keep_records else _sort_records(keys, taxa)
-        uniq, red = _reduce_sorted(keys, taxa, taxonomy)
-        idx = cls(uniq, red, params, taxonomy, None, ordering_lut)
+        phases = PhaseTimers(trace, device)
+        tree = MergeTree(device, taxonomy, params.m, pairs=keep_records, superbatch=superbatch,
+                         device_budget=device_budget, spill_dir=spill_dir, phases=phases)
+        fragments = phases.timed("fragment source", fragments)
+        for codes, row_taxa, _ in phases.timed("packing", _batches(fragments, params, taxonomy, batch_rows, row_len,
+                                                                   taxon_filter)):
+            with phases.phase("packing"):
+                packed, valid = encode.pack_2bit(codes)
+                packed, valid = to_device(packed, device), to_device(valid, device)
+                rt = torch.from_numpy(row_taxa).to(device)
+            with phases.phase("scan dispatch"):
+                wm = window_minimizers_packed(packed, valid, mp, lut)
+                keys = wm.minimizer[wm.span_start]
+                taxa = rt[:, None].expand(-1, row_len)[wm.span_start]
+                del wm
+            tree.add(keys, taxa)
+        cols = tree.finish()
+        idx = cls(cols[0], cols[1], params, taxonomy, None, ordering_lut)
         if keep_records:
-            idx.record_keys_t, idx.record_taxa_t = keys, taxa
+            idx.record_keys_t, idx.record_taxa_t = cols[2], cols[3]
         if lut is not None:
             idx._luts[device] = lut  # the build's copy serves classify on this device
+        idx.build_stats = tree.stats
+        idx.build_phases = phases.seconds if trace else None
         return idx
 
     def with_records(self, keys, taxa) -> "KeyValueIndex":

@@ -10,13 +10,16 @@ single-device run byte for byte.
 
 `build_distributed` builds the index with the mesh's shuffle: each device
 scans its share of a batch's rows and sends every span-start record to the
-device that owns its key range, and each owner sorts and reduces its range.
+device that owns its key range, and each owner collects its range in a
+bounded merge tree (index.MergeTree) on its device.
 The ranges are disjoint and in key order, so the concatenation is the
 single-device build's index (and sidecar) exactly.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import Iterable, Optional, Set, Tuple
 
 import numpy as np
@@ -27,12 +30,13 @@ from ..classify import Classifier
 from ..index import (
     IndexParams,
     KeyValueIndex,
+    MergeTree,
     _batches,
     _default_batch,
     _rank_table,
-    _reduce_sorted,
-    _sort_records,
-    distinct_pairs,
+    by_owner,
+    default_device_budget,
+    sample_boundaries,
 )
 from ..ops import encode
 from ..ops.minimizers import window_minimizers_packed
@@ -121,6 +125,9 @@ def build_distributed(
     ordering_lut: Optional[np.ndarray] = None,
     taxon_filter: Optional[Set[int]] = None,
     keep_records: bool = False,
+    spill_dir: Optional[str] = None,
+    superbatch: Optional[int] = None,
+    device_budget: Optional[int] = None,
 ) -> KeyValueIndex:
     """KeyValueIndex.build over `mesh` (a mesh.Mesh or a list of devices)
     with the key-range shuffle: the batches of `index._batches` (default
@@ -128,9 +135,14 @@ def build_distributed(
     of rows; each device scans its chunk and keeps its span-start (key,
     taxon) records; each record goes to the owner of its key's range (range
     boundaries: the n-quantiles of the first batch's span keys); each owner
-    sorts its records (with `keep_records`, the distinct pairs) and reduces
-    them on its device. The ranges concatenated on mesh[0] in key order are
-    the index, and with `keep_records` its sidecar."""
+    collects its records in a MergeTree on its device (with `keep_records`,
+    distinct pairs), which a device's share of `device_budget` (bytes;
+    default default_device_budget) bounds, with `spill_dir` spilling to the
+    range files of its own subdirectory `owner<j:04d>` (`spill_dir` is
+    removed after the build). The ranges concatenated in key order are the
+    index, and with `keep_records` its sidecar: on mesh[0] where every
+    owner's result stayed on its device and together they take at most half
+    of mesh[0]'s budget, else on the host."""
     mesh = pmesh.as_mesh(mesh)
     n = len(mesh)
     mp = params.minimizer_params.validate()
@@ -142,8 +154,12 @@ def build_distributed(
     row_len = row_len or d_len
     if row_len % 8 or row_len < params.k:
         raise ValueError(f"row_len must be a multiple of 8 and >= k, got {row_len}")
+    budgets = {d: default_device_budget(d) if device_budget is None else device_budget for d in mesh.distinct}
+    trees = [MergeTree(dev, taxonomy, params.m, pairs=keep_records, superbatch=superbatch,
+                       device_budget=None if budgets[dev] is None else budgets[dev] // list(mesh).count(dev),
+                       spill_dir=spill_dir and os.path.join(spill_dir, f"owner{j:04d}"))
+             for j, dev in enumerate(mesh)]
     bounds = None
-    owned = [[] for _ in range(n)]  # per owner: (keys, taxa) parts on its device
     for codes, row_taxa, used in _batches(fragments, params, taxonomy, batch_rows, row_len, taxon_filter):
         records = []
         for (a, b), dev in zip(pmesh.chunk_bounds(used, n), mesh):
@@ -154,26 +170,29 @@ def build_distributed(
             rt = torch.from_numpy(row_taxa[a:b]).to(dev)
             records.append((wm.minimizer[wm.span_start], rt[:, None].expand(-1, row_len)[wm.span_start]))
         if bounds is None:
-            bounds = pmesh.sample_boundaries(torch.cat([k.to(mesh[0]) for k, _ in records]), n, params.m)
+            bounds = sample_boundaries(torch.cat([k.to(mesh[0]) for k, _ in records]), n, params.m)
         for keys, taxa in records:
-            for j, (k, t) in enumerate(pmesh.by_owner(keys, taxa, bounds, n)):
-                owned[j].append((k.to(mesh[j], non_blocking=True), t.to(mesh[j], non_blocking=True)))
-    ranges = []
-    for j, dev in enumerate(mesh):
-        if owned[j]:
-            keys = torch.cat([k for k, _ in owned[j]])
-            taxa = torch.cat([t for _, t in owned[j]])
-        else:
-            keys = torch.zeros((0, 2) if mp.wide else 0, dtype=torch.int64, device=dev)
-            taxa = torch.zeros(0, dtype=torch.int32, device=dev)
-        owned[j] = None
-        keys, taxa = distinct_pairs(keys, taxa) if keep_records else _sort_records(keys, taxa)
-        ranges.append((*_reduce_sorted(keys, taxa, taxonomy), *((keys, taxa) if keep_records else ())))
-    home = mesh[0]
-    cols = [torch.cat([r[c].to(home, non_blocking=True) for r in ranges]) for c in range(len(ranges[0]))]
+            for j, (k, t) in enumerate(by_owner(keys, taxa, bounds, n)):
+                trees[j].add(k.to(mesh[j], non_blocking=True), t.to(mesh[j], non_blocking=True))
+    ranges = [tree.finish() for tree in trees]
+    if spill_dir:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    # the ranges gather on mesh[0] where each stayed on its device and their
+    # copies there and the concatenation take at most half of mesh[0]'s
+    # budget, as in MergeTree._out (on distinct cards each owner had a whole
+    # card's budget, so together they may not fit on one), else on the host
+    held = 2 * sum(x.numel() * x.element_size() for r in ranges for x in r)
+    fits = budgets[mesh[0]] is None or held <= budgets[mesh[0]] // 2
+    on_devices = all(r[0].device.type == dev.type for r, dev in zip(ranges, mesh))
+    home = mesh[0] if fits and on_devices else torch.device("cpu")
+    # a copy to the host waits (a non_blocking one would land in pinned memory
+    # that is read before the copy ends)
+    cols = [torch.cat([r[c].to(home, non_blocking=home.type == "cuda") for r in ranges])
+            for c in range(len(ranges[0]))]
     idx = KeyValueIndex(cols[0], cols[1], params, taxonomy, None, ordering_lut)
     if keep_records:
         idx.record_keys_t, idx.record_taxa_t = cols[2], cols[3]
-    if luts[home] is not None:
-        idx._luts[home] = luts[home]  # the build's copy serves classify on this device
+    if luts[mesh[0]] is not None:
+        idx._luts[mesh[0]] = luts[mesh[0]]  # the build's copy serves classify on this device
+    idx.build_stats = [tree.stats for tree in trees]
     return idx

@@ -27,6 +27,8 @@ here updates a tensor in place):
     of range boundaries at or below its key (`owners`), the boundaries being
     the n-quantiles of the first batch's span keys (`sample_boundaries`), and
     each owner receives its slice of every device's records (`by_owner`).
+    These three live in index.py, whose SpillCollector cuts ranges the same
+    way, and parallel/classifier.py's build_distributed runs the shuffle.
 
 The psum of per-taxon report counts has no counterpart: the host counts
 reports from the bundles, as it does for one device. Across processes
@@ -43,9 +45,8 @@ import torch
 
 from .. import get_device, to_device
 from ..classify import postprocess, scan_probe
-from ..index import key_columns, sort_order
 from ..ops.lookup import probe
-from ..ops.minimizers import INT64_MIN, window_minimizers_packed
+from ..ops.minimizers import window_minimizers_packed
 
 
 class Mesh:
@@ -186,51 +187,3 @@ def classify_rows(mesh: Mesh, pairs, ambig: np.ndarray, tables: Dict, req_luts: 
     home = mesh[0]
     return tuple(torch.cat([x[j].to(home, non_blocking=True) for x in out]) for j in range(2))
 
-
-# ---------------------------------------------------------------------------
-# The build shuffle
-# ---------------------------------------------------------------------------
-
-
-def _wide_pattern(v: int) -> Tuple[int, int]:
-    """(hi64, lo64) of a non-negative 128-bit value as int64 bit patterns."""
-    lo = v & ((1 << 64) - 1)
-    return v >> 64, lo - (1 << 64) if lo >> 63 else lo
-
-
-def sample_boundaries(keys: torch.Tensor, n: int, m: int) -> list:
-    """n - 1 range boundaries from a sample of span keys (int64 [S], or
-    [S, 2] for a wide m): the keys at positions i * S // n of the sorted
-    sample, as slacken_tpu's sample_shuffle_boundaries takes them; without a
-    sample, n-quantiles of the 2m-bit key space. Python ints (narrow) or
-    (hi64, lo64) pairs of int64 bit patterns (wide)."""
-    wide = keys.dim() == 2
-    s = keys.shape[0]
-    if s == 0:
-        if wide:
-            return [_wide_pattern((i << (2 * m)) // n) for i in range(1, n)]
-        return [i * ((1 << 62) // n) for i in range(1, n)]
-    keys = keys[sort_order(*key_columns(keys))]
-    picked = keys[torch.tensor([i * s // n for i in range(1, n)], dtype=torch.long, device=keys.device)]
-    return [tuple(row) for row in picked.tolist()] if wide else picked.tolist()
-
-
-def owners(keys: torch.Tensor, bounds: list) -> torch.Tensor:
-    """int64 [S]: the owner of each key, the number of boundaries at or below
-    it (wide keys: hi64, then lo64 unsigned)."""
-    dest = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
-    if keys.dim() == 1:
-        for b in bounds:
-            dest += keys >= b
-        return dest
-    hi, lo = keys[:, 0], keys[:, 1] ^ INT64_MIN
-    for b_hi, b_lo in bounds:
-        dest += (hi > b_hi) | ((hi == b_hi) & (lo >= (b_lo ^ INT64_MIN)))
-    return dest
-
-
-def by_owner(keys: torch.Tensor, taxa: torch.Tensor, bounds: list, n: int):
-    """[(keys, taxa)] of each owner 0..n-1, on the records' device."""
-    dest, order = torch.sort(owners(keys, bounds), stable=True)
-    counts = torch.bincount(dest, minlength=n).tolist()
-    return list(zip(torch.split(keys[order], counts), torch.split(taxa[order], counts)))

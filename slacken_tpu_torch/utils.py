@@ -1,14 +1,15 @@
 """Host-side pipeline utilities (counterpart of slacken_tpu/utils.py: the
-named-task timer and the prefetch iterator; the phase timers and tracing
+named-task timer, the phase timers and the prefetch iterator; the tracing
 hooks of that module are not used by this package)."""
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import sys
 import threading
 import time
-from typing import Optional
+from typing import Dict, Iterable, Optional
 
 
 class Timer:
@@ -36,6 +37,62 @@ class Timer:
     def __exit__(self, *exc):
         self.finish()
         return False
+
+
+class PhaseTimers:
+    """Wall seconds by phase (counterpart of slacken_tpu/utils.py's
+    PhaseTimers, which STPU_BUILD_TRACE turns on there): `with
+    timers.phase(name):` adds the block's wall to `seconds[name]`, timed
+    with Timer. Phases nest, and a phase's seconds exclude those of the
+    phases inside it, so the walls add up to the whole. With `device` (a
+    torch device) each phase starts and ends by waiting for the device's
+    queued work, so that device work counts in the phase that queued it.
+    Disabled (the default), `phase` times nothing and costs nothing."""
+
+    def __init__(self, enabled: bool = False, device=None):
+        self.enabled = enabled
+        self.device = device
+        self.seconds: Dict[str, float] = {}
+        self._inner = [0.0]  # seconds of the phases inside each open phase
+
+    def _sync(self):
+        if self.device is not None and getattr(self.device, "type", None) == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        self._sync()
+        t = Timer(name, quiet=True)
+        self._inner.append(0.0)
+        try:
+            yield
+        finally:
+            self._sync()
+            dt = t.finish()
+            inner = self._inner.pop()
+            self._inner[-1] += dt
+            self.seconds[name] = self.seconds.get(name, 0.0) + dt - inner
+
+    def timed(self, name: str, items: Iterable):
+        """`items`, each step of the iteration timed under `name`."""
+        if not self.enabled:
+            yield from items
+            return
+        it = iter(items)
+        while True:
+            with self.phase(name):
+                item = next(it, _END)
+            if item is _END:
+                return
+            yield item
+
+
+_END = object()
 
 
 def prefetch_iterator(it, depth: int = 2):

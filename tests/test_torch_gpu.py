@@ -810,3 +810,81 @@ def test_multihost_ranks_one_card_each(cuda, tmp_path):
     seen = _multihost_run(tmp_path, "narrow", world, device="cuda", devices=1, backend=None)
     assert [s["mesh"] for s in seen] == [[f"cuda:{r}"] for r in range(world)]
     assert all(s["backend"] == "nccl" and s["p2p"] > 0 for s in seen)
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["index", "records"])
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_bounded_build_on_the_card(cuda, kind, keep, tmp_path):
+    """KeyValueIndex.build on the card under a forced budget (leaves of
+    2,000 records off the card, ranges of a few hundred) and with spill_dir,
+    against the CPU build: keys, taxa and sidecar equal; the merge tree's
+    counts the same on both; the spill directory gone; the default budget
+    moves no leaf and leaves the index on the card."""
+    from slacken_tpu_torch.index import HELD_BYTES, KeyValueIndex, default_device_budget
+
+    tax, genomes, params = _small_library(kind)
+    budget = 2000 * 8 * HELD_BYTES[params.m > 31]
+    want = KeyValueIndex.build(iter(genomes), params, tax, "cpu", keep_records=keep, batch_rows=4, row_len=1024)
+    assert default_device_budget(cuda) > 10 * (1 << 30) and default_device_budget("cpu") is None
+    plain = KeyValueIndex.build(iter(genomes), params, tax, cuda, keep_records=keep, batch_rows=4, row_len=1024)
+    assert plain.build_stats["leaves_off"] == 0 and plain.keys_t.device.type == "cuda"
+    runs = {}
+    for route in ("budget", "spill"):
+        extra = {"spill_dir": str(tmp_path / "spill")} if route == "spill" else {}
+        for d in ("cpu", cuda):
+            runs[route, d] = KeyValueIndex.build(iter(genomes), params, tax, d, keep_records=keep, batch_rows=4,
+                                                 row_len=1024, superbatch=300, device_budget=budget, **extra)
+            assert not (tmp_path / "spill").exists()
+        got, cpu = runs[route, cuda], runs[route, "cpu"]
+        assert got.build_stats["leaves_off"] >= 2 and got.build_stats == cpu.build_stats
+        for idx in (got, plain):
+            for a, b in ((idx.keys_t, want.keys_t), (idx.taxa_t, want.taxa_t)):
+                assert torch.equal(a.cpu(), b)
+            if keep:
+                assert torch.equal(idx.record_keys_t.cpu(), want.record_keys_t)
+                assert torch.equal(idx.record_taxa_t.cpu(), want.record_taxa_t)
+
+
+def test_build_distributed_with_spill_on_the_card(cuda, tmp_path):
+    """build_distributed over Mesh([cuda:0] * 8) with spill_dir and a budget
+    that sends each owner's leaves to its range files, against the CPU
+    build."""
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import build_distributed
+    from slacken_tpu_torch.parallel.mesh import Mesh
+
+    tax, genomes, params = _small_library("narrow")
+    want = KeyValueIndex.build(iter(genomes), params, tax, "cpu", keep_records=True)
+    got = build_distributed(iter(genomes), params, tax, Mesh([torch.device("cuda", 0)] * 8), keep_records=True,
+                            spill_dir=str(tmp_path / "spill"), batch_rows=4, row_len=1024, superbatch=60,
+                            device_budget=8 * 8 * 12 * 150)
+    assert sum(s["leaves_off"] for s in got.build_stats) >= 8 and not (tmp_path / "spill").exists()
+    for a, b in ((got.keys_t, want.keys_t), (got.taxa_t, want.taxa_t), (got.record_keys_t, want.record_keys_t),
+                 (got.record_taxa_t, want.record_taxa_t)):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("keep", [False, True], ids=["index", "records"])
+def test_build_distributed_over_distinct_cards(cuda, keep):
+    """build_distributed over min(4, cards) distinct cards (skips on one):
+    under the default budget the index gathers on cuda:0; under a budget
+    that holds each owner's range on its card but not all of them on cuda:0
+    it gathers on the host. Both equal the CPU build."""
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import build_distributed
+    from slacken_tpu_torch.parallel.mesh import Mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    mesh = Mesh([torch.device("cuda", i) for i in range(min(4, n))])
+    tax, genomes, params = _small_library("narrow")
+    want = KeyValueIndex.build(iter(genomes), params, tax, "cpu", keep_records=keep)
+    cols = [want.keys_t, want.taxa_t] + ([want.record_keys_t, want.record_taxa_t] if keep else [])
+    result = sum(x.numel() * x.element_size() for x in cols)
+    for budget, home in ((None, "cuda:0"), (3 * result, "cpu")):
+        got = build_distributed(iter(genomes), params, tax, mesh, keep_records=keep, device_budget=budget)
+        assert str(got.keys_t.device) == home
+        got_cols = [got.keys_t, got.taxa_t] + ([got.record_keys_t, got.record_taxa_t] if keep else [])
+        for a, b in zip(got_cols, cols):
+            assert torch.equal(a.cpu(), b)

@@ -11,12 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-import slacken_tpu_torch.parallel.mesh as pmesh
 from slacken_tpu.index import IndexParams as JParams
 from slacken_tpu.ops.minimizers import MinimizerParams as JMinimizerParams
 from slacken_tpu.parallel import mesh as jmesh
 from slacken_tpu.parallel.classifier import build_distributed as jbuild_distributed
-from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+from slacken_tpu_torch.index import IndexParams, KeyValueIndex, by_owner, owners, sample_boundaries
 from slacken_tpu_torch.ops import encode, ordering
 from slacken_tpu_torch.ops.minimizers import window_minimizers
 from slacken_tpu_torch.parallel.classifier import build_distributed
@@ -97,7 +96,7 @@ def test_boundaries_equal_the_jax_package(world, kind, n):
     rows = [encode.encode_seq(s)[:1024] for _, s in genomes[:6]]
     codes, _ = encode.pack_batch(rows, 1024)
     wm = window_minimizers(torch.from_numpy(codes), IndexParams(**kw).minimizer_params)
-    got = pmesh.sample_boundaries(wm.minimizer[wm.span_start], n, kw["m"])
+    got = sample_boundaries(wm.minimizer[wm.span_start], n, kw["m"])
     jmp = JMinimizerParams(k=kw["k"], m=kw["m"], spaces=kw["spaces"])
     if kind == "wide":
         want = jmesh.sample_shuffle_boundaries_wide(codes, jmp, n)
@@ -139,9 +138,9 @@ def test_owners_on_boundaries(kind):
         keys = [step(b, d) for b in bounds for d in (-1, 0, 1)] + [(0, 0)]
         t = torch.tensor(keys, dtype=torch.int64)
     want = [sum(_value(b) <= _value(k) for b in bounds) for k in keys]
-    assert pmesh.owners(t, bounds).tolist() == want
+    assert owners(t, bounds).tolist() == want
     taxa = torch.arange(len(keys), dtype=torch.int32)
-    parts = pmesh.by_owner(t, taxa, bounds, len(bounds) + 1)
+    parts = by_owner(t, taxa, bounds, len(bounds) + 1)
     assert [p[1].tolist() for p in parts] == [[i for i, o in enumerate(want) if o == j]
                                               for j in range(len(bounds) + 1)]
 
@@ -161,7 +160,7 @@ def test_empty_library_and_spanless_first_batch(world, kind):
     got = build_distributed(iter(short), params, tax, ["cpu"] * 8, **BATCH)
     want = KeyValueIndex.build(iter(short), params, tax, "cpu", **BATCH)
     assert got.num_records > 0 and torch.equal(got.keys_t, want.keys_t) and torch.equal(got.taxa_t, want.taxa_t)
-    bounds = pmesh.sample_boundaries(torch.zeros((0, 2) if kind == "wide" else 0, dtype=torch.int64), 4,
+    bounds = sample_boundaries(torch.zeros((0, 2) if kind == "wide" else 0, dtype=torch.int64), 4,
                                      params.m)
     assert [_value(b) for b in bounds] == [(i << (2 * params.m)) // 4 if kind == "wide" else i * ((1 << 62) // 4)
                                            for i in range(1, 4)]
