@@ -13,6 +13,15 @@ launch counts set to 0 just before it and read just after:
   * reports mode: build the bench library's index on the card (2,623,028
     records expected) and on the CPU, classify the bench's simulated reads
     on both and require byte-identical kreports;
+  * the probe choice (`phase_probes`, after reports mode): the tiled and
+    hashed1 tables of the bench index and of a wide (50, 45, 7) bench index
+    built on the card (time, bytes), their four kernels against the twins
+    on one batch's dense minimizers and on 4,194,304 random queries, and
+    classify with probe="tiled" and "hashed1" in both modes, over
+    Mesh([cuda] * 8) with tiled, classify2 --probe hashed1 and one NCCL rank
+    with --probe hashed1, every file equal to the routed run's; after the
+    scale phase both tables of the 400 Mbp index, its reads classified with
+    each probe and the narrow kernels timed there (`phase_probes_scale`);
   * per-read mode: the same reads with per-read output, card against CPU,
     lines and kreports byte-identical after decompression, kreports equal
     to reports mode's;
@@ -834,13 +843,16 @@ def twins_forbidden():
     def refuse(*args, **kwargs):
         fail("a kernel's plain twin was called on the card's path")
 
-    saved = minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa, lookup.lookup_taxa_slots
-    minimizers.window_minimizers = minimizers.stitch_segments = lookup.lookup_taxa = lookup.lookup_taxa_slots = refuse
+    names = ((minimizers, "window_minimizers"), (minimizers, "stitch_segments"), (lookup, "lookup_taxa"),
+             (lookup, "lookup_taxa_slots"), (lookup, "lookup_taxa_tiled"), (lookup, "lookup_taxa_hashed_rows"))
+    saved = [getattr(mod, name) for mod, name in names]
+    for mod, name in names:
+        setattr(mod, name, refuse)
     try:
         yield
     finally:
-        (minimizers.window_minimizers, minimizers.stitch_segments, lookup.lookup_taxa,
-         lookup.lookup_taxa_slots) = saved
+        for (mod, name), fn in zip(names, saved):
+            setattr(mod, name, fn)
 
 
 def output_tree(prefix):
@@ -937,6 +949,272 @@ def phase_bench(dev, out, results):
     breakdown(cls, reads, cpar, results)
     return dict(idx=idx, idx_cpu=idx_cpu, reads=reads, n_reads=n_reads, cls=cls,
                 reports_rate=n_reads / med, launches=launches)
+
+
+#: the probe choice's tables and the kernels of each, (probe, wide) -> name
+TABLE_PROBES = {("tiled", False): "probe_tiled", ("tiled", True): "probe_tiled_wide",
+                ("hashed1", False): "probe_rows", ("hashed1", True): "probe_rows_wide"}
+
+
+def probe_table_bytes(table):
+    return tensor_bytes(*(x for x in table if hasattr(x, "numel")))
+
+
+def build_tables(label, index, dev):
+    """Both probe tables of an index, built on the card by
+    KeyValueIndex.device_arrays (which keeps them for the classifiers), each
+    build timed; logs their geometry and bytes. Returns {probe: table}."""
+    import torch
+
+    tables = {}
+    for probe in ("tiled", "hashed1"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = index.device_arrays(dev, probe)[2]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        nb, n = probe_table_bytes(table), index.num_records
+        shape = (f"router bits {table.bits} ({tensor_bytes(table.router)} bytes), tile {table.tile}, table "
+                 f"{tuple(table.table.shape)} ({tensor_bytes(table.table)} bytes)" if probe == "tiled" else
+                 f"row_bits {table.row_bits}, tile {table.tile}, table {tuple(table.table.shape)}")
+        log(f"{probe} table of the {label} ({n} records) built on the card in {secs:.4f} s: {shape}; "
+            f"{nb} bytes, {nb / max(n, 1):.2f} bytes a record")
+        tables[probe] = table
+    return tables
+
+
+def time_table_probe(label, table, keys, taxa, queries, name):
+    """A table kernel == its twin == lookup_taxa (tolerance 0) on these
+    queries, then its time beside the twin's and, for the tiled probe of
+    narrow keys, torch.searchsorted's (the directory probe's yardstick; the
+    row probes have none). The bound counts what these queries need: each
+    query and its answer; tiled, the two router entries of a query inside the
+    key space and one record of a non-empty bucket; hashed1, one 32-byte
+    sector of the row's first key block a query and, on a hit, one sector of
+    each other key block and of the taxa. Returns one entry of the kernel's
+    `shapes`."""
+    import torch
+
+    from slacken_tpu_torch.ops import cuda_kernels, lookup
+
+    wide = queries.dim() == 2
+    tiled = isinstance(table, lookup.TiledTable)
+    twin = lookup.lookup_taxa_tiled if tiled else lookup.lookup_taxa_hashed_rows
+    before = cuda_kernels.LAUNCHES[name]
+    got = lookup.probe(None, None, table, queries)
+    if cuda_kernels.LAUNCHES[name] != before + 1:
+        fail(f"the {name} probe of {label} did not launch its kernel")
+    want = lookup.lookup_taxa(keys, taxa, queries)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_out = twin(table, queries)  # one call, timed: the twin takes 0.04-0.4 s at these sizes
+    end.record()
+    torch.cuda.synchronize()
+    plain = start.elapsed_time(end)
+    err = max(int((got - want).abs().max()), int((plain_out - want).abs().max()))
+    if err:
+        fail(f"{name} differs from its twin or lookup_taxa on {label} (max abs err {err})")
+    run = lambda: lookup.probe(None, None, table, queries)  # noqa: E731
+    ms, dev_ms = cuda_ms(run), device_ms(run)
+    library = None if (wide or not tiled) else cuda_ms(lambda: torch.searchsorted(keys, queries))
+    nq, hits, q_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
+    if tiled:
+        shift = table.key_bits - table.bits
+        if wide:
+            p, above = lookup.prefix_wide(queries, shift)
+            inside = (queries[:, 0] >= 0) & (above == 0) & (p >= 0) & (p < 1 << table.bits)
+        else:
+            p = queries >> shift
+            inside = (queries >= 0) & (p < 1 << table.bits)
+        p = torch.where(inside, p, 0)
+        filled = inside & (table.router[p + 1] > table.router[p])
+        need = (q_bytes + 4) * nq + 8 * int(inside.sum()) + table.table.shape[2] * 4 * int(filled.sum())
+    else:
+        need = (q_bytes + 4 + 32) * nq + (4 if wide else 2) * 32 * hits
+    n_bytes = min(tensor_bytes(queries, *(x for x in table if hasattr(x, "numel"))) + 4 * nq, need)
+    bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq if tiled else (32 if wide else 16) * nq)
+    geometry = (f"router bits {table.bits}, tile {table.tile}" if tiled else f"row_bits {table.row_bits}, tile {table.tile}")
+    log(f"{name}, {label}: {keys.shape[0]} keys ({geometry}), {nq} queries, {hits} hits, max_abs_err 0 against the "
+        f"twin and lookup_taxa; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the device alone), plain twin {plain:.4f} ms, "
+        + ("no library call, " if library is None else f"torch.searchsorted alone {library:.4f} ms, ")
+        + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
+    return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
+                library_ms=library)
+
+
+def phase_probes(dev, out, bench, results):
+    """The probe choice (--probe tiled and hashed1) at bench size, with the
+    twins forbidden on its main path: both tables of the narrow bench index
+    and of the wide (50, 45, 7) bench index built on the card (build time,
+    bytes); classify_and_write_packed of the bench reads with each probe in
+    reports and per-read mode (narrow) and reports mode (wide), every file
+    equal to the routed run's; the CLI's classify2 --probe hashed1 against
+    --probe routed; MeshClassifier over Mesh([cuda] * 8) with tiled, ring and
+    replicated; the CLI's classify --coordinator --num-processes 1 --probe
+    hashed1, one rank under NCCL, against the single-device CLI. Then each of
+    the four kernels against its twin and lookup_taxa on one batch's dense
+    minimizers and on 4,194,304 random queries, timed. Returns the main
+    path's launch counts."""
+    import torch
+
+    from slacken_tpu_torch import cli, workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier
+    from slacken_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    idx, reads, n_reads = bench["idx"], bench["reads"], bench["n_reads"]
+    modes = {"rep": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=False),
+             "det": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=True)}
+    tax = workloads.bench_taxonomy()
+    genomes = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
+    t0 = time.perf_counter()
+    wide = KeyValueIndex.build(iter(genomes), IndexParams(k=50, m=45, spaces=7), tax, dev)
+    log(f"probes: wide (50, 45, 7) bench index built on the card, {wide.num_records} records in "
+        f"{time.perf_counter() - t0:.3f} s")
+    tables = {"narrow": build_tables("bench index", idx, dev), "wide": build_tables("wide (50, 45, 7) bench index",
+                                                                                      wide, dev)}
+    if (tables["narrow"]["hashed1"].row_bits, probe_table_bytes(tables["narrow"]["hashed1"])) != (15, 50_331_648) or (
+            tables["narrow"]["tiled"].bits, probe_table_bytes(tables["narrow"]["tiled"])) != (23, 33_554_436 + 31_476_864):
+        fail("the bench index's tables are not of the geometry that the JAX builders' rules give")
+    del tables
+    routed = Classifier(wide, dev)
+    routed.classify_and_write_packed(reads, os.path.join(out, "probes_w_routed_rep"), modes["rep"])
+    Classifier(idx, dev).classify_and_write_packed(reads, os.path.join(out, "probes_routed_det"), modes["det"])
+    want = {("narrow", "rep"): output_tree(os.path.join(out, "gpu")),
+            ("narrow", "det"): output_tree(os.path.join(out, "probes_routed_det")),
+            ("wide", "rep"): output_tree(os.path.join(out, "probes_w_routed_rep"))}
+
+    # files for the CLI runs: the library, the base index with its sidecar, the reads of two genomes, 8 shard files
+    lib_dir, c2idx, idx8 = (os.path.join(out, x) for x in ("probes_lib", "probes_c2idx", "probes_idx8"))
+    workloads.write_library(genomes, lib_dir)
+    bench["idx_cpu"].save(c2idx)
+    idx.save_sharded(idx8, MH_SHARDS)
+    fastq = os.path.join(out, "probes_reads.fastq")
+    workloads.write_fastq([p for i, p in enumerate(reads) if i % 3 != 2], fastq)
+    c2 = ["classify2", fastq, "-i", c2idx, "-l", lib_dir, "-c", "0.0", "-D", "500"]
+    one = ["classify", fastq, "-i", idx8, "-c", "0.0", "0.15", "--no-detailed"]
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        for argv, o in ((c2, "probes_c2_routed"), (one, "probes_cli_routed")):
+            if cli.main([*argv, "-o", os.path.join(out, o, "o")]) != 0:
+                fail(f"the CLI failed: {argv}")
+
+    batch = {"narrow": batch_queries(bench["cls"], reads)[2].minimizer.reshape(-1),
+             "wide": batch_queries(routed, reads)[2].minimizer.flatten(0, 1)}
+    rng = np.random.default_rng(BENCH_RECORDS)
+    host_keys = idx.keys_t[torch.from_numpy(rng.integers(0, idx.num_records, 1 << 21)).to(dev)].cpu().numpy()
+    rand = {"narrow": torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev),
+            "wide": random_wide_queries(dev, wide.keys_t, 1 << 22, BENCH_RECORDS)}
+    for kind, index in (("narrow", idx), ("wide", wide)):  # the kernels against their twins, before the main path
+        label = "bench index" if kind == "narrow" else "wide bench index (50, 45, 7)"
+        for probe in ("tiled", "hashed1"):
+            table = index.device_arrays(dev, probe)[2]
+            name = TABLE_PROBES[probe, kind == "wide"]
+            shapes = {}
+            for what, q in (("one batch's dense minimizers", batch[kind]), ("random queries", rand[kind])):
+                shapes[f"{label}, {what}"] = time_table_probe(f"{label}, {what}", table, index.keys_t,
+                                                              index.taxa_t, q, name)
+            results[name] = dict(shapes[f"{label}, one batch's dense minimizers"], shapes=shapes)
+
+    cuda_kernels.reset_launch_counts()
+    walls = {}
+    with twins_forbidden():
+        for kind, index in (("narrow", idx), ("wide", wide)):
+            for probe in ("tiled", "hashed1"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cls = Classifier(index, dev, probe=probe)
+                torch.cuda.synchronize()
+                setup = time.perf_counter() - t0
+                for mode in ("rep", "det") if kind == "narrow" else ("rep",):
+                    tag = f"probes_{kind}_{probe}_{mode}"
+                    cls.classify_and_write_packed(reads, os.path.join(out, tag + "_warm"), modes[mode])
+                    walls[kind, probe, mode] = timed_runs(
+                        lambda r: cls.classify_and_write_packed(reads, os.path.join(out, tag), modes[mode]), n=1)[0]
+                    if output_tree(os.path.join(out, tag)) != want[kind, mode]:
+                        fail(f"{kind} classify with --probe {probe} ({mode}) differs from the routed run's files")
+                log(f"probes: {kind} bench classify with probe={probe}: files equal to the routed run's; table and "
+                    f"classifier set-up {setup:.3f} s; " + ", ".join(
+                        f"{mode} {n_reads / w:.1f} reads/s" for (k, p, mode), w in walls.items()
+                        if (k, p) == (kind, probe)) + " (one warm run each)")
+                del cls
+        for layout in ("ring", "replicated"):
+            tag = f"probes_mesh_{layout}"
+            MeshClassifier(idx, Mesh([dev] * MESH_SHARDS), layout, probe="tiled").classify_and_write_packed(
+                reads, os.path.join(out, tag), modes["rep"])
+            if output_tree(os.path.join(out, tag)) != want["narrow", "rep"]:
+                fail(f"MeshClassifier {layout} with the tiled probe differs from the routed run's files")
+        log(f"probes: MeshClassifier over Mesh([{dev}] * {MESH_SHARDS}) with probe=tiled, ring and replicated: "
+            "kreports equal to the single-device routed run's")
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            mh = [*one, "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1", "--process-id", "0"]
+            for argv, o in (([*c2, "--probe", "hashed1"], "probes_c2_hashed1"),
+                            ([*mh, "--probe", "hashed1"], "probes_cli_mh_hashed1")):
+                if cli.main([*argv, "-o", os.path.join(out, o, "o")]) != 0:
+                    fail(f"the CLI failed: {argv}")
+        if torch.distributed.is_initialized():
+            fail("the CLI's process group outlived its run")
+    launches = dict(cuda_kernels.LAUNCHES)
+    for a, b in (("probes_c2_hashed1", "probes_c2_routed"), ("probes_cli_mh_hashed1", "probes_cli_routed")):
+        got, ref = files_under(os.path.join(out, a)), files_under(os.path.join(out, b))
+        if got != ref or len(ref) < 2:
+            fail(f"the CLI's {a} differs from {b} ({sorted(got)} against {sorted(ref)})")
+    log("probes: classify2 --probe hashed1 (taxon set, kreport, per-read lines) and classify --coordinator "
+        "--num-processes 1 --probe hashed1 (one rank under NCCL) equal to their --probe routed runs")
+    require_launches("probes: the probe choice's runs", launches, ("scan", "scan_wide", *TABLE_PROBES.values()))
+    log(f"phase_probes: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_probes_scale(dev, out, results, genomes, scale_idx):
+    """The probe choice at scale: both tables of the 400 Mbp index built on
+    the card (build time, bytes), the 200,000 scale reads classified with
+    each probe (reports mode; the kreport equal to phase_scale's routed
+    one), and the two narrow kernels against their twins on 4,194,304 random
+    queries and on one batch's dense minimizers, timed. Returns the classify
+    runs' launch counts."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    t_phase = time.perf_counter()
+    idx = scale_idx.with_records(scale_idx.keys_t, scale_idx.taxa_t)  # its tables go with it
+    tables = build_tables("scale index", idx, dev)
+    reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
+    n_reads = sum(len(p) for p in reads)
+    cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
+    want = open(os.path.join(out, "scale_c0.0", "all_kreport.txt"), "rb").read()
+    rng = np.random.default_rng(SCALE_RECORDS + 1)
+    host_keys = idx.keys_t[torch.from_numpy(rng.integers(0, idx.num_records, 1 << 21)).to(dev)].cpu().numpy()
+    rand = torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev)
+    total = {}
+    for probe, table in tables.items():
+        cls = Classifier(idx, dev, probe=probe)
+        cls.classify_and_write_packed(reads[:1], os.path.join(out, f"probes_scale_{probe}_warm"), cpar)
+        cuda_kernels.reset_launch_counts()
+        with twins_forbidden():
+            dt = timed_runs(lambda r: cls.classify_and_write_packed(reads, os.path.join(out, f"probes_scale_{probe}"),
+                                                                    cpar), n=1)[0]
+        add_launches(total, cuda_kernels.LAUNCHES)
+        if open(os.path.join(out, f"probes_scale_{probe}_c0.0", "all_kreport.txt"), "rb").read() != want:
+            fail(f"the scale classify with probe={probe} differs from the routed kreport")
+        log(f"probes: scale classify with probe={probe}: {n_reads} reads in {dt:.3f} s, {n_reads / dt:.1f} reads/s "
+            f"(routed: {n_reads / WALLS['scale']:.1f}); kreport equal to the routed one")
+        name = TABLE_PROBES[probe, False]
+        for what, q in (("random queries", rand), ("one batch's dense minimizers",
+                                                   batch_queries(cls, reads)[2].minimizer.reshape(-1))):
+            results[name]["shapes"][f"scale index, {what}"] = time_table_probe(
+                f"scale index, {what}", table, idx.keys_t, idx.taxa_t, q, name)
+        del cls
+    del idx, tables, table
+    torch.cuda.empty_cache()
+    require_launches("probes at scale", total, ("scan", "probe_tiled", "probe_rows"))
+    log(f"phase_probes_scale: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def phase_detailed(dev, out, bench):
@@ -3095,7 +3373,8 @@ def main():
     check_mask_idioms(dev, results)
     check_resolve(rng, dev)
     bench = phase_bench(dev, out, results)
-    by_path = {"reports": bench["launches"], "per_read": phase_detailed(dev, out, bench),
+    by_path = {"reports": bench["launches"], "probes": phase_probes(dev, out, bench, results),
+               "per_read": phase_detailed(dev, out, bench),
                "paired": phase_paired(dev, out, bench), "api": phase_api(dev, out, bench),
                "diagnostics": phase_diagnostics(dev)}
     reads = bench["reads"]
@@ -3103,6 +3382,7 @@ def main():
     del bench
     genomes = []
     by_path["scale"], scale_idx = phase_scale(dev, out, results, genomes)
+    add_launches(by_path["probes"], phase_probes_scale(dev, out, results, genomes, scale_idx))
     by_path["build_bounded"] = phase_build_bounded(dev, out, genomes, scale_idx)
     by_path["mesh"] = phase_mesh_scale(dev, out, genomes, scale_idx)
     scale_idx.save_sharded(os.path.join(out, "idx8_scale"), MH_SHARDS)  # for phase_multihost
@@ -3131,12 +3411,17 @@ def main():
     # to XLA, not a Pallas kernel: their lines name that code (the stitch:
     # _carry_forward, whose carry it takes across segments)
     scan_cu, probe_cu = "slacken_tpu_torch/ops/kernels/scan.cu", "slacken_tpu_torch/ops/kernels/probe.cu"
+    tables_cu = "slacken_tpu_torch/ops/kernels/probe_tables.cu"
     sources = {"scan": (scan_cu, "slacken_tpu/ops/pallas_kernels.py:26"),
                "scan_lut": (scan_cu, "slacken_tpu/ops/minimizers.py:195"),
                "scan_wide": (scan_cu, "slacken_tpu/ops/minimizers.py:372"),
                "scan_stitch": (scan_cu, "slacken_tpu/ops/minimizers.py:417"),
                "probe": (probe_cu, "slacken_tpu/ops/pallas_kernels.py:98"),
                "probe_wide": (probe_cu, "slacken_tpu/ops/lookup.py:161"),
+               "probe_tiled": (tables_cu, "slacken_tpu/ops/lookup.py:333"),
+               "probe_tiled_wide": (tables_cu, "slacken_tpu/ops/lookup.py:212"),
+               "probe_rows": (tables_cu, "slacken_tpu/ops/lookup.py:740"),
+               "probe_rows_wide": (tables_cu, "slacken_tpu/ops/lookup.py:891"),
                **{name: (idioms[0], idioms[1] + str(line)) for name, line in
                   zip(cuda_kernels.MASK_IDIOMS, (1023, 1027, 1030, 1036, 1047))}}
     log(json.dumps({"kernels": [

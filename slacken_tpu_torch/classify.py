@@ -6,7 +6,8 @@ Per batch of packed reads, on the device:
      XOR-ordered one, its rank-table instance for an index with an explicit
      ordering, or the wide one for m > 31; the unpack is fused into it),
   2. a probe of every window position (the CUDA directory probe kernel, or
-     its wide counterpart over two-limb keys),
+     its wide counterpart over two-limb keys; with `probe="tiled"` or
+     `"hashed1"` the kernel of that table, kernels/probe_tables.cu),
   3. window taxa (INVALID_WINDOW where the window is invalid) and the
      distinct hit-group count per read,
   4. hit compaction and batched resolveTree,
@@ -55,6 +56,30 @@ from .zio import ParallelGzipWriter
 PIPELINE_DEPTH = 3
 
 AMBIGUOUS_SPAN = -1
+
+#: the probes of the JAX package's --probe that the port runs: the
+#: directory walk (routed), the tiled table and the row-bucket table
+PROBES = ("routed", "tiled", "hashed1")
+#: the JAX package's narrow-only probes, ported in a later slice
+LATER_PROBES = ("hashed", "hashed128", "bucketed")
+
+
+def probe_choice(probe: Optional[str], wide: bool) -> str:
+    """The probe a classifier runs: `probe`, or without one STPU_PROBE, or
+    "routed"; checked as the JAX package's Classifier checks it. A wide
+    index takes routed, tiled or hashed1; the JAX package's other probes
+    raise NotImplementedError (never another probe in their place), and an
+    unknown name ValueError."""
+    if probe is None:
+        probe = os.environ.get("STPU_PROBE", "routed")
+    if wide and probe not in PROBES:
+        raise NotImplementedError("wide (m > 31) indexes support the routed, tiled and hashed1 probes")
+    if probe in LATER_PROBES:
+        raise NotImplementedError(f"the {probe} probe is not ported yet (ROADMAP: the next slice of the probe "
+                                  "choice takes hashed, hashed128 and bucketed)")
+    if probe not in PROBES:
+        raise ValueError(f"unknown probe mode {probe!r}")
+    return probe
 
 
 class Fragment(NamedTuple):
@@ -153,8 +178,9 @@ def classify_batch(packed, valid, ambig, keys, taxa, directory, table, req_lut, 
                    lut=None):
     """The device body for one batch: (bundle [B, 3+nthr], window taxa [B, L]).
     `lut` is the index's rank table on the device (explicit orderings); in a
-    wide index `keys` and the minimizers are rows of two limbs, and on the
-    card `directory` is its slot table (keys and taxa None)."""
+    wide index `keys` and the minimizers are rows of two limbs. `directory`
+    is what KeyValueIndex.device_arrays gives for the probe: a directory, or
+    a slot, tiled or row-bucket table (keys and taxa None)."""
     wm, looked = scan_probe(packed, valid, keys, taxa, directory, mp, lut)
     return postprocess(wm, looked, ambig, table, req_lut, max_taxa)
 
@@ -367,17 +393,21 @@ class _Batch:
 
 
 class Classifier:
-    """Classify reads against a KeyValueIndex on `device`."""
+    """Classify reads against a KeyValueIndex on `device`, through the probe
+    `probe` (probe_choice: routed, tiled or hashed1; the answers are the
+    same, the tables and kernels differ)."""
 
     def __init__(
         self,
         index: KeyValueIndex,
         device,
         max_taxa_per_read: int = 32,
+        probe: Optional[str] = None,
     ):
         self.device = torch.device(device)
         self.index = index
         self.max_taxa = max_taxa_per_read
+        self.probe = probe_choice(probe, index.wide)
         self._cuda = self.device.type == "cuda"
         # 4 Mbp batches on the card, 1 Mbp on the CPU (cache residency)
         self.target_batch_bp = (1 << 22) if self._cuda else (1 << 20)
@@ -397,7 +427,7 @@ class Classifier:
     def _place_index(self) -> None:
         """Put what a batch reads on the device, once: the index's probe
         arrays, its rank table and the taxonomy's rpath table."""
-        self._keys, self._taxa, self._directory = self.index.device_arrays(self.device)
+        self._keys, self._taxa, self._directory = self.index.device_arrays(self.device, self.probe)
         self._lut = self.index.device_lut(self.device)
         # indexed by raw taxon ID: [max_id + 1, D], copied to the device once
         self._table = torch.from_numpy(self.index.taxonomy.rpath_table()).to(self.device)

@@ -15,8 +15,12 @@ N devices of --device's kind (N cards, or N shards of the CPU with --device
 cpu) in one process; N above the machine's number of cards raises.
 `classify --coordinator host:port --num-processes P --process-id p` runs
 over P processes (parallel/multihost.py: one ring of index shards through
-every process's --devices entries, default 1, the rank's card). --probe is
-not ported."""
+every process's --devices entries, default 1, the rank's card).
+`classify` and `classify2` take --probe as slacken_tpu's CLI does: routed
+(the default, or STPU_PROBE), tiled or hashed1 run, on one device, over a
+mesh and over processes, narrow and wide (--coordinator: routed, tiled or
+hashed1, wide routed or hashed1; STPU_MH_PROBE without --probe); hashed,
+hashed128 and bucketed raise NotImplementedError (a later slice)."""
 
 from __future__ import annotations
 
@@ -163,6 +167,10 @@ def _add_classify_opts(p):
     p.add_argument("--layout", choices=["replicated", "ring"],
                    help="Mesh index layout: replicated (the index on every device) or ring "
                         "(range-sharded index, queries going round the devices)")
+    p.add_argument("--probe", choices=["routed", "tiled", "hashed", "hashed1", "hashed128", "bucketed"],
+                   help="Index probe: routed (the prefix directory; default, or STPU_PROBE), tiled (router and "
+                        "row table) or hashed1 (row-bucket hash table); the answers are the same. hashed, "
+                        "hashed128 and bucketed are not ported yet")
     _add_device(p)
 
 
@@ -256,7 +264,7 @@ def cmd_classify(args, device):
     if args.coordinator or args.num_processes:
         return _classify_multihost(args, cpar, device)
     idx = KeyValueIndex.load(args.index)
-    cls = make_classifier(idx, device, args.devices, args.layout)
+    cls = make_classifier(idx, device, args.devices, args.layout, probe=args.probe)
     files = expand_file_list(args.inputs)
     if not args.paired:
         stream = (p for path in files for p in packed_reads_from_file(path))
@@ -295,10 +303,12 @@ def _classify_multihost(args, cpar, device):
     if args.layout == "replicated":
         raise SystemExit("multi-host classify does not support --layout replicated (the index is range-sharded "
                          "across the processes: the ring layout)")
+    if args.probe not in (None, "routed", "tiled", "hashed", "hashed1"):
+        raise SystemExit(f"multi-host classify supports --probe routed/tiled/hashed/hashed1, not {args.probe!r}")
     ctx = mh.initialize(args.coordinator, args.num_processes, args.process_id, device, args.devices)
     try:
         files = expand_file_list(args.inputs)
-        cls = mh.MultiHostRingClassifier(args.index, ctx)
+        cls = mh.MultiHostRingClassifier(args.index, ctx, mh_probe=args.probe)
         rows = os.environ.get("STPU_MH_ROWS")
         samples = cls.classify_and_write_stream(
             lambda: (p for path in files for p in packed_reads_from_file(path)), args.output, cpar,
@@ -336,7 +346,7 @@ def cmd_classify2(args, device):
         promote = RANK_DEPTH.get(args.promote_gold_set) if args.promote_gold_set else None
         gold = GoldSetOptions(args.gold_set, promote, args.classify_with_gold)
     dyn = Dynamic(idx, lib, RANK_DEPTH.get(args.rank, 8), criteria_from_args(args), cpar, gold,
-                  args.output, device, devices=args.devices, layout=args.layout)
+                  args.output, device, devices=args.devices, layout=args.layout, probe=args.probe)
     files_factory = lambda: fragments_from_files(args.inputs, paired=args.paired, k=idx.params.k)  # noqa: E731
     # the final classification takes the native packed streaming path (the
     # same writer the 1-step CLI uses); the dynamic-criteria pass keeps the

@@ -106,7 +106,8 @@ class Dynamic:
     """Two-step classification (Dynamic.scala:78) on `device`, or over the
     mesh that `devices` (a number of devices of `device`'s kind, or a
     mesh.Mesh) and `layout` ask for, as parallel.classifier.make_classifier
-    takes them."""
+    takes them, through the probe `probe` (classify.probe_choice) in both
+    steps: step 1's span hits and the final classification."""
 
     def __init__(
         self,
@@ -121,6 +122,7 @@ class Dynamic:
         devices=None,
         layout: Optional[str] = None,
         device_budget: Optional[int] = None,
+        probe: Optional[str] = None,
     ):
         self.base = base
         self.genomes = genomes
@@ -135,6 +137,7 @@ class Dynamic:
         #: bytes of the merge tree that collects distinct span hits (None:
         #: index.default_device_budget)
         self.device_budget = device_budget
+        self.probe = probe
         self._base_classifier: Optional[Classifier] = None
 
     @property
@@ -142,7 +145,7 @@ class Dynamic:
         return self.base.taxonomy
 
     def _make_classifier(self, idx: KeyValueIndex) -> Classifier:
-        return make_classifier(idx, self.device, self.devices, self.layout)
+        return make_classifier(idx, self.device, self.devices, self.layout, probe=self.probe)
 
     def _classifier(self) -> Classifier:
         """The base index's classifier, made once: it puts the index and its

@@ -61,7 +61,16 @@ import torch
 from . import storage, to_device
 from .ops import encode, ordering
 from .ops.lca import segment_lca_table
-from .ops.lookup import Directory, SlotTable, build_directory, build_slots
+from .ops.lookup import (
+    Directory,
+    HashedRows,
+    SlotTable,
+    TiledTable,
+    build_directory,
+    build_hashed_rows,
+    build_slots,
+    build_tiled,
+)
 from .ops.minimizers import (
     DEFAULT_TOGGLE_MASK,
     INT64_MIN,
@@ -751,18 +760,36 @@ class KeyValueIndex:
             self.record_taxa_t = self.record_taxa_t.to(device)
         return self
 
-    def device_arrays(self, device) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Directory | SlotTable]:
-        """What `lookup.probe` reads on `device`, copied or built there once:
-        (keys, taxa, prefix directory); for a wide index on the card
-        (None, None, slot table), whose rows hold key and taxon together."""
+    @property
+    def key_bits(self) -> int:
+        """The width of the key space: 2m bits (priorities and rank-table
+        ranks alike), whose top bits the tiled table's router takes."""
+        return 2 * self.params.m
+
+    def device_arrays(self, device, probe: str = "routed") -> Tuple[
+            Optional[torch.Tensor], Optional[torch.Tensor], Directory | SlotTable | TiledTable | HashedRows]:
+        """What `lookup.probe` reads on `device` for the probe `probe`,
+        copied or built there once a (device, probe): "routed", (keys, taxa,
+        prefix directory), or for a wide index on the card (None, None, slot
+        table), whose rows hold key and taxon together; "tiled", (None, None,
+        TiledTable); "hashed1", (None, None, HashedRows). The tables are
+        built on the device from the keys there (the card's own copy of an
+        index built on the card)."""
         device = torch.device(device)
-        if device not in self._on:
+        if (device, probe) not in self._on:
             keys, taxa = self.keys_t.to(device), self.taxa_t.to(device)
-            if self.wide and device.type == "cuda":
-                self._on[device] = (None, None, build_slots(keys, taxa))
+            if probe == "tiled":
+                arrays = (None, None, build_tiled(keys, taxa, self.key_bits))
+            elif probe == "hashed1":
+                arrays = (None, None, build_hashed_rows(keys, taxa))
+            elif probe != "routed":
+                raise ValueError(f"no probe arrays for the probe {probe!r}")
+            elif self.wide and device.type == "cuda":
+                arrays = (None, None, build_slots(keys, taxa))
             else:
-                self._on[device] = (keys, taxa, build_directory(keys))
-        return self._on[device]
+                arrays = (keys, taxa, build_directory(keys))
+            self._on[device, probe] = arrays
+        return self._on[device, probe]
 
     def device_lut(self, device) -> Optional[torch.Tensor]:
         """The rank table on `device` as int32 (every rank is below 2^30),

@@ -25,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .lookup import Directory, SlotTable
+from .lookup import Directory, HashedRows, SlotTable, TiledTable
 from .minimizers import space_mask_int, wide_toggle_mask
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -36,11 +36,16 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "
 #: the five mask-idiom kernels (kernels/mask_idioms.cu)
 MASK_IDIOMS = ("select", "astype", "concat", "carry", "sum_bool")
 
+#: the probes of the tiled and row-bucket tables (kernels/probe_tables.cu),
+#: narrow and wide
+TABLE_PROBES = ("probe_tiled", "probe_tiled_wide", "probe_rows", "probe_rows_wide")
+
 #: scan: the XOR-ordered narrow scan; scan_lut: its rank-table instance;
 #: scan_wide, probe_wide: the kernels for m > 31; scan_stitch: the second
 #: pass of a scan whose rows are cut into segments
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in ("scan", "scan_lut", "scan_wide", "scan_stitch", "probe", "probe_wide", *MASK_IDIOMS)
+    name: 0 for name in ("scan", "scan_lut", "scan_wide", "scan_stitch", "probe", "probe_wide", *TABLE_PROBES,
+                         *MASK_IDIOMS)
 }
 
 #: warps a scan launch should have in flight on each SM: four a scheduler,
@@ -128,7 +133,10 @@ def _load():
     lib.stpu_scan_stitch.argtypes = [p, i64, i32, i32, p, p, p]
     lib.stpu_probe.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
     lib.stpu_probe_wide.argtypes = [p, p, p, i64, i32, i32, p, i64, p, p]
-    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_scan_stitch, lib.stpu_probe, lib.stpu_probe_wide):
+    lib.stpu_probe_tiled.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
+    lib.stpu_probe_rows.argtypes = [p, i32, i32, i32, p, i64, p, p]
+    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_scan_stitch, lib.stpu_probe, lib.stpu_probe_wide,
+               lib.stpu_probe_tiled, lib.stpu_probe_rows):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -361,6 +369,63 @@ def lookup_taxa_slots_cuda(table: SlotTable, queries: torch.Tensor) -> torch.Ten
     )
     _check(rc, "probe_wide")
     LAUNCHES["probe_wide"] += 1
+    return out
+
+
+def _table_queries(queries: torch.Tensor, wide: bool, table: torch.Tensor) -> None:
+    """Check the queries of a table probe: int64 [Q] or, wide, [Q, 2],
+    16-byte aligned, on the table's device."""
+    _require(queries, "queries", torch.int64, 2 if wide else 1)
+    if wide and (queries.shape[1] != 2 or queries.data_ptr() % 16):
+        raise ValueError(f"wide queries are [Q, 2] and 16-byte aligned, got {tuple(queries.shape)}")
+    if queries.device != table.device:
+        raise ValueError(f"the table lies on {table.device}, the queries on {queries.device}")
+
+
+def lookup_taxa_tiled_cuda(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of a tiled table (kernels/probe_tables.cu,
+    probe_tiled_kernel): int32 taxon per int64 [Q] query, or per [Q, 2]
+    query of a wide table, 0 on a miss. Reads the router bucket of the
+    query's prefix only. Twin: lookup.lookup_taxa_tiled."""
+    router, records, tile, bits, key_bits = table
+    _require(router, "router", torch.int32, 1)
+    _require(records, "table", torch.int32, 3)
+    lanes = records.shape[2]
+    wide = lanes == 5
+    shift = key_bits - bits
+    if (lanes not in (3, 5) or records.shape[1] != tile or router.shape[0] != (1 << bits) + 1
+            or not 0 <= shift <= (127 if wide else 63) or router.device != records.device):
+        raise ValueError(f"a tiled table of {tuple(records.shape)} lanes with a router of {router.shape[0]} entries "
+                         f"on {router.device} does not fit tile {tile}, {bits} bits of {key_bits}")
+    _table_queries(queries, wide, records)
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    name = "probe_tiled_wide" if wide else "probe_tiled"
+    rc = _launch(queries, _load().stpu_probe_tiled, router.data_ptr(), 1 << bits, shift, records.data_ptr(),
+                 int(wide), queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def lookup_taxa_rows_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of a row-bucket table (kernels/probe_tables.cu,
+    probe_rows_kernel and probe_rows_wide_kernel): int32 taxon per int64 [Q]
+    query, or per [Q, 2] query of a wide table, 0 on a miss. Reads one row
+    of the table a query. Twin: lookup.lookup_taxa_hashed_rows."""
+    rows, tile, row_bits = table
+    _require(rows, "table", torch.int32, 2)
+    wide = rows.shape[1] == 5 * tile
+    if (rows.shape[1] not in (3 * tile, 5 * tile) or rows.shape[0] != 1 << row_bits or not 1 <= row_bits <= 63
+            or tile < 4 or tile % 4 or rows.data_ptr() % 16):
+        raise ValueError(f"a row-bucket table of {tuple(rows.shape)} lanes does not fit tile {tile} and "
+                         f"{row_bits} row bits (tile a multiple of 4, 16-byte aligned)")
+    _table_queries(queries, wide, rows)
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    name = "probe_rows_wide" if wide else "probe_rows"
+    rc = _launch(queries, _load().stpu_probe_rows, rows.data_ptr(), tile, row_bits, int(wide), queries.data_ptr(),
+                 queries.shape[0], out.data_ptr(), _stream(queries))
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -1,0 +1,206 @@
+// Exact-match probes of the JAX package's other probe tables, which
+// `--probe tiled` and `--probe hashed1` choose: the tiled table (a prefix
+// router over the records in key order) and the row-bucket table (a row a
+// hash of the key). Each kernel returns the taxon of the key equal to the
+// query, or 0; the tables come from lookup.build_tiled and
+// lookup.build_hashed_rows, lane for lane the JAX builders' layouts.
+//
+// Replaces XLA code of the JAX package, not a Pallas kernel:
+//   probe_tiled       lookup_taxa_tiled            slacken_tpu/ops/lookup.py:333
+//   probe_tiled_wide  lookup_taxa_tiled_wide       slacken_tpu/ops/lookup.py:212
+//   probe_rows        lookup_taxa_hashed_rows      slacken_tpu/ops/lookup.py:740
+//   probe_rows_wide   lookup_taxa_hashed_rows_wide slacken_tpu/ops/lookup.py:891
+// Their twins are lookup.lookup_taxa_tiled and lookup.lookup_taxa_hashed_rows.
+//
+// Design. The JAX lookups gather whole rows per query ([Q, 2 * tile, 3|5]
+// and [Q, 3|5 * tile] lanes) because a TPU gathers at a rate of rows, not of
+// bytes; on the H100 that spends bytes (6.4 GB for one 4 Mbp batch of narrow
+// queries against a hashed1 table of tile 128), so each kernel reads only
+// what can hold the answer, one thread a query:
+//   * tiled: the router entries p and p + 1 (one sector), then the records
+//     of bucket [router[p], router[p + 1]) in key order until one is not
+//     below the query. The JAX lookup's two rows cover that bucket
+//     (tile_for_span), and a key of another bucket never equals the query,
+//     so the answer is the same. A bucket holds under one key on average.
+//   * rows, narrow: the row of the scrambled query holds its keys sorted by
+//     scrambled value, the free all-ones lanes last; a bisection of the hi'
+//     lanes, then the run of equal hi' for lo', reads about log2(tile) - 2
+//     sectors of the 512-byte hi' block and, on a hit, one of lo' and one of
+//     taxa. The taxon is max(taxon, 0), as the JAX lookup's reduction: a
+//     query that equals the all-ones free lanes finds their -1.
+//   * rows, wide: the row holds raw limbs in the order of the row hash, so
+//     there is no order to bisect; the l3 lanes are scanned 16 bytes at a
+//     time up to the first free lane (l3 of a key is below 2^30, a free
+//     lane's is all ones) and the other limbs are read only where l3 equals.
+// An invalid window's -1 (narrow) has a prefix beyond every router bucket
+// and misses without a load; its scramble matches no key. Wide, its l3 is
+// all ones: the tiled probe finds it beyond the buckets, the row scan stops
+// at the first free lane.
+//
+// Bound: as for the directory probe, the rate at which scattered 32-byte
+// sectors come from the L2 or device memory, not the bytes streamed.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr unsigned FREE = 0xFFFFFFFFu;  // a free lane of a row-bucket table
+
+__device__ __forceinline__ unsigned long long xorshift64(unsigned long long x) {
+  x ^= x << 13;
+  x ^= x >> 7;
+  x ^= x << 17;
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long join(unsigned hi, unsigned lo) {
+  return ((unsigned long long)hi << 32) | lo;
+}
+
+// keys of a tiled table are records of LIMBS + 1 uint32 lanes (the key's
+// limbs, most significant first, then the taxon), sorted by key
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS)
+probe_tiled_kernel(const int* __restrict__ router, unsigned long long buckets, int shift,
+                   const unsigned* __restrict__ records, const long long* __restrict__ queries, long long nq,
+                   int* __restrict__ out) {
+  constexpr int LANES = WIDE ? 5 : 3;
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  unsigned long long hi = 0, lo, p, above = 0;
+  if (WIDE) {
+    const ulonglong2 x = __ldcs(reinterpret_cast<const ulonglong2*>(queries) + qi);
+    hi = x.x;
+    lo = x.y;
+    if (shift >= 64) {
+      p = hi >> (shift - 64);
+    } else if (shift == 0) {
+      p = lo;
+      above = hi;
+    } else {
+      p = (hi << (64 - shift)) | (lo >> shift);
+      above = hi >> shift;
+    }
+  } else {
+    lo = (unsigned long long)__ldcs(queries + qi);
+    p = lo >> shift;  // logical: a negative query's prefix lies beyond every bucket
+  }
+  int taxon = 0;
+  if (above == 0 && p < buckets) {
+    const int end = __ldg(router + p + 1);
+    for (int i = __ldg(router + p); i < end; ++i) {
+      const unsigned* r = records + (long long)i * LANES;
+      bool below, equal;
+      if (WIDE) {
+        const unsigned long long k_hi = join(__ldg(r), __ldg(r + 1)), k_lo = join(__ldg(r + 2), __ldg(r + 3));
+        below = k_hi < hi || (k_hi == hi && k_lo < lo);
+        equal = k_hi == hi && k_lo == lo;
+      } else {
+        const unsigned long long key = join(__ldg(r), __ldg(r + 1));
+        below = key < lo;
+        equal = key == lo;
+      }
+      if (below) continue;
+      if (equal) taxon = __ldg(reinterpret_cast<const int*>(r) + LANES - 1);
+      break;  // found, or passed where the query would be
+    }
+  }
+  __stcs(out + qi, taxon);
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_rows_kernel(const unsigned* __restrict__ table, int tile, int row_bits,
+                  const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  const unsigned long long s = xorshift64((unsigned long long)__ldcs(queries + qi));
+  const unsigned sh = (unsigned)(s >> 32), sl = (unsigned)s;
+  const unsigned* hi = table + (long long)(s >> (64 - row_bits)) * 3 * tile;
+  const unsigned* lo = hi + tile;
+  // the first hi' lane not below sh: the row is sorted, its free lanes last
+  int first = 0;
+  for (int n = tile; n > 0;) {
+    const int half = n >> 1;
+    if (__ldg(hi + first + half) < sh) {
+      first += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  int taxon = 0;
+  for (int i = first; i < tile && __ldg(hi + i) == sh; ++i) {
+    const unsigned l = __ldg(lo + i);
+    if (l < sl) continue;
+    if (l == sl) taxon = max(__ldg(reinterpret_cast<const int*>(lo + tile) + i), 0);
+    break;
+  }
+  __stcs(out + qi, taxon);
+}
+
+__global__ void __launch_bounds__(THREADS)
+probe_rows_wide_kernel(const unsigned* __restrict__ table, int tile, int row_bits,
+                       const ulonglong2* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  const ulonglong2 x = __ldcs(queries + qi);
+  const unsigned long long h = xorshift64(x.x ^ xorshift64(x.y));
+  const unsigned* l3 = table + (long long)(h >> (64 - row_bits)) * 5 * tile;
+  const unsigned q3 = (unsigned)(x.x >> 32), q2 = (unsigned)x.x, q1 = (unsigned)(x.y >> 32), q0 = (unsigned)x.y;
+  int taxon = 0;
+  bool done = false;
+  for (int i = 0; i < tile && !done; i += 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(l3 + i));
+    const unsigned lanes[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4 && !done; ++j) {
+      if (lanes[j] == FREE) {
+        done = true;  // the rest of the row is free
+      } else if (lanes[j] == q3 && __ldg(l3 + tile + i + j) == q2 && __ldg(l3 + 2 * tile + i + j) == q1 &&
+                 __ldg(l3 + 3 * tile + i + j) == q0) {
+        taxon = max(__ldg(reinterpret_cast<const int*>(l3) + 4 * tile + i + j), 0);
+        done = true;
+      }
+    }
+  }
+  __stcs(out + qi, taxon);
+}
+
+unsigned blocks_of(long long nq) { return (unsigned)((nq + THREADS - 1) / THREADS); }
+
+}  // namespace
+
+// router: int32 [buckets + 1] (buckets = 2^bits), the first record of each
+// prefix of the key >> shift; records: [rows * tile, 3 | 5] uint32 lanes in
+// key order (wide: the four limbs of the 128-bit key, then the taxon);
+// queries: int64 [nq] or, wide, [nq, 2] (hi64, lo64), 16-byte aligned; out:
+// int32 [nq]. Returns the cudaError_t of the launch (0 on success).
+extern "C" int stpu_probe_tiled(const void* router, long long buckets, int shift, const void* records, int wide,
+                                const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  const auto kernel = wide ? probe_tiled_kernel<true> : probe_tiled_kernel<false>;
+  kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)router, (unsigned long long)buckets, shift, (const unsigned*)records, (const long long*)queries, nq,
+      (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// table: [2^row_bits, 3 * tile] (narrow: hi', lo', taxon blocks of the
+// scrambled keys) or [2^row_bits, 5 * tile] (wide: l3, l2, l1, l0, taxon)
+// uint32 lanes, 16-byte aligned, tile a multiple of 4; queries: int64 [nq]
+// or, wide, [nq, 2], 16-byte aligned; out: int32 [nq]. Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int stpu_probe_rows(const void* table, int tile, int row_bits, int wide, const void* queries,
+                               long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (wide) {
+    probe_rows_wide_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+        (const unsigned*)table, tile, row_bits, (const ulonglong2*)queries, nq, (int*)out);
+  } else {
+    probe_rows_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+        (const unsigned*)table, tile, row_bits, (const long long*)queries, nq, (int*)out);
+  }
+  return (int)cudaGetLastError();
+}

@@ -21,12 +21,23 @@ On the card a wide index is probed through its slot table (`build_slots`):
 each key's remainder below its bucket's prefix and its taxon (or the
 taxon's code) in one 16-byte row, so that a hit reads its taxon with its
 key; `lookup_taxa_slots` is that walk's twin.
+
+The JAX package's other probe tables, which `--probe` picks, are here too,
+narrow and wide, built in torch ops on the keys' device with the JAX
+builders' layouts and growth rules: the tiled table (`build_tiled`: a
+prefix router and the records in key order as [rows, tile, 3|5] uint32
+lanes) and the row-bucket table of `hashed1` (`build_hashed_rows`: the top
+row_bits of a scrambled key name its row of [3|5 * tile] uint32 lanes).
+`lookup_taxa_tiled` and `lookup_taxa_hashed_rows` are their lookups as the
+JAX package writes them (gathers of whole rows), the twins of the kernels in
+kernels/probe_tables.cu. Tables hold uint32 lanes as int32 bit patterns.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 #: mean keys per directory bucket: one 32-byte sector (measured on an H100
@@ -123,18 +134,23 @@ def lookup_taxa_directory(
 
 def probe(keys, taxa, directory, queries: torch.Tensor) -> torch.Tensor:
     """Probe `queries` (int64 [Q], or [Q, 2] in a wide index) in the index:
-    a directory kernel on CUDA, the plain twin on the CPU. A wide index on
-    the card passes its slot table (`build_slots`) as `directory`; the
-    kernel, or on the CPU its twin `lookup_taxa_slots`, then reads neither
-    `keys` nor `taxa`, which may be None."""
-    slots = isinstance(directory, SlotTable)
+    a kernel on CUDA, the plain twin on the CPU. A wide index on the card
+    passes its slot table (`build_slots`) as `directory`, and the tiled and
+    hashed1 probes their `TiledTable` or `HashedRows`; the kernel, or on the
+    CPU its twin, then reads neither `keys` nor `taxa`, which may be None."""
+    table = isinstance(directory, (SlotTable, TiledTable, HashedRows))
     if queries.device.type == "cpu":
-        return lookup_taxa_slots(directory, queries) if slots else lookup_taxa(keys, taxa, queries)
+        if not table:
+            return lookup_taxa(keys, taxa, queries)
+        twin = {SlotTable: lookup_taxa_slots, TiledTable: lookup_taxa_tiled, HashedRows: lookup_taxa_hashed_rows}
+        return twin[type(directory)](directory, queries)
     from . import cuda_kernels
 
-    if slots:
-        return cuda_kernels.lookup_taxa_slots_cuda(directory, queries)
-    return cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)
+    if not table:
+        return cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)
+    kernel = {SlotTable: cuda_kernels.lookup_taxa_slots_cuda, TiledTable: cuda_kernels.lookup_taxa_tiled_cuda,
+              HashedRows: cuda_kernels.lookup_taxa_rows_cuda}
+    return kernel[type(directory)](directory, queries)
 
 
 # ---------------------------------------------------------------------------
@@ -331,3 +347,224 @@ def lookup_taxa_slots(table: SlotTable, queries: torch.Tensor) -> torch.Tensor:
     field = s[:, 1] & ((1 << c) - 1)
     taxon = field if codes is None else codes[torch.where(found, field, 0)]
     return torch.where(found, taxon, 0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The tiled and row-bucket tables of the probe choice (`--probe tiled|hashed1`)
+# ---------------------------------------------------------------------------
+
+#: the tiled table's least tile, and the row-bucket table's
+TILED_TILE = 16
+ROWS_TILE = 128
+#: the largest tile either table grows to before its build gives up
+MAX_TILE = 1 << 12
+#: the router's largest prefix bits (a 2^24 + 1 entry router, 64 MiB)
+ROUTER_MAX_BITS = 24
+#: lanes a twin gathers at once: a chunk of queries holds this many
+TWIN_LANES = 1 << 22
+
+
+class TiledTable(NamedTuple):
+    """The tiled table of an index (the JAX package's build_tiled /
+    build_tiled_wide with build_router / build_router_wide): `router[p]` is
+    the position of the first key whose top `bits` of `key_bits` are >= p,
+    and `table` holds the records in key order, `tile` a row, each as
+    uint32 lanes (hi, lo, taxon), or (l3, l2, l1, l0, taxon) for wide keys,
+    padded with all-ones keys and taxon 0. Rows pos // tile and pos // tile +
+    1 cover every router bucket (`tile_for_span`)."""
+
+    router: torch.Tensor  # int32 [2^bits + 1]
+    table: torch.Tensor  # int32 [rows, tile, 3 | 5]
+    tile: int
+    bits: int
+    key_bits: int  # 2m: the width of the key space the router cuts
+
+
+class HashedRows(NamedTuple):
+    """The row-bucket table of `--probe hashed1` (build_hashed_rows): row r
+    holds every key whose row hash has r as its top `row_bits`, in column
+    blocks of `tile` lanes: (hi', lo', taxon) of the xorshift-scrambled key
+    for narrow keys, in scrambled order; for wide keys the raw (l3, l2, l1,
+    l0, taxon), in the order of the row hash. Free lanes are all ones (the
+    taxon lane reads -1)."""
+
+    table: torch.Tensor  # int32 [2^row_bits, 3 * tile | 5 * tile]
+    tile: int
+    row_bits: int
+
+
+def adaptive_router_bits(n_keys: int, max_bits: int = ROUTER_MAX_BITS) -> int:
+    """Prefix bits of the router of n_keys keys: about two entries a key,
+    between 12 and max_bits."""
+    if n_keys <= 1:
+        return 12
+    return min(max_bits, max(12, (n_keys - 1).bit_length() + 1))
+
+
+def build_router(keys: torch.Tensor, bits: int, key_bits: int) -> torch.Tensor:
+    """int32 [2^bits + 1]: entry p is the position of the first of the
+    sorted `keys` (int64 [N], or [N, 2] wide) whose top `bits` of `key_bits`
+    are >= p."""
+    if keys.dim() == 2:
+        return _directory_wide(keys, bits, key_bits).starts
+    edges = torch.arange((1 << bits) + 1, dtype=torch.int64, device=keys.device) << (key_bits - bits)
+    return torch.searchsorted(keys, edges, out_int32=True)
+
+
+def max_bucket_span(router: torch.Tensor) -> int:
+    """The most keys under one router prefix (at least 1)."""
+    if router.shape[0] <= 1:
+        return 1
+    return max(1, int((router[1:] - router[:-1]).max()))
+
+
+def tile_for_span(maxb: int, tile: int = TILED_TILE) -> int:
+    """The least power-of-two multiple of `tile` with tile + 1 >= maxb: two
+    consecutive rows then cover any router bucket."""
+    while tile + 1 < maxb:
+        tile *= 2
+    return tile
+
+
+def _limbs(keys: torch.Tensor):
+    """The uint32 limbs of int64 keys ([N]: hi, lo; [N, 2]: l3, l2, l1, l0),
+    most significant first, as int32 bit patterns."""
+    words = (keys[:, 0], keys[:, 1]) if keys.dim() == 2 else (keys,)
+    return [limb for w in words for limb in ((w >> 32).to(torch.int32), w.to(torch.int32))]
+
+
+def build_tiled(keys: torch.Tensor, taxa: torch.Tensor, key_bits: int, tile: int = TILED_TILE) -> TiledTable:
+    """The tiled table of the sorted, unique `keys` (int64 [N], or [N, 2]
+    wide) with int32 `taxa`, in torch ops on their device: the router at
+    min(adaptive_router_bits(N), key_bits) bits, the tile grown from `tile`
+    until two rows cover its largest bucket, and ceil(N / tile) + 2 rows.
+    Equal, lane for lane, to the JAX package's build_tiled(_wide)."""
+    n = keys.shape[0]
+    bits = min(adaptive_router_bits(n), key_bits)
+    router = build_router(keys, bits, key_bits)
+    tile = tile_for_span(max_bucket_span(router), tile)
+    n_rows = -(-n // tile) + 2
+    limbs = _limbs(keys)
+    table = torch.empty((n_rows * tile, len(limbs) + 1), dtype=torch.int32, device=keys.device)
+    for i, limb in enumerate(limbs):
+        table[:n, i] = limb
+    table[:n, -1] = taxa
+    table[n:, :-1] = -1
+    table[n:, -1] = 0
+    return TiledTable(router, table.view(n_rows, tile, len(limbs) + 1), tile, bits, key_bits)
+
+
+def lookup_taxa_tiled(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
+    """The tiled lookup as the JAX package writes it (lookup_taxa_tiled,
+    lookup_taxa_tiled_wide): the router entry of the query's prefix, the two
+    rows from that entry's row, the taxon of a lane equal to the query in
+    every limb, else 0. A query that is negative (an invalid window's -1) or
+    beyond the key space misses unsearched. int32 [Q]; the twin of the
+    probe_tiled kernels."""
+    router, rows, tile, bits, key_bits = table
+    shift = key_bits - bits
+    wide = queries.dim() == 2
+    out = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
+    step = max(1, TWIN_LANES // (2 * rows.shape[1] * rows.shape[2]))  # queries a gather
+    for a in range(0, queries.shape[0], step):
+        q = queries[a:a + step]
+        if wide:
+            p, above = prefix_wide(q, shift)
+            inside = (q[:, 0] >= 0) & (above == 0) & (p >= 0) & (p < 1 << bits)
+        else:
+            p = q >> shift
+            inside = (q >= 0) & (p < 1 << bits)
+        row = router[torch.where(inside, p, 0)].long() // tile
+        both = torch.cat([rows[row], rows[row + 1]], 1)  # [q, 2 * tile, 3 | 5]
+        eq = torch.stack([both[:, :, i] == limb[:, None] for i, limb in enumerate(_limbs(q))]).all(0)
+        taxon = torch.where(eq, both[:, :, -1], 0).amax(1)
+        out[a:a + step] = torch.where(inside, taxon, 0)
+    return out
+
+
+def xorshift64(x: torch.Tensor) -> torch.Tensor:
+    """The bijective xorshift64 mix (13, 7, 17) of int64 bit patterns, with a
+    logical right shift."""
+    x = x ^ (x << 13)
+    x = x ^ ((x >> 7) & ((1 << 57) - 1))
+    return x ^ (x << 17)
+
+
+def wide_row_hash(keys: torch.Tensor) -> torch.Tensor:
+    """The row hash of wide keys ([N, 2] int64): xorshift64(hi64 ^
+    xorshift64(lo64)), which mixes lo64's entropy into the top bits."""
+    return xorshift64(keys[:, 0] ^ xorshift64(keys[:, 1]))
+
+
+def _top_bits(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """The top `bits` of int64 bit patterns, read unsigned."""
+    return (x >> (64 - bits)) & ((1 << bits) - 1)
+
+
+def build_hashed_rows(keys: torch.Tensor, taxa: torch.Tensor, tile: int = ROWS_TILE,
+                      row_bits: Optional[int] = None) -> HashedRows:
+    """The row-bucket table of the unique `keys` (int64 [N], or [N, 2] wide)
+    with int32 `taxa`, in torch ops on their device: a stable sort by the
+    row hash (the scrambled key, or `wide_row_hash`) read unsigned, the
+    count of each row, and a scatter into [2^row_bits, lanes * tile] lanes.
+    row_bits starts at ceil(log2(N / tile)) unless given; while the fullest
+    row holds more than `tile` keys it grows, up to min(28, start + 8) (only
+    when not given), then the tile doubles up to MAX_TILE, and past that the
+    build raises ValueError. Equal, lane for lane, to the JAX package's
+    build_hashed_rows(_wide) and its device builders."""
+    n, wide = keys.shape[0], keys.dim() == 2
+    dev = keys.device
+    h = wide_row_hash(keys) if wide else xorshift64(keys)
+    order_key, order = torch.sort(h ^ _SIGN, stable=True)  # ^ _SIGN: the unsigned order
+    if wide:
+        lanes = _limbs(keys[order])
+    else:
+        lanes = _limbs(order_key ^ _SIGN)  # the scrambled key is the row hash
+    taxa = taxa[order].to(torch.int32)
+    auto = row_bits is None
+    if auto:
+        row_bits = max(1, int(np.ceil(np.log2(max(n, 2) / tile))))
+    max_bits = min(28, row_bits + 8)
+    starts = None
+    while n:
+        edges = (torch.arange(1 << row_bits, dtype=torch.int64, device=dev) << (64 - row_bits)) ^ _SIGN
+        starts = torch.searchsorted(order_key, edges)
+        fullest = int(torch.diff(starts, append=starts.new_tensor([n])).max())
+        if fullest <= tile:
+            break
+        if auto and row_bits < max_bits:
+            row_bits += 1
+        elif tile < MAX_TILE:
+            tile *= 2
+        else:
+            raise ValueError(f"{'wide ' if wide else ''}hashed-rows layout did not converge (n={n}); "
+                             "use the tiled or routed probe")
+    width = (len(lanes) + 1) * tile
+    table = torch.full((1 << row_bits, width), -1, dtype=torch.int32, device=dev)
+    if n:
+        rows = _top_bits(order_key ^ _SIGN, row_bits)
+        at = rows * width + torch.arange(n, device=dev) - starts[rows]
+        flat = table.view(-1)
+        for i, lane in enumerate([*lanes, taxa]):
+            flat[at + i * tile] = lane
+    return HashedRows(table, tile, row_bits)
+
+
+def lookup_taxa_hashed_rows(table: HashedRows, queries: torch.Tensor) -> torch.Tensor:
+    """The row-bucket lookup as the JAX package writes it
+    (lookup_taxa_hashed_rows, lookup_taxa_hashed_rows_wide): the query's row
+    by its row hash, the taxon of a lane equal to the scrambled query (wide:
+    the raw query) in every limb, else 0, and at least 0 (a free lane's -1).
+    int32 [Q]; the twin of the probe_rows kernels."""
+    rows, tile, row_bits = table
+    wide = queries.dim() == 2
+    out = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
+    step = max(1, TWIN_LANES // rows.shape[1])  # queries a gather
+    for a in range(0, queries.shape[0], step):
+        q = queries[a:a + step]
+        h = wide_row_hash(q) if wide else xorshift64(q)
+        r = rows[_top_bits(h, row_bits)]  # [q, lanes * tile]
+        limbs = _limbs(q if wide else h)
+        eq = torch.stack([r[:, i * tile:(i + 1) * tile] == limb[:, None] for i, limb in enumerate(limbs)]).all(0)
+        out[a:a + step] = torch.where(eq, r[:, len(limbs) * tile:], 0).amax(1).clamp(min=0)
+    return out

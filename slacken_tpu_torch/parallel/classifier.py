@@ -50,14 +50,16 @@ class MeshClassifier(Classifier):
     """Classifier running each batch over `mesh` (a mesh.Mesh or a list of
     devices). layout 'replicated': the index on every device, a batch's rows
     split into contiguous chunks, one a device. layout 'ring': the index cut
-    into len(mesh) key ranges, one a device, and the queries going round."""
+    into len(mesh) key ranges, one a device, and the queries going round.
+    `probe` as for Classifier: in the ring each shard has its own table."""
 
-    def __init__(self, index: KeyValueIndex, mesh, layout: str = "replicated", max_taxa_per_read: int = 32):
+    def __init__(self, index: KeyValueIndex, mesh, layout: str = "replicated", max_taxa_per_read: int = 32,
+                 probe: Optional[str] = None):
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
         self.mesh = pmesh.as_mesh(mesh)
         self.layout = layout
-        super().__init__(index, self.mesh[0], max_taxa_per_read)
+        super().__init__(index, self.mesh[0], max_taxa_per_read, probe)
 
     def _place_index(self) -> None:
         """Per device, once: the rank table and the rpath table; the probe
@@ -68,13 +70,13 @@ class MeshClassifier(Classifier):
         self._luts = {d: idx.device_lut(d) for d in self.mesh.distinct}
         self._tables = {d: table.to(d) for d in self.mesh.distinct}
         if self.layout == "replicated":
-            self._arrays = [idx.device_arrays(d) for d in self.mesh]
+            self._arrays = [idx.device_arrays(d, self.probe) for d in self.mesh]
         else:
             self._arrays = self._ring_shards()
 
     def _ring_shards(self):
         """The ring's shards, one a mesh entry: the index cut into key ranges."""
-        return pmesh.shard_index(self.index, self.mesh)
+        return pmesh.shard_index(self.index, self.mesh, self.probe)
 
     def _padded_rows(self, n: int) -> int:
         """A power of two and a multiple of the mesh size: chunks of equal rows."""
@@ -108,7 +110,8 @@ def requested_mesh(device="cuda", devices=None, layout: Optional[str] = None) ->
 def make_classifier(index: KeyValueIndex, device="cuda", devices=None, layout: Optional[str] = None,
                     **kwargs) -> Classifier:
     """The CLI's classifier: a MeshClassifier over `requested_mesh`, or the
-    single-device Classifier on `device`."""
+    single-device Classifier on `device`; `kwargs` (max_taxa_per_read,
+    probe) go to either."""
     mesh = requested_mesh(device, devices, layout)
     if mesh is None:
         return Classifier(index, device, **kwargs)

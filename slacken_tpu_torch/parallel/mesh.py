@@ -9,8 +9,8 @@ non_blocking=True)`, which PyTorch orders against the current streams of
 both devices; on a repeated device the copy is the tensor itself, so nothing
 here updates a tensor in place):
 
-  * **replicated**: every device holds the whole index (its probe arrays,
-    made once a device) and scans and probes its contiguous chunk of a
+  * **replicated**: every device holds the whole index (its probe arrays
+    for the classifier's probe, made once a device) and scans and probes its contiguous chunk of a
     batch's rows (`scan_probe_replicated`, after classify_replicated_fn);
   * **ring**: the index is cut into len(mesh) contiguous key ranges
     (`shard_index`, np.linspace bounds, so shards differ by at most one key
@@ -103,22 +103,25 @@ def chunk_bounds(rows: int, n: int) -> List[Tuple[int, int]]:
     return list(zip(edges[:-1], edges[1:]))
 
 
-def shard_index(index, mesh: Mesh):
+def shard_index(index, mesh: Mesh, probe: str = "routed"):
     """The ring's shards: len(mesh) contiguous key ranges of `index` at
     np.linspace bounds (save_sharded's), each as `lookup.probe` reads it on
-    its device (keys, taxa and directory, or a slot table for a wide index
-    on the card). A shard may be empty."""
+    its device for `probe` (KeyValueIndex.device_arrays: keys, taxa and
+    directory, a slot table for a wide index on the card, or the shard's own
+    tiled or row-bucket table). A shard may be empty."""
     bounds = np.linspace(0, index.num_records, len(mesh) + 1).astype(np.int64)
     return [place_shard(index.with_records(index.keys_t[bounds[i]:bounds[i + 1]], index.taxa_t[bounds[i]:bounds[i + 1]]),
-                        dev) for i, dev in enumerate(mesh)]
+                        dev, probe) for i, dev in enumerate(mesh)]
 
 
-def place_shard(shard, dev):
-    """One shard (an index of a key range) as `lookup.probe` reads it on `dev`."""
+def place_shard(shard, dev, probe: str = "routed"):
+    """One shard (an index of a key range) as `lookup.probe` reads it on `dev`
+    for `probe`. Each shard has a table of its own geometry: the hops carry
+    queries and answers, never tables."""
     keys, taxa = shard.keys_t.to(dev), shard.taxa_t.to(dev)
     if keys.data_ptr() % 16:  # the probe kernels load 16 bytes at a time
         keys = keys.clone()
-    return shard.with_records(keys, taxa).device_arrays(dev)
+    return shard.with_records(keys, taxa).device_arrays(dev, probe)
 
 
 def scan_chunks(mesh: Mesh, packed: np.ndarray, valid: np.ndarray, luts: Dict):

@@ -25,14 +25,16 @@ Without a coordinator (and without torchrun's environment) `initialize`
 returns the one-process context and creates no group, and every function
 degenerates to the local behaviour, as the JAX module does.
 
-Not ported: the tiled, hashed and hashed1 shard tables
-(`ring_tables_for_host`, `ring_hashed_tables_for_host`) and their
-`STPU_MH_PROBE` switch, with the CLI's --probe: the port's directory and
-slot probes take shards of any length and give the same answers, so the
-ranks agree on no table geometry, pad no shard and build no router.
-`global_rows` and `collect_local` have no counterpart either: they are the
-plumbing of jax.Arrays that span processes; here each rank keeps its own
-rows, as the port's mesh keeps each device's rows (mesh.py's psum).
+The probe (`mh_probe`, STPU_MH_PROBE, the CLI's --probe) is routed, tiled
+or hashed1, wide indexes routed or hashed1, as the JAX package takes them;
+each ring entry builds its own table from its shard (`ring_index_for_host`),
+so the ranks agree on no table geometry and pad no shard: the port's probes
+take shards of any length and give the same answers. The `hashed` shard
+tables (`ring_hashed_tables_for_host`'s other kind) wait for the slice that
+ports the hashed probe. `global_rows` and `collect_local` have no
+counterpart: they are the plumbing of jax.Arrays that span processes; here
+each rank keeps its own rows, as the port's mesh keeps each device's rows
+(mesh.py's psum).
 """
 
 from __future__ import annotations
@@ -173,11 +175,12 @@ def load_index_for_host(location: str, ctx: HostContext, taxonomy=None) -> KeyVa
     return KeyValueIndex.load_shards(location, host_shard_ids(_shard_count(location), ctx), taxonomy=taxonomy)
 
 
-def ring_index_for_host(location: str, ctx: HostContext, taxonomy=None) -> list:
+def ring_index_for_host(location: str, ctx: HostContext, taxonomy=None, probe: str = "routed") -> list:
     """The ring's shards of this process's mesh entries, each as
-    `lookup.probe` reads it on its device: global entry g = rank * L + i
-    owns shard files g * s0 ... (g + 1) * s0 - 1, s0 = files / (P * L), and
-    this process loads only those of its own entries. Shards may differ in
+    `lookup.probe` reads it on its device for `probe` (its own tiled or
+    row-bucket table for those probes): global entry g = rank * L + i owns
+    shard files g * s0 ... (g + 1) * s0 - 1, s0 = files / (P * L), and this
+    process loads only those of its own entries. Shards may differ in
     length; nothing is padded."""
     n_shards, n = _shard_count(location), ctx.global_device_count
     if n_shards % n:
@@ -187,7 +190,7 @@ def ring_index_for_host(location: str, ctx: HostContext, taxonomy=None) -> list:
     for i, dev in enumerate(ctx.mesh):
         g = ctx.process_index * ctx.local_device_count + i
         part = KeyValueIndex.load_shards(location, range(g * s0, (g + 1) * s0), taxonomy=taxonomy)
-        shards.append(pmesh.place_shard(part, dev))
+        shards.append(pmesh.place_shard(part, dev, probe))
     return shards
 
 
@@ -258,9 +261,15 @@ class MultiHostRingClassifier(MeshClassifier):
     needs. Per-read lines go to part-<process:05d>.txt.gz in each sample's
     directory, so that the part files joined in name order are the
     one-process output; the kreports are merged across processes and
-    written by process 0."""
+    written by process 0.
 
-    def __init__(self, location: str, ctx: Optional[HostContext] = None, max_taxa_per_read: int = 32):
+    `mh_probe` (default STPU_MH_PROBE, else "routed") is the ring's probe:
+    routed, tiled or hashed1, a wide index routed or hashed1; the JAX
+    package's `hashed` raises NotImplementedError (a later slice), any other
+    name ValueError, as there."""
+
+    def __init__(self, location: str, ctx: Optional[HostContext] = None, max_taxa_per_read: int = 32,
+                 mh_probe: Optional[str] = None):
         self.ctx = ctx or initialize()
         self._location = location
         self.lockstep = None
@@ -268,11 +277,17 @@ class MultiHostRingClassifier(MeshClassifier):
         self.dispatches = self.padding_dispatches = 0
         # the empty key range: parameters, taxonomy and rank table only;
         # the ring's shards come from the files of this process's entries
-        super().__init__(KeyValueIndex.load_shards(location, []), self.ctx.mesh, "ring", max_taxa_per_read)
+        local = KeyValueIndex.load_shards(location, [])
+        mh_probe = mh_probe or os.environ.get("STPU_MH_PROBE", "routed")
+        if mh_probe not in ("routed", "tiled", "hashed", "hashed1"):
+            raise ValueError(f"multi-host ring supports routed/tiled/hashed/hashed1 probes, not {mh_probe!r}")
+        if local.wide and mh_probe not in ("routed", "hashed1"):
+            raise ValueError("wide (m > 31) multi-host indexes support the routed and hashed1 probes")
+        super().__init__(local, self.ctx.mesh, "ring", max_taxa_per_read, mh_probe)
         self._part_index = self.ctx.process_index
 
     def _ring_shards(self):
-        return ring_index_for_host(self._location, self.ctx, self.index.taxonomy)
+        return ring_index_for_host(self._location, self.ctx, self.index.taxonomy, self.probe)
 
     @property
     def p2p_bytes(self) -> int:

@@ -19,8 +19,9 @@ TIMEOUT = 180
 def run_rank(rank, spec):
     """One rank: initialize (spec: url, world, device, devices, backend),
     classify_and_write_stream of spec["reads"] ([(codes, lengths, titles)]
-    chunks) against spec["index"] into spec["out"], then the collectives of
-    one process: allgather_objects and report_counts_across_hosts."""
+    chunks) against spec["index"] into spec["out"] through spec's mh_probe
+    (if any), then the collectives of one process: allgather_objects and
+    report_counts_across_hosts."""
     torch.set_num_threads(1)
     from slacken_tpu_torch import native
     from slacken_tpu_torch.classify import ClassifyParams
@@ -29,7 +30,7 @@ def run_rank(rank, spec):
 
     ctx = multihost.initialize(spec["url"], spec["world"], rank, spec["device"], spec["devices"], spec["backend"])
     try:
-        cls = multihost.MultiHostRingClassifier(spec["index"], ctx)
+        cls = multihost.MultiHostRingClassifier(spec["index"], ctx, mh_probe=spec.get("mh_probe"))
         chunks = [native.PackedReads(*c) for c in spec["reads"]]
         cpar = ClassifyParams(thresholds=spec["thresholds"], per_read_output=spec["per_read"])
         before = dict(cuda_kernels.LAUNCHES)

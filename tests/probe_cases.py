@@ -1,5 +1,7 @@
 """Wide indexes and queries for the slot table's tests, shared by its
-twin's (test_torch_probe_slots.py) and its kernel's (test_torch_gpu.py)."""
+twin's (test_torch_probe_slots.py) and its kernel's (test_torch_gpu.py);
+key sets for the tiled and row-bucket tables' tests
+(test_torch_probe_tables.py and test_torch_gpu.py)."""
 
 import numpy as np
 
@@ -78,3 +80,58 @@ def queries_of(rng, keys, m):
 
 def mode(table):
     return "direct" if table.codes is None else "code"
+
+
+MASK64 = (1 << 64) - 1
+
+
+def _xorshift(x: int) -> int:
+    x ^= (x << 13) & MASK64
+    x ^= x >> 7
+    return x ^ ((x << 17) & MASK64)
+
+
+def _inverse_xorshift(x: int) -> int:
+    """The 64-bit value whose _xorshift is x: each step undone in turn."""
+    for shift, left in ((17, True), (7, False), (13, True)):
+        y = x
+        for _ in range(64 // shift + 1):
+            y = x ^ (((y << shift) & MASK64) if left else (y >> shift))
+        x = y
+    return x
+
+
+def _skewed(rng):
+    """1,000 narrow keys, 40 of them under one 12-bit router prefix."""
+    spread = rng.integers(0, 1 << 62, 960, dtype=np.int64)
+    crowd = (np.int64(1234) << np.int64(50)) + rng.integers(0, 1 << 20, 40, dtype=np.int64)
+    return np.unique(np.concatenate([spread, crowd]))
+
+
+def _tied(rng):
+    """Wide (m = 45) keys in pairs whose row hashes are equal: beside a key
+    (hi, lo), the key (hi ^ d, lo') with xorshift64(lo') = xorshift64(lo) ^ d."""
+    rows = []
+    for _ in range(150):
+        hi, lo, d = int(rng.integers(0, 1 << 26)), int(rng.integers(0, 1 << 62)), int(rng.integers(1, 1 << 26))
+        rows += [(hi, lo), (hi ^ d, _inverse_xorshift(_xorshift(lo) ^ d))]
+    return np.unique(np.array(rows, dtype=np.uint64), axis=0)
+
+
+#: the key sets of `table_keys`
+TABLE_KINDS = ("narrow", "wide", "rank table", "skewed", "empty", "wide, tied row hashes")
+
+
+def table_keys(rng, kind):
+    """(sorted unique uint64 keys [N] or [N, 2], int32 taxa, key_bits) of
+    one kind of `TABLE_KINDS`: random 62-bit keys, random (50, 45) keys,
+    random 26-bit ranks (m = 13), `_skewed`, none, `_tied`."""
+    keys, key_bits = {
+        "narrow": lambda: (np.unique(rng.integers(0, 1 << 62, 3000)).astype(np.uint64), 62),
+        "wide": lambda: (wide_keys(rng, 45, 3000), 90),
+        "rank table": lambda: (np.unique(rng.integers(0, 1 << 26, 3000)).astype(np.uint64), 26),
+        "skewed": lambda: (_skewed(rng).astype(np.uint64), 62),
+        "empty": lambda: (np.zeros(0, np.uint64), 62),
+        "wide, tied row hashes": lambda: (_tied(rng), 90),
+    }[kind]()
+    return keys, rng.integers(1, 1 << 20, len(keys)).astype(np.int32), key_bits

@@ -281,8 +281,8 @@ def test_dynamic_index_is_served_from_its_device(world, tmp_path, monkeypatch):
     seen = {}
     real = KeyValueIndex.device_arrays
 
-    def device_arrays(self, device):
-        out = real(self, device)
+    def device_arrays(self, device, probe="routed"):
+        out = real(self, device, probe)
         seen[id(self)] = (out[0] is self.keys_t, out[1] is self.taxa_t)
         return out
 

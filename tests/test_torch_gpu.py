@@ -356,6 +356,80 @@ def test_probe_kernel_refuses_what_it_does_not_take(cuda):
         cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, d, torch.arange(20, device=cuda)[::2])
 
 
+def _table_queries(rng, keys):
+    """Queries of a tiled or row-bucket table's tests: every key, keys
+    beside it, random values of any sign (wide: probe_cases.queries_of,
+    with the all-ones rows of invalid windows) and -1."""
+    if keys.ndim == 2:
+        return probe_cases.queries_of(rng, keys, 45).view(np.int64)
+    k = keys.view(np.int64)
+    return np.concatenate([k, k + 1, k - 1, EDGE_QUERIES, [-1],
+                           rng.integers(-(1 << 63), (1 << 63) - 1, 2000, dtype=np.int64)])
+
+
+def _build_table(probe, keys, taxa, key_bits, **kwargs):
+    if probe == "tiled":
+        return lookup.build_tiled(keys, taxa, key_bits, **kwargs)
+    return lookup.build_hashed_rows(keys, taxa, **kwargs)
+
+
+def _assert_table_probe(cuda, probe, keys, taxa, key_bits, q, **kwargs):
+    """The table built on the card == built on the CPU; its kernel (one
+    launch, of the kind's name) == the twin == lookup_taxa on `q`."""
+    k, t, q = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), torch.from_numpy(q)
+    host, card = (_build_table(probe, k.to(d), t.to(d), key_bits, **kwargs) for d in ("cpu", cuda))
+    for a, b in zip(host, card):
+        assert torch.equal(a, b.cpu()) if isinstance(a, torch.Tensor) else a == b
+    name = ("probe_tiled" if probe == "tiled" else "probe_rows") + ("_wide" if keys.ndim == 2 else "")
+    before = dict(cuda_kernels.LAUNCHES)
+    got = lookup.probe(None, None, card, q.to(cuda))
+    assert {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]} == {name: 1}
+    want = lookup.lookup_taxa(k, t, q)
+    assert torch.equal(got.cpu(), want) and torch.equal(lookup.probe(None, None, host, q), want)
+    assert bool((want[:len(keys)] > 0).all())
+    return card
+
+
+@pytest.mark.parametrize("probe", ["tiled", "hashed1"])
+@pytest.mark.parametrize("kind", probe_cases.TABLE_KINDS)
+def test_table_probe_kernels_match_twins(cuda, kind, probe):
+    """probe_tiled(_wide) and probe_rows(_wide) over tables built on the
+    card: narrow keys (scrambles with the top bit set and clear), wide,
+    26-bit ranks, a router bucket of 40 keys, none, and row hashes that tie."""
+    rng = np.random.default_rng(len(kind))
+    keys, taxa, key_bits = probe_cases.table_keys(rng, kind)
+    table = _assert_table_probe(cuda, probe, keys, taxa, key_bits, _table_queries(rng, keys))
+    if kind == "skewed" and probe == "tiled":
+        assert table.tile == 64
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_row_probe_kernel_on_grown_tiles(cuda, wide):
+    """A forced row_bits of 1: the tile grows to 512 and 1,024 lanes a block."""
+    rng = np.random.default_rng(3)
+    keys, taxa, key_bits = probe_cases.table_keys(rng, "wide" if wide else "narrow")
+    for n, tile in ((600, 512), (1500, 1024)):
+        table = _assert_table_probe(cuda, "hashed1", keys[:n], taxa[:n], key_bits,
+                                    _table_queries(rng, keys[:n]), row_bits=1)
+        assert (table.tile, table.row_bits) == (tile, 1)
+
+
+def test_table_probe_kernels_refuse_what_they_do_not_take(cuda):
+    keys = torch.arange(0, 1 << 40, 1 << 30, device=cuda)
+    taxa = torch.ones(keys.shape[0], dtype=torch.int32, device=cuda)
+    tiled, rows = lookup.build_tiled(keys, taxa, 62), lookup.build_hashed_rows(keys, taxa)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_kernels.lookup_taxa_tiled_cuda(tiled, keys.cpu())
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.lookup_taxa_tiled_cuda(tiled._replace(bits=tiled.bits + 1), keys)
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.lookup_taxa_rows_cuda(rows._replace(row_bits=rows.row_bits + 1), keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.lookup_taxa_rows_cuda(rows, torch.arange(20, device=cuda)[::2])
+    with pytest.raises(ValueError, match="1-d"):
+        cuda_kernels.lookup_taxa_rows_cuda(rows, keys.view(-1, 2))
+
+
 @pytest.mark.parametrize("shape", [(8, 128), (4096, 128), (5, 16), (33, 1000)])
 @pytest.mark.parametrize("name", cuda_kernels.MASK_IDIOMS)
 def test_mask_idiom_kernel_matches_twin(cuda, name, shape):
@@ -765,7 +839,8 @@ def _multihost_run(tmp_path, kind, world, **spec):
     want = files(tmp_path / "one")
     assert files(tmp_path / "mh") == want and len(want) == 4
     scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
-    probe = "probe_wide" if kind == "wide" else "probe"
+    probe = {None: "probe", "tiled": "probe_tiled", "hashed1": "probe_rows"}[spec.get("mh_probe")]
+    probe = "probe_wide" if kind == "wide" and probe == "probe" else probe + ("_wide" if kind == "wide" else "")
     assert all(set(s["launched"]) == {scan, probe} for s in seen)
     return seen
 
@@ -789,6 +864,42 @@ def test_multihost_two_ranks_share_the_card_over_gloo(cuda, tmp_path, kind):
     width = 2 if kind == "wide" else 1
     assert [s["p2p"] for s in seen] == [6 * (3 * 10 * 128 * (8 * width + 4) + 10 * 128 * 4)] * 2
     assert [s["counts"] for s in seen] == [[0, 3, 6, 9, 12]] * 2
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_multihost_world_of_one_with_the_hashed1_probe(cuda, tmp_path, kind):
+    """One NCCL rank, two ring entries, mh_probe="hashed1": each entry's
+    row-bucket table and its kernel; the single card's files."""
+    seen = _multihost_run(tmp_path, kind, 1, device="cuda", devices=2, backend=None, mh_probe="hashed1")
+    assert seen[0]["backend"] == "nccl" and seen[0]["p2p"] == 0
+
+
+@pytest.mark.parametrize("probe", ["tiled", "hashed1"])
+@pytest.mark.parametrize("kind", ["narrow", "wide", "lexicographic"])
+def test_probe_choice_on_the_card(cuda, kind, probe):
+    """Classifier(probe=) on the card == the routed probe on the card == the
+    same probe on the CPU, and MeshClassifier over Mesh([cuda:0] * 8) in the
+    ring (a table a shard: 64 probes a batch) and replicated; per-read mode."""
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier
+
+    tax, genomes, params = _small_library(kind)
+    idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+    frags = [Fragment(f"r{i}", genomes[i % 6][1][i * 20 : i * 20 + 101]) for i in range(100)]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15])
+    want = Classifier(idx, cuda).classify(frags, cpar)
+    assert sum(r.classified for r in want[0.0]) > 70
+    name = ("probe_tiled" if probe == "tiled" else "probe_rows") + ("_wide" if kind == "wide" else "")
+    scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
+    for layout, probes in ((None, 1), ("ring", 64), ("replicated", 8)):
+        before = dict(cuda_kernels.LAUNCHES)
+        cls = (Classifier(idx, cuda, probe=probe) if layout is None
+               else MeshClassifier(idx, [torch.device("cuda", 0)] * 8, layout, probe=probe))
+        assert cls.classify(frags, cpar) == want
+        launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
+        assert launched == {scan: 1 if layout is None else 8, name: probes}
+    assert Classifier(idx.to("cpu"), "cpu", probe=probe).classify(frags, cpar) == want
 
 
 def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):

@@ -5,7 +5,7 @@ MultiHostRingClassifier over a local mesh of 2 CPU entries held at
 tolerance 0 to slacken_tpu's MultiHostRingClassifier (its global mesh: the
 8 virtual CPU devices of conftest) for a narrow, a wide (50, 45, 7) and a
 signature (35, 13, 3) index that the JAX package built and saved in 8 shard
-files; the lockstep (all-padding batches, refusals) and the CLI's refusals.
+files, with the routed probe and with mh_probe hashed1 or tiled; the lockstep (all-padding batches, refusals) and the CLI's refusals.
 Several processes: test_torch_multihost_procs.py."""
 
 import os
@@ -22,7 +22,7 @@ from slacken_tpu.parallel import multihost as jmultihost
 from slacken_tpu_torch import cli, native
 from slacken_tpu_torch.classify import Classifier, ClassifyParams
 from slacken_tpu_torch.index import KeyValueIndex
-from slacken_tpu_torch.ops import encode
+from slacken_tpu_torch.ops import encode, lookup
 from slacken_tpu_torch.parallel import multihost
 from slacken_tpu_torch.parallel.mesh import Mesh
 from test_taxonomy import random_taxonomy
@@ -148,6 +148,27 @@ def test_world_of_one_equals_the_jax_classifier(world, kind):
     assert got == single
     assert sum(r.classified for r in got[0.0]) >= 15
     jcls = jmultihost.MultiHostRingClassifier(loc)
+    jcls.set_lockstep(21, 16, 128)
+    want = jcls.classify_packed(iter([world.packed(jax=True)]), JClassifyParams(thresholds=[0.0, 0.1],
+                                                                                  per_read_output=True))
+    for t in (0.0, 0.1):
+        assert fields(want[t]) == fields(got[t])
+
+
+@pytest.mark.parametrize("kind,probe", [("narrow", "hashed1"), ("wide", "hashed1"), ("signature", "tiled")])
+def test_world_of_one_with_a_table_probe(world, kind, probe):
+    """mh_probe="hashed1" (and "tiled"): each of the 2 CPU entries probes
+    its own shards' table; the routed single-device classify, and
+    slacken_tpu's MultiHostRingClassifier with the same mh_probe."""
+    loc = world.location(kind)
+    cpar = ClassifyParams(thresholds=[0.0, 0.1], per_read_output=True)
+    cls = multihost.MultiHostRingClassifier(loc, cpu_ctx(), mh_probe=probe)
+    table = {"tiled": lookup.TiledTable, "hashed1": lookup.HashedRows}[probe]
+    assert cls.probe == probe and all(isinstance(a[2], table) for a in cls._arrays)
+    cls.set_lockstep(21, 16, 128)
+    got = cls.classify_packed(iter([world.packed()]), cpar)
+    assert got == Classifier(KeyValueIndex.load(loc), "cpu").classify_packed(iter([world.packed()]), cpar)
+    jcls = jmultihost.MultiHostRingClassifier(loc, mh_probe=probe)
     jcls.set_lockstep(21, 16, 128)
     want = jcls.classify_packed(iter([world.packed(jax=True)]), JClassifyParams(thresholds=[0.0, 0.1],
                                                                                   per_read_output=True))

@@ -209,7 +209,7 @@ def test_classify_through_the_slot_walk_matches_jax(rng, tmp_path, monkeypatch):
         table = lookup.build_slots(idx.keys_t, idx.taxa_t, lookup.build_directory(idx.keys_t, bucket_keys))
         assert (mode(table), table.directory.buckets > 1) == (
             ("direct", True) if bucket_keys == lookup.SLOT_BUCKET_KEYS else ("code", True))
-        monkeypatch.setattr(KeyValueIndex, "device_arrays", lambda self, device, t=table: (None, None, t))
+        monkeypatch.setattr(KeyValueIndex, "device_arrays", lambda self, device, probe, t=table: (None, None, t))
         out = tmp_path / f"t{bucket_keys}"
         Classifier(idx, "cpu", max_taxa_per_read=32).classify_and_write_packed(reads, str(out), ClassifyParams(**ckw))
         assert tree(str(out)) == want, bucket_keys
