@@ -13,15 +13,17 @@ launch counts set to 0 just before it and read just after:
   * reports mode: build the bench library's index on the card (2,623,028
     records expected) and on the CPU, classify the bench's simulated reads
     on both and require byte-identical kreports;
-  * the probe choice (`phase_probes`, after reports mode): the tiled and
-    hashed1 tables of the bench index and of a wide (50, 45, 7) bench index
-    built on the card (time, bytes), their four kernels against the twins
-    on one batch's dense minimizers and on 4,194,304 random queries, and
-    classify with probe="tiled" and "hashed1" in both modes, over
-    Mesh([cuda] * 8) with tiled, classify2 --probe hashed1 and one NCCL rank
-    with --probe hashed1, every file equal to the routed run's; after the
-    scale phase both tables of the 400 Mbp index, its reads classified with
-    each probe and the narrow kernels timed there (`phase_probes_scale`);
+  * the probe choice (`phase_probes`, after reports mode): the tiled,
+    hashed1, hashed and hashed128 tables and the bucketed arrays of the
+    bench index and the tiled and hashed1 tables of a wide (50, 45, 7) bench
+    index built on the card (time, bytes), their seven kernels against the
+    twins on one batch's dense minimizers and on 4,194,304 random queries,
+    and classify with each probe in both modes, over Mesh([cuda] * 8) with
+    tiled and hashed, classify2 --probe hashed1 and one NCCL rank with
+    --probe hashed1 and hashed, every file equal to the routed run's; after
+    the scale phase the tiled, hashed1, hashed and hashed128 tables of the
+    400 Mbp index, its reads classified with each probe and those kernels
+    timed there (`phase_probes_scale`);
   * per-read mode: the same reads with per-read output, card against CPU,
     lines and kreports byte-identical after decompression, kreports equal
     to reports mode's;
@@ -844,7 +846,8 @@ def twins_forbidden():
         fail("a kernel's plain twin was called on the card's path")
 
     names = ((minimizers, "window_minimizers"), (minimizers, "stitch_segments"), (lookup, "lookup_taxa"),
-             (lookup, "lookup_taxa_slots"), (lookup, "lookup_taxa_tiled"), (lookup, "lookup_taxa_hashed_rows"))
+             (lookup, "lookup_taxa_slots"), (lookup, "lookup_taxa_tiled"), (lookup, "lookup_taxa_hashed_rows"),
+             (lookup, "lookup_taxa_hashed"), (lookup, "lookup_taxa_hashed_cols"), (lookup, "lookup_taxa_bucketed"))
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, refuse)
@@ -953,53 +956,97 @@ def phase_bench(dev, out, results):
 
 #: the probe choice's tables and the kernels of each, (probe, wide) -> name
 TABLE_PROBES = {("tiled", False): "probe_tiled", ("tiled", True): "probe_tiled_wide",
-                ("hashed1", False): "probe_rows", ("hashed1", True): "probe_rows_wide"}
+                ("hashed1", False): "probe_rows", ("hashed1", True): "probe_rows_wide",
+                ("hashed", False): "probe_hashed", ("hashed128", False): "probe_hashed_cols",
+                ("bucketed", False): "probe_bucketed"}
+#: the probes of each kind of index in phase_probes
+KIND_PROBES = {"narrow": ("tiled", "hashed1", "hashed", "hashed128", "bucketed"), "wide": ("tiled", "hashed1")}
 
 
 def probe_table_bytes(table):
     return tensor_bytes(*(x for x in table if hasattr(x, "numel")))
 
 
-def build_tables(label, index, dev):
-    """Both probe tables of an index, built on the card by
+def table_geometry(table):
+    """A table's geometry and bytes, for the log."""
+    from slacken_tpu_torch.ops import lookup
+
+    if isinstance(table, lookup.TiledTable):
+        return (f"router bits {table.bits} ({tensor_bytes(table.router)} bytes), tile {table.tile}, table "
+                f"{tuple(table.table.shape)} ({tensor_bytes(table.table)} bytes)")
+    if isinstance(table, lookup.HashedRows):
+        return f"row_bits {table.row_bits}, tile {table.tile}, table {tuple(table.table.shape)}"
+    if isinstance(table, lookup.HashedTable):
+        return f"bits {table.bits}, tile {table.tile}, {table.slots} slots, table {tuple(table.table.shape)}"
+    return (f"router bits {table.bits} ({tensor_bytes(table.router)} bytes), maxb {table.maxb}, keys and taxa "
+            f"{tensor_bytes(table.keys, table.taxa)} bytes")
+
+
+def build_tables(label, index, dev, probes=("tiled", "hashed1")):
+    """The probe tables of an index for `probes`, built on the card by
     KeyValueIndex.device_arrays (which keeps them for the classifiers), each
     build timed; logs their geometry and bytes. Returns {probe: table}."""
     import torch
 
     tables = {}
-    for probe in ("tiled", "hashed1"):
+    for probe in probes:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         table = index.device_arrays(dev, probe)[2]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         nb, n = probe_table_bytes(table), index.num_records
-        shape = (f"router bits {table.bits} ({tensor_bytes(table.router)} bytes), tile {table.tile}, table "
-                 f"{tuple(table.table.shape)} ({tensor_bytes(table.table)} bytes)" if probe == "tiled" else
-                 f"row_bits {table.row_bits}, tile {table.tile}, table {tuple(table.table.shape)}")
-        log(f"{probe} table of the {label} ({n} records) built on the card in {secs:.4f} s: {shape}; "
+        log(f"{probe} table of the {label} ({n} records) built on the card in {secs:.4f} s: {table_geometry(table)}; "
             f"{nb} bytes, {nb / max(n, 1):.2f} bytes a record")
         tables[probe] = table
     return tables
 
 
+def check_hashed_rules(label, table, keys):
+    """A hashed table of `keys` (on the card) held to the JAX builders'
+    rules: bits from max(12, ceil(log2 N) + 1) (hashed) or max(12, ceil(log2
+    N)) (hashed128) up, the tile from 16 or 128 up, every key within tile -
+    1 slots of its home slot at these bits and tile, max_pos // tile + 3
+    rows, N slots holding a taxon and every other slot free (all ones)."""
+    import torch
+
+    from slacken_tpu_torch.ops import lookup
+
+    n, rows, tile = keys.shape[0], table.table.shape[0], table.tile
+    first = max(12, int(np.ceil(np.log2(max(n, 2)))) + (0 if table.cols else 1))
+    least = lookup.HASHED_COLS_TILE if table.cols else lookup.HASHED_TILE
+    scrambled, _, pos, _, _ = lookup._parked(keys, torch.zeros(n, dtype=torch.int32, device=keys.device), tile,
+                                             table.bits, 0)
+    lanes = table.table.view(rows, 3, tile).transpose(1, 2) if table.cols else table.table
+    lanes = lanes.reshape(-1, 3)
+    disp = int((pos - lookup._top_bits(scrambled, table.bits)).max()) if n else 0
+    if not (table.bits >= first and tile >= least and disp <= tile - 1 and rows == (int(pos[-1]) if n else 0) // tile + 3
+            and int((lanes[:, 2] != -1).sum()) == n and int((lanes == -1).all(1).sum()) == rows * tile - n):
+        fail(f"the {label}'s {'hashed128' if table.cols else 'hashed'} table breaks the JAX builders' rules")
+    return disp
+
+
 def time_table_probe(label, table, keys, taxa, queries, name):
     """A table kernel == its twin == lookup_taxa (tolerance 0) on these
-    queries, then its time beside the twin's and, for the tiled probe of
-    narrow keys, torch.searchsorted's (the directory probe's yardstick; the
-    row probes have none). The bound counts what these queries need: each
-    query and its answer; tiled, the two router entries of a query inside the
-    key space and one record of a non-empty bucket; hashed1, one 32-byte
+    queries, then its time beside the twin's and, for the tiled and the
+    bucketed probe of narrow keys, torch.searchsorted's (the directory
+    probe's yardstick; the row and hashed probes have none). The bound
+    counts what these queries need: each query and its answer; tiled, the
+    two router entries of a query inside the key space and one record of a
+    non-empty bucket; bucketed, as the directory probe, a router entry and a
+    key a query inside the key space and a taxon a hit; hashed1, one 32-byte
     sector of the row's first key block a query and, on a hit, one sector of
-    each other key block and of the taxa. Returns one entry of the kernel's
+    each other key block and of the taxa; hashed and hashed128, the home
+    slot of each distinct non-negative query once (12 bytes; the taxon lane
+    only on a hit in the column blocks). Returns one entry of the kernel's
     `shapes`."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, lookup
 
     wide = queries.dim() == 2
-    tiled = isinstance(table, lookup.TiledTable)
-    twin = lookup.lookup_taxa_tiled if tiled else lookup.lookup_taxa_hashed_rows
+    twin = {lookup.TiledTable: lookup.lookup_taxa_tiled, lookup.HashedRows: lookup.lookup_taxa_hashed_rows,
+            lookup.HashedTable: lookup.lookup_taxa_hashed, lookup.Bucketed: lookup.lookup_taxa_bucketed}[type(table)]
     before = cuda_kernels.LAUNCHES[name]
     got = lookup.probe(None, None, table, queries)
     if cuda_kernels.LAUNCHES[name] != before + 1:
@@ -1016,9 +1063,10 @@ def time_table_probe(label, table, keys, taxa, queries, name):
         fail(f"{name} differs from its twin or lookup_taxa on {label} (max abs err {err})")
     run = lambda: lookup.probe(None, None, table, queries)  # noqa: E731
     ms, dev_ms = cuda_ms(run), device_ms(run)
-    library = None if (wide or not tiled) else cuda_ms(lambda: torch.searchsorted(keys, queries))
+    routered = isinstance(table, (lookup.TiledTable, lookup.Bucketed))
+    library = cuda_ms(lambda: torch.searchsorted(keys, queries)) if routered and not wide else None
     nq, hits, q_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
-    if tiled:
+    if routered:
         shift = table.key_bits - table.bits
         if wide:
             p, above = lookup.prefix_wide(queries, shift)
@@ -1026,41 +1074,50 @@ def time_table_probe(label, table, keys, taxa, queries, name):
         else:
             p = queries >> shift
             inside = (queries >= 0) & (p < 1 << table.bits)
-        p = torch.where(inside, p, 0)
-        filled = inside & (table.router[p + 1] > table.router[p])
-        need = (q_bytes + 4) * nq + 8 * int(inside.sum()) + table.table.shape[2] * 4 * int(filled.sum())
+        if isinstance(table, lookup.Bucketed):
+            need = (q_bytes + 4) * nq + 12 * int(inside.sum()) + 4 * hits
+        else:
+            p = torch.where(inside, p, 0)
+            filled = inside & (table.router[p + 1] > table.router[p])
+            need = (q_bytes + 4) * nq + 8 * int(inside.sum()) + table.table.shape[2] * 4 * int(filled.sum())
+    elif isinstance(table, lookup.HashedTable):  # the slot of each distinct non-negative query, once
+        seen = torch.unique(queries[queries >= 0])
+        need = 12 * nq + (8 * seen.numel() + 4 * int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
+                          if table.cols else 12 * seen.numel())
     else:
         need = (q_bytes + 4 + 32) * nq + (4 if wide else 2) * 32 * hits
     n_bytes = min(tensor_bytes(queries, *(x for x in table if hasattr(x, "numel"))) + 4 * nq, need)
-    bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq if tiled else (32 if wide else 16) * nq)
-    geometry = (f"router bits {table.bits}, tile {table.tile}" if tiled else f"row_bits {table.row_bits}, tile {table.tile}")
-    log(f"{name}, {label}: {keys.shape[0]} keys ({geometry}), {nq} queries, {hits} hits, max_abs_err 0 against the "
-        f"twin and lookup_taxa; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the device alone), plain twin {plain:.4f} ms, "
-        + ("no library call, " if library is None else f"torch.searchsorted alone {library:.4f} ms, ")
+    bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq if routered else (32 if wide else 16) * nq)
+    log(f"{name}, {label}: {keys.shape[0]} keys ({table_geometry(table)}), {nq} queries, {hits} hits, max_abs_err 0 "
+        f"against the twin and lookup_taxa; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the device alone), plain twin "
+        f"{plain:.4f} ms, " + ("no library call, " if library is None else f"torch.searchsorted alone {library:.4f} ms, ")
         + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
     return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
                 library_ms=library)
 
 
 def phase_probes(dev, out, bench, results):
-    """The probe choice (--probe tiled and hashed1) at bench size, with the
-    twins forbidden on its main path: both tables of the narrow bench index
-    and of the wide (50, 45, 7) bench index built on the card (build time,
-    bytes); classify_and_write_packed of the bench reads with each probe in
-    reports and per-read mode (narrow) and reports mode (wide), every file
-    equal to the routed run's; the CLI's classify2 --probe hashed1 against
-    --probe routed; MeshClassifier over Mesh([cuda] * 8) with tiled, ring and
-    replicated; the CLI's classify --coordinator --num-processes 1 --probe
-    hashed1, one rank under NCCL, against the single-device CLI. Then each of
-    the four kernels against its twin and lookup_taxa on one batch's dense
-    minimizers and on 4,194,304 random queries, timed. Returns the main
-    path's launch counts."""
+    """The probe choice (--probe tiled, hashed1, hashed, hashed128 and
+    bucketed) at bench size, with the twins forbidden on its main path: the
+    five tables of the narrow bench index and the tiled and hashed1 tables
+    of the wide (50, 45, 7) bench index built on the card (build time,
+    bytes; the geometry held to the JAX builders' rules, and the hashed
+    tables and bucketed arrays equal to the CPU's builds);
+    classify_and_write_packed of the bench reads with each probe in reports
+    and per-read mode (narrow) and reports mode (wide), every file equal to
+    the routed run's; the CLI's classify2 --probe hashed1 against --probe
+    routed; MeshClassifier over Mesh([cuda] * 8) with tiled and with hashed,
+    ring and replicated; the CLI's classify --coordinator --num-processes 1
+    with --probe hashed1 and with --probe hashed, one rank under NCCL,
+    against the single-device CLI. Before that each of the seven kernels
+    against its twin and lookup_taxa on one batch's dense minimizers and on
+    4,194,304 random queries, timed. Returns the main path's launch counts."""
     import torch
 
     from slacken_tpu_torch import cli, workloads
     from slacken_tpu_torch.classify import Classifier, ClassifyParams
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
-    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.ops import cuda_kernels, lookup
     from slacken_tpu_torch.parallel.classifier import MeshClassifier
     from slacken_tpu_torch.parallel.mesh import Mesh
 
@@ -1074,12 +1131,27 @@ def phase_probes(dev, out, bench, results):
     wide = KeyValueIndex.build(iter(genomes), IndexParams(k=50, m=45, spaces=7), tax, dev)
     log(f"probes: wide (50, 45, 7) bench index built on the card, {wide.num_records} records in "
         f"{time.perf_counter() - t0:.3f} s")
-    tables = {"narrow": build_tables("bench index", idx, dev), "wide": build_tables("wide (50, 45, 7) bench index",
-                                                                                      wide, dev)}
-    if (tables["narrow"]["hashed1"].row_bits, probe_table_bytes(tables["narrow"]["hashed1"])) != (15, 50_331_648) or (
-            tables["narrow"]["tiled"].bits, probe_table_bytes(tables["narrow"]["tiled"])) != (23, 33_554_436 + 31_476_864):
+    tables = {"narrow": build_tables("bench index", idx, dev, KIND_PROBES["narrow"]),
+              "wide": build_tables("wide (50, 45, 7) bench index", wide, dev, KIND_PROBES["wide"])}
+    narrow = tables["narrow"]
+    if (narrow["hashed1"].row_bits, probe_table_bytes(narrow["hashed1"])) != (15, 50_331_648) or (
+            narrow["tiled"].bits, probe_table_bytes(narrow["tiled"])) != (23, 33_554_436 + 31_476_864):
         fail("the bench index's tables are not of the geometry that the JAX builders' rules give")
-    del tables
+    bucketed = narrow["bucketed"]
+    if (bucketed.bits, bucketed.router.shape[0], bucketed.n, bucketed.maxb) != (
+            23, (1 << 23) + 1, BENCH_RECORDS, lookup.max_bucket_span(bucketed.router)):
+        fail("the bench index's bucketed arrays are not of the geometry that the JAX builders' rules give")
+    cpu_keys, cpu_taxa = bench["idx_cpu"].keys_t, bench["idx_cpu"].taxa_t
+    for probe, build in (("hashed", lookup.build_hashed), ("hashed128", lookup.build_hashed_cols),
+                         ("bucketed", lambda k, t: lookup.build_bucketed(k, t, idx.key_bits))):
+        disp = check_hashed_rules("bench index", narrow[probe], idx.keys_t) if probe != "bucketed" else None
+        host = build(cpu_keys, cpu_taxa)
+        if not all(torch.equal(a, b.cpu()) if isinstance(a, torch.Tensor) else a == b
+                   for a, b in zip(host, narrow[probe])):
+            fail(f"the bench index's {probe} table built on the card differs from the CPU's build")
+        log(f"probes: the {probe} table of the bench index equals the CPU's build" +
+            ("" if disp is None else f"; largest displacement {disp} of tile {narrow[probe].tile}"))
+    del tables, narrow, bucketed
     routed = Classifier(wide, dev)
     routed.classify_and_write_packed(reads, os.path.join(out, "probes_w_routed_rep"), modes["rep"])
     Classifier(idx, dev).classify_and_write_packed(reads, os.path.join(out, "probes_routed_det"), modes["det"])
@@ -1109,7 +1181,7 @@ def phase_probes(dev, out, bench, results):
             "wide": random_wide_queries(dev, wide.keys_t, 1 << 22, BENCH_RECORDS)}
     for kind, index in (("narrow", idx), ("wide", wide)):  # the kernels against their twins, before the main path
         label = "bench index" if kind == "narrow" else "wide bench index (50, 45, 7)"
-        for probe in ("tiled", "hashed1"):
+        for probe in KIND_PROBES[kind]:
             table = index.device_arrays(dev, probe)[2]
             name = TABLE_PROBES[probe, kind == "wide"]
             shapes = {}
@@ -1122,7 +1194,7 @@ def phase_probes(dev, out, bench, results):
     walls = {}
     with twins_forbidden():
         for kind, index in (("narrow", idx), ("wide", wide)):
-            for probe in ("tiled", "hashed1"):
+            for probe in KIND_PROBES[kind]:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 cls = Classifier(index, dev, probe=probe)
@@ -1140,41 +1212,45 @@ def phase_probes(dev, out, bench, results):
                         f"{mode} {n_reads / w:.1f} reads/s" for (k, p, mode), w in walls.items()
                         if (k, p) == (kind, probe)) + " (one warm run each)")
                 del cls
-        for layout in ("ring", "replicated"):
-            tag = f"probes_mesh_{layout}"
-            MeshClassifier(idx, Mesh([dev] * MESH_SHARDS), layout, probe="tiled").classify_and_write_packed(
-                reads, os.path.join(out, tag), modes["rep"])
-            if output_tree(os.path.join(out, tag)) != want["narrow", "rep"]:
-                fail(f"MeshClassifier {layout} with the tiled probe differs from the routed run's files")
-        log(f"probes: MeshClassifier over Mesh([{dev}] * {MESH_SHARDS}) with probe=tiled, ring and replicated: "
-            "kreports equal to the single-device routed run's")
+        for probe in ("tiled", "hashed"):
+            for layout in ("ring", "replicated"):
+                tag = f"probes_mesh_{probe}_{layout}"
+                MeshClassifier(idx, Mesh([dev] * MESH_SHARDS), layout, probe=probe).classify_and_write_packed(
+                    reads, os.path.join(out, tag), modes["rep"])
+                if output_tree(os.path.join(out, tag)) != want["narrow", "rep"]:
+                    fail(f"MeshClassifier {layout} with the {probe} probe differs from the routed run's files")
+        log(f"probes: MeshClassifier over Mesh([{dev}] * {MESH_SHARDS}) with probe=tiled and probe=hashed, ring and "
+            "replicated: kreports equal to the single-device routed run's")
         with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
-            mh = [*one, "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1", "--process-id", "0"]
             for argv, o in (([*c2, "--probe", "hashed1"], "probes_c2_hashed1"),
-                            ([*mh, "--probe", "hashed1"], "probes_cli_mh_hashed1")):
+                            *(([*one, "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+                                "--process-id", "0", "--probe", p], f"probes_cli_mh_{p}") for p in ("hashed1", "hashed"))):
                 if cli.main([*argv, "-o", os.path.join(out, o, "o")]) != 0:
                     fail(f"the CLI failed: {argv}")
         if torch.distributed.is_initialized():
             fail("the CLI's process group outlived its run")
     launches = dict(cuda_kernels.LAUNCHES)
-    for a, b in (("probes_c2_hashed1", "probes_c2_routed"), ("probes_cli_mh_hashed1", "probes_cli_routed")):
-        got, ref = files_under(os.path.join(out, a)), files_under(os.path.join(out, b))
+    for a, b in (("probes_c2_hashed1", "probes_c2_routed"), ("probes_cli_mh_hashed1", "probes_cli_routed"),
+                 ("probes_cli_mh_hashed", "probes_cli_routed")):
+        got, ref = files_under(os.path.join(out, a, "")), files_under(os.path.join(out, b, ""))
         if got != ref or len(ref) < 2:
             fail(f"the CLI's {a} differs from {b} ({sorted(got)} against {sorted(ref)})")
     log("probes: classify2 --probe hashed1 (taxon set, kreport, per-read lines) and classify --coordinator "
-        "--num-processes 1 --probe hashed1 (one rank under NCCL) equal to their --probe routed runs")
+        "--num-processes 1 with --probe hashed1 and --probe hashed (one rank under NCCL) equal to their --probe "
+        "routed runs")
     require_launches("probes: the probe choice's runs", launches, ("scan", "scan_wide", *TABLE_PROBES.values()))
     log(f"phase_probes: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
 def phase_probes_scale(dev, out, results, genomes, scale_idx):
-    """The probe choice at scale: both tables of the 400 Mbp index built on
-    the card (build time, bytes), the 200,000 scale reads classified with
-    each probe (reports mode; the kreport equal to phase_scale's routed
-    one), and the two narrow kernels against their twins on 4,194,304 random
-    queries and on one batch's dense minimizers, timed. Returns the classify
-    runs' launch counts."""
+    """The probe choice at scale: the tiled, hashed1, hashed and hashed128
+    tables of the 400 Mbp index built on the card (build time, bytes; the
+    hashed tables held to the JAX builders' rules), the 200,000 scale reads
+    classified with each probe (reports mode; the kreport equal to
+    phase_scale's routed one), and the four kernels against their twins on
+    4,194,304 random queries and on one batch's dense minimizers, timed.
+    Returns the classify runs' launch counts."""
     import torch
 
     from slacken_tpu_torch import workloads
@@ -1183,7 +1259,11 @@ def phase_probes_scale(dev, out, results, genomes, scale_idx):
 
     t_phase = time.perf_counter()
     idx = scale_idx.with_records(scale_idx.keys_t, scale_idx.taxa_t)  # its tables go with it
-    tables = build_tables("scale index", idx, dev)
+    tables = build_tables("scale index", idx, dev, ("tiled", "hashed1", "hashed", "hashed128"))
+    for probe in ("hashed", "hashed128"):
+        disp = check_hashed_rules("scale index", tables[probe], idx.keys_t)
+        log(f"probes: the {probe} table of the scale index keeps the JAX builders' rules; largest displacement "
+            f"{disp} of tile {tables[probe].tile}")
     reads = workloads.scale_reads(SCALE_BP, SCALE_TAXA, library=genomes)
     n_reads = sum(len(p) for p in reads)
     cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
@@ -1212,7 +1292,8 @@ def phase_probes_scale(dev, out, results, genomes, scale_idx):
         del cls
     del idx, tables, table
     torch.cuda.empty_cache()
-    require_launches("probes at scale", total, ("scan", "probe_tiled", "probe_rows"))
+    require_launches("probes at scale", total, ("scan", "probe_tiled", "probe_rows", "probe_hashed",
+                                                "probe_hashed_cols"))
     log(f"phase_probes_scale: {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -3422,6 +3503,9 @@ def main():
                "probe_tiled_wide": (tables_cu, "slacken_tpu/ops/lookup.py:212"),
                "probe_rows": (tables_cu, "slacken_tpu/ops/lookup.py:740"),
                "probe_rows_wide": (tables_cu, "slacken_tpu/ops/lookup.py:891"),
+               "probe_hashed": (tables_cu, "slacken_tpu/ops/lookup.py:478"),
+               "probe_hashed_cols": (tables_cu, "slacken_tpu/ops/lookup.py:566"),
+               "probe_bucketed": (probe_cu, "slacken_tpu/ops/lookup.py:269"),
                **{name: (idioms[0], idioms[1] + str(line)) for name, line in
                   zip(cuda_kernels.MASK_IDIOMS, (1023, 1027, 1030, 1036, 1047))}}
     log(json.dumps({"kernels": [

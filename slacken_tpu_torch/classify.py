@@ -6,8 +6,10 @@ Per batch of packed reads, on the device:
      XOR-ordered one, its rank-table instance for an index with an explicit
      ordering, or the wide one for m > 31; the unpack is fused into it),
   2. a probe of every window position (the CUDA directory probe kernel, or
-     its wide counterpart over two-limb keys; with `probe="tiled"` or
-     `"hashed1"` the kernel of that table, kernels/probe_tables.cu),
+     its wide counterpart over two-limb keys; with `probe="tiled"`,
+     `"hashed1"`, `"hashed"` or `"hashed128"` the kernel of that table,
+     kernels/probe_tables.cu; with `"bucketed"` the directory kernel over
+     the bucketed router),
   3. window taxa (INVALID_WINDOW where the window is invalid) and the
      distinct hit-group count per read,
   4. hit compaction and batched resolveTree,
@@ -57,26 +59,29 @@ PIPELINE_DEPTH = 3
 
 AMBIGUOUS_SPAN = -1
 
-#: the probes of the JAX package's --probe that the port runs: the
-#: directory walk (routed), the tiled table and the row-bucket table
-PROBES = ("routed", "tiled", "hashed1")
-#: the JAX package's narrow-only probes, ported in a later slice
-LATER_PROBES = ("hashed", "hashed128", "bucketed")
+#: the probes of the JAX package's --probe: the directory walk (routed), the
+#: tiled table, the row-bucket table (hashed1), the displacement-bounded
+#: hashed table in its two layouts (hashed, hashed128) and the direct-bucket
+#: arrays (bucketed); the last three take narrow keys only
+PROBES = ("routed", "tiled", "hashed1", "hashed", "hashed128", "bucketed")
+#: the probes of a wide index
+WIDE_PROBES = ("routed", "tiled", "hashed1")
 
 
 def probe_choice(probe: Optional[str], wide: bool) -> str:
     """The probe a classifier runs: `probe`, or without one STPU_PROBE, or
     "routed"; checked as the JAX package's Classifier checks it. A wide
-    index takes routed, tiled or hashed1; the JAX package's other probes
-    raise NotImplementedError (never another probe in their place), and an
-    unknown name ValueError."""
+    index takes routed, tiled or hashed1 (the other probes raise
+    NotImplementedError, never another probe in their place), and an
+    unknown name raises ValueError. Every probe gives the same answers.
+    The JAX package probes `bucketed` through span compaction (one query a
+    span) and the others densely; the port probes every window densely:
+    each window of a span probes the same key and invalid positions are
+    masked, so the files are the same."""
     if probe is None:
         probe = os.environ.get("STPU_PROBE", "routed")
-    if wide and probe not in PROBES:
+    if wide and probe not in WIDE_PROBES:
         raise NotImplementedError("wide (m > 31) indexes support the routed, tiled and hashed1 probes")
-    if probe in LATER_PROBES:
-        raise NotImplementedError(f"the {probe} probe is not ported yet (ROADMAP: the next slice of the probe "
-                                  "choice takes hashed, hashed128 and bucketed)")
     if probe not in PROBES:
         raise ValueError(f"unknown probe mode {probe!r}")
     return probe
@@ -394,8 +399,8 @@ class _Batch:
 
 class Classifier:
     """Classify reads against a KeyValueIndex on `device`, through the probe
-    `probe` (probe_choice: routed, tiled or hashed1; the answers are the
-    same, the tables and kernels differ)."""
+    `probe` (probe_choice: routed, tiled, hashed1, hashed, hashed128 or
+    bucketed; the answers are the same, the tables and kernels differ)."""
 
     def __init__(
         self,

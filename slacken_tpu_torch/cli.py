@@ -17,10 +17,12 @@ cpu) in one process; N above the machine's number of cards raises.
 over P processes (parallel/multihost.py: one ring of index shards through
 every process's --devices entries, default 1, the rank's card).
 `classify` and `classify2` take --probe as slacken_tpu's CLI does: routed
-(the default, or STPU_PROBE), tiled or hashed1 run, on one device, over a
-mesh and over processes, narrow and wide (--coordinator: routed, tiled or
-hashed1, wide routed or hashed1; STPU_MH_PROBE without --probe); hashed,
-hashed128 and bucketed raise NotImplementedError (a later slice)."""
+(the default, or STPU_PROBE), tiled, hashed1, hashed, hashed128 or
+bucketed, on one device, over a mesh (where hashed128 and bucketed run the
+routed probe, as in slacken_tpu) and over processes; a wide index takes
+routed, tiled or hashed1 (--coordinator: routed, tiled, hashed or hashed1,
+wide routed or hashed1, hashed128 and bucketed refused; STPU_MH_PROBE
+without --probe)."""
 
 from __future__ import annotations
 
@@ -169,8 +171,9 @@ def _add_classify_opts(p):
                         "(range-sharded index, queries going round the devices)")
     p.add_argument("--probe", choices=["routed", "tiled", "hashed", "hashed1", "hashed128", "bucketed"],
                    help="Index probe: routed (the prefix directory; default, or STPU_PROBE), tiled (router and "
-                        "row table) or hashed1 (row-bucket hash table); the answers are the same. hashed, "
-                        "hashed128 and bucketed are not ported yet")
+                        "row table), hashed1 (row-bucket hash table), hashed and hashed128 (displacement-bounded "
+                        "hash table, slot rows or column blocks) or bucketed (router and padded keys); the "
+                        "answers are the same. Wide (m > 31) indexes take routed, tiled and hashed1")
     _add_device(p)
 
 

@@ -62,11 +62,16 @@ from . import storage, to_device
 from .ops import encode, ordering
 from .ops.lca import segment_lca_table
 from .ops.lookup import (
+    Bucketed,
     Directory,
     HashedRows,
+    HashedTable,
     SlotTable,
     TiledTable,
+    build_bucketed,
     build_directory,
+    build_hashed,
+    build_hashed_cols,
     build_hashed_rows,
     build_slots,
     build_tiled,
@@ -767,21 +772,34 @@ class KeyValueIndex:
         return 2 * self.params.m
 
     def device_arrays(self, device, probe: str = "routed") -> Tuple[
-            Optional[torch.Tensor], Optional[torch.Tensor], Directory | SlotTable | TiledTable | HashedRows]:
+            Optional[torch.Tensor], Optional[torch.Tensor],
+            Directory | SlotTable | TiledTable | HashedRows | HashedTable | Bucketed]:
         """What `lookup.probe` reads on `device` for the probe `probe`,
         copied or built there once a (device, probe): "routed", (keys, taxa,
         prefix directory), or for a wide index on the card (None, None, slot
         table), whose rows hold key and taxon together; "tiled", (None, None,
-        TiledTable); "hashed1", (None, None, HashedRows). The tables are
-        built on the device from the keys there (the card's own copy of an
-        index built on the card)."""
+        TiledTable); "hashed1", (None, None, HashedRows); "hashed" and
+        "hashed128", (None, None, HashedTable) of build_hashed and
+        build_hashed_cols; "bucketed", (None, None, Bucketed). The tables
+        are built on the device from the keys there (the card's own copy of
+        an index built on the card). The last three take narrow keys only,
+        as the JAX index's device_hashed, device_hashed_cols and
+        device_bucketed do."""
         device = torch.device(device)
         if (device, probe) not in self._on:
+            if self.wide and probe in ("hashed", "hashed128", "bucketed"):
+                raise NotImplementedError(f"the {probe} probe requires m <= 31")
             keys, taxa = self.keys_t.to(device), self.taxa_t.to(device)
             if probe == "tiled":
                 arrays = (None, None, build_tiled(keys, taxa, self.key_bits))
             elif probe == "hashed1":
                 arrays = (None, None, build_hashed_rows(keys, taxa))
+            elif probe == "hashed":
+                arrays = (None, None, build_hashed(keys, taxa))
+            elif probe == "hashed128":
+                arrays = (None, None, build_hashed_cols(keys, taxa))
+            elif probe == "bucketed":
+                arrays = (None, None, build_bucketed(keys, taxa, self.key_bits))
             elif probe != "routed":
                 raise ValueError(f"no probe arrays for the probe {probe!r}")
             elif self.wide and device.type == "cuda":

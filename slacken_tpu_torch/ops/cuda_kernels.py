@@ -25,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .lookup import Directory, HashedRows, SlotTable, TiledTable
+from .lookup import Bucketed, Directory, HashedRows, HashedTable, SlotTable, TiledTable
 from .minimizers import space_mask_int, wide_toggle_mask
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -37,8 +37,10 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "
 MASK_IDIOMS = ("select", "astype", "concat", "carry", "sum_bool")
 
 #: the probes of the tiled and row-bucket tables (kernels/probe_tables.cu),
-#: narrow and wide
-TABLE_PROBES = ("probe_tiled", "probe_tiled_wide", "probe_rows", "probe_rows_wide")
+#: narrow and wide; of the hashed table in its two layouts (the same file);
+#: and of the bucketed arrays (the directory kernel, kernels/probe.cu)
+TABLE_PROBES = ("probe_tiled", "probe_tiled_wide", "probe_rows", "probe_rows_wide", "probe_hashed",
+                "probe_hashed_cols", "probe_bucketed")
 
 #: scan: the XOR-ordered narrow scan; scan_lut: its rank-table instance;
 #: scan_wide, probe_wide: the kernels for m > 31; scan_stitch: the second
@@ -135,8 +137,9 @@ def _load():
     lib.stpu_probe_wide.argtypes = [p, p, p, i64, i32, i32, p, i64, p, p]
     lib.stpu_probe_tiled.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
     lib.stpu_probe_rows.argtypes = [p, i32, i32, i32, p, i64, p, p]
+    lib.stpu_probe_hashed.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_scan_stitch, lib.stpu_probe, lib.stpu_probe_wide,
-               lib.stpu_probe_tiled, lib.stpu_probe_rows):
+               lib.stpu_probe_tiled, lib.stpu_probe_rows, lib.stpu_probe_hashed):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -307,9 +310,32 @@ def lookup_taxa_directory_cuda(
     miss. keys sorted int64 [N] with int64 [Q] queries, taxa int32 [N],
     directory = lookup.build_directory(keys). A wide index is probed through
     its slot table (`lookup_taxa_slots_cuda`)."""
-    starts, shift = directory
     if keys.dim() == 2 and keys.device.type == "cuda":
         raise ValueError("a wide probe on the card reads the index's slot table (lookup.build_slots), not its keys")
+    return _probe_directory(keys, taxa, directory, queries, "probe")
+
+
+def lookup_taxa_bucketed_cuda(table: Bucketed, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of the bucketed arrays (`--probe bucketed`): the
+    directory kernel (kernels/probe.cu) over the router as the directory of
+    the unpadded keys, counted as "probe_bucketed". The router is a
+    directory (entry p: the first key whose top `bits` of `key_bits` are >=
+    p; the keys sorted, non-negative and below 2^key_bits, so its last
+    entry is N), and the kernel's walk from it needs no bucket end, so the
+    answer is lookup_taxa_bucketed's (the twin). int32 [Q], 0 on a miss."""
+    router, keys, taxa, maxb, bits, key_bits = table
+    n = table.n
+    if maxb < 1 or n < 0 or taxa.shape != keys.shape or not 0 <= key_bits - bits <= 63:
+        raise ValueError(f"bucketed arrays of {keys.shape[0]} keys and {taxa.shape[0]} taxa do not fit maxb {maxb}, "
+                         f"{bits} bits of {key_bits}")
+    if router.shape[0] != (1 << bits) + 1:
+        raise ValueError(f"a router of {router.shape[0]} entries does not fit {bits} bits")
+    return _probe_directory(keys[:n], taxa[:n], Directory(router, key_bits - bits), queries, "probe_bucketed")
+
+
+def _probe_directory(keys, taxa, directory: Directory, queries: torch.Tensor, name: str) -> torch.Tensor:
+    """The directory kernel's checks and launch, counted under `name`."""
+    starts, shift = directory
     _require(keys, "keys", torch.int64, 1)
     _require(taxa, "taxa", torch.int32, 1)
     _require(starts, "directory.starts", torch.int32, 1)
@@ -331,8 +357,8 @@ def lookup_taxa_directory_cuda(
         queries, _load().stpu_probe, keys.data_ptr(), taxa.data_ptr(), n, starts.data_ptr(), buckets, shift,
         queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
     )
-    _check(rc, "probe")
-    LAUNCHES["probe"] += 1
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -424,6 +450,28 @@ def lookup_taxa_rows_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Ten
     name = "probe_rows_wide" if wide else "probe_rows"
     rc = _launch(queries, _load().stpu_probe_rows, rows.data_ptr(), tile, row_bits, int(wide), queries.data_ptr(),
                  queries.shape[0], out.data_ptr(), _stream(queries))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def lookup_taxa_hashed_cuda(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of a hashed table (kernels/probe_tables.cu,
+    probe_hashed_kernel): int32 taxon per int64 [Q] query, 0 on a miss. Walks
+    the slots from the scrambled query's home slot. A [rows, tile, 3] table
+    (`--probe hashed`) counts as "probe_hashed", a [rows, 3 * tile] one
+    (`hashed128`) as "probe_hashed_cols". Twin: lookup.lookup_taxa_hashed."""
+    rows, tile, bits = table
+    cols = table.cols
+    _require(rows, "table", torch.int32, rows.dim())
+    shape = (3 * tile,) if cols else (tile, 3)
+    if rows.dim() not in (2, 3) or tuple(rows.shape[1:]) != shape or tile < 1 or not 1 <= bits <= 63:
+        raise ValueError(f"a hashed table of {tuple(rows.shape)} lanes does not fit tile {tile} and {bits} bits")
+    _table_queries(queries, False, rows)
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    name = "probe_hashed_cols" if cols else "probe_hashed"
+    rc = _launch(queries, _load().stpu_probe_hashed, rows.data_ptr(), table.slots, tile, bits, int(cols),
+                 queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
     _check(rc, name)
     LAUNCHES[name] += 1
     return out

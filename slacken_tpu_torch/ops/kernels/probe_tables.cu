@@ -1,16 +1,24 @@
 // Exact-match probes of the JAX package's other probe tables, which
-// `--probe tiled` and `--probe hashed1` choose: the tiled table (a prefix
-// router over the records in key order) and the row-bucket table (a row a
-// hash of the key). Each kernel returns the taxon of the key equal to the
-// query, or 0; the tables come from lookup.build_tiled and
-// lookup.build_hashed_rows, lane for lane the JAX builders' layouts.
+// `--probe tiled`, `hashed1`, `hashed` and `hashed128` choose: the tiled
+// table (a prefix router over the records in key order), the row-bucket
+// table (a row a hash of the key) and the displacement-bounded hashed table
+// (a key parked near the slot that its hash names), the last in two
+// layouts. Each kernel returns the taxon of the key equal to the query, or
+// 0; the tables come from lookup.build_tiled, lookup.build_hashed_rows,
+// lookup.build_hashed and lookup.build_hashed_cols, lane for lane the JAX
+// builders' layouts. (`--probe bucketed` runs the directory kernel of
+// probe.cu over its router: the same function as the JAX package's
+// lookup_taxa_bucketed, slacken_tpu/ops/lookup.py:269.)
 //
 // Replaces XLA code of the JAX package, not a Pallas kernel:
 //   probe_tiled       lookup_taxa_tiled            slacken_tpu/ops/lookup.py:333
 //   probe_tiled_wide  lookup_taxa_tiled_wide       slacken_tpu/ops/lookup.py:212
 //   probe_rows        lookup_taxa_hashed_rows      slacken_tpu/ops/lookup.py:740
 //   probe_rows_wide   lookup_taxa_hashed_rows_wide slacken_tpu/ops/lookup.py:891
-// Their twins are lookup.lookup_taxa_tiled and lookup.lookup_taxa_hashed_rows.
+//   probe_hashed      lookup_taxa_hashed           slacken_tpu/ops/lookup.py:478
+//   probe_hashed_cols lookup_taxa_hashed_cols      slacken_tpu/ops/lookup.py:566
+// Their twins are lookup.lookup_taxa_tiled, lookup.lookup_taxa_hashed_rows
+// and lookup.lookup_taxa_hashed(_cols).
 //
 // Design. The JAX lookups gather whole rows per query ([Q, 2 * tile, 3|5]
 // and [Q, 3|5 * tile] lanes) because a TPU gathers at a rate of rows, not of
@@ -32,8 +40,29 @@
 //     there is no order to bisect; the l3 lanes are scanned 16 bytes at a
 //     time up to the first free lane (l3 of a key is below 2^30, a free
 //     lane's is all ones) and the other limbs are read only where l3 equals.
+//   * hashed (both layouts): the JAX lookup compares the scrambled query
+//     with the 2 * tile slots of the aligned rows h // tile and h // tile +
+//     1, h the home slot (the scramble's top bits); the kernel walks the
+//     slots from h forward instead and stops at the first whose scrambled
+//     key is not below the query's (unsigned), after tile slots, or at the
+//     table's end. Two facts of the parking placement (slot i of the i-th
+//     smallest scramble is cummax(h - i) + i) make that the JAX answer:
+//     occupied slots hold ascending scrambles, and a key parked at pos
+//     with home h has every slot of [h, pos) occupied. So the query's key,
+//     if present, lies at pos <= h + tile - 1 (the build's bound), every
+//     slot before it from h holds a smaller key, and the walk reaches it;
+//     these slots are among those the JAX rows cover. A free slot is all
+//     ones in all three lanes, so no query is above its key and the walk
+//     ends there. The hard case is a query whose scramble is all ones: it
+//     equals a free slot's key, and a real key of that scramble (parked
+//     last) equals it too. The taxon lane tells them apart: max(taxon, 0),
+//     as the JAX reduction, is 0 for the free slot's -1 and the taxon for
+//     the real key. At about half load (hashed) the key is usually at h:
+//     one 12-byte slot, one sector; the column blocks (hashed128, load near
+//     one) read one 4-byte lane of each block a slot.
 // An invalid window's -1 (narrow) has a prefix beyond every router bucket
-// and misses without a load; its scramble matches no key. Wide, its l3 is
+// and misses without a load; its scramble matches no key, and the hashed
+// probe skips every negative query (no key is negative). Wide, its l3 is
 // all ones: the tiled probe finds it beyond the buckets, the row scan stops
 // at the first free lane.
 //
@@ -168,6 +197,33 @@ probe_rows_wide_kernel(const unsigned* __restrict__ table, int tile, int row_bit
   __stcs(out + qi, taxon);
 }
 
+// a hashed table's slots: COLS, [rows, 3 * tile] lanes (slot s in row
+// s / tile, its hi', lo' and taxon at lanes s % tile of the row's three
+// blocks); else [slots, 3] lanes, a slot's three together
+template <bool COLS>
+__global__ void __launch_bounds__(THREADS)
+probe_hashed_kernel(const unsigned* __restrict__ table, long long slots, int tile, int bits,
+                    const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  const long long x = __ldcs(queries + qi);
+  int taxon = 0;
+  if (x >= 0) {  // no key is negative: an invalid window's -1 misses unsearched
+    const unsigned long long s = xorshift64((unsigned long long)x);
+    const long long home = (long long)(s >> (64 - bits));
+    const long long end = min(home + tile, slots);
+    for (long long j = home; j < end; ++j) {
+      const unsigned* lane = COLS ? table + (j / tile) * 3 * tile + j % tile : table + 3 * j;
+      const int step = COLS ? tile : 1;
+      const unsigned long long key = join(__ldg(lane), __ldg(lane + step));
+      if (key < s) continue;
+      if (key == s) taxon = max(__ldg(reinterpret_cast<const int*>(lane) + 2 * step), 0);
+      break;  // found, a free slot, or passed where the key would be
+    }
+  }
+  __stcs(out + qi, taxon);
+}
+
 unsigned blocks_of(long long nq) { return (unsigned)((nq + THREADS - 1) / THREADS); }
 
 }  // namespace
@@ -202,5 +258,19 @@ extern "C" int stpu_probe_rows(const void* table, int tile, int row_bits, int wi
     probe_rows_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
         (const unsigned*)table, tile, row_bits, (const long long*)queries, nq, (int*)out);
   }
+  return (int)cudaGetLastError();
+}
+
+// table: a hashed table of `slots` slots (rows * tile), uint32 lanes,
+// [rows, tile, 3] (cols 0) or [rows, 3 * tile] (cols 1), from
+// lookup.build_hashed(_cols) with these tile and bits (1 <= bits <= 63);
+// queries: int64 [nq]; out: int32 [nq]. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int stpu_probe_hashed(const void* table, long long slots, int tile, int bits, int cols,
+                                 const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  const auto kernel = cols ? probe_hashed_kernel<true> : probe_hashed_kernel<false>;
+  kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>((const unsigned*)table, slots, tile, bits,
+                                                              (const long long*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,16 @@ lanes) and the row-bucket table of `hashed1` (`build_hashed_rows`: the top
 row_bits of a scrambled key name its row of [3|5 * tile] uint32 lanes).
 `lookup_taxa_tiled` and `lookup_taxa_hashed_rows` are their lookups as the
 JAX package writes them (gathers of whole rows), the twins of the kernels in
-kernels/probe_tables.cu. Tables hold uint32 lanes as int32 bit patterns.
+kernels/probe_tables.cu. For narrow keys also the displacement-bounded
+hashed table of `hashed` and `hashed128` (`build_hashed`,
+`build_hashed_cols`: each scrambled key parked within tile - 1 slots of its
+home slot, in [rows, tile, 3] or [rows, 3 * tile] lanes), probed by
+`lookup_taxa_hashed(_cols)` on the CPU and by probe_tables.cu's
+probe_hashed kernel on the card, and the padded arrays of `bucketed`
+(`build_bucketed`: the tiled table's router over the keys and taxa padded by
+the largest bucket), probed by `lookup_taxa_bucketed` on the CPU and by the
+directory kernel (kernels/probe.cu) over its router on the card. Tables hold
+uint32 lanes as int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -135,22 +144,23 @@ def lookup_taxa_directory(
 def probe(keys, taxa, directory, queries: torch.Tensor) -> torch.Tensor:
     """Probe `queries` (int64 [Q], or [Q, 2] in a wide index) in the index:
     a kernel on CUDA, the plain twin on the CPU. A wide index on the card
-    passes its slot table (`build_slots`) as `directory`, and the tiled and
-    hashed1 probes their `TiledTable` or `HashedRows`; the kernel, or on the
-    CPU its twin, then reads neither `keys` nor `taxa`, which may be None."""
-    table = isinstance(directory, (SlotTable, TiledTable, HashedRows))
+    passes its slot table (`build_slots`) as `directory`, and the other
+    probes their `TiledTable`, `HashedRows`, `HashedTable` or `Bucketed`;
+    the kernel, or on the CPU its twin, then reads neither `keys` nor
+    `taxa`, which may be None."""
+    kind = type(directory)
     if queries.device.type == "cpu":
-        if not table:
-            return lookup_taxa(keys, taxa, queries)
-        twin = {SlotTable: lookup_taxa_slots, TiledTable: lookup_taxa_tiled, HashedRows: lookup_taxa_hashed_rows}
-        return twin[type(directory)](directory, queries)
+        twin = {SlotTable: lookup_taxa_slots, TiledTable: lookup_taxa_tiled, HashedRows: lookup_taxa_hashed_rows,
+                HashedTable: lookup_taxa_hashed, Bucketed: lookup_taxa_bucketed}.get(kind)
+        return lookup_taxa(keys, taxa, queries) if twin is None else twin(directory, queries)
     from . import cuda_kernels
 
-    if not table:
-        return cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)
     kernel = {SlotTable: cuda_kernels.lookup_taxa_slots_cuda, TiledTable: cuda_kernels.lookup_taxa_tiled_cuda,
-              HashedRows: cuda_kernels.lookup_taxa_rows_cuda}
-    return kernel[type(directory)](directory, queries)
+              HashedRows: cuda_kernels.lookup_taxa_rows_cuda, HashedTable: cuda_kernels.lookup_taxa_hashed_cuda,
+              Bucketed: cuda_kernels.lookup_taxa_bucketed_cuda}.get(kind)
+    if kernel is None:
+        return cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)
+    return kernel(directory, queries)
 
 
 # ---------------------------------------------------------------------------
@@ -567,4 +577,200 @@ def lookup_taxa_hashed_rows(table: HashedRows, queries: torch.Tensor) -> torch.T
         limbs = _limbs(q if wide else h)
         eq = torch.stack([r[:, i * tile:(i + 1) * tile] == limb[:, None] for i, limb in enumerate(limbs)]).all(0)
         out[a:a + step] = torch.where(eq, r[:, len(limbs) * tile:], 0).amax(1).clamp(min=0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The displacement-bounded hashed tables and the bucketed arrays
+# (`--probe hashed|hashed128|bucketed`, narrow keys only)
+# ---------------------------------------------------------------------------
+
+#: the least tile of the hashed table, and of its column-block layout
+HASHED_TILE = 16
+HASHED_COLS_TILE = 128
+
+
+class HashedTable(NamedTuple):
+    """A displacement-bounded hashed table (the JAX package's build_hashed
+    and build_hashed_cols): the xorshift-scrambled keys, in scrambled order,
+    each parked at the first free slot at or after its home slot (its
+    scramble's top `bits`), at most tile - 1 slots on. A slot is (hi', lo',
+    taxon) as uint32 lanes; a free slot is all ones (its taxon lane reads
+    -1). `table` is [rows, tile, 3] (row-major slots, `--probe hashed`) or
+    [rows, 3 * tile] (a row's hi', lo' and taxon blocks of `tile` lanes,
+    `--probe hashed128`)."""
+
+    table: torch.Tensor  # int32 [rows, tile, 3] | [rows, 3 * tile]
+    tile: int
+    bits: int
+
+    @property
+    def cols(self) -> bool:
+        return self.table.dim() == 2
+
+    @property
+    def slots(self) -> int:
+        return self.table.shape[0] * self.tile
+
+
+class Bucketed(NamedTuple):
+    """The arrays of `--probe bucketed` (the JAX package's device_bucketed):
+    the router of `build_tiled` (entry p: the first key whose top `bits` of
+    `key_bits` are >= p), and the sorted keys and taxa padded with `maxb`
+    all-ones keys and taxa 0 (pad_keys_for_buckets), where `maxb` is the
+    most keys under one prefix."""
+
+    router: torch.Tensor  # int32 [2^bits + 1]
+    keys: torch.Tensor  # int64 [N + maxb]
+    taxa: torch.Tensor  # int32 [N + maxb]
+    maxb: int
+    bits: int
+    key_bits: int
+
+    @property
+    def n(self) -> int:
+        return self.keys.shape[0] - self.maxb
+
+
+def _parked(keys: torch.Tensor, taxa: torch.Tensor, tile: int, bits: Optional[int], first_bits: int):
+    """The parking of build_hashed and build_hashed_cols: (scrambled keys in
+    unsigned order, their taxa, slot of each, tile, bits). Slot i of the
+    sorted scrambles h_i (nondecreasing homes) is cummax(h - i) + i; bits
+    start at `first_bits` unless given, and while some key lies tile or more
+    slots past its home they grow (only when not given) up to min(30, start
+    + 6), then the tile doubles up to MAX_TILE, and past that the build
+    raises ValueError."""
+    n = keys.shape[0]
+    order_key, order = torch.sort(xorshift64(keys) ^ _SIGN)  # ^ _SIGN: the unsigned order
+    scrambled, taxa = order_key ^ _SIGN, taxa[order].to(torch.int32)
+    auto = bits is None
+    if auto:
+        bits = first_bits
+    max_bits = min(30, bits + 6)
+    ar = torch.arange(n, device=keys.device)
+    pos = ar
+    while n:
+        h = _top_bits(scrambled, bits)
+        pos = torch.cummax(h - ar, 0).values + ar
+        if int((pos - h).max()) <= tile - 1:
+            break
+        if auto and bits < max_bits:
+            bits += 1
+        elif tile < MAX_TILE:
+            tile *= 2
+        else:
+            raise ValueError(f"hashed layout did not converge (n={n}); use the tiled/routed probe")
+    return scrambled, taxa, pos, tile, bits
+
+
+def build_hashed(keys: torch.Tensor, taxa: torch.Tensor, tile: int = HASHED_TILE,
+                 bits: Optional[int] = None) -> HashedTable:
+    """The hashed table of `--probe hashed` for the unique narrow `keys`
+    (int64 [N]) with int32 `taxa`, in torch ops on their device: bits start
+    at max(12, ceil(log2 N) + 1) (`_parked`), max_pos // tile + 3 rows of
+    [tile, 3] lanes, filled with all ones, each key's (hi', lo', taxon) at
+    its slot. Equal, lane for lane, to the JAX package's build_hashed."""
+    n = keys.shape[0]
+    scrambled, taxa, pos, tile, bits = _parked(keys, taxa, tile, bits, max(12, int(np.ceil(np.log2(max(n, 2)))) + 1))
+    n_rows = (int(pos[-1]) if n else 0) // tile + 3
+    table = torch.full((n_rows * tile, 3), -1, dtype=torch.int32, device=keys.device)
+    for i, lane in enumerate([*_limbs(scrambled), taxa]):
+        table[pos, i] = lane
+    return HashedTable(table.view(n_rows, tile, 3), tile, bits)
+
+
+def build_hashed_cols(keys: torch.Tensor, taxa: torch.Tensor, tile: int = HASHED_COLS_TILE,
+                      bits: Optional[int] = None) -> HashedTable:
+    """The column-block hashed table of `--probe hashed128`: the parking of
+    build_hashed with bits starting at max(12, ceil(log2 N)) (a load near
+    one: the 127-slot displacement budget absorbs the clustering), in
+    [rows, 3 * tile] lanes: slot s lies in row s // tile, its hi', lo' and
+    taxon in lanes s % tile of the row's three blocks. Equal, lane for lane,
+    to the JAX package's build_hashed_cols."""
+    n = keys.shape[0]
+    scrambled, taxa, pos, tile, bits = _parked(keys, taxa, tile, bits, max(12, int(np.ceil(np.log2(max(n, 2))))))
+    n_rows = (int(pos[-1]) if n else 0) // tile + 3
+    table = torch.full((n_rows, 3 * tile), -1, dtype=torch.int32, device=keys.device)
+    at = (pos // tile) * (3 * tile) + pos % tile
+    flat = table.view(-1)
+    for i, lane in enumerate([*_limbs(scrambled), taxa]):
+        flat[at + i * tile] = lane
+    return HashedTable(table, tile, bits)
+
+
+def _hashed_lanes(table: HashedTable, row: torch.Tensor):
+    """(hi', lo', taxon) lanes [q, 2 * tile] of rows `row` and `row + 1`,
+    each clamped onto the last row (all free), as the JAX gathers clamp."""
+    rows, tile = table.table, table.tile
+    last = rows.shape[0] - 1
+    r0, r1 = rows[row.clamp(max=last)], rows[(row + 1).clamp(max=last)]
+    if table.cols:
+        return [torch.cat([r0[:, i * tile:(i + 1) * tile], r1[:, i * tile:(i + 1) * tile]], 1) for i in range(3)]
+    return [torch.cat([r0[:, :, i], r1[:, :, i]], 1) for i in range(3)]
+
+
+def lookup_taxa_hashed(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
+    """The hashed lookup as the JAX package writes it (lookup_taxa_hashed):
+    the home slot h of the scrambled query, the two aligned rows h // tile
+    and h // tile + 1, the taxon of a slot equal to the scrambled query,
+    else 0, and at least 0 (a free slot's -1). A negative query (an invalid
+    window's -1) misses unsearched: no key is negative, so the JAX lookup's
+    answer is 0 too (only a free slot can equal it, and its -1 does not
+    beat 0). int32 [Q]; the twin of the probe_hashed kernel, and of
+    probe_hashed_cols for a column-block table (`lookup_taxa_hashed_cols`)."""
+    out = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
+    step = max(1, TWIN_LANES // (6 * table.tile))  # queries a gather
+    for a in range(0, queries.shape[0], step):
+        q = queries[a:a + step]
+        s = xorshift64(q)
+        hi, lo, tx = _hashed_lanes(table, _top_bits(s, table.bits) // table.tile)
+        q_hi, q_lo = _limbs(s)
+        taxon = torch.where((hi == q_hi[:, None]) & (lo == q_lo[:, None]), tx, 0).amax(1).clamp(min=0)
+        out[a:a + step] = torch.where(q >= 0, taxon, 0)
+    return out
+
+
+def lookup_taxa_hashed_cols(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
+    """lookup_taxa_hashed over a column-block table (the JAX package's
+    lookup_taxa_hashed_cols: the same two aligned rows, [3 * tile] lanes
+    each)."""
+    if not table.cols:
+        raise ValueError("a column-block table is [rows, 3 * tile]")
+    return lookup_taxa_hashed(table, queries)
+
+
+def build_bucketed(keys: torch.Tensor, taxa: torch.Tensor, key_bits: int) -> Bucketed:
+    """The arrays of `--probe bucketed` for the sorted, unique narrow `keys`
+    (int64 [N]) with int32 `taxa`, in torch ops on their device: the router
+    at min(adaptive_router_bits(N), key_bits) bits (the JAX index's
+    device_router), maxb = max_bucket_span(router), and the keys and taxa
+    padded as pad_keys_for_buckets pads them."""
+    n = keys.shape[0]
+    bits = min(adaptive_router_bits(n), key_bits)
+    router = build_router(keys, bits, key_bits)
+    maxb = max_bucket_span(router)
+    padded_keys = torch.cat([keys, keys.new_full((maxb,), -1)])
+    padded_taxa = torch.cat([taxa.to(torch.int32), taxa.new_zeros(maxb, dtype=torch.int32)])
+    return Bucketed(router, padded_keys, padded_taxa, maxb, bits, key_bits)
+
+
+def lookup_taxa_bucketed(table: Bucketed, queries: torch.Tensor) -> torch.Tensor:
+    """The direct-bucket lookup as the JAX package writes it
+    (lookup_taxa_bucketed): the router entry of the query's prefix, the
+    `maxb` padded keys and taxa from there, the taxon of a key equal to the
+    query, else 0. A negative query (an invalid window's -1) misses
+    unsearched: the JAX lookup gives it 0 too (only the all-ones padding, of
+    taxon 0, can equal it). int32 [Q]; the twin of the probe_bucketed route
+    (the directory kernel over the router)."""
+    router, keys, taxa, maxb, bits, key_bits = table
+    out = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
+    span = torch.arange(maxb, device=queries.device)
+    step = max(1, TWIN_LANES // maxb)
+    for a in range(0, queries.shape[0], step):
+        q = queries[a:a + step]
+        p = q >> (key_bits - bits)
+        inside = (q >= 0) & (p < 1 << bits)
+        at = router[torch.where(inside, p, 0)].long()[:, None] + span  # [q, maxb]
+        taxon = torch.where(keys[at] == q[:, None], taxa[at], 0).amax(1)
+        out[a:a + step] = torch.where(inside, taxon, 0)
     return out

@@ -44,6 +44,9 @@ from ..taxonomy import Taxonomy
 from . import mesh as pmesh
 
 LAYOUTS = ("replicated", "ring")
+#: the probes that a mesh runs as asked; the JAX package's MeshClassifier
+#: runs the routed probe for the others (hashed128, bucketed), in both layouts
+MESH_PROBES = ("routed", "tiled", "hashed1", "hashed")
 
 
 class MeshClassifier(Classifier):
@@ -51,7 +54,9 @@ class MeshClassifier(Classifier):
     devices). layout 'replicated': the index on every device, a batch's rows
     split into contiguous chunks, one a device. layout 'ring': the index cut
     into len(mesh) key ranges, one a device, and the queries going round.
-    `probe` as for Classifier: in the ring each shard has its own table."""
+    `probe` as for Classifier: in the ring each shard has its own table.
+    hashed128 and bucketed run the routed probe over a mesh
+    (`mesh_probe`), as the JAX package's MeshClassifier runs them."""
 
     def __init__(self, index: KeyValueIndex, mesh, layout: str = "replicated", max_taxa_per_read: int = 32,
                  probe: Optional[str] = None):
@@ -60,6 +65,12 @@ class MeshClassifier(Classifier):
         self.mesh = pmesh.as_mesh(mesh)
         self.layout = layout
         super().__init__(index, self.mesh[0], max_taxa_per_read, probe)
+
+    @property
+    def mesh_probe(self) -> str:
+        """The probe the mesh's devices run: `probe`, or routed for hashed128
+        and bucketed."""
+        return self.probe if self.probe in MESH_PROBES else "routed"
 
     def _place_index(self) -> None:
         """Per device, once: the rank table and the rpath table; the probe
@@ -70,13 +81,13 @@ class MeshClassifier(Classifier):
         self._luts = {d: idx.device_lut(d) for d in self.mesh.distinct}
         self._tables = {d: table.to(d) for d in self.mesh.distinct}
         if self.layout == "replicated":
-            self._arrays = [idx.device_arrays(d, self.probe) for d in self.mesh]
+            self._arrays = [idx.device_arrays(d, self.mesh_probe) for d in self.mesh]
         else:
             self._arrays = self._ring_shards()
 
     def _ring_shards(self):
         """The ring's shards, one a mesh entry: the index cut into key ranges."""
-        return pmesh.shard_index(self.index, self.mesh, self.probe)
+        return pmesh.shard_index(self.index, self.mesh, self.mesh_probe)
 
     def _padded_rows(self, n: int) -> int:
         """A power of two and a multiple of the mesh size: chunks of equal rows."""

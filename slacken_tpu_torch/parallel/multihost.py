@@ -25,16 +25,19 @@ Without a coordinator (and without torchrun's environment) `initialize`
 returns the one-process context and creates no group, and every function
 degenerates to the local behaviour, as the JAX module does.
 
-The probe (`mh_probe`, STPU_MH_PROBE, the CLI's --probe) is routed, tiled
-or hashed1, wide indexes routed or hashed1, as the JAX package takes them;
-each ring entry builds its own table from its shard (`ring_index_for_host`),
-so the ranks agree on no table geometry and pad no shard: the port's probes
-take shards of any length and give the same answers. The `hashed` shard
-tables (`ring_hashed_tables_for_host`'s other kind) wait for the slice that
-ports the hashed probe. `global_rows` and `collect_local` have no
-counterpart: they are the plumbing of jax.Arrays that span processes; here
-each rank keeps its own rows, as the port's mesh keeps each device's rows
-(mesh.py's psum).
+The probe (`mh_probe`, STPU_MH_PROBE, the CLI's --probe) is routed, tiled,
+hashed or hashed1, wide indexes routed or hashed1, as the JAX package takes
+them (hashed128 and bucketed are refused there and here); each ring entry
+builds its own table from its shard (`ring_index_for_host`: for hashed and
+hashed1 the counterpart of `ring_hashed_tables_for_host`'s two kinds, an
+entry of an empty key range the 3 sentinel rows of an empty build_hashed).
+The JAX function agrees one table geometry across processes by an
+allgather fixed point because its probe is one SPMD program; the port's
+kernels take each shard's own geometry and length and give the same
+answers, so the ranks agree on nothing and pad no shard. `global_rows` and
+`collect_local` have no counterpart: they are the plumbing of jax.Arrays
+that span processes; here each rank keeps its own rows, as the port's mesh
+keeps each device's rows (mesh.py's psum).
 """
 
 from __future__ import annotations
@@ -177,11 +180,11 @@ def load_index_for_host(location: str, ctx: HostContext, taxonomy=None) -> KeyVa
 
 def ring_index_for_host(location: str, ctx: HostContext, taxonomy=None, probe: str = "routed") -> list:
     """The ring's shards of this process's mesh entries, each as
-    `lookup.probe` reads it on its device for `probe` (its own tiled or
-    row-bucket table for those probes): global entry g = rank * L + i owns
-    shard files g * s0 ... (g + 1) * s0 - 1, s0 = files / (P * L), and this
-    process loads only those of its own entries. Shards may differ in
-    length; nothing is padded."""
+    `lookup.probe` reads it on its device for `probe` (its own tiled,
+    hashed or row-bucket table for those probes): global entry g = rank * L
+    + i owns shard files g * s0 ... (g + 1) * s0 - 1, s0 = files / (P * L),
+    and this process loads only those of its own entries. Shards may differ
+    in length; nothing is padded."""
     n_shards, n = _shard_count(location), ctx.global_device_count
     if n_shards % n:
         raise ValueError(f"{n_shards} shard files not divisible by {n} devices")
@@ -264,9 +267,8 @@ class MultiHostRingClassifier(MeshClassifier):
     written by process 0.
 
     `mh_probe` (default STPU_MH_PROBE, else "routed") is the ring's probe:
-    routed, tiled or hashed1, a wide index routed or hashed1; the JAX
-    package's `hashed` raises NotImplementedError (a later slice), any other
-    name ValueError, as there."""
+    routed, tiled, hashed or hashed1, a wide index routed or hashed1; any
+    other name raises ValueError, as there."""
 
     def __init__(self, location: str, ctx: Optional[HostContext] = None, max_taxa_per_read: int = 32,
                  mh_probe: Optional[str] = None):

@@ -1,7 +1,8 @@
 """Wide indexes and queries for the slot table's tests, shared by its
 twin's (test_torch_probe_slots.py) and its kernel's (test_torch_gpu.py);
 key sets for the tiled and row-bucket tables' tests
-(test_torch_probe_tables.py and test_torch_gpu.py)."""
+(test_torch_probe_tables.py and test_torch_gpu.py) and for the hashed
+tables' (test_torch_probe_hashed.py and test_torch_gpu.py)."""
 
 import numpy as np
 
@@ -135,3 +136,57 @@ def table_keys(rng, kind):
         "wide, tied row hashes": lambda: (_tied(rng), 90),
     }[kind]()
     return keys, rng.integers(1, 1 << 20, len(keys)).astype(np.int32), key_bits
+
+
+#: the key whose scramble is all ones (above 2^62: no index of m <= 31 holds it)
+ALL_ONES_KEY = _inverse_xorshift(MASK64)
+
+#: the key sets of `hashed_keys`
+HASHED_KINDS = ("random", "rank table", "full run", "all-ones scramble", "low half", "empty")
+
+
+def _with_scrambles(scrambles):
+    return np.array([_inverse_xorshift(int(s)) for s in scrambles], np.uint64)
+
+
+def _low_half(rng, n):
+    """n non-negative keys whose scrambles have their top bit clear: the
+    table ends near the middle of the hash space."""
+    keys = _with_scrambles(rng.integers(0, 1 << 63, 2 * n + 8, dtype=np.uint64))
+    return keys[keys < np.uint64(1 << 63)][:n]
+
+
+def hashed_keys(rng, kind, tile):
+    """(sorted unique uint64 keys, int32 taxa) of one kind of `HASHED_KINDS`
+    for a hashed table of `tile` (16 or 128): random 62-bit keys; 26-bit
+    ranks (m = 13, clustered scrambles: the tile grows); a run of `tile`
+    keys of one home slot high in the hash space (the last parked tile - 1
+    slots on, the table's last occupied slot) above 300 `_low_half` keys;
+    six keys whose scrambles are the six largest, the all-ones one
+    (ALL_ONES_KEY, parked last) among them, above 300 `_low_half` keys;
+    3,000 `_low_half` keys (queries whose home slot lies beyond the table);
+    none."""
+    if kind == "random":
+        keys = np.unique(rng.integers(0, 1 << 62, 3000)).astype(np.uint64)
+    elif kind == "rank table":
+        keys = np.unique(rng.integers(0, 1 << 26, 3000)).astype(np.uint64)
+    elif kind == "full run":
+        home = (3 << 62) | (int(rng.integers(0, 1 << 20)) << 40)  # one home for bits <= 24
+        run = _with_scrambles(home | rng.integers(0, 1 << 40, 4 * tile + 16, dtype=np.uint64))
+        keys = np.concatenate([run[run < np.uint64(1 << 63)][:tile], _low_half(rng, 300)])
+    elif kind == "all-ones scramble":
+        keys = np.concatenate([_with_scrambles(MASK64 - np.arange(6, dtype=np.uint64)), _low_half(rng, 300)])
+    elif kind == "low half":
+        keys = _low_half(rng, 3000)
+    else:
+        keys = np.zeros(0, np.uint64)
+    keys = np.unique(keys[keys < np.uint64(1 << 63)])  # index keys are non-negative int64
+    return keys, rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+
+
+def hashed_queries(rng, keys):
+    """int64 queries of a hashed table's tests: every key, keys beside it,
+    ALL_ONES_KEY, random values of any sign, the edges and -1."""
+    k = keys.view(np.int64)
+    return np.concatenate([k, k + 1, k - 1, [ALL_ONES_KEY, ALL_ONES_KEY - 1, -1, -5, 0, (1 << 63) - 1],
+                           rng.integers(0, 1 << 62, 1000), rng.integers(-(1 << 63), (1 << 63) - 1, 1000)])

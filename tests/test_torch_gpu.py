@@ -430,6 +430,101 @@ def test_table_probe_kernels_refuse_what_they_do_not_take(cuda):
         cuda_kernels.lookup_taxa_rows_cuda(rows, keys.view(-1, 2))
 
 
+def _launched(before):
+    return {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
+
+
+def _assert_hashed_probe(cuda, keys, taxa, q, cols, **kwargs):
+    """The hashed table built on the card == built on the CPU; its kernel
+    (one launch of probe_hashed or probe_hashed_cols) == the twin ==
+    lookup_taxa on `q`. Returns the card's table."""
+    build = lookup.build_hashed_cols if cols else lookup.build_hashed
+    k, t, q = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), torch.from_numpy(q)
+    host, card = build(k, t, **kwargs), build(k.to(cuda), t.to(cuda), **kwargs)
+    assert (host.tile, host.bits) == (card.tile, card.bits) and torch.equal(host.table, card.table.cpu())
+    before = dict(cuda_kernels.LAUNCHES)
+    got = lookup.probe(None, None, card, q.to(cuda))
+    assert _launched(before) == {"probe_hashed_cols" if cols else "probe_hashed": 1}
+    want = lookup.lookup_taxa(k, t, q)
+    assert torch.equal(got.cpu(), want) and torch.equal(lookup.probe(None, None, host, q), want)
+    assert bool((want[:len(keys)] > 0).all())
+    return card
+
+
+@pytest.mark.parametrize("cols", [False, True], ids=["hashed", "hashed128"])
+@pytest.mark.parametrize("kind", probe_cases.HASHED_KINDS)
+def test_hashed_probe_kernel_matches_twin(cuda, kind, cols):
+    """probe_hashed and probe_hashed_cols over tables built on the card:
+    random keys, clustered 26-bit ranks, a full run of displacement tile - 1
+    ending at the table's last occupied slot, the all-ones scramble's key
+    parked last (and the same table without it), homes beyond the table's
+    end, no keys; random queries of any sign."""
+    tile = lookup.HASHED_COLS_TILE if cols else lookup.HASHED_TILE
+    rng = np.random.default_rng(len(kind) + tile)
+    keys, taxa = probe_cases.hashed_keys(rng, kind, tile)
+    q = probe_cases.hashed_queries(rng, keys)
+    _assert_hashed_probe(cuda, keys, taxa, q, cols)
+    if kind == "all-ones scramble":
+        keep = keys != np.uint64(probe_cases.ALL_ONES_KEY)
+        _assert_hashed_probe(cuda, keys[keep], taxa[keep], probe_cases.hashed_queries(rng, keys[keep]), cols)
+
+
+@pytest.mark.parametrize("cols", [False, True], ids=["hashed", "hashed128"])
+def test_hashed_probe_kernel_on_grown_tiles(cuda, cols):
+    """Forced bits below the keys' need (2,048 slots for 3,000 keys): the
+    tile grows to 1,024 slots."""
+    rng = np.random.default_rng(4)
+    keys, taxa = probe_cases.hashed_keys(rng, "random", 16)
+    table = _assert_hashed_probe(cuda, keys, taxa, probe_cases.hashed_queries(rng, keys), cols, bits=11)
+    assert (table.tile, table.bits) == (1024, 11)
+
+
+@pytest.mark.parametrize("kind", ["narrow", "rank table", "skewed", "empty"])
+def test_hashed_probe_bucketed_route_matches_twin(cuda, kind):
+    """--probe bucketed on the card: the directory kernel over the router
+    (one launch, counted as probe_bucketed) == lookup_taxa_bucketed over the
+    padded arrays == lookup_taxa; the arrays built on the card == on the CPU."""
+    rng = np.random.default_rng(len(kind))
+    keys, taxa, key_bits = probe_cases.table_keys(rng, kind)
+    k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
+    q = torch.from_numpy(_table_queries(rng, keys))
+    host, card = lookup.build_bucketed(k, t, key_bits), lookup.build_bucketed(k.to(cuda), t.to(cuda), key_bits)
+    for a, b in zip(host, card):
+        assert torch.equal(a, b.cpu()) if isinstance(a, torch.Tensor) else a == b
+    before = dict(cuda_kernels.LAUNCHES)
+    got = lookup.probe(None, None, card, q.to(cuda))
+    assert _launched(before) == ({"probe_bucketed": 1} if len(keys) else {})
+    want = lookup.lookup_taxa(k, t, q)
+    assert torch.equal(got.cpu(), want) and torch.equal(lookup.lookup_taxa_bucketed(host, q), want)
+    if kind == "skewed":
+        assert card.maxb == 40
+
+
+def test_hashed_probe_routes_refuse_what_they_do_not_take(cuda):
+    """What the hashed kernel and the bucketed route (the directory kernel's
+    checks) do not take raises ValueError."""
+    keys = torch.arange(0, 1 << 40, 1 << 30, device=cuda)
+    taxa = torch.ones(keys.shape[0], dtype=torch.int32, device=cuda)
+    hashed, bucketed = lookup.build_hashed(keys, taxa), lookup.build_bucketed(keys, taxa, 62)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_kernels.lookup_taxa_hashed_cuda(hashed, keys.cpu())
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.lookup_taxa_hashed_cuda(hashed._replace(tile=hashed.tile + 1), keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.lookup_taxa_hashed_cuda(hashed, torch.arange(20, device=cuda)[::2])
+    with pytest.raises(ValueError, match="1-d"):
+        cuda_kernels.lookup_taxa_hashed_cuda(hashed, keys.view(-1, 2))
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.lookup_taxa_bucketed_cuda(bucketed._replace(bits=bucketed.bits + 1), keys)
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_kernels.lookup_taxa_bucketed_cuda(bucketed._replace(taxa=bucketed.taxa[1:]), keys)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_kernels.lookup_taxa_bucketed_cuda(bucketed._replace(keys=bucketed.keys[1:], taxa=bucketed.taxa[1:]),
+                                               keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.lookup_taxa_bucketed_cuda(bucketed, torch.arange(20, device=cuda)[::2])
+
+
 @pytest.mark.parametrize("shape", [(8, 128), (4096, 128), (5, 16), (33, 1000)])
 @pytest.mark.parametrize("name", cuda_kernels.MASK_IDIOMS)
 def test_mask_idiom_kernel_matches_twin(cuda, name, shape):
@@ -839,7 +934,8 @@ def _multihost_run(tmp_path, kind, world, **spec):
     want = files(tmp_path / "one")
     assert files(tmp_path / "mh") == want and len(want) == 4
     scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
-    probe = {None: "probe", "tiled": "probe_tiled", "hashed1": "probe_rows"}[spec.get("mh_probe")]
+    probe = {None: "probe", "tiled": "probe_tiled", "hashed1": "probe_rows", "hashed": "probe_hashed"}[
+        spec.get("mh_probe")]
     probe = "probe_wide" if kind == "wide" and probe == "probe" else probe + ("_wide" if kind == "wide" else "")
     assert all(set(s["launched"]) == {scan, probe} for s in seen)
     return seen
@@ -872,6 +968,43 @@ def test_multihost_world_of_one_with_the_hashed1_probe(cuda, tmp_path, kind):
     row-bucket table and its kernel; the single card's files."""
     seen = _multihost_run(tmp_path, kind, 1, device="cuda", devices=2, backend=None, mh_probe="hashed1")
     assert seen[0]["backend"] == "nccl" and seen[0]["p2p"] == 0
+
+
+@pytest.mark.parametrize("kind", ["narrow", "lexicographic"])
+def test_multihost_world_of_one_with_the_hashed_probe(cuda, tmp_path, kind):
+    """One NCCL rank, two ring entries, mh_probe="hashed": each entry's
+    hashed table and the probe_hashed kernel; the single card's files."""
+    seen = _multihost_run(tmp_path, kind, 1, device="cuda", devices=2, backend=None, mh_probe="hashed")
+    assert seen[0]["backend"] == "nccl" and seen[0]["p2p"] == 0
+
+
+@pytest.mark.parametrize("probe", ["hashed", "hashed128", "bucketed"])
+@pytest.mark.parametrize("kind", ["narrow", "lexicographic"])
+def test_hashed_probe_choice_on_the_card(cuda, kind, probe):
+    """Classifier(probe=) on the card == the routed probe on the card == the
+    same probe on the CPU, per-read mode; MeshClassifier over
+    Mesh([cuda:0] * 8), ring and replicated: hashed's table a shard, and for
+    hashed128 and bucketed the routed probe (as the JAX package's mesh)."""
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier
+
+    tax, genomes, params = _small_library(kind)
+    idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+    frags = [Fragment(f"r{i}", genomes[i % 6][1][i * 20 : i * 20 + 101]) for i in range(100)]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15])
+    want = Classifier(idx, cuda).classify(frags, cpar)
+    assert sum(r.classified for r in want[0.0]) > 70
+    name = {"hashed": "probe_hashed", "hashed128": "probe_hashed_cols", "bucketed": "probe_bucketed"}[probe]
+    scan = "scan_lut" if kind == "lexicographic" else "scan"
+    on_mesh = "probe_hashed" if probe == "hashed" else "probe"
+    for layout, probes in ((None, 1), ("ring", 64), ("replicated", 8)):
+        before = dict(cuda_kernels.LAUNCHES)
+        cls = (Classifier(idx, cuda, probe=probe) if layout is None
+               else MeshClassifier(idx, [torch.device("cuda", 0)] * 8, layout, probe=probe))
+        assert cls.classify(frags, cpar) == want
+        assert _launched(before) == {scan: 1 if layout is None else 8, name if layout is None else on_mesh: probes}
+    assert Classifier(idx.to("cpu"), "cpu", probe=probe).classify(frags, cpar) == want
 
 
 @pytest.mark.parametrize("probe", ["tiled", "hashed1"])

@@ -5,9 +5,10 @@ and its classify2 CLI (Dynamic: step 1's span hits and the final classify)
 on one device and over the ring of 8 CPU shards, write kreports and
 per-read files byte-identical to the port's --probe routed and to
 slacken_tpu's CLI with the same --probe. The rejections: a wide index with
-hashed, the probes of a later slice, unknown names, --coordinator with
+hashed, hashed128 or bucketed, unknown names, --coordinator with
 hashed128 and the multi-host ring's wide tiled, each raising as the JAX
-package raises; STPU_PROBE and STPU_MH_PROBE. Over a mesh and over
+package raises; STPU_PROBE and STPU_MH_PROBE. The three narrow-only
+probes: test_torch_probe_hashed.py. Over a mesh and over
 processes: test_torch_probe_mesh.py."""
 
 import gzip
@@ -21,8 +22,9 @@ from slacken_tpu import cli as jcli
 from slacken_tpu.classify import Classifier as JClassifier
 from slacken_tpu.index import KeyValueIndex as JIndex
 from slacken_tpu_torch import cli, workloads
-from slacken_tpu_torch.classify import Classifier
+from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
 from slacken_tpu_torch.index import KeyValueIndex
+from slacken_tpu_torch.ops import lookup
 from slacken_tpu_torch.parallel import multihost
 from test_index import random_genome
 from test_taxonomy import random_taxonomy
@@ -34,10 +36,11 @@ KINDS = {"narrow": [], "wide": ["-k", "50", "-m", "45"], "rank table": ["-m", "1
 PROBES = ["tiled", "hashed1"]
 
 
-def make_world(base, kinds):
+def make_world(base, kinds, sharded=None):
     """Four 5 kbp genomes on species leaves written as a library under
-    `base`, per kind of `kinds` its index in one file and in 8 shard files,
-    and 120 simulated reads of two of the genomes."""
+    `base`, per kind of `kinds` its index in one file and, for the kinds of
+    `sharded` (default: all), in 8 shard files, and 120 simulated reads of
+    two of the genomes."""
     rng = np.random.default_rng(20261023)
     tax = random_taxonomy(rng)
     species = [int(x) for x in tax.taxa() if tax.is_leaf(x) and tax.depth(x) == 8]
@@ -49,7 +52,8 @@ def make_world(base, kinds):
     lib = ["-l", str(base / "lib"), "-t", str(base / "taxonomy"), *CPU]
     for kind in kinds:
         assert cli.main(["build", "-i", str(base / f"{kind}1"), *lib, *KINDS[kind]]) == 0
-        assert cli.main(["build", "-i", str(base / f"{kind}8"), *lib, *KINDS[kind], "--shards", "8"]) == 0
+        if sharded is None or kind in sharded:
+            assert cli.main(["build", "-i", str(base / f"{kind}8"), *lib, *KINDS[kind], "--shards", "8"]) == 0
     return base
 
 
@@ -115,22 +119,32 @@ def test_classify2_cli_probe(world, tmp_path, probe):
 
 
 def test_later_probes_and_unknown_names_raise(world):
-    """hashed, hashed128 and bucketed raise NotImplementedError naming the
-    next slice, an unknown name ValueError (as slacken_tpu's); a wide index
-    with hashed raises NotImplementedError in both packages. Nothing runs
-    another probe in their place."""
+    """hashed, hashed128 and bucketed run on a narrow index (their tables),
+    an unknown name raises ValueError (as slacken_tpu's); a wide index with
+    any of the three raises NotImplementedError in both packages. Nothing
+    runs another probe in their place."""
     narrow, wide = (KeyValueIndex.load(str(world / f"{k}1")) for k in ("narrow", "wide"))
-    for probe in ("hashed", "hashed128", "bucketed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Classifier(narrow, "cpu", probe=probe)
+    lines = (world / "reads.fastq").read_text().splitlines()
+    frags = [Fragment(lines[i][1:], lines[i + 1]) for i in range(0, len(lines), 4)]
+    cpar = ClassifyParams(thresholds=[0.0])
+    want = Classifier(narrow, "cpu").classify(frags, cpar)
+    tables = {"hashed": lookup.HashedTable, "hashed128": lookup.HashedTable, "bucketed": lookup.Bucketed}
+    for probe, table in tables.items():
+        cls = Classifier(narrow, "cpu", probe=probe)
+        assert cls.probe == probe and isinstance(cls._directory, table)
+        assert cls._directory.cols == (probe == "hashed128") if table is lookup.HashedTable else True
+        assert cls.classify(frags, cpar) == want
     with pytest.raises(ValueError, match="unknown probe"):
         Classifier(narrow, "cpu", probe="nope")
     with pytest.raises(ValueError, match="unknown probe"):
         JClassifier(JIndex.load(str(world / "narrow1")), probe="nope")
-    with pytest.raises(NotImplementedError, match="routed, tiled and hashed1"):
-        Classifier(wide, "cpu", probe="hashed")
-    with pytest.raises(NotImplementedError, match="routed, tiled and hashed1"):
-        JClassifier(JIndex.load(str(world / "wide1")), probe="hashed")
+    for probe in tables:
+        with pytest.raises(NotImplementedError, match="routed, tiled and hashed1"):
+            Classifier(wide, "cpu", probe=probe)
+        with pytest.raises(NotImplementedError, match="m <= 31"):
+            wide.device_arrays("cpu", probe)
+        with pytest.raises(NotImplementedError, match="routed, tiled and hashed1"):
+            JClassifier(JIndex.load(str(world / "wide1")), probe=probe)
     for probe in ("tiled", "hashed1"):
         assert Classifier(wide, "cpu", probe=probe).probe == probe
 
@@ -165,9 +179,11 @@ def test_environment_chooses_the_probe(world, monkeypatch):
     monkeypatch.setenv("STPU_MH_PROBE", "tiled")
     cls = multihost.MultiHostRingClassifier(str(world / "narrow8"), ctx)
     assert cls.probe == "tiled" and all(type(a[2]).__name__ == "TiledTable" for a in cls._arrays)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        multihost.MultiHostRingClassifier(str(world / "narrow8"), ctx, mh_probe="hashed")
+    cls = multihost.MultiHostRingClassifier(str(world / "narrow8"), ctx, mh_probe="hashed")
+    assert cls.probe == "hashed" and all(type(a[2]).__name__ == "HashedTable" for a in cls._arrays)
     with pytest.raises(ValueError, match="routed/tiled/hashed/hashed1"):
         multihost.MultiHostRingClassifier(str(world / "narrow8"), ctx, mh_probe="hashed128")
     with pytest.raises(ValueError, match="routed and hashed1"):
         multihost.MultiHostRingClassifier(str(world / "wide8"), ctx)
+    with pytest.raises(ValueError, match="routed and hashed1"):
+        multihost.MultiHostRingClassifier(str(world / "wide8"), ctx, mh_probe="hashed")
