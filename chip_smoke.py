@@ -540,6 +540,16 @@ def random_queries(rng, keys, nq):
     return q
 
 
+def narrow_random_queries(dev, index, seed):
+    """`random_queries` of 4,194,304 around 2,097,152 keys of a narrow index,
+    every draw from a generator of `seed`, on `dev`."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    host_keys = index.keys_t[torch.from_numpy(rng.integers(0, index.num_records, 1 << 21)).to(dev)].cpu().numpy()
+    return torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev)
+
+
 def check_probe(rng, dev, results):
     import torch
 
@@ -1030,13 +1040,18 @@ def time_table_probe(label, table, keys, taxa, queries, name):
     """A table kernel == its twin == lookup_taxa (tolerance 0) on these
     queries, then its time beside the twin's and, for the tiled and the
     bucketed probe of narrow keys, torch.searchsorted's (the directory
-    probe's yardstick; the row and hashed probes have none). The bound
+    probe's yardstick, `library_ms`). A row-major hashed table gets
+    `yardstick_device_ms`: the device time alone of one torch.index_select
+    of each query's home-slot lanes ([Q, 3], the homes computed before), a
+    generic gather of one scattered 12-byte read a query; it computes
+    another function than the kernel, so it is no `library_ms`. The bound
     counts what these queries need: each query and its answer; tiled, the
     two router entries of a query inside the key space and one record of a
     non-empty bucket; bucketed, as the directory probe, a router entry and a
     key a query inside the key space and a taxon a hit; hashed1, one 32-byte
-    sector of the row's first key block a query and, on a hit, one sector of
-    each other key block and of the taxa; hashed and hashed128, the home
+    sector of the row's first key block a query (wide, a query whose l3 is
+    not all ones) and, on a hit, one sector of each other key block and of
+    the taxa; hashed and hashed128, the home
     slot of each distinct non-negative query once (12 bytes; the taxon lane
     only on a hit in the column blocks). Returns one entry of the kernel's
     `shapes`."""
@@ -1065,6 +1080,11 @@ def time_table_probe(label, table, keys, taxa, queries, name):
     ms, dev_ms = cuda_ms(run), device_ms(run)
     routered = isinstance(table, (lookup.TiledTable, lookup.Bucketed))
     library = cuda_ms(lambda: torch.searchsorted(keys, queries)) if routered and not wide else None
+    yardstick = None
+    if isinstance(table, lookup.HashedTable) and not table.cols:
+        homes = lookup._top_bits(lookup.xorshift64(queries), table.bits).clamp(max=table.slots - 1)
+        slot_lanes = table.table.view(-1, 3)
+        yardstick = device_ms(lambda: torch.index_select(slot_lanes, 0, homes))
     nq, hits, q_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
     if routered:
         shift = table.key_bits - table.bits
@@ -1084,16 +1104,18 @@ def time_table_probe(label, table, keys, taxa, queries, name):
         seen = torch.unique(queries[queries >= 0])
         need = 12 * nq + (8 * seen.numel() + 4 * int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
                           if table.cols else 12 * seen.numel())
-    else:
-        need = (q_bytes + 4 + 32) * nq + (4 if wide else 2) * 32 * hits
+    else:  # the wide kernel reads nothing for a query whose l3 is all ones (an invalid window)
+        walked = int(((queries[:, 0] >> 32) != -1).sum()) if wide else nq
+        need = (q_bytes + 4) * nq + 32 * walked + (4 if wide else 2) * 32 * hits
     n_bytes = min(tensor_bytes(queries, *(x for x in table if hasattr(x, "numel"))) + 4 * nq, need)
     bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq if routered else (32 if wide else 16) * nq)
     log(f"{name}, {label}: {keys.shape[0]} keys ({table_geometry(table)}), {nq} queries, {hits} hits, max_abs_err 0 "
         f"against the twin and lookup_taxa; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the device alone), plain twin "
         f"{plain:.4f} ms, " + ("no library call, " if library is None else f"torch.searchsorted alone {library:.4f} ms, ")
-        + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
+        + ("" if yardstick is None else f"yardstick: torch.index_select of the home slots {fmt_ms(yardstick)} on the "
+           "device alone, ") + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
     return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
-                library_ms=library)
+                library_ms=library, **({} if yardstick is None else {"yardstick_device_ms": yardstick}))
 
 
 def phase_probes(dev, out, bench, results):
@@ -1175,9 +1197,7 @@ def phase_probes(dev, out, bench, results):
 
     batch = {"narrow": batch_queries(bench["cls"], reads)[2].minimizer.reshape(-1),
              "wide": batch_queries(routed, reads)[2].minimizer.flatten(0, 1)}
-    rng = np.random.default_rng(BENCH_RECORDS)
-    host_keys = idx.keys_t[torch.from_numpy(rng.integers(0, idx.num_records, 1 << 21)).to(dev)].cpu().numpy()
-    rand = {"narrow": torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev),
+    rand = {"narrow": narrow_random_queries(dev, idx, BENCH_RECORDS),
             "wide": random_wide_queries(dev, wide.keys_t, 1 << 22, BENCH_RECORDS)}
     for kind, index in (("narrow", idx), ("wide", wide)):  # the kernels against their twins, before the main path
         label = "bench index" if kind == "narrow" else "wide bench index (50, 45, 7)"
@@ -1268,9 +1288,7 @@ def phase_probes_scale(dev, out, results, genomes, scale_idx):
     n_reads = sum(len(p) for p in reads)
     cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
     want = open(os.path.join(out, "scale_c0.0", "all_kreport.txt"), "rb").read()
-    rng = np.random.default_rng(SCALE_RECORDS + 1)
-    host_keys = idx.keys_t[torch.from_numpy(rng.integers(0, idx.num_records, 1 << 21)).to(dev)].cpu().numpy()
-    rand = torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev)
+    rand = narrow_random_queries(dev, idx, SCALE_RECORDS + 1)
     total = {}
     for probe, table in tables.items():
         cls = Classifier(idx, dev, probe=probe)
@@ -1570,10 +1588,8 @@ def phase_scale(dev, out, results, genomes):
         fail(f"scale classified {c} of {total} reads")
     launches = dict(cuda_kernels.LAUNCHES)
     require_launches("scale build and classify", launches)
-    rng = np.random.default_rng(SCALE_RECORDS)
-    host_keys = idx.keys_t[torch.from_numpy(rng.integers(0, idx.num_records, 1 << 21)).to(dev)].cpu().numpy()
     for label, q in (
-        ("scale index, random queries", torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev)),
+        ("scale index, random queries", narrow_random_queries(dev, idx, SCALE_RECORDS)),
         ("scale index, one batch's dense minimizers", batch_queries(cls, reads)[2].minimizer.reshape(-1)),
     ):
         results["probe"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q)
@@ -1869,7 +1885,10 @@ def add_launches(total, launches):
 def phase_wide(dev, out, reads, results, genomes, bases):
     """Wide keys (m > 31) end to end on the bench library at two parameter
     sets, then the 400 Mbp scale library (`genomes`) built wide and
-    classified. Returns the launch counts of the whole path; the (50, 45, 7)
+    classified, routed and with probe="hashed1" (its row-bucket table built
+    on the card; the kreport equal to the routed one), and probe_wide and
+    probe_rows_wide timed there on random queries and one batch's dense
+    minimizers. Returns the launch counts of the whole path; the (50, 45, 7)
     bench indexes, built with their sidecars, go into `bases` for classify2."""
     import torch
 
@@ -1921,15 +1940,27 @@ def phase_wide(dev, out, reads, results, genomes, bases):
         cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
         cls.classify_and_write_packed(reads[:1], os.path.join(out, "wscale_warm"), cpar)
         dt = timed_runs(lambda r: cls.classify_and_write_packed(reads, os.path.join(out, "wscale"), cpar), n=1)[0]
-    c, total_reads = classified_count(os.path.join(out, "wscale_c0.0", "all_kreport.txt"))
-    log(f"wide scale classify on the card: {n_reads} reads in {dt:.3f} s, {n_reads / dt:.1f} reads/s, "
-        f"classified {c} ({100.0 * c / n_reads:.2f}%); peak torch.cuda.max_memory_allocated with it "
-        f"{torch.cuda.max_memory_allocated()} bytes")
-    # k = 50: a 101 bp read with 1% mutated bases keeps fewer clean windows than at k = 35
-    if total_reads != n_reads or c < 0.9 * n_reads:
-        fail(f"wide scale classified {c} of {total_reads} reads")
+        c, total_reads = classified_count(os.path.join(out, "wscale_c0.0", "all_kreport.txt"))
+        log(f"wide scale classify on the card: {n_reads} reads in {dt:.3f} s, {n_reads / dt:.1f} reads/s, "
+            f"classified {c} ({100.0 * c / n_reads:.2f}%); peak torch.cuda.max_memory_allocated with it "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        # k = 50: a 101 bp read with 1% mutated bases keeps fewer clean windows than at k = 35
+        if total_reads != n_reads or c < 0.9 * n_reads:
+            fail(f"wide scale classified {c} of {total_reads} reads")
+        rows = build_tables("wide scale index", idx, dev, ("hashed1",))["hashed1"]  # row_bits 21 by the rule
+        hashed1 = Classifier(idx, dev, probe="hashed1")
+        hashed1.classify_and_write_packed(reads[:1], os.path.join(out, "wscale_hashed1_warm"), cpar)
+        dt = timed_runs(lambda r: hashed1.classify_and_write_packed(reads, os.path.join(out, "wscale_hashed1"), cpar),
+                        n=1)[0]
+        if (open(os.path.join(out, "wscale_hashed1_c0.0", "all_kreport.txt"), "rb").read()
+                != open(os.path.join(out, "wscale_c0.0", "all_kreport.txt"), "rb").read()):
+            fail("the wide scale classify with probe=hashed1 differs from the routed kreport")
+        log(f"wide scale classify with probe=hashed1: {n_reads} reads in {dt:.3f} s, {n_reads / dt:.1f} reads/s; "
+            "kreport equal to the routed one")
+        del hashed1
     launches = dict(cuda_kernels.LAUNCHES)
-    require_launches("wide scale build and classify", launches, ("scan_wide", "probe_wide"), narrow)
+    require_launches("wide scale build and classify, routed and hashed1", launches,
+                     ("scan_wide", "probe_wide", "probe_rows_wide"), narrow)
     add_launches(total, launches)
     for label, q in (
         ("wide scale index, random queries", random_wide_queries(dev, idx.keys_t, 1 << 22, SCALE_RECORDS)),
@@ -1937,6 +1968,8 @@ def phase_wide(dev, out, reads, results, genomes, bases):
     ):
         results["probe_wide"]["shapes"][label] = time_probe(label, idx.keys_t, idx.taxa_t, cls._directory, q,
                                                             "probe_wide")
+        results["probe_rows_wide"]["shapes"][label] = time_table_probe(label, rows, idx.keys_t, idx.taxa_t, q,
+                                                                       "probe_rows_wide")
     return total
 
 

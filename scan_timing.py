@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the minimizer-scan kernels and the wide probe on one NVIDIA GPU at
-the main path's shapes, to compare two versions of the kernels inside one
-run on one card.
+"""Time the minimizer-scan kernels, the wide probe and the hashed and
+row-bucket table probes on one NVIDIA GPU at the main path's shapes, to
+compare two versions of the kernels inside one run on one card.
 
-    python3 scan_timing.py [--root DIR] [--cases all|scan|probe]
+    python3 scan_timing.py [--root DIR] [--cases all|scan|probe|tables]
 
 `--root` imports slacken_tpu_torch from DIR, another checkout of the
 repository (the parent commit unpacked into a git-ignored directory, say);
@@ -19,8 +19,14 @@ library's (50, 45, 7) indexes (also random queries there), each checked
 against `lookup_taxa` first; it prints the device memory of the scale
 index's probe arrays, the peak while they are made, and the build's peak. A tree whose lookup has
 no `build_slots` probes its keys, taxa and directory, as before the slot
-table. Run parent, change, change, parent in one command to compare two
-trees.
+table. `--cases tables` times probe_hashed, probe_hashed_cols and
+probe_rows_wide through chip_smoke.time_table_probe (each held to its twin
+and lookup_taxa first; the bound and the index_select yardstick as there)
+at chip_smoke.py's shapes: one 4 Mbp batch's dense minimizers and 4,194,304
+random queries, into the bench index's hashed tables and the wide (50, 45,
+7) bench index's row-bucket table, then into the 400 Mbp scale library's
+narrow hashed tables and wide row-bucket table. Run parent, change, change,
+parent in one command to compare two trees.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ CASES = [
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--cases", choices=("all", "scan", "probe"), default="all")
+    ap.add_argument("--cases", choices=("all", "scan", "probe", "tables"), default="all")
     args = ap.parse_args(argv)
 
     import torch
@@ -71,9 +77,11 @@ def main(argv=None):
         if "Compiling entry function" in line and ("scan" in line or "probe" in line):
             used = next((x.strip() for x in lines[i + 1:i + 4] if "Used" in x), "")
             print(f"[{name}] {line.split(chr(39))[1][-60:]}: {used}", flush=True)
-    if args.cases != "scan":
+    if args.cases in ("all", "tables"):
+        time_tables(name, dev)
+    if args.cases in ("all", "probe"):
         time_probe_wide(name, dev)
-    if args.cases == "probe":
+    if args.cases != "all" and args.cases != "scan":
         return 0
     rng = np.random.default_rng(20260816)
     for label, kms, lut_m, shapes in CASES:
@@ -92,6 +100,55 @@ def main(argv=None):
             print(f"[{name}] {label} {kms} {list(shape)}: back to back {ms:.4f} ms; alone {alone}", flush=True)
         del lut
     return 0
+
+
+def time_tables(name, dev):
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+
+    def timed(label, index, probes, shapes):
+        for probe in probes:
+            table = index.device_arrays(dev, probe)[2]
+            for what, queries in shapes:
+                kernel = chip_smoke.TABLE_PROBES[probe, queries.dim() == 2]
+                r = chip_smoke.time_table_probe(f"{label}, {what}", table, index.keys_t, index.taxa_t, queries, kernel)
+                yardstick = (f"; index_select {chip_smoke.fmt_ms(r['yardstick_device_ms'])}"
+                             if "yardstick_device_ms" in r else "")
+                print(f"[{name}] {kernel} {label}, {what}: back to back {r['ms']:.4f} ms; alone "
+                      f"{chip_smoke.fmt_ms(r['device_ms'])}; bound {r['bound_ms']:.4f} ms{yardstick}", flush=True)
+
+    narrow, wide = IndexParams(k=35, m=31, spaces=7), IndexParams(k=50, m=45, spaces=7)
+    tax, reads = workloads.bench_taxonomy(), workloads.bench_reads()
+    library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
+    idx = KeyValueIndex.build(library(), narrow, tax, dev)
+    timed("bench index", idx, ("hashed", "hashed128"), (
+        ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1)),
+        ("random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.BENCH_RECORDS))))
+    idx = KeyValueIndex.build(library(), wide, tax, dev)
+    timed("wide bench index (50, 45, 7)", idx, ("hashed1",), (
+        ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1)),
+        ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.BENCH_RECORDS))))
+    del idx
+    genomes = list(workloads.scale_library(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA))
+    tax = workloads.scale_taxonomy(chip_smoke.SCALE_TAXA)
+    reads = workloads.scale_reads(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA, library=genomes)
+    torch.cuda.empty_cache()
+    idx = KeyValueIndex.build(iter(genomes), narrow, tax, dev)
+    timed("scale index", idx, ("hashed", "hashed128"), (
+        ("random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.SCALE_RECORDS + 1)),
+        ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1))))
+    del idx
+    torch.cuda.empty_cache()
+    idx = KeyValueIndex.build(iter(genomes), wide, tax, dev)
+    timed("wide scale index", idx, ("hashed1",), (
+        ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.SCALE_RECORDS)),
+        ("one batch's dense minimizers",
+         chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1))))
+    del idx
+    torch.cuda.empty_cache()
 
 
 #: keys a bucket of the slot tables timed beside the default's

@@ -437,7 +437,8 @@ def lookup_taxa_rows_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Ten
     """Exact-match probe of a row-bucket table (kernels/probe_tables.cu,
     probe_rows_kernel and probe_rows_wide_kernel): int32 taxon per int64 [Q]
     query, or per [Q, 2] query of a wide table, 0 on a miss. Reads one row
-    of the table a query. Twin: lookup.lookup_taxa_hashed_rows."""
+    of the table a query; wide, four threads a query walk its l3 and l2
+    lanes together. Twin: lookup.lookup_taxa_hashed_rows."""
     rows, tile, row_bits = table
     _require(rows, "table", torch.int32, 2)
     wide = rows.shape[1] == 5 * tile
@@ -447,6 +448,8 @@ def lookup_taxa_rows_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Ten
                          f"{row_bits} row bits (tile a multiple of 4, 16-byte aligned)")
     _table_queries(queries, wide, rows)
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    if queries.shape[0] == 0:  # nothing to launch
+        return out
     name = "probe_rows_wide" if wide else "probe_rows"
     rc = _launch(queries, _load().stpu_probe_rows, rows.data_ptr(), tile, row_bits, int(wide), queries.data_ptr(),
                  queries.shape[0], out.data_ptr(), _stream(queries))
@@ -469,6 +472,8 @@ def lookup_taxa_hashed_cuda(table: HashedTable, queries: torch.Tensor) -> torch.
         raise ValueError(f"a hashed table of {tuple(rows.shape)} lanes does not fit tile {tile} and {bits} bits")
     _table_queries(queries, False, rows)
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    if queries.shape[0] == 0:  # nothing to launch
+        return out
     name = "probe_hashed_cols" if cols else "probe_hashed"
     rc = _launch(queries, _load().stpu_probe_hashed, rows.data_ptr(), table.slots, tile, bits, int(cols),
                  queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))

@@ -24,7 +24,7 @@
 // and [Q, 3|5 * tile] lanes) because a TPU gathers at a rate of rows, not of
 // bytes; on the H100 that spends bytes (6.4 GB for one 4 Mbp batch of narrow
 // queries against a hashed1 table of tile 128), so each kernel reads only
-// what can hold the answer, one thread a query:
+// what can hold the answer, one thread a query (four for the wide rows):
 //   * tiled: the router entries p and p + 1 (one sector), then the records
 //     of bucket [router[p], router[p + 1]) in key order until one is not
 //     below the query. The JAX lookup's two rows cover that bucket
@@ -37,9 +37,20 @@
 //     taxa. The taxon is max(taxon, 0), as the JAX lookup's reduction: a
 //     query that equals the all-ones free lanes finds their -1.
 //   * rows, wide: the row holds raw limbs in the order of the row hash, so
-//     there is no order to bisect; the l3 lanes are scanned 16 bytes at a
-//     time up to the first free lane (l3 of a key is below 2^30, a free
-//     lane's is all ones) and the other limbs are read only where l3 equals.
+//     there is no order to bisect: its keys fill lanes 0..n-1 and the free
+//     all-ones lanes follow (l3 of a key is below 2^30). A group of GROUP =
+//     4 threads takes a query; each step the group reads 16 lanes of l3 and
+//     the same 16 of l2 (64 bytes of each, 16 bytes of each a thread, both
+//     loads issued together), reads l1, l0 and the taxon of a lane equal in
+//     l3 and l2 together (one trip), and a vote over the group ends the
+//     walk at a step that holds a free lane or the key. l2 is read with l3
+//     because l3 does not tell keys apart below m = 48 (at (50, 45, 7) it
+//     is 0 in every key), so reading l2 lane by lane behind each equal l3
+//     would cost a dependent load a lane. A miss among about 71 occupied lanes (load 0.56, tile 128)
+//     takes 5 dependent steps, not 18, and 4 threads a query at 32
+//     registers keep 512 queries a SM in flight. The answer is max(taxon,
+//     0) of the lane equal in all four limbs; a query whose l3 is all ones
+//     (an invalid window) equals only free lanes and is answered 0 unread.
 //   * hashed (both layouts): the JAX lookup compares the scrambled query
 //     with the 2 * tile slots of the aligned rows h // tile and h // tile +
 //     1, h the home slot (the scramble's top bits); the kernel walks the
@@ -57,14 +68,21 @@
 //     equals a free slot's key, and a real key of that scramble (parked
 //     last) equals it too. The taxon lane tells them apart: max(taxon, 0),
 //     as the JAX reduction, is 0 for the free slot's -1 and the taxon for
-//     the real key. At about half load (hashed) the key is usually at h:
-//     one 12-byte slot, one sector; the column blocks (hashed128, load near
-//     one) read one 4-byte lane of each block a slot.
+//     the real key. The column blocks (hashed128, load near one) read one
+//     4-byte lane of each block a slot, a slot at a time. The row-major
+//     slots (hashed, load 0.31-0.49): one thread a query reads the three
+//     lanes of a slot together, so a key at its home slot costs one round
+//     trip, not a second one for the taxon behind the compare. Reading
+//     slots h and h + 1 before any compare (24 bytes; 5 pairs in 8 straddle
+//     a sector), or several queries a thread, was slower on an H100
+//     (PERF.md); what keeps the kernel at 16-21% of its bound on random
+//     queries is not yet measured. Repeats of a super-mer's minimizer are
+//     neighbouring threads with one query, whose loads fall in one sector.
 // An invalid window's -1 (narrow) has a prefix beyond every router bucket
 // and misses without a load; its scramble matches no key, and the hashed
 // probe skips every negative query (no key is negative). Wide, its l3 is
-// all ones: the tiled probe finds it beyond the buckets, the row scan stops
-// at the first free lane.
+// all ones: the tiled probe finds it beyond the buckets, the row probe
+// answers it 0 without a load.
 //
 // Bound: as for the directory probe, the rate at which scattered 32-byte
 // sectors come from the L2 or device memory, not the bytes streamed.
@@ -169,32 +187,53 @@ probe_rows_kernel(const unsigned* __restrict__ table, int tile, int row_bits,
   __stcs(out + qi, taxon);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// threads a query of probe_rows_wide_kernel, and the lanes a step of the
+// group reads: 16 bytes of l3 and 16 of l2 a thread
+constexpr int GROUP = 4;
+constexpr int STEP = 4 * GROUP;
+
+// at most 32 registers: 2,048 threads (512 queries) a SM in flight
+__global__ void __launch_bounds__(THREADS, 2048 / THREADS)
 probe_rows_wide_kernel(const unsigned* __restrict__ table, int tile, int row_bits,
                        const ulonglong2* __restrict__ queries, long long nq, int* __restrict__ out) {
-  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (qi >= nq) return;
+  const long long qi = ((long long)blockIdx.x * THREADS + threadIdx.x) / GROUP;
+  if (qi >= nq) return;  // the whole group: its threads share qi, and the vote is the group's
+  const int rank = threadIdx.x % GROUP;
+  const unsigned group = ((1u << GROUP) - 1) << (threadIdx.x % 32 / GROUP * GROUP);
   const ulonglong2 x = __ldcs(queries + qi);
-  const unsigned long long h = xorshift64(x.x ^ xorshift64(x.y));
-  const unsigned* l3 = table + (long long)(h >> (64 - row_bits)) * 5 * tile;
   const unsigned q3 = (unsigned)(x.x >> 32), q2 = (unsigned)x.x, q1 = (unsigned)(x.y >> 32), q0 = (unsigned)x.y;
   int taxon = 0;
-  bool done = false;
-  for (int i = 0; i < tile && !done; i += 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(l3 + i));
-    const unsigned lanes[4] = {v.x, v.y, v.z, v.w};
+  // a key's l3 is below 2^30: a query whose l3 is all ones (an invalid
+  // window) equals only free lanes, whose -1 gives 0, so it is not walked
+  if (q3 != FREE) {
+    const unsigned long long h = xorshift64(x.x ^ xorshift64(x.y));
+    const unsigned* l3 = table + (long long)(h >> (64 - row_bits)) * 5 * tile;
+    for (int step = 0; step < tile; step += STEP) {
+      const int i = step + 4 * rank;  // tile is a multiple of 4: 4 lanes lie all inside the row or all past it
+      const bool in = i < tile;
+      const uint4 v3 = in ? __ldg(reinterpret_cast<const uint4*>(l3 + i)) : make_uint4(FREE, FREE, FREE, FREE);
+      const uint4 v2 = in ? __ldg(reinterpret_cast<const uint4*>(l3 + tile + i)) : make_uint4(FREE, FREE, FREE, FREE);
+      const unsigned k3[4] = {v3.x, v3.y, v3.z, v3.w}, k2[4] = {v2.x, v2.y, v2.z, v2.w};
+      bool stop = false;  // this thread's lanes hold a free lane or the key
 #pragma unroll
-    for (int j = 0; j < 4 && !done; ++j) {
-      if (lanes[j] == FREE) {
-        done = true;  // the rest of the row is free
-      } else if (lanes[j] == q3 && __ldg(l3 + tile + i + j) == q2 && __ldg(l3 + 2 * tile + i + j) == q1 &&
-                 __ldg(l3 + 3 * tile + i + j) == q0) {
-        taxon = max(__ldg(reinterpret_cast<const int*>(l3) + 4 * tile + i + j), 0);
-        done = true;
+      for (int j = 0; j < 4; ++j) {
+        if (k3[j] == FREE) {
+          stop = true;  // the rest of the row is free
+        } else if (k3[j] == q3 && k2[j] == q2) {
+          const unsigned* at = l3 + step + 4 * rank + j;
+          const unsigned k1 = __ldg(at + 2 * tile), k0 = __ldg(at + 3 * tile);
+          const int t = __ldg(reinterpret_cast<const int*>(at) + 4 * tile);
+          if (k1 == q1 && k0 == q0) {
+            taxon = max(t, 0);
+            stop = true;
+          }
+        }
       }
+      if (__any_sync(group, stop)) break;
     }
   }
-  __stcs(out + qi, taxon);
+  taxon = __reduce_max_sync(group, taxon);  // one thread at most found the key
+  if (rank == 0) __stcs(out + qi, taxon);
 }
 
 // a hashed table's slots: COLS, [rows, 3 * tile] lanes (slot s in row
@@ -215,9 +254,12 @@ probe_hashed_kernel(const unsigned* __restrict__ table, long long slots, int til
     for (long long j = home; j < end; ++j) {
       const unsigned* lane = COLS ? table + (j / tile) * 3 * tile + j % tile : table + 3 * j;
       const int step = COLS ? tile : 1;
+      // row-major: the taxon, in the key's 12 bytes, is read with it, so a
+      // hit costs one round trip; a column block's taxon is another sector
+      const int tx = COLS ? 0 : __ldg(reinterpret_cast<const int*>(lane) + 2);
       const unsigned long long key = join(__ldg(lane), __ldg(lane + step));
       if (key < s) continue;
-      if (key == s) taxon = max(__ldg(reinterpret_cast<const int*>(lane) + 2 * step), 0);
+      if (key == s) taxon = max(COLS ? __ldg(reinterpret_cast<const int*>(lane) + 2 * step) : tx, 0);
       break;  // found, a free slot, or passed where the key would be
     }
   }
@@ -252,7 +294,7 @@ extern "C" int stpu_probe_rows(const void* table, int tile, int row_bits, int wi
                                long long nq, void* out, void* stream) {
   if (nq <= 0) return 0;
   if (wide) {
-    probe_rows_wide_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+    probe_rows_wide_kernel<<<blocks_of(nq * GROUP), THREADS, 0, (cudaStream_t)stream>>>(
         (const unsigned*)table, tile, row_bits, (const ulonglong2*)queries, nq, (int*)out);
   } else {
     probe_rows_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(

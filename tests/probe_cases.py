@@ -5,6 +5,7 @@ key sets for the tiled and row-bucket tables' tests
 tables' (test_torch_probe_hashed.py and test_torch_gpu.py)."""
 
 import numpy as np
+import torch
 
 from slacken_tpu_torch.ops import lookup
 
@@ -190,3 +191,45 @@ def hashed_queries(rng, keys):
     k = keys.view(np.int64)
     return np.concatenate([k, k + 1, k - 1, [ALL_ONES_KEY, ALL_ONES_KEY - 1, -1, -5, 0, (1 << 63) - 1],
                            rng.integers(0, 1 << 62, 1000), rng.integers(-(1 << 63), (1 << 63) - 1, 1000)])
+
+
+def query_runs(rng, queries, n):
+    """About n queries drawn from `queries` (int64 [Q], or [Q, 2] wide) in
+    runs of equal queries 1 to 9 long, as a dense batch repeats a super-mer's
+    minimizer, with an invalid window's -1 (all ones in every limb) between
+    about a third of the runs."""
+    invalid = np.full((1, *queries.shape[1:]), -1, np.int64)
+    parts = []
+    while sum(len(p) for p in parts) < n:
+        parts.append(np.repeat(queries[int(rng.integers(0, len(queries)))][None], int(rng.integers(1, 10)), 0))
+        if rng.random() < 0.3:
+            parts.append(invalid)
+    return np.concatenate(parts)
+
+
+def stream_slices(n):
+    """(start, stop) of the slices of an n-query stream that the probes are
+    held on: the whole, from an odd start (8 bytes past a 16-byte boundary
+    for int64 queries), and 0, 1, 3, 5 and 4k + 3 queries from either."""
+    k3 = 4 * ((n - 2) // 4 - 1) + 3
+    return [(0, n), (1, n), *((a, a + m) for a in (0, 1) for m in (0, 1, 3, 5, k3))]
+
+
+#: forced (tile, row_bits) of the row-bucket tables whose rows are full:
+#: tiles that are not a multiple of a 32-lane step, and grown tiles
+FULL_ROW_TILES = ((12, 2), (36, 2), (512, 1), (1024, 1))
+
+
+def full_row_keys(rng, tile, row_bits):
+    """(sorted unique uint64 wide (m = 45) keys [N, 2], int32 taxa) for
+    build_hashed_rows(tile=tile, row_bits=row_bits): `tile` keys in every
+    even row, so their scans meet no free lane, and 0 to tile - 1 in each
+    odd row."""
+    keys = wide_keys(rng, 45, 4 * tile << row_bits)
+    rows = lookup._top_bits(lookup.wide_row_hash(torch.from_numpy(keys.view(np.int64))), row_bits).numpy()
+    keep = np.zeros(len(keys), bool)
+    for r in range(1 << row_bits):
+        at = np.flatnonzero(rows == r)
+        keep[at[:tile if r % 2 == 0 else int(rng.integers(0, tile))]] = True
+    assert all((rows[keep] == r).sum() == tile for r in range(0, 1 << row_bits, 2))
+    return keys[keep], rng.integers(1, 1 << 20, int(keep.sum())).astype(np.int32)

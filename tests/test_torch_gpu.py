@@ -414,6 +414,53 @@ def test_row_probe_kernel_on_grown_tiles(cuda, wide):
         assert (table.tile, table.row_bits) == (tile, 1)
 
 
+def _assert_on_slices(cuda, card, host, keys, taxa, stream, name):
+    """The kernel `name` over every slice of probe_cases.stream_slices of
+    `stream`, each a view into one tensor on the card (an odd start lies 8
+    bytes past a 16-byte boundary for int64 queries): one launch a non-empty
+    slice, none for an empty one, == the twin over the CPU's table ==
+    lookup_taxa (tolerance 0)."""
+    k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
+    whole = torch.from_numpy(stream).to(cuda)
+    for a, b in probe_cases.stream_slices(len(stream)):
+        q = whole[a:b]
+        before = dict(cuda_kernels.LAUNCHES)
+        got = lookup.probe(None, None, card, q)
+        assert _launched(before) == ({name: 1} if b > a else {}), (a, b)
+        want = lookup.lookup_taxa(k, t, q.cpu())
+        assert torch.equal(got.cpu(), want), (a, b)
+        assert torch.equal(lookup.probe(None, None, host, q.cpu()), want), (a, b)
+
+
+@pytest.mark.parametrize("kind", ["wide", "wide, tied row hashes"])
+def test_row_probe_wide_kernel_on_query_streams(cuda, kind):
+    """probe_rows_wide on runs of equal queries 1 to 9 long with -1 rows
+    between, over every slice of probe_cases.stream_slices."""
+    rng = np.random.default_rng(len(kind) + 7)
+    keys, taxa, _ = probe_cases.table_keys(rng, kind)
+    k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
+    host, card = lookup.build_hashed_rows(k, t), lookup.build_hashed_rows(k.to(cuda), t.to(cuda))
+    base = probe_cases.queries_of(rng, keys, 45).view(np.int64)
+    stream = np.concatenate([base, probe_cases.query_runs(rng, base, 3000)])
+    _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_rows_wide")
+
+
+@pytest.mark.parametrize("tile,row_bits", probe_cases.FULL_ROW_TILES)
+def test_row_probe_wide_kernel_on_full_rows(cuda, tile, row_bits):
+    """probe_rows_wide over tables forced to tiles of 12, 36, 512 and 1,024
+    lanes whose even rows hold no free lane (their scans run to the tile),
+    with queries all ones in every limb among the streams."""
+    rng = np.random.default_rng(tile)
+    keys, taxa = probe_cases.full_row_keys(rng, tile, row_bits)
+    k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
+    host = lookup.build_hashed_rows(k, t, tile=tile, row_bits=row_bits)
+    card = lookup.build_hashed_rows(k.to(cuda), t.to(cuda), tile=tile, row_bits=row_bits)
+    assert (card.tile, card.row_bits) == (tile, row_bits) and torch.equal(host.table, card.table.cpu())
+    base = probe_cases.queries_of(rng, keys, 45).view(np.int64)
+    stream = np.concatenate([base, probe_cases.query_runs(rng, base, 500)])
+    _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_rows_wide")
+
+
 def test_table_probe_kernels_refuse_what_they_do_not_take(cuda):
     keys = torch.arange(0, 1 << 40, 1 << 30, device=cuda)
     taxa = torch.ones(keys.shape[0], dtype=torch.int32, device=cuda)
@@ -477,6 +524,25 @@ def test_hashed_probe_kernel_on_grown_tiles(cuda, cols):
     keys, taxa = probe_cases.hashed_keys(rng, "random", 16)
     table = _assert_hashed_probe(cuda, keys, taxa, probe_cases.hashed_queries(rng, keys), cols, bits=11)
     assert (table.tile, table.bits) == (1024, 11)
+
+
+@pytest.mark.parametrize("cols", [False, True], ids=["hashed", "hashed128"])
+@pytest.mark.parametrize("kind", probe_cases.HASHED_KINDS)
+def test_hashed_probe_kernel_on_query_streams(cuda, kind, cols):
+    """probe_hashed (and probe_hashed_cols) on runs of equal queries 1 to 9
+    long with -1 between, over every slice of probe_cases.stream_slices: an
+    odd start 8 bytes past a 16-byte boundary, 0, 1, 3, 5 and 4k + 3
+    queries; the hashed key sets hold homes past the table's end, a key at
+    displacement tile - 1 and the all-ones scramble."""
+    tile = lookup.HASHED_COLS_TILE if cols else lookup.HASHED_TILE
+    rng = np.random.default_rng(len(kind) + tile + 1)
+    keys, taxa = probe_cases.hashed_keys(rng, kind, tile)
+    k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
+    build = lookup.build_hashed_cols if cols else lookup.build_hashed
+    host, card = build(k, t), build(k.to(cuda), t.to(cuda))
+    base = probe_cases.hashed_queries(rng, keys)
+    stream = np.concatenate([base, probe_cases.query_runs(rng, base, 3000)])
+    _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_hashed_cols" if cols else "probe_hashed")
 
 
 @pytest.mark.parametrize("kind", ["narrow", "rank table", "skewed", "empty"])

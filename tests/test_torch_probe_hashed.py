@@ -153,6 +153,28 @@ def test_hashed_tables_of_hand_made_keys(kind, cols):
         assert int((homes >= table.slots).sum()) > 100
 
 
+@pytest.mark.parametrize("cols", [False, True], ids=["hashed", "hashed128"])
+@pytest.mark.parametrize("kind", probe_cases.HASHED_KINDS)
+def test_hashed_twins_on_query_streams(kind, cols):
+    """The query streams that the probe_hashed kernels are held on
+    (test_torch_gpu.py): runs of equal queries 1 to 9 long with -1 between;
+    the twin equals the JAX lookup on the whole stream and lookup_taxa on
+    every slice of probe_cases.stream_slices (an odd start, 0, 1, 3, 5 and
+    4k + 3 queries)."""
+    tile = lookup.HASHED_COLS_TILE if cols else lookup.HASHED_TILE
+    rng = np.random.default_rng(len(kind) + tile + 1)
+    keys, taxa = probe_cases.hashed_keys(rng, kind, tile)
+    table = _hashed_equal_jax(keys, taxa, cols)
+    base = probe_cases.hashed_queries(rng, keys)
+    stream = np.concatenate([base, probe_cases.query_runs(rng, base, 3000)])
+    answer = _hashed_twin_equal_jax(table, keys, taxa, stream)
+    twin = lookup.lookup_taxa_hashed_cols if cols else lookup.lookup_taxa_hashed
+    for a, b in probe_cases.stream_slices(len(stream)):
+        q = torch.from_numpy(stream)[a:b]
+        assert torch.equal(twin(table, q), lookup.lookup_taxa(*_torch(keys, taxa), q)), (a, b)
+        assert torch.equal(twin(table, q), answer[a:b])
+
+
 @pytest.mark.parametrize("kind", [*KINDS, "random", "empty"])
 def test_bucketed_arrays_and_twin_equal_jax(world, kind):
     """The router equals the JAX index's device_router (build_router at

@@ -23,6 +23,7 @@ from slacken_tpu.ops.u64 import U64
 from slacken_tpu_torch.index import IndexParams, KeyValueIndex
 from slacken_tpu_torch.ops import lookup
 from test_taxonomy import random_taxonomy
+import probe_cases
 from probe_cases import table_keys
 from test_index import random_genome
 
@@ -168,6 +169,40 @@ def test_forced_row_bits_grow_the_tile(indexes):
     assert np.array_equal(got.table.numpy().view(np.uint32), table)
     q = torch.from_numpy(np.concatenate([keys.view(np.int64), keys.view(np.int64) + 1]))
     assert torch.equal(lookup.lookup_taxa_hashed_rows(got, q), lookup.lookup_taxa(*_torch(keys, taxa), q))
+
+
+@pytest.mark.parametrize("case", ["wide", "wide, tied row hashes", *(f"full rows {t}" for t, _ in
+                                                                      probe_cases.FULL_ROW_TILES)])
+def test_wide_rows_twin_on_query_streams(indexes, case):
+    """The tables and query streams that the probe_rows_wide kernel is held on
+    (test_torch_gpu.py): the wide builds, and tables forced to tiles of 12,
+    36, 512 and 1,024 lanes whose even rows are full (equal to the JAX
+    builder with that tile and row_bits); runs of equal queries 1 to 9 long
+    with all-ones rows between. The twin equals the JAX lookup on the stream
+    and lookup_taxa on every slice of probe_cases.stream_slices."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith("full rows"):
+        tile, row_bits = next(x for x in probe_cases.FULL_ROW_TILES if case == f"full rows {x[0]}")
+        keys, taxa = probe_cases.full_row_keys(rng, tile, row_bits)
+        got = lookup.build_hashed_rows(*_torch(keys, taxa), tile=tile, row_bits=row_bits)
+        table, j_tile, j_row_bits = jlookup.build_hashed_rows_wide(keys, taxa, tile=tile, row_bits=row_bits)
+        assert (got.tile, got.row_bits) == (j_tile, j_row_bits) == (tile, row_bits)
+        assert np.array_equal(got.table.numpy().view(np.uint32), table)
+    else:
+        keys, taxa, _ = indexes[case]
+        got = lookup.build_hashed_rows(*_torch(keys, taxa))
+    base = probe_cases.queries_of(rng, keys, 45).view(np.int64)
+    picked = base[rng.choice(len(base), min(len(base), 2000), replace=False)]
+    stream = np.concatenate([keys.view(np.int64), picked, probe_cases.query_runs(rng, picked, 500)])
+    k_t, t_t = _torch(keys, taxa)
+    answer = lookup.lookup_taxa_hashed_rows(got, torch.from_numpy(stream))
+    j_rows = jlookup.lookup_taxa_hashed_rows_wide(got.table.numpy().view(np.uint32), _jax_u128(stream), got.tile,
+                                                  got.row_bits)
+    assert np.array_equal(np.asarray(j_rows), answer.numpy())
+    assert bool((answer[:len(keys)] > 0).all())
+    for a, b in probe_cases.stream_slices(len(stream)):
+        q = torch.from_numpy(stream)[a:b]
+        assert torch.equal(lookup.lookup_taxa_hashed_rows(got, q), lookup.lookup_taxa(k_t, t_t, q)), (a, b)
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
