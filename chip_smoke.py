@@ -252,8 +252,8 @@ FORCED_SEGMENTS = (128, 384)
 def scan_equals_twin(rng, dev, shape, mp, lut=None, table="", codes=None, segment=None):
     """The scan kernel for these parameters == its twin, bit for bit, on
     random rows with invalid bases (or on `codes`), with the rows cut into
-    segments of `segment` positions when given (the stitch then launched
-    once)."""
+    segments of `segment` positions when given (the launch then counted as
+    stitched, "scan_stitch", once)."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
@@ -273,7 +273,7 @@ def scan_equals_twin(rng, dev, shape, mp, lut=None, table="", codes=None, segmen
     what = (f"{list(shape)} k={mp.k} m={mp.m} s={mp.spaces} canonical={mp.canonical}" + table
             + ("" if segment is None else f", segment-adversarial rows in segments of {segment}"))
     if stitched != int((segment or cuda_kernels.segment_length(*shape, cuda_kernels.scan_warps(dev))) < shape[1]):
-        fail(f"the scan stitch was launched {stitched} times at {what}")
+        fail(f"the scan stitched its rows in {stitched} launches at {what}")
     for name in ("valid", "span_start", "distinct"):
         if not torch.equal(getattr(got, name), getattr(want, name)):
             fail(f"scan {name} differs from the twin at {what}")
@@ -312,52 +312,85 @@ def table_bytes(lut, codes, mp):
     return min(lut.numel() * lut.element_size(), 32 * sectors)
 
 
+def one_launch(fn, what):
+    """Fail unless torch.profiler's trace of fn shows one kernel, launched
+    once a call (a trace late in a long process now and then comes back
+    empty: up to three tries). Returns the kernel's name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = {}
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: round(e.count / 5) for e in prof.key_averages() if e.self_device_time_total > 0}
+        if seen:
+            break
+    if list(seen.values()) != [1]:
+        fail(f"{what} is not one kernel launch a call in the profiler's trace: {seen}")
+    return next(iter(seen))
+
+
 def time_stitch(rng, dev, shape, mp, lut=None, table=""):
-    """The stitch at the segments the wrapper chooses for rows of `shape`,
-    on rows that give it work (workloads.carry_rows: N runs that end at
-    segment starts, some followed by the bases before them): the whole scan
-    == twin there, then the stitch kernel == twin on the summaries of the
-    scan's first pass, which must clear distinct bytes; kernel ms back to
-    back and alone, the twin's ms and the bound. Bytes: the summaries read
-    once; the minimizer read and the distinct byte written at each
-    segment's first window that needs the carry."""
+    """The stitch inside the segmented scan's launch, at the segments the
+    wrapper chooses for rows of `shape`, on rows that give it work
+    (workloads.carry_rows: N runs that end at segment starts, some followed
+    by the bases before them): the launch == the whole-row twin there, one
+    kernel in the profiler's trace, and the carry cleared at least one byte
+    (minimizers.carried over the summaries and the minimizers that the
+    launch wrote; stitch_segments over them changes nothing); the launch's
+    ms back to back and alone, the twin's (window_minimizers on these rows;
+    stitch_segments alone beside it) and the bound: the scan's bytes
+    (`time_scan`) and the stitch's, the summaries written and read once,
+    the minimizer read and the distinct byte written at each first window
+    that needs the carry."""
     import torch
 
     from slacken_tpu_torch import workloads
     from slacken_tpu_torch.ops import cuda_kernels, encode, minimizers
 
     codes = workloads.carry_rows(rng, shape, cuda_kernels.segment_length(*shape, cuda_kernels.scan_warps(dev)), mp.k)
-    scan_equals_twin(rng, dev, None, mp, lut, table + ", rows whose stitch clears distinct bytes", codes)
+    scan_equals_twin(rng, dev, None, mp, lut, table + ", rows whose carry clears distinct bytes", codes)
     packed, valid = (torch.from_numpy(a).to(dev) for a in encode.pack_2bit(codes))
-    mn, flags, summary = cuda_kernels.scan_pass1_cuda(packed, valid, mp, lut)
-    want = minimizers.stitch_segments(mn, flags[2], summary)
-    distinct = flags[2].clone()
-    got = cuda_kernels.scan_stitch_cuda(mn, distinct, summary)
+    run = lambda: cuda_kernels.scan_pass1_cuda(packed, valid, mp, lut)  # noqa: E731
+    mn, flags, summary = run()
     torch.cuda.synchronize()
     what = f"{list(shape)} k={mp.k} m={mp.m}{table}"
-    if not torch.equal(got, want):
-        fail(f"the scan stitch differs from its twin at {what}")
-    cleared = int((flags[2] & ~want).sum())
-    if not cleared:
-        fail(f"the scan stitch cleared no distinct byte at {what}: the rows give it no work")
-    run = lambda: cuda_kernels.scan_stitch_cuda(mn, distinct, summary)  # noqa: E731 (clears the same bytes again)
+    cleared = minimizers.carried(mn, summary)
+    if not cleared.numel():
+        fail(f"the scan's carry cleared no distinct byte at {what}: the rows give the stitch no work")
+    if bool(flags[2].view(-1)[cleared].any()) or not torch.equal(minimizers.stitch_segments(mn, flags[2], summary),
+                                                                 flags[2]):
+        fail(f"the segmented scan's distinct is not stitched at {what}")
+    kernel = one_launch(run, f"the segmented scan at {what}")
     ms, dev_ms = cuda_ms(run), device_ms(run)
-    plain = cuda_ms(lambda: minimizers.stitch_segments(mn, flags[2], summary), iters=3)
-    n_need = int((summary[..., 1] >= 0).sum())
-    n_bytes = tensor_bytes(summary) + n_need * 8 * (2 if mp.wide else 1) + cleared
-    bound_ms, by = bound(n_bytes, 8 * summary.shape[0] * summary.shape[1])
-    log(f"scan stitch {list(summary.shape[:2])} segments (k={mp.k} m={mp.m}{'' if lut is None else ', rank table'}): "
-        f"{n_need} first windows needed the carry, {cleared} distinct bytes cleared; kernel "
-        f"{ms:.4f} ms back to back, {fmt_ms(dev_ms)} alone, plain PyTorch on the card {plain:.4f} ms, bound "
-        f"{bound_ms:.6f} ms ({by}, {n_bytes} bytes); kernel == twin, max_abs_err 0")
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by, library_ms=None,
-                segments=list(summary.shape[:2]), needing_carry=n_need, cleared=cleared)
+    plain = cuda_ms(lambda: minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp, lut), iters=3)
+    stitch_plain = cuda_ms(lambda: minimizers.stitch_segments(mn, flags[2], summary), iters=3)
+    n_need, n_pos = int((summary[..., 1] >= 0).sum()), shape[0] * shape[1]
+    n_bytes = tensor_bytes(packed, valid) + n_pos * ((16 if mp.wide else 8) + 3)
+    if lut is not None:
+        n_bytes += table_bytes(lut, codes, mp)
+    stitch_bytes = 2 * tensor_bytes(summary) + n_need * 8 * (2 if mp.wide else 1) + cleared.numel()
+    bound_ms, by = bound(n_bytes + stitch_bytes, (96 if mp.wide else 48) * n_pos)
+    log(f"scan with the stitch inside, {list(summary.shape[:2])} segments (k={mp.k} m={mp.m}"
+        f"{'' if lut is None else ', rank table'}), carry rows: one kernel ({kernel[:60]}); {n_need} first windows "
+        f"needed the carry, {cleared.numel()} distinct bytes cleared; {ms:.4f} ms back to back, {fmt_ms(dev_ms)} "
+        f"alone, plain PyTorch on the card {plain:.4f} ms (stitch_segments alone {stitch_plain:.4f}), bound "
+        f"{bound_ms:.4f} ms ({by}, {n_bytes + stitch_bytes} bytes, {stitch_bytes} of them the stitch's); == twin, "
+        "max_abs_err 0")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, stitch_plain_ms=stitch_plain, bound_ms=bound_ms, bound_by=by,
+                library_ms=None, segments=list(summary.shape[:2]), needing_carry=n_need, cleared=cleared.numel())
 
 
 def time_scan(rng, dev, shape, mp, lut=None):
     """Kernel ms back to back and alone, the twin's ms and the bound at one
-    shape; where the wrapper cuts these rows into segments, the scan's own
-    time alone and the stitch's (`time_stitch`) beside it. Bytes: packed
+    shape; where the wrapper cuts these rows into segments, one kernel in
+    the profiler's trace (the stitch is inside it) and `time_stitch` on rows
+    that give the stitch work beside it. Bytes: packed
     codes and validity bits in; minimizers (8 bytes, 16 for a wide m) and
     three flag bytes a position out; with a rank table what `table_bytes`
     counts. Operations: about 48 32-bit integer operations a position
@@ -374,14 +407,8 @@ def time_scan(rng, dev, shape, mp, lut=None):
     segment = cuda_kernels.segment_length(*shape, cuda_kernels.scan_warps(dev))
     ms = cuda_ms(run)
     if segment < shape[1]:
-        scans = []
-        for _ in range(2):  # a trace late in a long process now and then misses the kernel
-            scans = [v for name, v in device_ms(run, by_kernel=True).items() if "scan" in name and "stitch" not in name]
-            if scans:
-                break
-        dev_ms = sum(scans) if scans else None
-    else:
-        dev_ms = device_ms(run)
+        one_launch(run, f"the segmented scan at {list(shape)} k={mp.k} m={mp.m}")
+    dev_ms = device_ms(run)
     plain = cuda_ms(lambda: minimizers.window_minimizers(encode.unpack_2bit(packed, valid), mp, lut), iters=3)
     n_pos = shape[0] * shape[1]
     n_bytes = tensor_bytes(packed, valid) + n_pos * ((16 if mp.wide else 8) + 3)
@@ -389,9 +416,9 @@ def time_scan(rng, dev, shape, mp, lut=None):
         n_bytes += table_bytes(lut, codes, mp)
     bound_ms, by = bound(n_bytes, (96 if mp.wide else 48) * n_pos)
     log(f"scan {list(shape)} k={mp.k} m={mp.m} s={mp.spaces}{'' if lut is None else ' with a rank table'}"
-        f"{'' if segment == shape[1] else f' in segments of {segment}'}: kernel {ms:.4f} ms back to back through the "
-        f"wrapper{'' if segment == shape[1] else ' (the stitch included)'}, {fmt_ms(dev_ms)} on the device alone"
-        f"{'' if segment == shape[1] else ' (the scan kernel)'}, plain PyTorch on the card {plain:.4f} ms, bound "
+        f"{'' if segment == shape[1] else f' in segments of {segment}, stitched in the launch'}: kernel {ms:.4f} ms "
+        f"back to back through the wrapper, {fmt_ms(dev_ms)} on the device alone, plain PyTorch on the card "
+        f"{plain:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB); no single library call computes it")
     out = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by)
     if segment < shape[1]:
@@ -467,7 +494,8 @@ def check_scan(rng, dev, results):
     results["scan_wide"] = dict(max_abs_err=0.0, **shapes[f"{list(SCAN_SHAPES[0])} (50, 45, 7)"], library_ms=None,
                                 shapes=shapes)
     stitch[f"{list(LONG_ROWS)} (50, 45, 7)"] = shapes[f"{list(LONG_ROWS)} (50, 45, 7)"]["stitch"]
-    results["scan_stitch"] = dict(max_abs_err=0.0, **stitch[f"{list(LONG_ROWS)} (35, 31, 7)"], shapes=stitch)
+    results["scan_stitch"] = dict(max_abs_err=0.0, **stitch[f"{list(LONG_ROWS)} (35, 31, 7)"], shapes=stitch,
+                                  fused_into="stitch_row in the SEG instances of scan_kernel and scan_wide_kernel")
 
 
 def time_probe(label, keys, taxa, directory, queries, name="probe"):
@@ -1044,7 +1072,12 @@ def time_table_probe(label, table, keys, taxa, queries, name):
     `yardstick_device_ms`: the device time alone of one torch.index_select
     of each query's home-slot lanes ([Q, 3], the homes computed before), a
     generic gather of one scattered 12-byte read a query; it computes
-    another function than the kernel, so it is no `library_ms`. The bound
+    another function than the kernel, so it is no `library_ms`. Both hashed
+    layouts get `floor_device_ms`: the device time alone of
+    cuda_kernels.hashed_floor_cuda (held to lookup.home_sectors first), one
+    aligned 32-byte sector a non-negative query at its home slot, what no
+    hashed probe can beat; it is neither a library call nor a yardstick of
+    the same function. The bound
     counts what these queries need: each query and its answer; tiled, the
     two router entries of a query inside the key space and one record of a
     non-empty bucket; bucketed, as the directory probe, a router entry and a
@@ -1080,11 +1113,15 @@ def time_table_probe(label, table, keys, taxa, queries, name):
     ms, dev_ms = cuda_ms(run), device_ms(run)
     routered = isinstance(table, (lookup.TiledTable, lookup.Bucketed))
     library = cuda_ms(lambda: torch.searchsorted(keys, queries)) if routered and not wide else None
-    yardstick = None
+    yardstick = floor = None
     if isinstance(table, lookup.HashedTable) and not table.cols:
         homes = lookup._top_bits(lookup.xorshift64(queries), table.bits).clamp(max=table.slots - 1)
         slot_lanes = table.table.view(-1, 3)
         yardstick = device_ms(lambda: torch.index_select(slot_lanes, 0, homes))
+    if isinstance(table, lookup.HashedTable) and hasattr(cuda_kernels, "hashed_floor_cuda"):  # scan_timing's parent
+        if not torch.equal(cuda_kernels.hashed_floor_cuda(table, queries), lookup.home_sectors(table, queries)):
+            fail(f"the hashed floor kernel differs from lookup.home_sectors on {label}")
+        floor = device_ms(lambda: cuda_kernels.hashed_floor_cuda(table, queries))
     nq, hits, q_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
     if routered:
         shift = table.key_bits - table.bits
@@ -1113,9 +1150,12 @@ def time_table_probe(label, table, keys, taxa, queries, name):
         f"against the twin and lookup_taxa; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the device alone), plain twin "
         f"{plain:.4f} ms, " + ("no library call, " if library is None else f"torch.searchsorted alone {library:.4f} ms, ")
         + ("" if yardstick is None else f"yardstick: torch.index_select of the home slots {fmt_ms(yardstick)} on the "
-           "device alone, ") + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
+           "device alone, ")
+        + ("" if floor is None else f"floor: one sector a query at its home slot {fmt_ms(floor)} on the device alone, ")
+        + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
     return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
-                library_ms=library, **({} if yardstick is None else {"yardstick_device_ms": yardstick}))
+                library_ms=library, **({} if yardstick is None else {"yardstick_device_ms": yardstick}),
+                **({} if floor is None else {"floor_device_ms": floor}))
 
 
 def phase_probes(dev, out, bench, results):
@@ -3522,8 +3562,9 @@ def main():
             fail(f"the port imported {mod}")
     idioms = ("slacken_tpu_torch/ops/kernels/mask_idioms.cu", "scripts/tpu_session.py:")
     # the rank-table and wide kernels replace code that the JAX package left
-    # to XLA, not a Pallas kernel: their lines name that code (the stitch:
-    # _carry_forward, whose carry it takes across segments)
+    # to XLA, not a Pallas kernel: their lines name that code (the stitch,
+    # inside the segmented scan's launch: _carry_forward, whose carry it
+    # takes across segments)
     scan_cu, probe_cu = "slacken_tpu_torch/ops/kernels/scan.cu", "slacken_tpu_torch/ops/kernels/probe.cu"
     tables_cu = "slacken_tpu_torch/ops/kernels/probe_tables.cu"
     sources = {"scan": (scan_cu, "slacken_tpu/ops/pallas_kernels.py:26"),

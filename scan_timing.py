@@ -8,11 +8,14 @@ compare two versions of the kernels inside one run on one card.
 `--root` imports slacken_tpu_torch from DIR, another checkout of the
 repository (the parent commit unpacked into a git-ignored directory, say);
 by default this one. It builds that checkout's kernels, prints the scan
-and probe kernels' registers and stack frames (ptxas), then one line a
-(kernel, parameters, shape): the device time alone (torch.profiler, as
-chip_smoke.device_ms) and back to back through the wrapper (CUDA events, as
-chip_smoke.cuda_ms). The scan's rows are random codes with 5% N (seed
-20260816). The wide probe (`--cases probe`) runs at chip_smoke.py's four
+and probe kernels' registers and stack frames (ptxas; and the stack frame
+of the scan's stitch, a function of its own), then one line a (kernel,
+parameters, shape): the device time alone of each kernel of the call
+(torch.profiler, as chip_smoke.device_ms) and back to back through the
+wrapper (CUDA events, as chip_smoke.cuda_ms). The scan's rows are random
+codes with 5% N (seed 20260816), at the main path's shapes, bracken's
+[4, 2^20] fragment rows and the bounded build's 2,048 x 4,096 rows, both
+cut into segments. The wide probe (`--cases probe`) runs at chip_smoke.py's four
 shapes: 4,194,304 random queries into 2M and into 120M random wide keys,
 and one 4 Mbp batch's dense minimizers on the bench and the 400 Mbp scale
 library's (50, 45, 7) indexes (also random queries there), each checked
@@ -25,7 +28,9 @@ and lookup_taxa first; the bound and the index_select yardstick as there)
 at chip_smoke.py's shapes: one 4 Mbp batch's dense minimizers and 4,194,304
 random queries, into the bench index's hashed tables and the wide (50, 45,
 7) bench index's row-bucket table, then into the 400 Mbp scale library's
-narrow hashed tables and wide row-bucket table. Run parent, change, change,
+narrow hashed tables and wide row-bucket table; beside both hashed probes
+the floor (`floor_device_ms`: one sector a query at its home slot, where
+the tree has cuda_kernels.hashed_floor_cuda). Run parent, change, change,
 parent in one command to compare two trees.
 """
 
@@ -41,11 +46,15 @@ import numpy as np
 
 import chip_smoke
 
+#: the bounded build's batches of 4 kbp genome rows below the card's 2,112
+#: warps: 2,048 rows in two segments each, stitched in the launch
+BUILD_SEGMENTED = (2048, 4096)
+
 #: (label, (k, m, s), rank-table m or None, shapes)
 CASES = [
-    ("scan", (35, 31, 7), None, [*chip_smoke.SCAN_SHAPES, chip_smoke.LONG_ROWS]),
-    ("scan_lut", (35, 13, 3), 13, [chip_smoke.SCAN_SHAPES[0], chip_smoke.LONG_ROWS]),
-    ("scan_wide", (50, 45, 7), None, [*chip_smoke.SCAN_SHAPES, chip_smoke.LONG_ROWS]),
+    ("scan", (35, 31, 7), None, [*chip_smoke.SCAN_SHAPES, chip_smoke.LONG_ROWS, BUILD_SEGMENTED]),
+    ("scan_lut", (35, 13, 3), 13, [chip_smoke.SCAN_SHAPES[0], chip_smoke.LONG_ROWS, BUILD_SEGMENTED]),
+    ("scan_wide", (50, 45, 7), None, [*chip_smoke.SCAN_SHAPES, chip_smoke.LONG_ROWS, BUILD_SEGMENTED]),
     ("scan_wide", (35, 33, 0), None, [chip_smoke.SCAN_SHAPES[0]]),
     ("scan_wide", (80, 63, 7), None, [chip_smoke.SCAN_SHAPES[0]]),
 ]
@@ -74,9 +83,11 @@ def main(argv=None):
     cuda_kernels.build(verbose=True)
     lines = cuda_kernels.build_info[1].splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and ("scan" in line or "probe" in line):
-            used = next((x.strip() for x in lines[i + 1:i + 4] if "Used" in x), "")
-            print(f"[{name}] {line.split(chr(39))[1][-60:]}: {used}", flush=True)
+        entry = "Compiling entry function" in line and any(x in line for x in ("scan", "probe", "floor"))
+        if entry or ("Function properties for" in line and "stitch" in line):
+            fn = line.split(chr(39))[1] if entry else line.split("for ")[-1]
+            found = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "stack frame" in x][:2 if entry else 1]
+            print(f"[{name}] {fn}: {'; '.join(found)}", flush=True)
     if args.cases in ("all", "tables"):
         time_tables(name, dev)
     if args.cases in ("all", "probe"):
@@ -117,6 +128,8 @@ def time_tables(name, dev):
                 r = chip_smoke.time_table_probe(f"{label}, {what}", table, index.keys_t, index.taxa_t, queries, kernel)
                 yardstick = (f"; index_select {chip_smoke.fmt_ms(r['yardstick_device_ms'])}"
                              if "yardstick_device_ms" in r else "")
+                if "floor_device_ms" in r:
+                    yardstick += f"; floor {chip_smoke.fmt_ms(r['floor_device_ms'])}"
                 print(f"[{name}] {kernel} {label}, {what}: back to back {r['ms']:.4f} ms; alone "
                       f"{chip_smoke.fmt_ms(r['device_ms'])}; bound {r['bound_ms']:.4f} ms{yardstick}", flush=True)
 

@@ -43,8 +43,10 @@ TABLE_PROBES = ("probe_tiled", "probe_tiled_wide", "probe_rows", "probe_rows_wid
                 "probe_hashed_cols", "probe_bucketed")
 
 #: scan: the XOR-ordered narrow scan; scan_lut: its rank-table instance;
-#: scan_wide, probe_wide: the kernels for m > 31; scan_stitch: the second
-#: pass of a scan whose rows are cut into segments
+#: scan_wide, probe_wide: the kernels for m > 31; scan_stitch: the scan
+#: launches (of any of the three) whose rows were cut into segments and
+#: stitched inside the launch (kernels/scan.cu, stitch_row), counted beside
+#: the scan's own name
 LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("scan", "scan_lut", "scan_wide", "scan_stitch", "probe", "probe_wide", *TABLE_PROBES,
                          *MASK_IDIOMS)
@@ -65,6 +67,9 @@ _lib = None
 _scan_warps: Dict[int, int] = {}
 #: (device, stream) -> [the sum_bool kernel's two counters, the next launch's parity]
 _sum_bool_counters: Dict[tuple, list] = {}
+#: (device, stream) -> the segmented scan's int32 arrival counters, one a
+#: row, all 0 between launches (the kernel sets each back)
+_scan_counters: Dict[tuple, torch.Tensor] = {}
 #: (seconds, compiler output) of the build this process ran, if any
 build_info: Optional[tuple] = None
 
@@ -130,16 +135,16 @@ def _load():
         return _lib
     lib = ctypes.CDLL(build())
     p, i32, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong
-    lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, p, p, p, p, p, p, p]
-    lib.stpu_scan_wide.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, u64, u64, p, p, p, p, p, p]
-    lib.stpu_scan_stitch.argtypes = [p, i64, i32, i32, p, p, p]
+    lib.stpu_scan.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, p, p, p, p, p, p, p, p]
+    lib.stpu_scan_wide.argtypes = [p, p, i64, i32, i32, i32, i32, i32, u64, u64, u64, u64, p, p, p, p, p, p, p]
     lib.stpu_probe.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
     lib.stpu_probe_wide.argtypes = [p, p, p, i64, i32, i32, p, i64, p, p]
     lib.stpu_probe_tiled.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
     lib.stpu_probe_rows.argtypes = [p, i32, i32, i32, p, i64, p, p]
     lib.stpu_probe_hashed.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
-    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_scan_stitch, lib.stpu_probe, lib.stpu_probe_wide,
-               lib.stpu_probe_tiled, lib.stpu_probe_rows, lib.stpu_probe_hashed):
+    lib.stpu_hashed_floor.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
+    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide,
+               lib.stpu_probe_tiled, lib.stpu_probe_rows, lib.stpu_probe_hashed, lib.stpu_hashed_floor):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -203,16 +208,31 @@ def segment_length(rows: int, L: int, warps: int) -> int:
     return L if s >= L else s
 
 
+def scan_counters(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """The segmented scan's arrival counters for t's (device, current
+    stream): int32, at least `rows` of them, all 0. Zeroed once, and again
+    only when a launch has more rows than before; each launch leaves them 0,
+    and two streams never share them."""
+    key = (t.device, _stream(t))
+    counters = _scan_counters.get(key)
+    if counters is None or counters.shape[0] < rows:
+        counters = torch.zeros(max(rows, 2 * (0 if counters is None else counters.shape[0])), dtype=torch.int32,
+                               device=t.device)
+        _scan_counters[key] = counters
+    return counters
+
+
 def scan_pass1_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None, segment=None):
-    """Pass 1 of the minimizer scan (kernels/scan.cu) over pack_2bit's
-    [B, L/4] codes and [B, L/8] validity bits, one warp a row or, when
+    """The minimizer scan (kernels/scan.cu) over pack_2bit's [B, L/4] codes
+    and [B, L/8] validity bits in one launch, one warp a row or, when
     `segment` (a multiple of CHUNK; default `segment_length`) is below L, a
-    warp a segment of that many positions. Returns (minimizer, flags,
-    summary): the minimizer int64 [B, L] (or [B, L, 2] for a wide m), flags
-    bool [3, B, L] (valid, span_start, distinct), and int64 [B, nseg, 4]
-    segment summaries for `scan_stitch_cuda`, or None for one segment a row.
-    Until the stitch runs, `distinct` may be 1 at the first valid window of
-    a segment where it should be 0."""
+    warp a segment of that many positions, the rows stitched inside the
+    launch. Returns (minimizer, flags, summary): the minimizer int64 [B, L]
+    (or [B, L, 2] for a wide m), flags bool [3, B, L] (valid, span_start,
+    distinct; `distinct` is final), and the int64 [B, nseg, 4] segment
+    summaries that the stitch read (minimizers.stitch_segments' layout,
+    from which `minimizers.carried` counts the bytes that the carry
+    cleared), or None for one segment a row."""
     _require(packed, "packed", torch.uint8, 2)
     _require(valid, "valid", torch.uint8, 2)
     b, l4 = packed.shape
@@ -239,9 +259,13 @@ def scan_pass1_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None,
     nseg = -(-L // segment) if segment else 1
     lib = _load()
     flags = torch.empty((3, b, L), dtype=torch.bool, device=packed.device)
-    summary = torch.empty((b, nseg, 4), dtype=torch.int64, device=packed.device) if nseg > 1 else None
+    summary = counters = None
+    if nseg > 1:
+        summary = torch.empty((b, nseg, 4), dtype=torch.int64, device=packed.device)
+        counters = scan_counters(packed, b).data_ptr()
     f0 = flags.data_ptr()
-    outs = (f0, f0 + b * L, f0 + 2 * b * L, None if summary is None else summary.data_ptr(), _stream(packed))
+    outs = (f0, f0 + b * L, f0 + 2 * b * L, None if summary is None else summary.data_ptr(), counters,
+            _stream(packed))
     common = (packed.data_ptr(), valid.data_ptr(), b, L, segment, k, m, int(bool(params.canonical)))
     smask = space_mask_int(m, params.spaces)
     if params.wide:
@@ -259,33 +283,9 @@ def scan_pass1_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None,
         )
     _check(rc, name)
     LAUNCHES[name] += 1
+    if summary is not None:
+        LAUNCHES["scan_stitch"] += 1
     return mn, flags, summary
-
-
-def scan_stitch_cuda(minimizer: torch.Tensor, distinct: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
-    """Pass 2 of a scan cut into segments (kernels/scan.cu,
-    scan_stitch_kernel): clears, in place, the `distinct` byte of each
-    segment's first valid window whose last valid window before lies in an
-    earlier segment with the same minimizer. minimizer int64 [B, L] or
-    [B, L, 2], distinct bool [B, L] (contiguous views), summary int64
-    [B, nseg, 4] from `scan_pass1_cuda`. Twin: minimizers.stitch_segments.
-    Returns `distinct`."""
-    _require(summary, "summary", torch.int64, 3)
-    _require(distinct, "distinct", torch.bool, 2)
-    _require(minimizer, "minimizer", torch.int64, minimizer.dim())
-    b, nseg, four = summary.shape
-    if (four != 4 or distinct.shape[0] != b or tuple(minimizer.shape[:2]) != tuple(distinct.shape)
-            or tuple(minimizer.shape[2:]) not in ((), (2,))
-            or len({minimizer.device, distinct.device, summary.device}) != 1):
-        raise ValueError(
-            f"summary [{b}, nseg, 4], minimizer [{b}, L] or [{b}, L, 2] and distinct [{b}, L] on one "
-            f"device, got {tuple(summary.shape)}, {tuple(minimizer.shape)} and {tuple(distinct.shape)}"
-        )
-    rc = _launch(summary, _load().stpu_scan_stitch, summary.data_ptr(), b * nseg, nseg, minimizer.dim() - 1,
-                 minimizer.data_ptr(), distinct.data_ptr(), _stream(summary))
-    _check(rc, "scan_stitch")
-    LAUNCHES["scan_stitch"] += 1
-    return distinct
 
 
 def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lut=None, *, _segment=None):
@@ -295,11 +295,9 @@ def window_minimizers_cuda(packed: torch.Tensor, valid: torch.Tensor, params, lu
     int64 [B, L, 2] (hi64, lo64) for a wide m, and -1 in every limb at an
     invalid window. `lut` is an int32 rank table of 4^m entries on the same
     device (explicit orderings, m <= 15). Few long rows are cut into
-    segments (`segment_length`; `_segment` forces a length, for tests) and
-    take a second launch, the stitch."""
-    mn, flags, summary = scan_pass1_cuda(packed, valid, params, lut, _segment)
-    if summary is not None:
-        scan_stitch_cuda(mn, flags[2], summary)
+    segments (`segment_length`; `_segment` forces a length, for tests),
+    stitched in the same launch: one launch for every shape."""
+    mn, flags, _ = scan_pass1_cuda(packed, valid, params, lut, _segment)
     return (mn, *flags.unbind(0))
 
 
@@ -458,27 +456,57 @@ def lookup_taxa_rows_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Ten
     return out
 
 
-def lookup_taxa_hashed_cuda(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
-    """Exact-match probe of a hashed table (kernels/probe_tables.cu,
-    probe_hashed_kernel): int32 taxon per int64 [Q] query, 0 on a miss. Walks
-    the slots from the scrambled query's home slot. A [rows, tile, 3] table
-    (`--probe hashed`) counts as "probe_hashed", a [rows, 3 * tile] one
-    (`hashed128`) as "probe_hashed_cols". Twin: lookup.lookup_taxa_hashed."""
+def _hashed_table(table: HashedTable, queries: torch.Tensor) -> None:
+    """Check a hashed table and its queries. A column-block table's tile is
+    a multiple of 8 (every tile build_hashed_cols makes from its default,
+    128 doubled) and its lanes 16-byte aligned: the kernel reads 8 lanes of
+    a block at a time."""
     rows, tile, bits = table
-    cols = table.cols
+    if table.cols and tile % 8:
+        raise ValueError(f"a column-block hashed table's tile is a multiple of 8, got {tile}")
     _require(rows, "table", torch.int32, rows.dim())
-    shape = (3 * tile,) if cols else (tile, 3)
+    shape = (3 * tile,) if table.cols else (tile, 3)
     if rows.dim() not in (2, 3) or tuple(rows.shape[1:]) != shape or tile < 1 or not 1 <= bits <= 63:
         raise ValueError(f"a hashed table of {tuple(rows.shape)} lanes does not fit tile {tile} and {bits} bits")
+    if table.cols and rows.data_ptr() % 16:
+        raise ValueError("a column-block hashed table must be 16-byte aligned (the probe loads 16 bytes at a time)")
     _table_queries(queries, False, rows)
+
+
+def lookup_taxa_hashed_cuda(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of a hashed table (kernels/probe_tables.cu): int32
+    taxon per int64 [Q] query, 0 on a miss. A [rows, tile, 3] table
+    (`--probe hashed`, probe_hashed_kernel) walks the slots from the
+    scrambled query's home slot and counts as "probe_hashed"; a [rows, 3 *
+    tile] one (`hashed128`, probe_hashed_cols_kernel) walks 8-slot blocks of
+    hi' from there and counts as "probe_hashed_cols". Twin:
+    lookup.lookup_taxa_hashed."""
+    _hashed_table(table, queries)
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
     if queries.shape[0] == 0:  # nothing to launch
         return out
-    name = "probe_hashed_cols" if cols else "probe_hashed"
-    rc = _launch(queries, _load().stpu_probe_hashed, rows.data_ptr(), table.slots, tile, bits, int(cols),
-                 queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
+    name = "probe_hashed_cols" if table.cols else "probe_hashed"
+    rc = _launch(queries, _load().stpu_probe_hashed, table.table.data_ptr(), table.slots, table.tile, table.bits,
+                 int(table.cols), queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
     _check(rc, name)
     LAUNCHES[name] += 1
+    return out
+
+
+def hashed_floor_cuda(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
+    """A measurement on no path (kernels/probe_tables.cu,
+    hashed_floor_kernel): for each non-negative int64 query whose home slot
+    lies in the table, the xor of the 8 lanes of the aligned 32-byte sector
+    that holds that slot (of the hi' block in column blocks, of the [slots,
+    3] lanes row-major), else 0; int32 [Q]. What a hashed probe cannot beat:
+    one sector a query. Not counted in LAUNCHES."""
+    _hashed_table(table, queries)
+    if table.table.data_ptr() % 16:
+        raise ValueError("the floor reads 16 bytes at a time: the table must be 16-byte aligned")
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    rc = _launch(queries, _load().stpu_hashed_floor, table.table.data_ptr(), table.slots, table.tile, table.bits,
+                 int(table.cols), queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
+    _check(rc, "hashed_floor")
     return out
 
 

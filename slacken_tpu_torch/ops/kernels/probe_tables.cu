@@ -68,16 +68,40 @@
 //     equals a free slot's key, and a real key of that scramble (parked
 //     last) equals it too. The taxon lane tells them apart: max(taxon, 0),
 //     as the JAX reduction, is 0 for the free slot's -1 and the taxon for
-//     the real key. The column blocks (hashed128, load near one) read one
-//     4-byte lane of each block a slot, a slot at a time. The row-major
-//     slots (hashed, load 0.31-0.49): one thread a query reads the three
-//     lanes of a slot together, so a key at its home slot costs one round
-//     trip, not a second one for the taxon behind the compare. Reading
-//     slots h and h + 1 before any compare (24 bytes; 5 pairs in 8 straddle
-//     a sector), or several queries a thread, was slower on an H100
-//     (PERF.md); what keeps the kernel at 16-21% of its bound on random
-//     queries is not yet measured. Repeats of a super-mer's minimizer are
-//     neighbouring threads with one query, whose loads fall in one sector.
+//     the real key. The row-major slots (hashed, load 0.31-0.49): one
+//     thread a query reads the three lanes of a slot together, so a key at
+//     its home slot costs one round trip, not a second one for the taxon
+//     behind the compare. Reading slots h and h + 1 before any compare (24
+//     bytes; 5 pairs in 8 straddle a sector), or several queries a thread,
+//     was slower on an H100 (PERF.md). Repeats of a super-mer's minimizer
+//     are neighbouring threads with one query, whose loads fall in one
+//     sector.
+//   * hashed128 (column blocks, load 0.49-0.63): the hi' of neighbouring
+//     slots are neighbouring lanes, so one thread a query walks 8-slot
+//     blocks of hi', one 32-byte sector (two 16-byte loads) a step, from
+//     the block that holds h. Lanes before h (free, or smaller scrambles)
+//     and at or past min(h + tile, slots) are masked. The unmasked lanes
+//     whose hi' is not below the query's decide in order: the first above it
+//     means the key is absent; one equal to it reads its lo' and taxon
+//     together (one trip, two sectors) and answers max(taxon, 0) if lo'
+//     equals, 0 if above, and passes to the next such lane if below (a run
+//     of equal hi' is rare); a block with none passes the walk on to the
+//     next (the lanes of slot j lie at (j / tile) * 3 * tile + j % tile:
+//     tile is a multiple of 8, so a block never straddles two rows, and
+//     crossing a row moves 3 * tile lanes). That is the first slot of [h,
+//     end) whose key is not below the query, as the slot-by-slot walk finds
+//     it. A miss costs one sector (two when its walk crosses a block), a hit
+//     three in two trips, where the slot-by-slot walk paid a hi' and a lo'
+//     sector a slot and a third for the taxon. On random queries the kernel
+//     is bound by the rate of scattered sectors, as the floor shows: reading
+//     the home slot's lo' and taxon with the first block (a hit at h in one
+//     trip) cost 1.7x at scale, and reading the block's 8 lo' and 8 taxon
+//     lanes behind an equal hi' (48 registers) 1.5x on the bench batch
+//     (PERF.md).
+// `hashed_floor_kernel` is on no path: a measurement of what the hashed
+// probes cannot beat, each query's one aligned 32-byte sector at its home
+// slot (of the hi' block, or of the row-major slots), read and folded into
+// one int.
 // An invalid window's -1 (narrow) has a prefix beyond every router bucket
 // and misses without a load; its scramble matches no key, and the hashed
 // probe skips every negative query (no key is negative). Wide, its l3 is
@@ -236,10 +260,8 @@ probe_rows_wide_kernel(const unsigned* __restrict__ table, int tile, int row_bit
   if (rank == 0) __stcs(out + qi, taxon);
 }
 
-// a hashed table's slots: COLS, [rows, 3 * tile] lanes (slot s in row
-// s / tile, its hi', lo' and taxon at lanes s % tile of the row's three
-// blocks); else [slots, 3] lanes, a slot's three together
-template <bool COLS>
+// a hashed table of row-major slots: [slots, 3] lanes, a slot's hi', lo' and
+// taxon together
 __global__ void __launch_bounds__(THREADS)
 probe_hashed_kernel(const unsigned* __restrict__ table, long long slots, int tile, int bits,
                     const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
@@ -252,18 +274,104 @@ probe_hashed_kernel(const unsigned* __restrict__ table, long long slots, int til
     const long long home = (long long)(s >> (64 - bits));
     const long long end = min(home + tile, slots);
     for (long long j = home; j < end; ++j) {
-      const unsigned* lane = COLS ? table + (j / tile) * 3 * tile + j % tile : table + 3 * j;
-      const int step = COLS ? tile : 1;
-      // row-major: the taxon, in the key's 12 bytes, is read with it, so a
-      // hit costs one round trip; a column block's taxon is another sector
-      const int tx = COLS ? 0 : __ldg(reinterpret_cast<const int*>(lane) + 2);
-      const unsigned long long key = join(__ldg(lane), __ldg(lane + step));
+      const unsigned* lane = table + 3 * j;
+      // the taxon, in the key's 12 bytes, is read with it: a hit costs one round trip
+      const int tx = __ldg(reinterpret_cast<const int*>(lane) + 2);
+      const unsigned long long key = join(__ldg(lane), __ldg(lane + 1));
       if (key < s) continue;
-      if (key == s) taxon = max(COLS ? __ldg(reinterpret_cast<const int*>(lane) + 2 * step) : tx, 0);
+      if (key == s) taxon = max(tx, 0);
       break;  // found, a free slot, or passed where the key would be
     }
   }
   __stcs(out + qi, taxon);
+}
+
+// the eight lanes of a 32-byte sector, 16-byte aligned
+__device__ __forceinline__ void sector8(const unsigned* p, unsigned (&v)[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p)), b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// a hashed table in column blocks: [rows, 3 * tile] lanes (slot j in row j /
+// tile, its hi', lo' and taxon at lanes j % tile of the row's three blocks),
+// tile a multiple of 8; 8 slots of hi' a step (see the header)
+__global__ void __launch_bounds__(THREADS)
+probe_hashed_cols_kernel(const unsigned* __restrict__ table, long long slots, int tile, int bits,
+                         const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  const long long x = __ldcs(queries + qi);
+  int taxon = 0;
+  const unsigned long long s = xorshift64((unsigned long long)x);
+  const long long home = (long long)(s >> (64 - bits));
+  // no key is negative: an invalid window's -1 misses unsearched; slots % 8
+  // == 0, so a block that starts below the table's end lies in it
+  if (x >= 0 && home < slots) {
+    const unsigned sh = (unsigned)(s >> 32), sl = (unsigned)s;
+    const long long end = min(home + tile, slots);
+    long long b = home & ~7ll;
+    int col = (int)(b % tile);
+    const unsigned* at = table + b / tile * 3 * tile + col;  // the block's hi' lanes
+    for (bool done = false; !done;) {
+      unsigned kh[8];
+      sector8(at, kh);
+      const long long first = max(home - b, 0ll), last = min(end - b, 8ll);  // the lanes of [home, end)
+      unsigned gt = 0, eq = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const bool in = i >= first && i < last;
+        gt |= (unsigned)(in && kh[i] > sh) << i;
+        eq |= (unsigned)(in && kh[i] == sh) << i;
+      }
+      // the lanes not below the query in hi', in order: above it, the key
+      // is absent; equal, lo' decides (a run of equal hi' is rare)
+      for (unsigned ge = gt | eq; ge && !done; ge &= ge - 1) {
+        const int i = __ffs(ge) - 1;
+        done = true;
+        if ((gt >> i) & 1) break;
+        const unsigned lo = __ldg(at + tile + i);  // with the taxon: one trip, two sectors
+        const int tx = __ldg(reinterpret_cast<const int*>(at) + 2 * tile + i);
+        if (lo > sl) break;
+        if (lo == sl) {
+          taxon = max(tx, 0);
+          break;
+        }
+        done = false;  // below the query: the next lane
+      }
+      b += 8;  // every lane of [home, end) in this block is below the query: the next block
+      if (done || b >= end) break;
+      at += 8;
+      col += 8;
+      if (col == tile) {  // the next row: past its lo' and taxon blocks
+        col = 0;
+        at += 2 * tile;
+      }
+    }
+  }
+  __stcs(out + qi, taxon);
+}
+
+// On no path: each non-negative query's aligned 32-byte sector at its home
+// slot (cols: of the hi' block; else of the row-major [slots, 3] lanes),
+// folded into one int, so that the load cannot be dropped.
+__global__ void __launch_bounds__(THREADS)
+hashed_floor_kernel(const unsigned* __restrict__ table, long long slots, int tile, int bits, int cols,
+                    const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  const long long x = __ldcs(queries + qi);
+  unsigned v = 0;
+  if (x >= 0) {
+    const long long home = (long long)(xorshift64((unsigned long long)x) >> (64 - bits));
+    if (home < slots) {
+      const long long lane = cols ? home / tile * 3 * tile + (home % tile & ~7ll) : 3 * home & ~7ll;
+      unsigned w[8];
+      sector8(table + lane, w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v ^= w[i];
+    }
+  }
+  __stcs(out + qi, (int)v);
 }
 
 unsigned blocks_of(long long nq) { return (unsigned)((nq + THREADS - 1) / THREADS); }
@@ -304,15 +412,28 @@ extern "C" int stpu_probe_rows(const void* table, int tile, int row_bits, int wi
 }
 
 // table: a hashed table of `slots` slots (rows * tile), uint32 lanes,
-// [rows, tile, 3] (cols 0) or [rows, 3 * tile] (cols 1), from
-// lookup.build_hashed(_cols) with these tile and bits (1 <= bits <= 63);
-// queries: int64 [nq]; out: int32 [nq]. Returns the cudaError_t of the
-// launch (0 on success).
+// [rows, tile, 3] (cols 0) or [rows, 3 * tile] (cols 1: tile a multiple of
+// 8, 16-byte aligned), from lookup.build_hashed(_cols) with these tile and
+// bits (1 <= bits <= 63); queries: int64 [nq]; out: int32 [nq]. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int stpu_probe_hashed(const void* table, long long slots, int tile, int bits, int cols,
                                  const void* queries, long long nq, void* out, void* stream) {
   if (nq <= 0) return 0;
-  const auto kernel = cols ? probe_hashed_kernel<true> : probe_hashed_kernel<false>;
+  if (cols && (tile % 8 || reinterpret_cast<uintptr_t>(table) % 16)) return (int)cudaErrorInvalidValue;
+  const auto kernel = cols ? probe_hashed_cols_kernel : probe_hashed_kernel;
   kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>((const unsigned*)table, slots, tile, bits,
                                                               (const long long*)queries, nq, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// The floor of the hashed probes (hashed_floor_kernel), on no path: the
+// arguments of stpu_probe_hashed, the table 16-byte aligned (and tile a
+// multiple of 8 for cols); out: int32 [nq], the xor of each query's sector.
+extern "C" int stpu_hashed_floor(const void* table, long long slots, int tile, int bits, int cols,
+                                 const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if ((cols && tile % 8) || reinterpret_cast<uintptr_t>(table) % 16) return (int)cudaErrorInvalidValue;
+  hashed_floor_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)table, slots, tile, bits, cols, (const long long*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // Fused minimizer scans: narrow minimizers (m <= 31) in XOR order or through
-// a rank table, and wide minimizers (31 < m <= 63), one kernel template; and
-// the stitch that joins a long row's segments.
+// a rank table, and wide minimizers (31 < m <= 63), one kernel template; a
+// long row cut into segments is stitched inside the same launch.
 //
 // Replaces the Pallas kernel `_scan_kernel` / `window_minimizers_pallas`
 // (slacken_tpu/ops/pallas_kernels.py:26,42), which runs the doubling scans of
@@ -72,15 +72,28 @@
 // window. The look-ahead reads the row past the segment's end: only the
 // row's end zeroes it. What the warm-up cannot see is a valid window further
 // back. Only the segment's first valid window can need it, and only when the
-// warm-up holds none; pass 1 then writes `distinct` = `span_start` = 1 there.
-// Each warp writes a summary of its segment: whether it holds a valid window,
-// the minimizer of its last, and the flat position of that first window when
-// it needs the carry. `scan_stitch_kernel`, one thread a segment, walks back
-// to the nearest earlier segment of the row that holds a valid window and
-// clears that one `distinct` byte when the two minimizers are equal: the
-// carry of `_carry_forward` (slacken_tpu/ops/minimizers.py:417, called at
-// :397) across segments. A row that is one segment takes one launch and no
-// summary.
+// warm-up holds none; the warp then writes `distinct` = `span_start` = 1
+// there. Each warp writes a summary of its segment: whether it holds a valid
+// window, the minimizer of its last, and the flat position of that first
+// window when it needs the carry. The carry of `_carry_forward`
+// (slacken_tpu/ops/minimizers.py:417, called at :397) across segments is
+// taken in the same launch: after its summary, every lane fences its stores
+// and lane 0 adds one to the row's arrival counter; the warp that arrives
+// last (the add returns nseg - 1) fences again and stitches the row
+// (`stitch_row`). It reads the row's summaries, a segment a lane and 256 at
+// a time, with coherent loads (`__ldcg`: they were written by other SMs in
+// this launch), finds each needing segment's nearest earlier segment that
+// holds a valid window by a ballot of the lanes below and a carry across
+// chunks of 32, clears that first window's `distinct` byte when the two
+// minimizers are equal, and sets the counter back to 0. No warp waits on
+// another, so block order cannot deadlock it; a row costs one pass over its
+// summaries, two trips to the L2 a 256 segments (a stitch that walked a
+// chunk of 32 at a time, two dependent trips each, added 0.012 ms at
+// bracken's 512 segments a row, PERF.md). The counters are a
+// zeroed int32 buffer of at least B entries a (device, stream), kept by the
+// wrapper: a memset a launch would spend the launch that this saves. A row
+// that is one segment (SEG = false) writes no summary, counts nothing and
+// fences nothing.
 //
 // Bound: device-memory bytes written, 11 a position (an int64 minimizer and
 // three flag bytes; 19 for a wide m) against 3/8 byte read. What limits the
@@ -286,13 +299,70 @@ __device__ __forceinline__ uint32_t spread4(unsigned bits) {
   return (bits * 0x00204081u) & 0x01010101u;
 }
 
+// The carry across the segments of one row, by the warp that finished the
+// row's last segment (see "Long rows"). summary: the row's nseg summaries;
+// out_min: the whole [B, L] or [B, L, 2] minimizer array, which the flat
+// positions index; LIMBS: 1 (narrow, compared with the summary's lo64) or 2.
+// Lane j of a chunk takes segment c + j: the nearest earlier segment that
+// holds a valid window is the highest holder among the lanes below, else the
+// carry from the chunks before. G chunks at a time, so that the walk of a
+// row costs two trips to the L2 a G chunks (the summaries, then the
+// minimizers to compare), not two a chunk.
+template <int LIMBS>
+__device__ __forceinline__ void stitch_row(const long long* summary, int nseg, const long long* out_min,
+                                           uint8_t* out_distinct, int lane) {
+  constexpr int G = 8;
+  const unsigned below = (1u << lane) - 1;
+  int carry = -1;  // the last segment of the chunks before that holds a valid window
+  for (int c0 = 0; c0 < nseg; c0 += 32 * G) {
+    long long first[G];  // the flat position of each segment's first window that needs the carry, or -1
+    unsigned has = 0;    // bit g: segment c0 + 32 g + lane holds a valid window
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int j = c0 + 32 * g + lane;
+      const longlong2 v = j < nseg ? __ldcg(reinterpret_cast<const longlong2*>(summary + 4 * j))
+                                   : make_longlong2(0, -1);
+      has |= (unsigned)(v.x != 0) << g;
+      first[g] = v.y;
+    }
+    int before[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const unsigned holders = __ballot_sync(FULL, (has >> g) & 1);
+      const unsigned lower = holders & below;
+      before[g] = lower ? c0 + 32 * g + 31 - __clz((int)lower) : carry;
+      if (holders) carry = c0 + 32 * g + 31 - __clz((int)holders);
+    }
+    unsigned same = 0;  // loads first, stores after: a byte store may alias them
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (first[g] >= 0 && before[g] >= 0) {
+        const long long* last = summary + 4 * before[g] + 2;  // (hi64, lo64)
+        bool eq;
+        if constexpr (LIMBS == 2) {
+          const longlong2 a = __ldcg(reinterpret_cast<const longlong2*>(out_min) + first[g]);
+          const longlong2 b = __ldcg(reinterpret_cast<const longlong2*>(last));
+          eq = a.x == b.x && a.y == b.y;
+        } else {
+          eq = __ldcg(out_min + first[g]) == __ldcg(last + 1);
+        }
+        same |= (unsigned)eq << g;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if ((same >> g) & 1) out_distinct[first[g]] = 0;
+  }
+}
+
 // K, M: k and m when the compiler should know them (the window's shape and
 // every mask fold to constants), 0 to read them from the arguments. ORDER:
 // XOR (u64 priorities, minimizers int64 [B, L]), LUT (a rank read from
 // `lut`) or WIDE (K2 priorities, minimizers (hi64, lo64) [B, L, 2]). SEG:
 // rows in segments: warp w scans segment w % nseg of row w / nseg,
-// positions [s0, s1) with s0 = S * segment, and writes its summary (int64
-// [B * nseg, 4]); without SEG, warp w scans row w and nothing else changes.
+// positions [s0, s1) with s0 = S * segment, writes its summary (int64
+// [B * nseg, 4]) and counts itself in counters[row]; the row's last warp
+// stitches it. Without SEG, warp w scans row w and nothing else changes.
 template <int K, int M, int ORDER, bool SEG>
 __device__ __forceinline__ void
 scan_rows(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits, long long B,
@@ -300,7 +370,7 @@ scan_rows(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
           typename KeyOf<ORDER>::T toggle, typename KeyOf<ORDER>::T smask,
           const int* __restrict__ lut, void* __restrict__ out_min, uint8_t* __restrict__ out_valid,
           uint8_t* __restrict__ out_start, uint8_t* __restrict__ out_distinct,
-          long long* __restrict__ summary) {
+          long long* __restrict__ summary, int* __restrict__ counters) {
   typedef typename KeyOf<ORDER>::T Key;
   const int k = K ? K : k_arg, m = M ? M : m_arg;
   const int lane = threadIdx.x & 31;
@@ -489,16 +559,30 @@ scan_rows(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
     }
   }
 
-  if (SEG && lane == 0) {
-    long long* out = summary + 4 * warp;
-    out[0] = seg_has;
-    out[1] = first;
-    if constexpr (ORDER == WIDE) {
-      out[2] = (long long)c_last_min.hi;
-      out[3] = (long long)c_last_min.lo;
-    } else {
-      out[2] = 0;
-      out[3] = (long long)c_last_min;
+  if constexpr (SEG) {
+    if (lane == 0) {
+      long long* out = summary + 4 * warp;
+      out[0] = seg_has;
+      out[1] = first;
+      if constexpr (ORDER == WIDE) {
+        out[2] = (long long)c_last_min.hi;
+        out[3] = (long long)c_last_min.lo;
+      } else {
+        out[2] = 0;
+        out[3] = (long long)c_last_min;
+      }
+    }
+    // every lane's stores of this segment are visible to the card before the
+    // row counts it
+    __threadfence();
+    __syncwarp();
+    int arrived = 0;
+    if (lane == 0) arrived = atomicAdd(counters + row, 1);
+    if (__shfl_sync(FULL, arrived, 0) == nseg - 1) {  // the row's last segment to finish
+      __threadfence();
+      stitch_row<ORDER == WIDE ? 2 : 1>(summary + 4 * row * nseg, nseg, static_cast<const long long*>(out_min),
+                                        out_distinct, lane);
+      if (lane == 0) counters[row] = 0;
     }
   }
 }
@@ -508,10 +592,10 @@ scan_rows(const uint8_t* __restrict__ packed, const uint8_t* __restrict__ vbits,
       int S, int nseg, int k, int m, int canonical, Key toggle, Key smask,                   \
       const int *__restrict__ lut, void *__restrict__ out_min, uint8_t *__restrict__ out_valid, \
       uint8_t *__restrict__ out_start, uint8_t *__restrict__ out_distinct,                  \
-      long long *__restrict__ summary
+      long long *__restrict__ summary, int *__restrict__ counters
 #define SCAN_ARGS                                                                              \
   packed, vbits, B, L, S, nseg, k, m, canonical, toggle, smask, lut, out_min, out_valid, out_start, \
-      out_distinct, summary
+      out_distinct, summary, counters
 
 // The narrow instances: XOR or LUT.
 template <int K, int M, int ORDER, bool SEG>
@@ -519,56 +603,30 @@ __global__ void __launch_bounds__(32 * WARPS) scan_kernel(SCAN_PARAMS(u64)) {
   scan_rows<K, M, ORDER, SEG>(SCAN_ARGS);
 }
 
-// The wide instances: 121 and 128 registers a thread, no stack frame.
+// The wide instances: 125 and 128 registers a thread, no stack frame; at most
+// 128, so that four blocks fit an SM with the stitch inlined (136 otherwise).
 template <int K, int M, bool SEG>
-__global__ void __launch_bounds__(32 * WARPS) scan_wide_kernel(SCAN_PARAMS(K2)) {
+__global__ void __launch_bounds__(32 * WARPS, 4) scan_wide_kernel(SCAN_PARAMS(K2)) {
   scan_rows<K, M, WIDE, SEG>(SCAN_ARGS);
-}
-
-// Pass 2 of a row cut into segments, one thread a segment: a segment whose
-// first valid window had no valid window in its warp's reach (summary[g][1]
-// >= 0, its flat position o) looks back over the row's earlier segments for
-// the nearest one that holds a valid window (summary[.][0]) and clears
-// distinct[o] when that segment's last valid minimizer (summary[.][2:4],
-// hi64 and lo64; hi64 is 0 for a narrow m) equals the minimizer at o. A
-// segment that holds no valid window is passed over by at most one thread
-// (the walk stops at any segment that holds one), so the walks of a row sum
-// to at most its segments.
-__global__ void scan_stitch_kernel(const long long* __restrict__ summary, long long G, int nseg,
-                                   int limbs, const long long* __restrict__ out_min,
-                                   uint8_t* __restrict__ out_distinct) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= G) return;
-  const long long o = summary[4 * g + 1];
-  if (o < 0) return;
-  const long long row_first = g - g % nseg;
-  for (long long j = g - 1; j >= row_first; --j) {
-    if (summary[4 * j]) {
-      const bool same = limbs == 1 ? out_min[o] == summary[4 * j + 3]
-                                   : out_min[2 * o] == summary[4 * j + 2] &&
-                                         out_min[2 * o + 1] == summary[4 * j + 3];
-      if (same) out_distinct[o] = 0;
-      return;
-    }
-  }
 }
 
 template <int K, int M, int ORDER>
 int launch(const void* packed, const void* vbits, long long B, int L, int S,
            int k, int m, int canonical, typename KeyOf<ORDER>::T toggle,
            typename KeyOf<ORDER>::T smask, const void* lut, void* out_min, void* out_valid,
-           void* out_start, void* out_distinct, void* summary, void* stream) {
+           void* out_start, void* out_distinct, void* summary, void* counters, void* stream) {
   if (B <= 0) return 0;
   if (S < L && (S <= 0 || S % CH)) return (int)cudaErrorInvalidValue;
   const int nseg = S >= L ? 1 : (L + S - 1) / S;
-  if ((nseg > 1) != (summary != nullptr) || (nseg > 1 && B * nseg >= (1ll << 31)))
+  if ((nseg > 1) != (summary != nullptr) || (nseg > 1) != (counters != nullptr) ||
+      (nseg > 1 && B * nseg >= (1ll << 31)))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (B * nseg + WARPS - 1) / WARPS;
   const auto go = [&](auto kernel) {
     kernel<<<(unsigned)blocks, 32 * WARPS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)packed, (const uint8_t*)vbits, B, L, S, nseg, k, m, canonical, toggle, smask,
         (const int*)lut, out_min, (uint8_t*)out_valid, (uint8_t*)out_start, (uint8_t*)out_distinct,
-        (long long*)summary);
+        (long long*)summary, (int*)counters);
   };
   if constexpr (ORDER == WIDE) {
     go(nseg > 1 ? scan_wide_kernel<K, M, true> : scan_wide_kernel<K, M, false>);
@@ -585,17 +643,18 @@ int launch(const void* packed, const void* vbits, long long B, int L, int S,
 // table of 4^m int32 (m <= 15; toggle is then unused). Outputs [B, L]: int64
 // minimizer (16-byte aligned), u8 valid / span_start / distinct (4-byte aligned).
 // S: the segment length, L for a warp a row, else a multiple of 128 below L;
-// summary: int64 [B, ceil(L / S), 4] when S < L, else null. Returns the
-// cudaError_t of the launch (0 on success).
+// summary: int64 [B, ceil(L / S), 4] when S < L, else null; counters: int32
+// [>= B], all 0, when S < L (left all 0), else null; distinct is final either
+// way. Returns the cudaError_t of the launch (0 on success).
 extern "C" int stpu_scan(const void* packed, const void* vbits, long long B, int L, int S,
                          int k, int m, int canonical, unsigned long long toggle,
                          unsigned long long smask, const void* lut, void* out_min,
                          void* out_valid, void* out_start, void* out_distinct, void* summary,
-                         void* stream) {
+                         void* counters, void* stream) {
   // Kraken 2's default k and m get their own instance, a rank table another
   auto fn = lut ? launch<0, 0, LUT> : (k == 35 && m == 31) ? launch<35, 31, XOR> : launch<0, 0, XOR>;
   return fn(packed, vbits, B, L, S, k, m, canonical, toggle, smask, lut, out_min, out_valid,
-            out_start, out_distinct, summary, stream);
+            out_start, out_distinct, summary, counters, stream);
 }
 
 // The wide scan: 32 <= m <= 63, m <= k <= m + 120; toggle and smask are the
@@ -605,21 +664,9 @@ extern "C" int stpu_scan_wide(const void* packed, const void* vbits, long long B
                               int k, int m, int canonical, unsigned long long toggle_hi,
                               unsigned long long toggle_lo, unsigned long long smask_hi,
                               unsigned long long smask_lo, void* out_min, void* out_valid,
-                              void* out_start, void* out_distinct, void* summary, void* stream) {
+                              void* out_start, void* out_distinct, void* summary, void* counters,
+                              void* stream) {
   return launch<0, 0, WIDE>(packed, vbits, B, L, S, k, m, canonical, K2{toggle_hi, toggle_lo},
                             K2{smask_hi, smask_lo}, nullptr, out_min, out_valid, out_start,
-                            out_distinct, summary, stream);
-}
-
-// Pass 2 over the G = B * nseg segment summaries of a scan cut into nseg
-// segments a row: clears distinct bytes in place. limbs: 1 for int64 [B, L]
-// minimizers, 2 for [B, L, 2].
-extern "C" int stpu_scan_stitch(const void* summary, long long G, int nseg, int limbs,
-                                const void* out_min, void* out_distinct, void* stream) {
-  if (G <= 0) return 0;
-  if (nseg < 1 || (limbs != 1 && limbs != 2)) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  scan_stitch_kernel<<<(unsigned)((G + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-      (const long long*)summary, G, nseg, limbs, (const long long*)out_min, (uint8_t*)out_distinct);
-  return (int)cudaGetLastError();
+                            out_distinct, summary, counters, stream);
 }

@@ -739,6 +739,23 @@ def lookup_taxa_hashed_cols(table: HashedTable, queries: torch.Tensor) -> torch.
     return lookup_taxa_hashed(table, queries)
 
 
+def home_sectors(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of the hashed probes' floor (cuda_kernels.hashed_floor_cuda,
+    a measurement on no path): for each non-negative query whose home slot h
+    lies in the table, the xor of the 8 lanes of the aligned 32-byte sector
+    that holds h's first lane (hi' in column blocks), else 0. int32 [Q]."""
+    lanes, tile = table.table.reshape(-1), table.tile
+    h = _top_bits(xorshift64(queries), table.bits)
+    inside = (queries >= 0) & (h < table.slots)
+    h = torch.where(inside, h, 0)
+    first = (h // tile * 3 * tile + h % tile // 8 * 8) if table.cols else 3 * h // 8 * 8
+    words = lanes[first[:, None] + torch.arange(8, device=lanes.device)]
+    out = words[:, 0]
+    for i in range(1, 8):
+        out = out ^ words[:, i]
+    return torch.where(inside, out, 0)
+
+
 def build_bucketed(keys: torch.Tensor, taxa: torch.Tensor, key_bits: int) -> Bucketed:
     """The arrays of `--probe bucketed` for the sorted, unique narrow `keys`
     (int64 [N]) with int32 `taxa`, in torch ops on their device: the router

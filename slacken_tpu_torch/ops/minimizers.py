@@ -28,8 +28,8 @@ replicated over the limbs as the reference does (`wide_toggle_mask`).
 `window_minimizers` is the plain PyTorch twin of the CUDA scan kernels;
 `window_minimizers_packed` is the entry point the pipeline calls: it launches
 a kernel for CUDA tensors and runs the twin only for CPU tensors. On the card
-few long rows are scanned in segments, a warp each, and `stitch_segments` is
-the twin of the second pass that joins them.
+few long rows are scanned in segments, a warp each, and stitched inside the
+same launch; `stitch_segments` is the twin of that stitch.
 """
 
 from __future__ import annotations
@@ -278,16 +278,15 @@ def window_minimizers(codes: torch.Tensor, params: MinimizerParams, lut=None) ->
     return WindowMinimizers(out, win_valid, span_start, distinct)
 
 
-def stitch_segments(minimizer: torch.Tensor, distinct: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
-    """Plain twin of the scan's second pass over rows cut into segments
-    (cuda_kernels.scan_stitch_cuda). summary int64 [B, nseg, 4], a row of
-    it for each segment: whether the segment holds a valid window, the flat
-    index into [B, L] of its first valid window when nothing valid lay in
-    the reach of its own scan (else -1), and the (hi64, lo64) limbs of the
-    minimizer of its last valid window (hi64 0 for a narrow m). Such a first
-    window's `distinct` is cleared when the nearest earlier segment of the
-    row that holds a valid window ended on the same minimizer. minimizer
-    int64 [B, L] or [B, L, 2]; returns a new distinct bool [B, L]."""
+def carried(minimizer: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
+    """The flat positions into [B, L] whose `distinct` byte the carry across
+    segments clears. summary int64 [B, nseg, 4], a row of it for each
+    segment: whether the segment holds a valid window, the flat index into
+    [B, L] of its first valid window when nothing valid lay in the reach of
+    its own warp (else -1), and the (hi64, lo64) limbs of the minimizer of
+    its last valid window (hi64 0 for a narrow m). Such a first window is
+    carried when the nearest earlier segment of the row that holds a valid
+    window ended on the same minimizer. minimizer int64 [B, L] or [B, L, 2]."""
     b, nseg, _ = summary.shape
     has, first = summary[..., 0] != 0, summary[..., 1]
     seg = torch.arange(nseg, device=summary.device).expand(b, nseg)
@@ -297,8 +296,18 @@ def stitch_segments(minimizer: torch.Tensor, distinct: torch.Tensor, summary: to
     prev = torch.gather(summary[..., 4 - limbs.shape[1]:], 1,
                         before.clamp(min=0)[..., None].expand(b, nseg, limbs.shape[1]))
     same = (limbs[first.clamp(min=0)] == prev).all(-1)
+    return first[(first >= 0) & (before >= 0) & same]
+
+
+def stitch_segments(minimizer: torch.Tensor, distinct: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the stitch of rows cut into segments (kernels/scan.cu,
+    stitch_row, inside the segmented scan's launch): `distinct` with the
+    bytes at `carried(minimizer, summary)` cleared, as a new bool [B, L].
+    Over the summaries of a segment's scan on its own, that is the whole
+    row's `distinct`; over the kernel's, whose `distinct` is already
+    stitched, it changes nothing."""
     out = distinct.clone()
-    out.view(-1)[first[(first >= 0) & (before >= 0) & same]] = False
+    out.view(-1)[carried(minimizer, summary)] = False
     return out
 
 

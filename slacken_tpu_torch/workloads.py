@@ -178,7 +178,7 @@ def segment_rows(rng, segment: int, k: int, n_segments: int = 6) -> np.ndarray:
 def carry_rows(rng, shape: Tuple[int, int], segment: int, k: int) -> np.ndarray:
     """Codes uint8 `shape` (random bases) for a scan cut into segments of
     `segment` positions (>= k + 64) for windows of k bases, in which the
-    second pass has work at every third segment start s = 3 S, 6 S, ....
+    stitch has work at every third segment start s = 3 S, 6 S, ....
     By turns: an N run over the 128 positions before s, the k bases before
     the run repeated from s (the carry comes from the segment before and
     clears s's distinct byte); an N run over the whole segment before too,

@@ -233,3 +233,124 @@ def full_row_keys(rng, tile, row_bits):
         keep[at[:tile if r % 2 == 0 else int(rng.integers(0, tile))]] = True
     assert all((rows[keep] == r).sum() == tile for r in range(0, 1 << row_bits, 2))
     return keys[keep], rng.integers(1, 1 << 20, int(keep.sum())).astype(np.int32)
+
+
+#: the forced bits of the hashed128 walk cases: 4,096 home slots, 32 rows of
+#: the default tile (128)
+COLS_BITS = 12
+#: the hand-made hashed128 tables of `cols_walk_case`
+COLS_WALK_KINDS = ("block end", "row crossing", "free before home", "equal hi' runs", "all-ones scramble",
+                   "all-ones scramble, no key", "table end")
+
+
+def _at_home(rng, n, home, hi=None):
+    """n distinct scrambles whose top COLS_BITS bits are `home` (and, given
+    `hi`, whose top 32 bits are `hi`), each the scramble of a non-negative
+    int64 key."""
+    out = set()
+    while len(out) < n:
+        s = (hi << 32) | int(rng.integers(0, 1 << 32)) if hi is not None else \
+            (home << (64 - COLS_BITS)) | int(rng.integers(0, 1 << (64 - COLS_BITS), dtype=np.uint64))
+        if _inverse_xorshift(s) < 1 << 63:
+            out.add(s)
+    return sorted(out)
+
+
+def _homes(rng, homes):
+    """A scramble of a non-negative key (or not) with each home of `homes`."""
+    return [(h << (64 - COLS_BITS)) | int(rng.integers(0, 1 << (64 - COLS_BITS), dtype=np.uint64)) for h in homes]
+
+
+def cols_walk_case(rng, kind):
+    """(sorted unique uint64 keys, int32 taxa, int64 queries) of a hashed128
+    table built with bits COLS_BITS that stresses its kernel's walk over
+    8-slot blocks of hi', above 300 `_low_half` keys (homes below 2,048):
+    "block end", runs of 2 to 4 keys from homes in the last lanes of a block,
+    their last keys a block on; "row crossing", 6 keys of home 128 * 20 + 125,
+    parked across rows 20 and 21; "free before home", lone keys at lanes 3
+    to 7 of blocks with every lane before them free; "equal hi' runs", 12
+    keys of one hi' and different lo' from lane 3 of a block (across it) and
+    3 of another hi' behind a key of a smaller hi' of their home; "all-ones
+    scramble", the six largest scrambles (home 4,095, parked across the
+    block and the row at slot 4,096), ALL_ONES_KEY among them, and "..., no
+    key" without it; "table end", queries whose homes lie in the table's
+    last two (free) rows, its last block and past it. The queries: every
+    key, hashed_queries', each designed scramble plus and minus one in lo'
+    and in hi', the scrambles between a run's lo', and homes near each
+    designed home."""
+    low = _low_half(rng, 300)
+    design, near = [], []
+    if kind == "block end":
+        for j, (lane, n) in enumerate([(6, 3), (7, 2), (7, 4), (5, 4)]):
+            h = 2048 + 64 * j + 8 * j + lane
+            design += _at_home(rng, n, h)
+            near += [h - 1, h + 1, h + 2, h + n]
+    elif kind == "row crossing":
+        h = 128 * 20 + 125
+        design = _at_home(rng, 6, h)
+        near = [h - 1, h + 3, 128 * 21, 128 * 21 + 1]
+    elif kind == "free before home":
+        for j, lane in enumerate(range(3, 8)):
+            h = 2048 + 24 * j + lane
+            design += _at_home(rng, 1, h)
+            near += [h - lane, h - 1, h + 1]
+    elif kind == "equal hi' runs":
+        hi_a = (2500 << 20) + 3 * (1 << 17)  # home 2,500: lane 4 of its block
+        hi_b = (2603 << 20) + 5
+        design = _at_home(rng, 12, 2500, hi=hi_a) + _at_home(rng, 1, 2603, hi=hi_b - 1) + _at_home(rng, 3, 2603, hi=hi_b)
+        runs = [s for s in design if s >> 32 != hi_b - 1]
+        near = [2499, 2500, 2501, 2602, 2603]
+        design_queries = [(a + b) // 2 for a, b in zip(runs, runs[1:]) if b - a > 1]
+        design_queries += [(hi_a << 32), (hi_a << 32) | 0xFFFFFFFF, (hi_b << 32), (hi_b << 32) | 0xFFFFFFFF]
+    elif kind.startswith("all-ones scramble"):
+        design = [s for s in range(MASK64 - 5, MASK64 + (kind == "all-ones scramble")) if _inverse_xorshift(s) < 1 << 63]
+        near = [4094, 4095]
+    if kind != "equal hi' runs":
+        design_queries = []
+    keys = np.unique(np.concatenate([low, np.array([_inverse_xorshift(s) for s in design], np.uint64)]))
+    taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+    table = lookup.build_hashed_cols(torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), bits=COLS_BITS)
+    if kind == "table end":
+        slots = table.slots
+        near = [*range(slots - 2 * table.tile, slots, 5), slots - 8, slots - 1, slots, slots + 9]
+    scrambles = design_queries + [MASK64]
+    for s in design:
+        scrambles += [s, s ^ 1, (s + 1) & MASK64, (s - 1) & MASK64, (s + (1 << 32)) & MASK64, (s - (1 << 32)) & MASK64]
+    scrambles += _homes(rng, [h for h in near if 0 <= h < 1 << COLS_BITS for _ in range(4)])
+    q = np.array([_inverse_xorshift(s) for s in scrambles], np.uint64).view(np.int64)
+    return keys, taxa, np.concatenate([hashed_queries(rng, keys), q])
+
+
+def cols_walk(table, queries):
+    """probe_hashed_cols_kernel (kernels/probe_tables.cu) query by query in
+    numpy: the 8-lane blocks of hi' from the block that holds the home slot,
+    lanes outside [home, min(home + tile, slots)) masked; the lanes not below
+    the query in hi', in order: the first above it ends the walk (absent),
+    one equal to it reads its lo' and taxon and answers if lo' is not below
+    the query's, else passes to the next; a block with none, to the next
+    block. int32 [Q]."""
+    lanes = table.table.numpy().reshape(-1).view(np.uint32)
+    tile, bits, slots = table.tile, table.bits, table.slots
+    out = np.zeros(len(queries), np.int32)
+    for qi, x in enumerate(queries):
+        if x < 0:
+            continue
+        s = _xorshift(int(x))
+        sh, sl = s >> 32, s & 0xFFFFFFFF
+        home = s >> (64 - bits)
+        end = min(home + tile, slots)
+        b, done = home & ~7, False
+        while b < end and not done:
+            at = b // tile * 3 * tile + b % tile
+            for i in range(8):
+                if not home <= b + i < end or lanes[at + i] < sh:
+                    continue
+                done = True
+                if lanes[at + i] > sh or lanes[at + tile + i] > sl:
+                    break
+                if lanes[at + tile + i] == sl:
+                    out[qi] = max(int(lanes[at + 2 * tile + i].view(np.int32)), 0)
+                    break
+                done = False
+            b += 8
+    return out

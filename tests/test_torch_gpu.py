@@ -10,7 +10,6 @@ import pytest
 import torch
 
 import probe_cases
-from scan_cases import hand_made_summaries
 from slacken_tpu_torch import diagnostics, workloads
 from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, mask_idioms, minimizers, ordering
 
@@ -157,34 +156,105 @@ def test_scan_kernel_in_segments_matches_twin(cuda, case, segment):
     _assert_scan_matches_twin(cuda, codes, mp, _segment_table(mp.m, table), segment)
 
 
+def _kernels_in_trace(fn, calls=3):
+    """{kernel name: launches a call} of fn under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: round(e.count / calls) for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def _counters_zero(cuda):
+    """Every (device, stream)'s segmented-scan counters on the cards are 0."""
+    torch.cuda.synchronize()
+    kept = [c for (d, _), c in cuda_kernels._scan_counters.items() if d.type == cuda.type]
+    return bool(kept) and all(int(c.abs().sum()) == 0 for c in kept)
+
+
 @pytest.mark.parametrize("case", SEGMENT_CASES)
 def test_scan_stitch_kernel_matches_twin(cuda, case):
-    """The stitch kernel against its twin on the summaries that the scan's
-    first pass wrote on the card: both clear the same distinct bytes, and
-    the result is the whole-row twin's."""
+    """The stitch inside the segmented scan's launch, each instance's rows in
+    segments of 256: one kernel in the profiler's trace; `stitch_segments`
+    over the summaries that the launch wrote changes nothing (its distinct
+    is final), the carry cleared bytes there, all four outputs equal the
+    whole-row twin's, and the arrival counters are 0 after."""
     *kms, canonical, table = case
     mp = minimizers.MinimizerParams(*kms, canonical=canonical)
     codes = workloads.segment_rows(np.random.default_rng(kms[0]), 256, mp.k)
     lut = _segment_table(mp.m, table)
     packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
-    mn, flags, summary = cuda_kernels.scan_pass1_cuda(packed, valid, mp, None if lut is None else lut.to(cuda), 256)
+    lut_d = None if lut is None else lut.to(cuda)
+    run = lambda: cuda_kernels.scan_pass1_cuda(packed, valid, mp, lut_d, 256)  # noqa: E731
+    before = dict(cuda_kernels.LAUNCHES)
+    mn, flags, summary = run()
+    assert _launched(before) == {"scan_wide" if mp.wide else "scan" if lut is None else "scan_lut": 1, "scan_stitch": 1}
     assert summary is not None and summary.shape == (8, -(-codes.shape[1] // 256), 4)
-    want = minimizers.stitch_segments(mn, flags[2], summary)
-    before = cuda_kernels.LAUNCHES["scan_stitch"]
-    got = cuda_kernels.scan_stitch_cuda(mn, flags[2].clone(), summary)
-    assert cuda_kernels.LAUNCHES["scan_stitch"] == before + 1
-    assert torch.equal(got, want) and not torch.equal(got, flags[2])
-    assert torch.equal(got.cpu(), minimizers.window_minimizers(torch.from_numpy(codes), mp, lut).distinct)
+    assert list(_kernels_in_trace(run).values()) == [1]
+    assert torch.equal(minimizers.stitch_segments(mn, flags[2], summary), flags[2])
+    cleared = minimizers.carried(mn, summary)
+    assert cleared.numel() > 0 and not bool(flags[2].view(-1)[cleared].any())
+    want = minimizers.window_minimizers(torch.from_numpy(codes), mp, lut)
+    for got, w in zip((mn, *flags), want):
+        assert torch.equal(got.cpu(), w)
+    assert _counters_zero(cuda)
 
 
-def test_scan_stitch_kernel_on_hand_made_summaries(cuda):
-    """The walks of the hand-made summaries (their twin's test is in
-    tests/test_torch_scan_segments.py) on the card, one limb and two."""
-    minimizer, distinct, summary = (t.to(cuda) for t in hand_made_summaries())
-    for mn in (minimizer, minimizer[..., 1].contiguous()):
-        want = minimizers.stitch_segments(mn, distinct, summary)
-        got = cuda_kernels.scan_stitch_cuda(mn, distinct.clone(), summary)
-        assert torch.equal(got, want) and int((~got).sum()) == (1 if mn.dim() == 3 else 2)
+@pytest.mark.parametrize("kms", [(35, 31, 7), (12, 6, 1), (50, 45, 7)])
+def test_scan_stitch_kernel_on_hand_made_summaries(cuda, kms):
+    """Rows made by hand for the stitch (workloads.carry_rows) in 70 segments
+    of 128 a row, so that the row's last warp takes its summaries in three
+    chunks of 32 and some walks carry a holder across a chunk: one launch,
+    bytes cleared at the first windows that need the carry, all four outputs
+    equal to the whole-row twin's (a rank table for m = 6), counters 0."""
+    mp = minimizers.MinimizerParams(*kms)
+    lut = _segment_table(mp.m, "random" if mp.m == 6 else None)
+    codes = workloads.carry_rows(np.random.default_rng(kms[0]), (3, 70 * 128), 128, mp.k)
+    packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
+    mn, flags, summary = cuda_kernels.scan_pass1_cuda(packed, valid, mp, None if lut is None else lut.to(cuda), 128)
+    first = summary[..., 1].cpu()
+    crossing = [(r, j) for r in range(3) for j in range(33, 70, 32) if first[r, j] >= 0 and not summary[r, j - 1, 0]]
+    assert crossing and minimizers.carried(mn, summary).numel() > 10
+    want = minimizers.window_minimizers(torch.from_numpy(codes), mp, lut)
+    for got, w in zip((mn, *flags), want):
+        assert torch.equal(got.cpu(), w)
+    assert _counters_zero(cuda)
+
+
+def test_segmented_scans_in_a_row_and_on_two_streams(cuda):
+    """Two segmented launches in a row on one stream (the second with more
+    rows: the counters grow), then one on each of two streams at once
+    (each stream its own counters): every result equal to the whole-row
+    twin's, every counter 0 after."""
+    mp = minimizers.MinimizerParams()
+    codes = workloads.carry_rows(np.random.default_rng(2), (8, 40 * 128), 128, mp.k)
+    want = minimizers.window_minimizers(torch.from_numpy(codes), mp)
+    packed, valid = (torch.from_numpy(a).to(cuda) for a in encode.pack_2bit(codes))
+
+    def scan(rows):
+        return cuda_kernels.window_minimizers_cuda(packed[:rows], valid[:rows], mp, _segment=128)
+
+    for rows in (2, 8):
+        got = scan(rows)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w[:rows])
+    assert _counters_zero(cuda)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(scan(8))
+    torch.cuda.synchronize()
+    for got in outs:
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    buffers = [cuda_kernels._scan_counters[(packed.device, st.cuda_stream)] for st in streams]
+    assert buffers[0].data_ptr() != buffers[1].data_ptr() and _counters_zero(cuda)
 
 
 def test_scan_kernel_refuses_what_it_does_not_take(cuda):
@@ -543,6 +613,33 @@ def test_hashed_probe_kernel_on_query_streams(cuda, kind, cols):
     base = probe_cases.hashed_queries(rng, keys)
     stream = np.concatenate([base, probe_cases.query_runs(rng, base, 3000)])
     _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_hashed_cols" if cols else "probe_hashed")
+
+
+@pytest.mark.parametrize("kind", probe_cases.COLS_WALK_KINDS)
+def test_hashed_cols_kernel_on_walk_cases(cuda, kind):
+    """probe_hashed_cols on the hand-made hashed128 tables of
+    probe_cases.cols_walk_case (homes in a block's last lanes, a walk across
+    a row, free lanes before the home slot, runs of equal hi' across a
+    block, the all-ones scramble with and without its key, homes in the
+    table's last rows): one launch, equal to the twin and lookup_taxa."""
+    keys, taxa, q = probe_cases.cols_walk_case(np.random.default_rng(len(kind)), kind)
+    _assert_hashed_probe(cuda, keys, taxa, q, True, bits=probe_cases.COLS_BITS)
+
+
+@pytest.mark.parametrize("cols", [False, True], ids=["hashed", "hashed128"])
+def test_hashed_floor_kernel_reads_the_home_sector(cuda, cols):
+    """The floor of the hashed probes (a measurement on no path) equals its
+    plain version, lookup.home_sectors, and launches no counted kernel."""
+    rng = np.random.default_rng(6)
+    keys, taxa = probe_cases.hashed_keys(rng, "low half", lookup.HASHED_COLS_TILE)
+    build = lookup.build_hashed_cols if cols else lookup.build_hashed
+    table = build(torch.from_numpy(keys.view(np.int64)).to(cuda), torch.from_numpy(taxa).to(cuda))
+    q = torch.from_numpy(probe_cases.hashed_queries(rng, keys)).to(cuda)
+    before = dict(cuda_kernels.LAUNCHES)
+    got = cuda_kernels.hashed_floor_cuda(table, q)
+    assert _launched(before) == {}
+    want = lookup.home_sectors(table, q)
+    assert torch.equal(got, want) and int((want != 0).sum()) > len(keys) // 2
 
 
 @pytest.mark.parametrize("kind", ["narrow", "rank table", "skewed", "empty"])

@@ -31,7 +31,7 @@ from slacken_tpu.ops.u64 import U64
 from slacken_tpu_torch import cli, inputs
 from slacken_tpu_torch.classify import Classifier, ClassifyParams
 from slacken_tpu_torch.index import KeyValueIndex
-from slacken_tpu_torch.ops import lookup
+from slacken_tpu_torch.ops import cuda_kernels, lookup
 from slacken_tpu_torch.parallel import multihost
 from slacken_tpu_torch.parallel.classifier import MeshClassifier
 from slacken_tpu_torch.parallel.mesh import Mesh
@@ -173,6 +173,62 @@ def test_hashed_twins_on_query_streams(kind, cols):
         q = torch.from_numpy(stream)[a:b]
         assert torch.equal(twin(table, q), lookup.lookup_taxa(*_torch(keys, taxa), q)), (a, b)
         assert torch.equal(twin(table, q), answer[a:b])
+
+
+@pytest.mark.parametrize("kind", probe_cases.COLS_WALK_KINDS)
+def test_hashed128_walk_cases_equal_jax(kind):
+    """Hand-made hashed128 tables for the kernel's walk over 8-slot blocks of
+    hi' (probe_cases.cols_walk_case: homes in a block's last lanes, a walk
+    across a row, free lanes before the home slot, runs of equal hi' across
+    a block, the all-ones scramble with and without its key, homes in the
+    table's last rows): the table equals the JAX builder's, the twin the JAX
+    lookup and lookup_taxa, and the kernel's walk modelled query by query
+    (probe_cases.cols_walk) the twin, at tolerance 0."""
+    rng = np.random.default_rng(len(kind))
+    keys, taxa, q = probe_cases.cols_walk_case(rng, kind)
+    table = _hashed_equal_jax(keys, taxa, True, bits=probe_cases.COLS_BITS)
+    assert (table.tile, table.bits) == (lookup.HASHED_COLS_TILE, probe_cases.COLS_BITS)
+    answer = _hashed_twin_equal_jax(table, keys, taxa, q)
+    assert np.array_equal(probe_cases.cols_walk(table, q), answer.numpy())
+    assert bool((answer[:len(keys)] > 0).all())
+    scrambled, _, pos, _, _ = lookup._parked(*_torch(keys, taxa), table.tile, table.bits, 0)
+    homes = lookup._top_bits(scrambled, table.bits)
+    design = homes >= 2048  # the _low_half keys' homes lie below
+    if kind in ("block end", "row crossing", "equal hi' runs"):  # a key parked a block (a row) past its home's
+        crosses = design & (pos // 8 > homes // 8)
+        assert bool(crosses.any()) and (kind != "row crossing" or bool((design & (pos // 128 > homes // 128)).any()))
+    if kind == "free before home":  # lanes 3 to 7 of a block, every lane before it free
+        lanes = sorted(int(p) % 8 for p in pos[design])
+        assert lanes == [3, 4, 5, 6, 7] and bool((pos[design] == homes[design]).all())
+    if kind.startswith("all-ones scramble"):
+        at_key = q == np.int64(probe_cases.ALL_ONES_KEY)
+        held = np.uint64(probe_cases.ALL_ONES_KEY) in keys
+        assert held == (kind == "all-ones scramble") and bool(at_key.any())
+        assert bool((answer.numpy()[at_key] == (taxa[list(keys).index(np.uint64(probe_cases.ALL_ONES_KEY))]
+                                                if held else 0)).all())
+    if kind == "table end":  # queries whose walk the table's end cuts short
+        qh = lookup._top_bits(lookup.xorshift64(torch.from_numpy(q)), table.bits)
+        assert int(((qh > table.slots - table.tile) & (qh < table.slots) & (torch.from_numpy(q) >= 0)).sum()) > 10
+
+
+def test_hashed128_kernel_refuses_a_tile_not_a_multiple_of_8():
+    """The hashed128 kernel reads 8 lanes of hi' at a time: every tile that
+    build_hashed_cols makes from its default (128, doubled as the keys need)
+    is a multiple of 8, and its wrapper and the floor's refuse any other
+    with ValueError, before they look for a card."""
+    rng = np.random.default_rng(3)
+    keys, taxa = probe_cases.hashed_keys(rng, "random", lookup.HASHED_COLS_TILE)
+    grown = lookup.build_hashed_cols(*_torch(keys, taxa), bits=9)
+    assert grown.tile > lookup.HASHED_COLS_TILE and grown.tile % 8 == 0
+    odd = lookup.build_hashed_cols(*_torch(keys, taxa), tile=12)
+    assert odd.tile % 8
+    q = torch.from_numpy(probe_cases.hashed_queries(rng, keys))
+    for fn in (cuda_kernels.lookup_taxa_hashed_cuda, cuda_kernels.hashed_floor_cuda):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            fn(odd, q)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(grown, q)
+    assert torch.equal(lookup.probe(None, None, odd, q), lookup.lookup_taxa(*_torch(keys, taxa), q))
 
 
 @pytest.mark.parametrize("kind", [*KINDS, "random", "empty"])

@@ -1,7 +1,9 @@
-"""The scan of long rows cut into segments, on the CPU: pass 1 modelled by
-the plain twin on each segment's slice (the warm-up chunk of 128 positions
-before it, and the k - 1 bases after it that its last windows reach), the
-second pass by its plain twin `minimizers.stitch_segments`; the result held
+"""The scan of long rows cut into segments, on the CPU: each segment's warp
+modelled by the plain twin on the segment's slice (the warm-up chunk of 128
+positions before it, and the k - 1 bases after it that its last windows
+reach), the stitch inside the launch by its plain twin
+`minimizers.stitch_segments` and, chunk by chunk as the kernel's last warp
+walks a row, by `stitch_row_model`; the result held
 at tolerance 0 to the whole-row twin, to the JAX package's
 window_minimizers and, on one row, to tests/oracle.py's spans. The rows
 (`workloads.segment_rows`) put N runs over whole segments, first valid
@@ -13,7 +15,6 @@ import pytest
 import torch
 
 import oracle
-from scan_cases import hand_made_summaries
 from slacken_tpu.ops import minimizers as jmin
 from slacken_tpu.ops import u64, u128
 from slacken_tpu_torch import workloads
@@ -24,6 +25,31 @@ torch.set_num_threads(1)
 CHUNK = cuda_kernels.CHUNK
 #: the SMs of an H100 SXM, whose warps the segment lengths below are chosen for
 H100_SMS = 132
+
+
+def hand_made_summaries():
+    """(minimizer [2, 1024, 2], distinct, summary [2, 8, 4]) whose stitch
+    clears distinct[0, 900] with two limbs, and distinct[1, 400] too when
+    only the lo64 limb is compared (a narrow m)."""
+    b, L, nseg = 2, 1024, 8
+    minimizer = torch.zeros((b, L, 2), dtype=torch.int64)
+    distinct = torch.ones((b, L), dtype=torch.bool)
+    summary = torch.zeros((b, nseg, 4), dtype=torch.int64)
+    summary[:, :, 1] = -1
+
+    def segment(r, j, has, first=-1, last=(0, 0)):
+        summary[r, j] = torch.tensor([has, -1 if first < 0 else r * L + first, *last])
+
+    minimizer[0, 700] = torch.tensor([3, 9])
+    segment(0, 1, 1, last=(3, 9))
+    segment(0, 2, 1, last=(3, 8))  # the nearest holder: lo differs, nothing cleared
+    segment(0, 5, 1, first=700, last=(1, 1))
+    minimizer[0, 900] = torch.tensor([1, 1])
+    segment(0, 7, 1, first=900)  # walks over segment 6 back to 5: equal, cleared
+    segment(1, 0, 1, first=10, last=(2, 2))  # a row's first segment: row 0 ended on (0, 0), ignored
+    minimizer[1, 400] = torch.tensor([7, 2])
+    segment(1, 3, 1, first=400)  # segment 0's (2, 2): lo64 equal, hi64 not
+    return minimizer, distinct, summary
 
 
 def pass1_model(codes, mp, segment, lut=None):
@@ -124,6 +150,53 @@ def test_carry_rows_give_the_stitch_work(kms):
     with pytest.raises(ValueError, match="k \\+ 64"):
         workloads.carry_rows(np.random.default_rng(0), (1, 4096), 128, 65)
 
+def stitch_row_model(minimizer, distinct, summary):
+    """kernels/scan.cu's stitch_row for every row, lane by lane: the row's
+    segments 32 at a time, each needing segment's nearest earlier holder the
+    highest holder among the lanes below, else the carry from the chunks
+    before. Returns a new distinct."""
+    out = distinct.clone().view(-1)
+    limbs = minimizer.reshape(-1, 1 if minimizer.dim() == 2 else 2)
+    b, nseg, _ = summary.shape
+    for r in range(b):
+        carry = -1
+        for c in range(0, nseg, 32):
+            lanes = range(c, min(c + 32, nseg))
+            holders = [j for j in lanes if summary[r, j, 0]]
+            for j in lanes:
+                o = int(summary[r, j, 1])
+                lower = [h for h in holders if h < j]
+                before = lower[-1] if lower else carry
+                if o >= 0 and before >= 0 and torch.equal(limbs[o], summary[r, before, 4 - limbs.shape[1]:]):
+                    out[o] = False
+            if holders:
+                carry = holders[-1]
+    return out.view(distinct.shape)
+
+
+@pytest.mark.parametrize("kms,segments", [((35, 31, 7), 40), ((50, 45, 7), 70), ((183, 63, 31), 34)])
+def test_stitch_row_model_equals_the_twin(kms, segments):
+    """The fused stitch's algorithm (its chunks of 32 segments and the carry
+    between them) on carry_rows of more than 32 segments a row, whose walks
+    cross chunk boundaries, and on the hand-made summaries: the twin's
+    result, and the whole row's."""
+    mp = minimizers.MinimizerParams(*kms)
+    segment = 256
+    codes = workloads.carry_rows(np.random.default_rng(segments), (3, segments * segment), segment, mp.k)
+    seg, summary = pass1_model(codes, mp, segment)
+    want = minimizers.window_minimizers(torch.from_numpy(codes), mp).distinct
+    # a first window that needs the carry, cleared, whose nearest holder lies in the chunk before
+    crossing = [(r, j) for r in range(3) for j in range(32, segments) if j % 32 == 1 and summary[r, j, 1] >= 0
+                and not summary[r, j - 1, 0] and summary[r, j - 2, 0]]
+    assert any(not want.view(-1)[summary[r, j, 1]] for r, j in crossing)
+    assert torch.equal(stitch_row_model(seg.minimizer, seg.distinct, summary), want)
+    assert torch.equal(minimizers.stitch_segments(seg.minimizer, seg.distinct, summary), want)
+    assert minimizers.carried(seg.minimizer, summary).numel() == int((seg.distinct & ~want).sum())
+    minimizer, distinct, summary = hand_made_summaries()
+    for mn in (minimizer, minimizer[..., 1].contiguous()):
+        assert torch.equal(stitch_row_model(mn, distinct, summary), minimizers.stitch_segments(mn, distinct, summary))
+
+
 def test_stitch_walks_back_over_segments_without_valid_windows():
     """Hand-made summaries: the walk stops at the nearest segment that holds
     a valid window, compares both limbs, never crosses into another row,
@@ -158,7 +231,3 @@ def test_segmented_scan_refuses_what_it_does_not_take():
     valid = torch.zeros((2, 128), dtype=torch.uint8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_kernels.window_minimizers_cuda(packed, valid, mp, _segment=128)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        cuda_kernels.scan_stitch_cuda(torch.zeros((2, 1024), dtype=torch.int64),
-                                      torch.zeros((2, 1024), dtype=torch.bool),
-                                      torch.zeros((2, 8, 4), dtype=torch.int64))
