@@ -1064,7 +1064,7 @@ def check_hashed_rules(label, table, keys):
     return disp
 
 
-def time_table_probe(label, table, keys, taxa, queries, name):
+def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
     """A table kernel == its twin == lookup_taxa (tolerance 0) on these
     queries, then its time beside the twin's and, for the tiled and the
     bucketed probe of narrow keys, torch.searchsorted's (the directory
@@ -1076,18 +1076,21 @@ def time_table_probe(label, table, keys, taxa, queries, name):
     layouts get `floor_device_ms`: the device time alone of
     cuda_kernels.hashed_floor_cuda (held to lookup.home_sectors first), one
     aligned 32-byte sector a non-negative query at its home slot, what no
-    hashed probe can beat; it is neither a library call nor a yardstick of
-    the same function. The bound
-    counts what these queries need: each query and its answer; tiled, the
-    two router entries of a query inside the key space and one record of a
-    non-empty bucket; bucketed, as the directory probe, a router entry and a
-    key a query inside the key space and a taxon a hit; hashed1, one 32-byte
-    sector of the row's first key block a query (wide, a query whose l3 is
-    not all ones) and, on a hit, one sector of each other key block and of
-    the taxa; hashed and hashed128, the home
-    slot of each distinct non-negative query once (12 bytes; the taxon lane
-    only on a hit in the column blocks). Returns one entry of the kernel's
-    `shapes`."""
+    hashed probe can beat; a narrow hashed1 table gets that of
+    cuda_kernels.rows_floor_cuda (held to lookup.guess_sectors first), the
+    8 hi' lanes a non-negative query from its guessed lane. A floor is
+    neither a library call nor a yardstick of the same function;
+    `with_floor` False leaves it out (a tree older than its kernel). The
+    bound counts what these queries need: each query and its answer; tiled,
+    the two router entries of a query inside the key space and one record
+    of a non-empty bucket; bucketed, as the directory probe, a router entry
+    and a key a query inside the key space and a taxon a hit; hashed1, once for
+    each distinct query that the kernel walks (narrow, a non-negative one;
+    wide, one whose l3 is not all ones), one 32-byte sector of the row's
+    first key block and, on a hit, one sector of each other key block and of
+    the taxa; hashed and hashed128, the home slot of each distinct
+    non-negative query once (12 bytes; the taxon lane only on a hit in the
+    column blocks). Returns one entry of the kernel's `shapes`."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, lookup
@@ -1118,10 +1121,15 @@ def time_table_probe(label, table, keys, taxa, queries, name):
         homes = lookup._top_bits(lookup.xorshift64(queries), table.bits).clamp(max=table.slots - 1)
         slot_lanes = table.table.view(-1, 3)
         yardstick = device_ms(lambda: torch.index_select(slot_lanes, 0, homes))
-    if isinstance(table, lookup.HashedTable) and hasattr(cuda_kernels, "hashed_floor_cuda"):  # scan_timing's parent
+    if with_floor and isinstance(table, lookup.HashedTable):
         if not torch.equal(cuda_kernels.hashed_floor_cuda(table, queries), lookup.home_sectors(table, queries)):
             fail(f"the hashed floor kernel differs from lookup.home_sectors on {label}")
         floor = device_ms(lambda: cuda_kernels.hashed_floor_cuda(table, queries))
+    if with_floor and isinstance(table, lookup.HashedRows) and not wide:
+        if not torch.equal(cuda_kernels.rows_floor_cuda(table, queries), lookup.guess_sectors(table, queries)):
+            fail(f"the row probe's floor kernel differs from lookup.guess_sectors on {label}")
+        floor = device_ms(lambda: cuda_kernels.rows_floor_cuda(table, queries))
+    at = "guessed lane" if isinstance(table, lookup.HashedRows) else "home slot"  # of the floor's sector
     nq, hits, q_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
     if routered:
         shift = table.key_bits - table.bits
@@ -1141,9 +1149,10 @@ def time_table_probe(label, table, keys, taxa, queries, name):
         seen = torch.unique(queries[queries >= 0])
         need = 12 * nq + (8 * seen.numel() + 4 * int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
                           if table.cols else 12 * seen.numel())
-    else:  # the wide kernel reads nothing for a query whose l3 is all ones (an invalid window)
-        walked = int(((queries[:, 0] >> 32) != -1).sum()) if wide else nq
-        need = (q_bytes + 4) * nq + 32 * walked + (4 if wide else 2) * 32 * hits
+    else:  # each distinct query walked, once; nothing for a negative query (narrow) or an all-ones l3 (wide)
+        seen = torch.unique(queries[(queries[:, 0] >> 32) != -1] if wide else queries[queries >= 0], dim=0)
+        found = int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
+        need = (q_bytes + 4) * nq + 32 * seen.shape[0] + (4 if wide else 2) * 32 * found
     n_bytes = min(tensor_bytes(queries, *(x for x in table if hasattr(x, "numel"))) + 4 * nq, need)
     bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq if routered else (32 if wide else 16) * nq)
     log(f"{name}, {label}: {keys.shape[0]} keys ({table_geometry(table)}), {nq} queries, {hits} hits, max_abs_err 0 "
@@ -1151,7 +1160,7 @@ def time_table_probe(label, table, keys, taxa, queries, name):
         f"{plain:.4f} ms, " + ("no library call, " if library is None else f"torch.searchsorted alone {library:.4f} ms, ")
         + ("" if yardstick is None else f"yardstick: torch.index_select of the home slots {fmt_ms(yardstick)} on the "
            "device alone, ")
-        + ("" if floor is None else f"floor: one sector a query at its home slot {fmt_ms(floor)} on the device alone, ")
+        + ("" if floor is None else f"floor: one sector a query at its {at} {fmt_ms(floor)} on the device alone, ")
         + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
     return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
                 library_ms=library, **({} if yardstick is None else {"yardstick_device_ms": yardstick}),
@@ -1305,12 +1314,12 @@ def phase_probes(dev, out, bench, results):
 
 def phase_probes_scale(dev, out, results, genomes, scale_idx):
     """The probe choice at scale: the tiled, hashed1, hashed and hashed128
-    tables of the 400 Mbp index built on the card (build time, bytes; the
-    hashed tables held to the JAX builders' rules), the 200,000 scale reads
-    classified with each probe (reports mode; the kreport equal to
-    phase_scale's routed one), and the four kernels against their twins on
-    4,194,304 random queries and on one batch's dense minimizers, timed.
-    Returns the classify runs' launch counts."""
+    tables and the bucketed arrays of the 400 Mbp index built on the card
+    (build time, bytes; the hashed tables held to the JAX builders' rules),
+    the 200,000 scale reads classified with each probe (reports mode; the
+    kreport equal to phase_scale's routed one), and the five kernels against
+    their twins on 4,194,304 random queries and on one batch's dense
+    minimizers, timed. Returns the classify runs' launch counts."""
     import torch
 
     from slacken_tpu_torch import workloads
@@ -1319,7 +1328,7 @@ def phase_probes_scale(dev, out, results, genomes, scale_idx):
 
     t_phase = time.perf_counter()
     idx = scale_idx.with_records(scale_idx.keys_t, scale_idx.taxa_t)  # its tables go with it
-    tables = build_tables("scale index", idx, dev, ("tiled", "hashed1", "hashed", "hashed128"))
+    tables = build_tables("scale index", idx, dev, ("tiled", "hashed1", "hashed", "hashed128", "bucketed"))
     for probe in ("hashed", "hashed128"):
         disp = check_hashed_rules("scale index", tables[probe], idx.keys_t)
         log(f"probes: the {probe} table of the scale index keeps the JAX builders' rules; largest displacement "
@@ -1351,7 +1360,7 @@ def phase_probes_scale(dev, out, results, genomes, scale_idx):
     del idx, tables, table
     torch.cuda.empty_cache()
     require_launches("probes at scale", total, ("scan", "probe_tiled", "probe_rows", "probe_hashed",
-                                                "probe_hashed_cols"))
+                                                "probe_hashed_cols", "probe_bucketed"))
     log(f"phase_probes_scale: {time.perf_counter() - t_phase:.1f} s")
     return total
 
@@ -2992,12 +3001,30 @@ MH_PARAMS = {"narrow": dict(k=35, m=31, spaces=7), "wide (50, 45, 7)": dict(k=50
 MH_ODD_READS, MH_ODD_ROWS = 4097, 2048
 
 
+#: ports handed out by free_port in this process
+_PORTS_GIVEN = set()
+
+
 def free_port():
+    """A TCP port of 127.0.0.1 that is free now, below the kernel's default
+    range of ephemeral ports (32768 and up): a port from that range, picked
+    before a run of jobs, can be taken by a socket that a job opens before
+    the coordinator binds it (EADDRINUSE). Never the same port twice."""
+    import random
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    pick = random.SystemRandom()
+    while True:
+        port = pick.randrange(20000, 32768)
+        if port in _PORTS_GIVEN:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        _PORTS_GIVEN.add(port)
+        return port
 
 
 def first_reads(reads, n):

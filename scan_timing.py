@@ -22,16 +22,19 @@ library's (50, 45, 7) indexes (also random queries there), each checked
 against `lookup_taxa` first; it prints the device memory of the scale
 index's probe arrays, the peak while they are made, and the build's peak. A tree whose lookup has
 no `build_slots` probes its keys, taxa and directory, as before the slot
-table. `--cases tables` times probe_hashed, probe_hashed_cols and
-probe_rows_wide through chip_smoke.time_table_probe (each held to its twin
-and lookup_taxa first; the bound and the index_select yardstick as there)
-at chip_smoke.py's shapes: one 4 Mbp batch's dense minimizers and 4,194,304
-random queries, into the bench index's hashed tables and the wide (50, 45,
-7) bench index's row-bucket table, then into the 400 Mbp scale library's
-narrow hashed tables and wide row-bucket table; beside both hashed probes
-the floor (`floor_device_ms`: one sector a query at its home slot, where
-the tree has cuda_kernels.hashed_floor_cuda). Run parent, change, change,
-parent in one command to compare two trees.
+table. `--cases tables` times probe_rows, probe_hashed, probe_hashed_cols
+and probe_rows_wide through chip_smoke.time_table_probe (each held to its
+twin and lookup_taxa first; the bound and the index_select yardstick as
+there) at chip_smoke.py's shapes: one 4 Mbp batch's dense minimizers and
+4,194,304 random queries, into the bench index's row-bucket and hashed
+tables and the wide (50, 45, 7) bench index's row-bucket table, then into
+the 400 Mbp scale library's narrow row-bucket and hashed tables and wide
+row-bucket table; beside both hashed probes the floor (`floor_device_ms`:
+one sector a query at its home slot, where the tree has
+cuda_kernels.hashed_floor_cuda), and beside the narrow row probe its own
+(one sector a query from its guessed lane, where the tree has
+cuda_kernels.rows_floor_cuda). Run parent, change, change, parent in one
+command to compare two trees.
 """
 
 from __future__ import annotations
@@ -119,13 +122,16 @@ def time_tables(name, dev):
     from slacken_tpu_torch import workloads
     from slacken_tpu_torch.classify import Classifier
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels
 
     def timed(label, index, probes, shapes):
         for probe in probes:
             table = index.device_arrays(dev, probe)[2]
             for what, queries in shapes:
                 kernel = chip_smoke.TABLE_PROBES[probe, queries.dim() == 2]
-                r = chip_smoke.time_table_probe(f"{label}, {what}", table, index.keys_t, index.taxa_t, queries, kernel)
+                with_floor = hasattr(cuda_kernels, "rows_floor_cuda" if probe == "hashed1" else "hashed_floor_cuda")
+                r = chip_smoke.time_table_probe(f"{label}, {what}", table, index.keys_t, index.taxa_t, queries, kernel,
+                                                with_floor=with_floor)
                 yardstick = (f"; index_select {chip_smoke.fmt_ms(r['yardstick_device_ms'])}"
                              if "yardstick_device_ms" in r else "")
                 if "floor_device_ms" in r:
@@ -137,7 +143,7 @@ def time_tables(name, dev):
     tax, reads = workloads.bench_taxonomy(), workloads.bench_reads()
     library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
     idx = KeyValueIndex.build(library(), narrow, tax, dev)
-    timed("bench index", idx, ("hashed", "hashed128"), (
+    timed("bench index", idx, ("hashed1", "hashed", "hashed128"), (
         ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1)),
         ("random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.BENCH_RECORDS))))
     idx = KeyValueIndex.build(library(), wide, tax, dev)
@@ -150,7 +156,7 @@ def time_tables(name, dev):
     reads = workloads.scale_reads(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA, library=genomes)
     torch.cuda.empty_cache()
     idx = KeyValueIndex.build(iter(genomes), narrow, tax, dev)
-    timed("scale index", idx, ("hashed", "hashed128"), (
+    timed("scale index", idx, ("hashed1", "hashed", "hashed128"), (
         ("random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.SCALE_RECORDS + 1)),
         ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1))))
     del idx

@@ -25,7 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .lookup import Bucketed, Directory, HashedRows, HashedTable, SlotTable, TiledTable
+from .lookup import Bucketed, Directory, HashedRows, HashedTable, SlotTable, TiledTable, row_mean
 from .minimizers import space_mask_int, wide_toggle_mask
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -140,11 +140,13 @@ def _load():
     lib.stpu_probe.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
     lib.stpu_probe_wide.argtypes = [p, p, p, i64, i32, i32, p, i64, p, p]
     lib.stpu_probe_tiled.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
-    lib.stpu_probe_rows.argtypes = [p, i32, i32, i32, p, i64, p, p]
+    lib.stpu_probe_rows.argtypes = [p, i32, i32, ctypes.c_uint, i32, p, i64, p, p]
+    lib.stpu_rows_floor.argtypes = [p, i32, i32, ctypes.c_uint, p, i64, p, p]
     lib.stpu_probe_hashed.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     lib.stpu_hashed_floor.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide,
-               lib.stpu_probe_tiled, lib.stpu_probe_rows, lib.stpu_probe_hashed, lib.stpu_hashed_floor):
+               lib.stpu_probe_tiled, lib.stpu_probe_rows, lib.stpu_rows_floor, lib.stpu_probe_hashed,
+               lib.stpu_hashed_floor):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -431,28 +433,54 @@ def lookup_taxa_tiled_cuda(table: TiledTable, queries: torch.Tensor) -> torch.Te
     return out
 
 
-def lookup_taxa_rows_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Tensor:
-    """Exact-match probe of a row-bucket table (kernels/probe_tables.cu,
-    probe_rows_kernel and probe_rows_wide_kernel): int32 taxon per int64 [Q]
-    query, or per [Q, 2] query of a wide table, 0 on a miss. Reads one row
-    of the table a query; wide, four threads a query walk its l3 and l2
-    lanes together. Twin: lookup.lookup_taxa_hashed_rows."""
-    rows, tile, row_bits = table
+def _rows_table(table: HashedRows, queries: torch.Tensor) -> bool:
+    """Check a row-bucket table and its queries; True for a wide table."""
+    rows, tile, row_bits = table.table, table.tile, table.row_bits
     _require(rows, "table", torch.int32, 2)
     wide = rows.shape[1] == 5 * tile
     if (rows.shape[1] not in (3 * tile, 5 * tile) or rows.shape[0] != 1 << row_bits or not 1 <= row_bits <= 63
-            or tile < 4 or tile % 4 or rows.data_ptr() % 16):
+            or tile < 4 or tile % 4 or rows.data_ptr() % 16 or table.n_keys < 0):
         raise ValueError(f"a row-bucket table of {tuple(rows.shape)} lanes does not fit tile {tile} and "
-                         f"{row_bits} row bits (tile a multiple of 4, 16-byte aligned)")
+                         f"{row_bits} row bits and {table.n_keys} keys (tile a multiple of 4, 16-byte aligned)")
     _table_queries(queries, wide, rows)
+    return wide
+
+
+def lookup_taxa_rows_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of a row-bucket table (kernels/probe_tables.cu,
+    probe_rows_kernel and probe_rows_wide_kernel): int32 taxon per int64 [Q]
+    query, or per [Q, 2] query of a wide table, 0 on a miss. Narrow, one
+    thread a query reads its row's hi' lanes 8 at a time (a 32-byte sector
+    at tile 128) from the lane that `lookup.row_guess` gives, a sector to
+    the left or right until one holds the first lane not below the query,
+    then that lane's lo' and taxon together, and a negative query (an
+    invalid window) not at all; wide, four threads a query walk its l3 and
+    l2 lanes together. Twin: lookup.lookup_taxa_hashed_rows."""
+    wide = _rows_table(table, queries)
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
     if queries.shape[0] == 0:  # nothing to launch
         return out
     name = "probe_rows_wide" if wide else "probe_rows"
-    rc = _launch(queries, _load().stpu_probe_rows, rows.data_ptr(), tile, row_bits, int(wide), queries.data_ptr(),
-                 queries.shape[0], out.data_ptr(), _stream(queries))
+    rc = _launch(queries, _load().stpu_probe_rows, table.table.data_ptr(), table.tile, table.row_bits,
+                 row_mean(table), int(wide), queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
     _check(rc, name)
     LAUNCHES[name] += 1
+    return out
+
+
+def rows_floor_cuda(table: HashedRows, queries: torch.Tensor) -> torch.Tensor:
+    """A measurement on no path (kernels/probe_tables.cu, rows_floor_kernel):
+    for each non-negative int64 query of a narrow row-bucket table, the xor
+    of the 8 hi' lanes of its row from its guessed lane rounded down to a
+    multiple of 8, else 0; int32 [Q]. What the narrow row probe cannot beat:
+    one sector a query. Not counted in LAUNCHES. Plain version:
+    lookup.guess_sectors."""
+    if _rows_table(table, queries):
+        raise ValueError("the row probe's floor takes a narrow table")
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    rc = _launch(queries, _load().stpu_rows_floor, table.table.data_ptr(), table.tile, table.row_bits,
+                 row_mean(table), queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
+    _check(rc, "rows_floor")
     return out
 
 

@@ -30,12 +30,31 @@
 //     below the query. The JAX lookup's two rows cover that bucket
 //     (tile_for_span), and a key of another bucket never equals the query,
 //     so the answer is the same. A bucket holds under one key on average.
-//   * rows, narrow: the row of the scrambled query holds its keys sorted by
-//     scrambled value, the free all-ones lanes last; a bisection of the hi'
-//     lanes, then the run of equal hi' for lo', reads about log2(tile) - 2
-//     sectors of the 512-byte hi' block and, on a hit, one of lo' and one of
-//     taxa. The taxon is max(taxon, 0), as the JAX lookup's reduction: a
-//     query that equals the all-ones free lanes finds their -1.
+//   * rows, narrow: the row of the scrambled query s holds its keys sorted
+//     by scrambled value, the free all-ones lanes last, and their scrambles
+//     are spread evenly over the row's range, so the first lane not below
+//     the query lies near g = f * c, f = (s << row_bits) / 2^64 its place in
+//     the range and c the table's mean keys a row (row_guess; 80 at bench
+//     size, 62.6 at scale). One thread a query reads the 8 hi' lanes that
+//     hold g (a 32-byte sector at tile 128, two 16-byte loads; lanes past
+//     the tile masked), then steps a sector left while a sector's first lane
+//     is not below the query and lanes before it are not known below, or
+//     right while all its lanes are below, until a sector holds the first
+//     lane not below the query or the row ends (lane 0, lane tile). That
+//     lane, if equal in hi', reads its lo' and taxon together (one trip):
+//     lo' equal answers max(taxon, 0), above 0, below passes to the next
+//     lane of the run of equal hi'. A miss costs about 1.6 dependent
+//     sectors, where a bisection of the 512-byte hi' block paid 7-8 loads;
+//     the guess only moves the start, never the answer. On an H100 (PERF.md)
+//     16 lanes in the first trip lost up to 16%, a second sector only near
+//     a sector's edge up to 25%, and the guessed sector's lo' and taxa read
+//     with its hi' (a hit in one trip, 46 registers) 1.3-1.6x; stepping by
+//     the sector's spread of hi' took more steps in a model of the walk. The
+//     taxon is max(taxon, 0), as the JAX lookup's reduction:
+//     a query that equals the all-ones free lanes finds their -1; a real
+//     key of the all-ones scramble sorts before them. A negative query (an
+//     invalid window's -1) is answered 0 unread: its scramble equals no
+//     key's.
 //   * rows, wide: the row holds raw limbs in the order of the row hash, so
 //     there is no order to bisect: its keys fill lanes 0..n-1 and the free
 //     all-ones lanes follow (l3 of a key is below 2^30). A group of GROUP =
@@ -98,15 +117,16 @@
 //     trip) cost 1.7x at scale, and reading the block's 8 lo' and 8 taxon
 //     lanes behind an equal hi' (48 registers) 1.5x on the bench batch
 //     (PERF.md).
-// `hashed_floor_kernel` is on no path: a measurement of what the hashed
-// probes cannot beat, each query's one aligned 32-byte sector at its home
-// slot (of the hi' block, or of the row-major slots), read and folded into
-// one int.
+// `hashed_floor_kernel` and `rows_floor_kernel` are on no path: a
+// measurement of what the hashed probes and the narrow row probe cannot
+// beat, each query's one aligned 32-byte sector at its home slot (of the
+// hi' block, or of the row-major slots) or of its row's hi' lanes at its
+// guessed lane, read and folded into one int.
 // An invalid window's -1 (narrow) has a prefix beyond every router bucket
 // and misses without a load; its scramble matches no key, and the hashed
-// probe skips every negative query (no key is negative). Wide, its l3 is
-// all ones: the tiled probe finds it beyond the buckets, the row probe
-// answers it 0 without a load.
+// and row probes skip every negative query (no key is negative). Wide, its
+// l3 is all ones: the tiled probe finds it beyond the buckets, the row
+// probe answers it 0 without a load.
 //
 // Bound: as for the directory probe, the rate at which scattered 32-byte
 // sectors come from the L2 or device memory, not the bytes streamed.
@@ -181,34 +201,90 @@ probe_tiled_kernel(const int* __restrict__ router, unsigned long long buckets, i
   __stcs(out + qi, taxon);
 }
 
+// the eight lanes of a 32-byte sector, 16-byte aligned
+__device__ __forceinline__ void sector8(const unsigned* p, unsigned (&v)[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p)), b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// The lane where the narrow row walk starts (lookup.row_guess): the
+// scramble's place in its row's range, the top 32 bits of s << row_bits over
+// 2^32, times the table's mean keys a row (16.16 fixed point), at most
+// tile - 1.
+__device__ __forceinline__ int row_guess(unsigned long long s, int row_bits, unsigned mean, int tile) {
+  const unsigned long long f = (s << row_bits) >> 32;
+  return (int)min((f * mean) >> 48, (unsigned long long)(tile - 1));
+}
+
+// a narrow row-bucket table: [2^row_bits, 3 * tile] lanes, a row's hi', lo'
+// and taxon blocks; 8 lanes of hi' a step from the guessed one (see the header)
 __global__ void __launch_bounds__(THREADS)
-probe_rows_kernel(const unsigned* __restrict__ table, int tile, int row_bits,
+probe_rows_kernel(const unsigned* __restrict__ table, int tile, int row_bits, unsigned mean,
                   const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
   const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (qi >= nq) return;
-  const unsigned long long s = xorshift64((unsigned long long)__ldcs(queries + qi));
-  const unsigned sh = (unsigned)(s >> 32), sl = (unsigned)s;
-  const unsigned* hi = table + (long long)(s >> (64 - row_bits)) * 3 * tile;
-  const unsigned* lo = hi + tile;
-  // the first hi' lane not below sh: the row is sorted, its free lanes last
-  int first = 0;
-  for (int n = tile; n > 0;) {
-    const int half = n >> 1;
-    if (__ldg(hi + first + half) < sh) {
-      first += half + 1;
-      n -= half + 1;
-    } else {
-      n = half;
+  const long long x = __ldcs(queries + qi);
+  int taxon = 0;
+  if (x >= 0) {  // no key is negative: an invalid window's -1 misses unsearched
+    const unsigned long long s = xorshift64((unsigned long long)x);
+    const unsigned sh = (unsigned)(s >> 32), sl = (unsigned)s;
+    const unsigned* hi = table + (long long)(s >> (64 - row_bits)) * 3 * tile;
+    // every lane before `below_to` is below sh; lane `first` is not (tile:
+    // none is), its hi' `at_first`; the row is sorted, its free lanes last
+    int below_to = 0, first = tile, b = row_guess(s, row_bits, mean, tile) & ~7;
+    unsigned at_first = FREE;
+    for (;;) {
+      unsigned kh[8];
+      sector8(hi + b, kh);  // past the tile (tile % 8 == 4): the row's lo' lanes, masked
+      const int n = min(tile - b, 8);
+      unsigned lt = 0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) lt |= (unsigned)(i < n && kh[i] < sh) << i;
+      const int below = __popc(lt);  // a prefix of the sector's lanes
+      if (below < n) {
+        first = b + below;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) at_first = i == below ? kh[i] : at_first;
+        if (below > 0 || b == below_to) break;
+        b -= 8;  // the sector's first lane is not below sh: the answer may lie to the left
+      } else {
+        below_to = b + n;
+        if (below_to == first) break;
+        b += 8;  // every lane below sh: to the right
+      }
+    }
+    // lane `first` and the run of equal hi' behind it: lo' decides
+    if (first < tile && at_first == sh) {
+      for (int i = first; i < tile && (i == first || __ldg(hi + i) == sh); ++i) {
+        const unsigned l = __ldg(hi + tile + i);  // with the taxon: one trip
+        const int t = __ldg(reinterpret_cast<const int*>(hi) + 2 * tile + i);
+        if (l < sl) continue;
+        if (l == sl) taxon = max(t, 0);
+        break;
+      }
     }
   }
-  int taxon = 0;
-  for (int i = first; i < tile && __ldg(hi + i) == sh; ++i) {
-    const unsigned l = __ldg(lo + i);
-    if (l < sl) continue;
-    if (l == sl) taxon = max(__ldg(reinterpret_cast<const int*>(lo + tile) + i), 0);
-    break;
-  }
   __stcs(out + qi, taxon);
+}
+
+// On no path: each non-negative query's 8 hi' lanes of its row from its
+// guessed lane rounded down to a multiple of 8 (a 32-byte sector at tile
+// 128), folded into one int, so that the load cannot be dropped.
+__global__ void __launch_bounds__(THREADS)
+rows_floor_kernel(const unsigned* __restrict__ table, int tile, int row_bits, unsigned mean,
+                  const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  const long long x = __ldcs(queries + qi);
+  unsigned v = 0;
+  if (x >= 0) {
+    const unsigned long long s = xorshift64((unsigned long long)x);
+    unsigned w[8];
+    sector8(table + (long long)(s >> (64 - row_bits)) * 3 * tile + (row_guess(s, row_bits, mean, tile) & ~7), w);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v ^= w[i];
+  }
+  __stcs(out + qi, (int)v);
 }
 
 // threads a query of probe_rows_wide_kernel, and the lanes a step of the
@@ -284,12 +360,6 @@ probe_hashed_kernel(const unsigned* __restrict__ table, long long slots, int til
     }
   }
   __stcs(out + qi, taxon);
-}
-
-// the eight lanes of a 32-byte sector, 16-byte aligned
-__device__ __forceinline__ void sector8(const unsigned* p, unsigned (&v)[8]) {
-  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p)), b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
 // a hashed table in column blocks: [rows, 3 * tile] lanes (slot j in row j /
@@ -395,19 +465,33 @@ extern "C" int stpu_probe_tiled(const void* router, long long buckets, int shift
 
 // table: [2^row_bits, 3 * tile] (narrow: hi', lo', taxon blocks of the
 // scrambled keys) or [2^row_bits, 5 * tile] (wide: l3, l2, l1, l0, taxon)
-// uint32 lanes, 16-byte aligned, tile a multiple of 4; queries: int64 [nq]
-// or, wide, [nq, 2], 16-byte aligned; out: int32 [nq]. Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int stpu_probe_rows(const void* table, int tile, int row_bits, int wide, const void* queries,
-                               long long nq, void* out, void* stream) {
+// uint32 lanes, 16-byte aligned, tile a multiple of 4; mean (narrow): the
+// table's mean keys a row in 16.16 fixed point (lookup.row_mean), which only
+// steers where the walk starts; queries: int64 [nq] or, wide, [nq, 2],
+// 16-byte aligned; out: int32 [nq]. Returns the cudaError_t of the launch (0
+// on success).
+extern "C" int stpu_probe_rows(const void* table, int tile, int row_bits, unsigned mean, int wide,
+                               const void* queries, long long nq, void* out, void* stream) {
   if (nq <= 0) return 0;
   if (wide) {
     probe_rows_wide_kernel<<<blocks_of(nq * GROUP), THREADS, 0, (cudaStream_t)stream>>>(
         (const unsigned*)table, tile, row_bits, (const ulonglong2*)queries, nq, (int*)out);
   } else {
     probe_rows_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
-        (const unsigned*)table, tile, row_bits, (const long long*)queries, nq, (int*)out);
+        (const unsigned*)table, tile, row_bits, mean, (const long long*)queries, nq, (int*)out);
   }
+  return (int)cudaGetLastError();
+}
+
+// The floor of the narrow row probe (rows_floor_kernel), on no path: the
+// arguments of stpu_probe_rows for a narrow table; out: int32 [nq], the xor
+// of each non-negative query's 8 hi' lanes from its guessed lane.
+extern "C" int stpu_rows_floor(const void* table, int tile, int row_bits, unsigned mean, const void* queries,
+                               long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (tile % 4 || reinterpret_cast<uintptr_t>(table) % 16) return (int)cudaErrorInvalidValue;
+  rows_floor_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)table, tile, row_bits, mean, (const long long*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }
 

@@ -396,11 +396,14 @@ class HashedRows(NamedTuple):
     blocks of `tile` lanes: (hi', lo', taxon) of the xorshift-scrambled key
     for narrow keys, in scrambled order; for wide keys the raw (l3, l2, l1,
     l0, taxon), in the order of the row hash. Free lanes are all ones (the
-    taxon lane reads -1)."""
+    taxon lane reads -1). `n_keys` is the number of keys, whose mean a row
+    steers where the narrow kernel's walk starts (`row_guess`); any value
+    gives the same answers."""
 
     table: torch.Tensor  # int32 [2^row_bits, 3 * tile | 5 * tile]
     tile: int
     row_bits: int
+    n_keys: int
 
 
 def adaptive_router_bits(n_keys: int, max_bits: int = ROUTER_MAX_BITS) -> int:
@@ -557,7 +560,7 @@ def build_hashed_rows(keys: torch.Tensor, taxa: torch.Tensor, tile: int = ROWS_T
         flat = table.view(-1)
         for i, lane in enumerate([*lanes, taxa]):
             flat[at + i * tile] = lane
-    return HashedRows(table, tile, row_bits)
+    return HashedRows(table, tile, row_bits, n)
 
 
 def lookup_taxa_hashed_rows(table: HashedRows, queries: torch.Tensor) -> torch.Tensor:
@@ -566,7 +569,7 @@ def lookup_taxa_hashed_rows(table: HashedRows, queries: torch.Tensor) -> torch.T
     by its row hash, the taxon of a lane equal to the scrambled query (wide:
     the raw query) in every limb, else 0, and at least 0 (a free lane's -1).
     int32 [Q]; the twin of the probe_rows kernels."""
-    rows, tile, row_bits = table
+    rows, tile, row_bits = table.table, table.tile, table.row_bits
     wide = queries.dim() == 2
     out = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
     step = max(1, TWIN_LANES // rows.shape[1])  # queries a gather
@@ -577,6 +580,48 @@ def lookup_taxa_hashed_rows(table: HashedRows, queries: torch.Tensor) -> torch.T
         limbs = _limbs(q if wide else h)
         eq = torch.stack([r[:, i * tile:(i + 1) * tile] == limb[:, None] for i, limb in enumerate(limbs)]).all(0)
         out[a:a + step] = torch.where(eq, r[:, len(limbs) * tile:], 0).amax(1).clamp(min=0)
+    return out
+
+
+def row_mean(table: HashedRows) -> int:
+    """The table's mean keys a row, n_keys / 2^row_bits, in 16.16 fixed
+    point: the scale of `row_guess`. A build's keys fit its rows, so its
+    mean is at most the tile; a larger n_keys sends the guesses to the
+    tile's last lane (2^31 - 1 at most, so that row_guess's product of two
+    32-bit values fits an int64)."""
+    return min((table.n_keys << 16) >> table.row_bits, 0x7FFFFFFF)
+
+
+def row_guess(scrambled: torch.Tensor, row_bits: int, mean: int, tile: int) -> torch.Tensor:
+    """The lane where the narrow row probe's walk starts (probe_rows_kernel):
+    the scramble's place in its row's range, the top 32 bits of (s <<
+    row_bits) over 2^32, times the mean keys a row (16.16 fixed point), at
+    most tile - 1. The keys of a row are spread evenly over its range, so
+    the first lane not below the query lies near it. int64 [Q]."""
+    f = ((scrambled << row_bits) >> 32) & 0xFFFFFFFF
+    return ((f * mean) >> 48).clamp(max=tile - 1)
+
+
+def guess_sectors(table: HashedRows, queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of the narrow row probe's floor (cuda_kernels.rows_floor_cuda,
+    a measurement on no path): for each non-negative query, the xor of the 8
+    hi' lanes from row_guess rounded down to a multiple of 8 in its row (a
+    32-byte sector at tile 128; lanes past the tile are the row's first lo'
+    lanes), else 0. int32 [Q]."""
+    lanes, tile, row_bits = table.table.reshape(-1), table.tile, table.row_bits
+    s = xorshift64(queries)
+    g = row_guess(s, row_bits, row_mean(table), tile)
+    first = torch.where(queries >= 0, _top_bits(s, row_bits) * 3 * tile + g // 8 * 8, 0)
+    return torch.where(queries >= 0, _xor8(lanes, first), 0)
+
+
+def _xor8(lanes: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """The xor of lanes first .. first + 7 of the flat int32 `lanes`, a row a
+    query: what the floor kernels fold a sector into."""
+    words = lanes[first[:, None] + torch.arange(8, device=lanes.device)]
+    out = words[:, 0]
+    for i in range(1, 8):
+        out = out ^ words[:, i]
     return out
 
 
@@ -749,11 +794,7 @@ def home_sectors(table: HashedTable, queries: torch.Tensor) -> torch.Tensor:
     inside = (queries >= 0) & (h < table.slots)
     h = torch.where(inside, h, 0)
     first = (h // tile * 3 * tile + h % tile // 8 * 8) if table.cols else 3 * h // 8 * 8
-    words = lanes[first[:, None] + torch.arange(8, device=lanes.device)]
-    out = words[:, 0]
-    for i in range(1, 8):
-        out = out ^ words[:, i]
-    return torch.where(inside, out, 0)
+    return torch.where(inside, _xor8(lanes, first), 0)
 
 
 def build_bucketed(keys: torch.Tensor, taxa: torch.Tensor, key_bits: int) -> Bucketed:

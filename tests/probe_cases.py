@@ -1,8 +1,9 @@
 """Wide indexes and queries for the slot table's tests, shared by its
 twin's (test_torch_probe_slots.py) and its kernel's (test_torch_gpu.py);
 key sets for the tiled and row-bucket tables' tests
-(test_torch_probe_tables.py and test_torch_gpu.py) and for the hashed
-tables' (test_torch_probe_hashed.py and test_torch_gpu.py)."""
+(test_torch_probe_tables.py, test_torch_probe_rows.py and
+test_torch_gpu.py) and for the hashed tables' (test_torch_probe_hashed.py
+and test_torch_gpu.py)."""
 
 import numpy as np
 import torch
@@ -353,4 +354,116 @@ def cols_walk(table, queries):
                     break
                 done = False
             b += 8
+    return out
+
+
+#: the hand-made narrow row-bucket tables of `rows_walk_case`: (tile,
+#: row_bits, keys a row (None: random), runs of equal hi' as (row, lanes
+#: before the run, its length)); rows 5 (full) and 6 (empty) at tile 128
+ROWS_WALK_CASES = {
+    "tile 128": (128, 4, {5: 128, 6: 0, 7: 1, 9: 70, 10: 20}, ((9, 5, 6), (10, 0, 3))),
+    "all-ones scramble": (128, 4, {}, ()),
+    "all-ones scramble, no key": (128, 4, {}, ()),
+    "tile 12": (12, 3, {0: 12, 1: 0, 2: 12, 3: 5, 4: 1}, ((2, 6, 4), (3, 0, 2))),
+    "tile 36": (36, 3, {0: 36, 1: 0, 3: 30, 5: 20}, ((3, 13, 6), (5, 0, 8))),
+    "tile 256": (256, 2, {0: 256, 1: 0, 2: 200}, ((2, 61, 7),)),
+}
+
+
+def _scrambles_in(rng, n, lo, hi):
+    """n distinct scrambles in [lo, hi), each the scramble of a non-negative
+    int64 key, sorted."""
+    out = set()
+    while len(out) < n:
+        s = int(rng.integers(lo, hi, dtype=np.uint64))
+        if _inverse_xorshift(s) < 1 << 63:
+            out.add(s)
+    return sorted(out)
+
+
+def rows_walk_case(rng, kind):
+    """(sorted unique uint64 keys, int32 taxa, int64 queries, tile,
+    row_bits) of a narrow row-bucket table, built with that tile and
+    row_bits, that stresses the probe_rows walk (ROWS_WALK_CASES): full rows
+    (no free lane), empty rows, rows of one key, runs of equal hi' with
+    different lo' (one across a sector, one from lane 0) in the middle of
+    their row's range, tiles of 12 and 36 (not a multiple of 8) and 256; the
+    other rows hold 0 to 3/4 of the tile. "all-ones scramble": the six
+    largest scrambles of non-negative keys in the last row, ALL_ONES_KEY
+    among them, and "..., no key" without it. The queries: hashed_queries',
+    each scramble plus and minus one in lo' and in hi', the scrambles between
+    a run's lo', its hi' with lo' 0 and all ones, and each row's range ends."""
+    tile, row_bits, counts, runs = ROWS_WALK_CASES[kind]
+    span = 1 << (64 - row_bits)
+    runs = {r: (before, n) for r, before, n in runs}
+    design, queries = [], [MASK64]
+    for r in range(1 << row_bits):
+        lo, hi = r * span, (r + 1) * span
+        queries += [lo, lo + 1, hi - 1, hi - 2]
+        n = counts.get(r, int(rng.integers(0, 3 * tile // 4)))
+        if r in runs:
+            before, length = runs[r]
+            h = (lo + span // 2) >> 32  # the run's hi'
+            run = _scrambles_in(rng, length, h << 32, (h + 1) << 32)
+            design += _scrambles_in(rng, before, lo, h << 32) + run
+            design += _scrambles_in(rng, n - before - length, (h + 1) << 32, hi)
+            queries += [(a + b) // 2 for a, b in zip(run, run[1:]) if b - a > 1] + [h << 32, (h << 32) | 0xFFFFFFFF]
+        else:
+            design += _scrambles_in(rng, n, lo, hi)
+    if kind.startswith("all-ones scramble"):
+        top = MASK64 + (kind == "all-ones scramble")
+        design = [s for s in design if s < MASK64 - 5] + [s for s in range(MASK64 - 5, top)
+                                                         if _inverse_xorshift(s) < 1 << 63]
+    for s in design:
+        queries += [s, s ^ 1, (s + 1) & MASK64, (s - 1) & MASK64, (s + (1 << 32)) & MASK64, (s - (1 << 32)) & MASK64]
+    keys = np.unique(np.array([_inverse_xorshift(s) for s in design], np.uint64))
+    taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+    q = np.array([_inverse_xorshift(s) for s in queries], np.uint64).view(np.int64)
+    return keys, taxa, np.concatenate([hashed_queries(rng, keys), q]), tile, row_bits
+
+
+def rows_walk(table, queries, guess=None):
+    """probe_rows_kernel (kernels/probe_tables.cu) query by query in numpy:
+    a negative query answers 0 unread; else the 8-lane sectors of its row's
+    hi' from the one that holds the first lane (`guess`: an int or int64
+    [Q] in [0, tile), by default lookup.row_guess), lanes past the tile
+    masked; a sector whose first lane is not below the query passes the
+    walk to the left unless every lane before it is known below, one whose
+    lanes are all below it to the right, until the first lane not below the
+    query is found or the row ends; that lane, if equal in hi', and each
+    equal one behind it read lo' and taxon: equal answers max(taxon, 0),
+    above 0, below the next. int32 [Q]."""
+    lanes = table.table.numpy().reshape(-1).view(np.uint32)
+    tile, row_bits = table.tile, table.row_bits
+    if guess is None:
+        s = lookup.xorshift64(torch.from_numpy(np.asarray(queries, np.int64)))
+        guess = lookup.row_guess(s, row_bits, lookup.row_mean(table), tile).numpy()
+    guess = np.broadcast_to(np.asarray(guess), len(queries))
+    out = np.zeros(len(queries), np.int32)
+    for qi, x in enumerate(queries):
+        if x < 0:
+            continue
+        s = _xorshift(int(x))
+        sh, sl = s >> 32, s & 0xFFFFFFFF
+        hi = (s >> (64 - row_bits)) * 3 * tile
+        below_to, first, b = 0, tile, int(guess[qi]) & ~7
+        while True:
+            n = min(tile - b, 8)
+            below = int((lanes[hi + b:hi + b + n] < sh).sum())
+            if below < n:
+                first = b + below
+                if below or b == below_to:
+                    break
+                b -= 8
+            else:
+                below_to = b + n
+                if below_to == first:
+                    break
+                b += 8
+        for i in range(first, tile):
+            if lanes[hi + i] != sh or lanes[hi + tile + i] > sl:
+                break
+            if lanes[hi + tile + i] == sl:
+                out[qi] = max(int(lanes[hi + 2 * tile + i].view(np.int32)), 0)
+                break
     return out

@@ -531,6 +531,78 @@ def test_row_probe_wide_kernel_on_full_rows(cuda, tile, row_bits):
     _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_rows_wide")
 
 
+@pytest.mark.parametrize("kind", list(probe_cases.ROWS_WALK_CASES))
+def test_row_probe_kernel_on_walk_cases(cuda, kind):
+    """probe_rows on the hand-made narrow tables of
+    probe_cases.rows_walk_case (full and empty rows, runs of equal hi' across
+    a sector, the all-ones scramble with and without its key, tiles of 12,
+    36 and 256): one launch, equal to the twin and lookup_taxa; the same
+    with the walk started at lane 0 (n_keys 0), at floor(f * tile) (a
+    mean of the tile) and at the tile's last lane for nearly every query
+    (n_keys 2^50: the mean capped at 2^31 - 1), which moves where it
+    starts, not what it answers; every negative query answered 0."""
+    keys, taxa, q, tile, row_bits = probe_cases.rows_walk_case(np.random.default_rng(len(kind)), kind)
+    card = _assert_table_probe(cuda, "hashed1", keys, taxa, 62, q, tile=tile, row_bits=row_bits)
+    q = torch.from_numpy(q)
+    want = lookup.lookup_taxa(torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), q)
+    for n_keys in (0, tile << row_bits, 1 << 50):
+        before = dict(cuda_kernels.LAUNCHES)
+        got = lookup.probe(None, None, card._replace(n_keys=n_keys), q.to(cuda))
+        assert _launched(before) == {"probe_rows": 1} and torch.equal(got.cpu(), want)
+    assert bool((want[q < 0] == 0).all()) and int((q < 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["narrow", "tile 12"])
+def test_row_probe_kernel_on_query_streams(cuda, kind):
+    """probe_rows on runs of equal queries 1 to 9 long with an invalid
+    window's -1 between, over every slice of probe_cases.stream_slices (an
+    odd start 8 bytes past a 16-byte boundary, 0, 1, 3, 5 and 4k + 3
+    queries): random narrow keys, and the hand-made table of tile 12."""
+    rng = np.random.default_rng(len(kind) + 11)
+    if kind == "narrow":
+        keys, taxa, _ = probe_cases.table_keys(rng, kind)
+        base, shape = probe_cases.hashed_queries(rng, keys), {}
+    else:
+        keys, taxa, base, tile, row_bits = probe_cases.rows_walk_case(rng, kind)
+        shape = dict(tile=tile, row_bits=row_bits)
+    k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
+    host, card = lookup.build_hashed_rows(k, t, **shape), lookup.build_hashed_rows(k.to(cuda), t.to(cuda), **shape)
+    stream = np.concatenate([base, probe_cases.query_runs(rng, base, 3000)])
+    _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_rows")
+
+
+@pytest.mark.parametrize("kind", ["narrow", "tile 12"])
+def test_rows_floor_kernel_reads_the_guessed_sector(cuda, kind):
+    """The narrow row probe's floor (a measurement on no path) equals its
+    plain version, lookup.guess_sectors, with the build's mean, with one
+    that sends the guesses across the whole tile and with one that sends
+    them to its last lane (past it at tile 12: the row's first lo' lanes),
+    and launches no counted kernel; it takes no wide table."""
+    rng = np.random.default_rng(len(kind) + 5)
+    if kind == "narrow":
+        keys, taxa, _ = probe_cases.table_keys(rng, kind)
+        q, shape = probe_cases.hashed_queries(rng, keys), {}
+    else:
+        keys, taxa, q, tile, row_bits = probe_cases.rows_walk_case(rng, kind)
+        shape = dict(tile=tile, row_bits=row_bits)
+    table = lookup.build_hashed_rows(torch.from_numpy(keys.view(np.int64)).to(cuda),
+                                     torch.from_numpy(taxa).to(cuda), **shape)
+    q = torch.from_numpy(q).to(cuda)
+    for n_keys in (table.n_keys, table.tile << table.row_bits, 1 << 50):
+        before = dict(cuda_kernels.LAUNCHES)
+        got = cuda_kernels.rows_floor_cuda(table._replace(n_keys=n_keys), q)
+        assert _launched(before) == {}
+        want = lookup.guess_sectors(table._replace(n_keys=n_keys), q)
+        assert torch.equal(got, want)
+        if n_keys < 1 << 50:  # the last sector of a narrow row here is free lanes, whose xor is 0
+            assert int((want != 0).sum()) > len(keys) // 2
+    wide_keys, wide_taxa, _ = probe_cases.table_keys(rng, "wide")
+    wide = lookup.build_hashed_rows(torch.from_numpy(wide_keys.view(np.int64)).to(cuda),
+                                    torch.from_numpy(wide_taxa).to(cuda))
+    with pytest.raises(ValueError, match="narrow"):
+        cuda_kernels.rows_floor_cuda(wide, torch.from_numpy(wide_keys.view(np.int64)).to(cuda))
+
+
 def test_table_probe_kernels_refuse_what_they_do_not_take(cuda):
     keys = torch.arange(0, 1 << 40, 1 << 30, device=cuda)
     taxa = torch.ones(keys.shape[0], dtype=torch.int32, device=cuda)
@@ -541,6 +613,8 @@ def test_table_probe_kernels_refuse_what_they_do_not_take(cuda):
         cuda_kernels.lookup_taxa_tiled_cuda(tiled._replace(bits=tiled.bits + 1), keys)
     with pytest.raises(ValueError, match="does not fit"):
         cuda_kernels.lookup_taxa_rows_cuda(rows._replace(row_bits=rows.row_bits + 1), keys)
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.lookup_taxa_rows_cuda(rows._replace(n_keys=-1), keys)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.lookup_taxa_rows_cuda(rows, torch.arange(20, device=cuda)[::2])
     with pytest.raises(ValueError, match="1-d"):
