@@ -505,8 +505,9 @@ def time_probe(label, keys, taxa, directory, queries, name="probe"):
     index passes its slot table as `directory` (what the kernel reads) and
     its keys and taxa (what the twin reads). The bound counts the same work
     for both kinds and before the slot table as since: keys, taxa and a
-    directory of BUCKET_KEYS keys a bucket. Returns the numbers of one entry
-    of the probe's `shapes`."""
+    directory of BUCKET_KEYS keys a bucket, read once for each distinct
+    query, as the table probes' bounds count them. Returns the numbers of
+    one entry of the probe's `shapes`."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, lookup
@@ -533,23 +534,28 @@ def time_probe(label, keys, taxa, directory, queries, name="probe"):
     library = None if wide else cuda_ms(lambda: torch.searchsorted(keys, queries))
     # bytes: the smaller of every array once (queries, keys, taxa and
     # directory in, taxa out) and what these queries need (a query and its
-    # answer; for a query inside the keys' range one directory entry and one
-    # key; on a hit one taxon): a probe of a large index reads little of it.
-    # Operations: a shift, two compares and a select or two per query.
+    # answer; once for each distinct query inside the keys' range, one
+    # directory entry and one key, and one taxon if it hits): a probe of a
+    # large index reads little of it. Operations: a shift, two compares and
+    # a select or two per query.
     nq, hits, key_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
     if wide:
         p_lo, p_above = lookup.prefix_wide(queries, directory.shift)
-        inside = int(((queries[:, 0] >= 0) & (p_above == 0) & (p_lo >= 0) & (p_lo < directory.buckets)).sum())
+        inside = (queries[:, 0] >= 0) & (p_above == 0) & (p_lo >= 0) & (p_lo < directory.buckets)
     else:
-        inside = int(((queries >> directory.shift) < directory.buckets).sum()) - int((queries < 0).sum())
+        inside = (queries >= 0) & ((queries >> directory.shift) < directory.buckets)
+    seen = torch.unique(queries[inside], dim=0)
+    inside = seen.shape[0]  # distinct queries inside the keys' range
+    found = int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
     n_bytes = min(tensor_bytes(queries, keys, taxa, directory.starts) + 4 * nq,
-                  (key_bytes + 4) * nq + (key_bytes + 4) * inside + 4 * hits)
+                  (key_bytes + 4) * nq + (key_bytes + 4) * inside + 4 * found)
     bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq)
     d = table.directory if wide else directory
     slots = (f" of slots with a {table.c}-bit field, {'direct' if table.codes is None else 'codes'}"
              f"{'' if table.codes is None else f' ({table.codes.shape[0]} taxa)'}") if wide else ""
     log(f"{name}, {label}: {keys.shape[0]} keys ({d.buckets} buckets{slots}, shift {d.shift}), {nq} queries, "
-        f"{hits} hits, {inside} inside the keys' range, max_abs_err 0; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on the "
+        f"{hits} hits, {inside} distinct inside the keys' range, max_abs_err 0; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on "
+        "the "
         f"device alone), plain twin {plain:.4f} ms, " +
         ("no library call: torch.searchsorted takes one-limb keys only, " if wide
          else f"torch.searchsorted alone {library:.4f} ms, ") +
@@ -1064,6 +1070,25 @@ def check_hashed_rules(label, table, keys):
     return disp
 
 
+def router_bucket(table, queries):
+    """(inside, p) of queries into a tiled or bucketed table: whether each
+    lies inside the key space that its router cuts, and its bucket there (0
+    elsewhere); as lookup.router_buckets, which an older tree (a `--root` of
+    scan_timing.py) lacks."""
+    import torch
+
+    from slacken_tpu_torch.ops import lookup
+
+    shift = table.key_bits - table.bits
+    if queries.dim() == 2:
+        p, above = lookup.prefix_wide(queries, shift)
+        inside = (queries[:, 0] >= 0) & (above == 0) & (p >= 0) & (p < 1 << table.bits)
+    else:
+        p = queries >> shift
+        inside = (queries >= 0) & (p < 1 << table.bits)
+    return inside, torch.where(inside, p, 0)
+
+
 def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
     """A table kernel == its twin == lookup_taxa (tolerance 0) on these
     queries, then its time beside the twin's and, for the tiled and the
@@ -1078,13 +1103,16 @@ def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
     aligned 32-byte sector a non-negative query at its home slot, what no
     hashed probe can beat; a narrow hashed1 table gets that of
     cuda_kernels.rows_floor_cuda (held to lookup.guess_sectors first), the
-    8 hi' lanes a non-negative query from its guessed lane. A floor is
-    neither a library call nor a yardstick of the same function;
-    `with_floor` False leaves it out (a tree older than its kernel). The
-    bound counts what these queries need: each query and its answer; tiled,
-    the two router entries of a query inside the key space and one record
-    of a non-empty bucket; bucketed, as the directory probe, a router entry
-    and a key a query inside the key space and a taxon a hit; hashed1, once for
+    8 hi' lanes a non-negative query from its guessed lane; a tiled table,
+    narrow or wide, that of cuda_kernels.tiled_floor_cuda (held to
+    lookup.router_sectors first), a query's router entries and then the
+    sector of its bucket's first record. A floor is neither a library call
+    nor a yardstick of the same function; `with_floor` False leaves it out
+    (a tree older than its kernel). The bound counts what these queries
+    need: each query and its answer, and once for each distinct query
+    inside the key space: tiled, its two router entries and one record if
+    its bucket is not empty; bucketed, as the directory probe, a router
+    entry and a key, and a taxon if it hits; hashed1, once for
     each distinct query that the kernel walks (narrow, a non-negative one;
     wide, one whose l3 is not all ones), one 32-byte sector of the row's
     first key block and, on a hit, one sector of each other key block and of
@@ -1125,26 +1153,26 @@ def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
         if not torch.equal(cuda_kernels.hashed_floor_cuda(table, queries), lookup.home_sectors(table, queries)):
             fail(f"the hashed floor kernel differs from lookup.home_sectors on {label}")
         floor = device_ms(lambda: cuda_kernels.hashed_floor_cuda(table, queries))
+    if with_floor and isinstance(table, lookup.TiledTable):
+        if not torch.equal(cuda_kernels.tiled_floor_cuda(table, queries), lookup.router_sectors(table, queries)):
+            fail(f"the tiled floor kernel differs from lookup.router_sectors on {label}")
+        floor = device_ms(lambda: cuda_kernels.tiled_floor_cuda(table, queries))
     if with_floor and isinstance(table, lookup.HashedRows) and not wide:
         if not torch.equal(cuda_kernels.rows_floor_cuda(table, queries), lookup.guess_sectors(table, queries)):
             fail(f"the row probe's floor kernel differs from lookup.guess_sectors on {label}")
         floor = device_ms(lambda: cuda_kernels.rows_floor_cuda(table, queries))
-    at = "guessed lane" if isinstance(table, lookup.HashedRows) else "home slot"  # of the floor's sector
+    at = {lookup.HashedRows: "at its guessed lane", lookup.TiledTable: "after its router entries"}.get(
+        type(table), "at its home slot")  # of the floor's sector
     nq, hits, q_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
-    if routered:
-        shift = table.key_bits - table.bits
-        if wide:
-            p, above = lookup.prefix_wide(queries, shift)
-            inside = (queries[:, 0] >= 0) & (above == 0) & (p >= 0) & (p < 1 << table.bits)
-        else:
-            p = queries >> shift
-            inside = (queries >= 0) & (p < 1 << table.bits)
+    if routered:  # each distinct query inside the key space, once
+        seen = torch.unique(queries[router_bucket(table, queries)[0]], dim=0)
         if isinstance(table, lookup.Bucketed):
-            need = (q_bytes + 4) * nq + 12 * int(inside.sum()) + 4 * hits
+            found = int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
+            need = (q_bytes + 4) * nq + 12 * seen.shape[0] + 4 * found
         else:
-            p = torch.where(inside, p, 0)
-            filled = inside & (table.router[p + 1] > table.router[p])
-            need = (q_bytes + 4) * nq + 8 * int(inside.sum()) + table.table.shape[2] * 4 * int(filled.sum())
+            p = router_bucket(table, seen)[1]
+            filled = int((table.router[p + 1] > table.router[p]).sum())
+            need = (q_bytes + 4) * nq + 8 * seen.shape[0] + table.table.shape[2] * 4 * filled
     elif isinstance(table, lookup.HashedTable):  # the slot of each distinct non-negative query, once
         seen = torch.unique(queries[queries >= 0])
         need = 12 * nq + (8 * seen.numel() + 4 * int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
@@ -1160,7 +1188,7 @@ def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
         f"{plain:.4f} ms, " + ("no library call, " if library is None else f"torch.searchsorted alone {library:.4f} ms, ")
         + ("" if yardstick is None else f"yardstick: torch.index_select of the home slots {fmt_ms(yardstick)} on the "
            "device alone, ")
-        + ("" if floor is None else f"floor: one sector a query at its {at} {fmt_ms(floor)} on the device alone, ")
+        + ("" if floor is None else f"floor: one sector a query {at} {fmt_ms(floor)} on the device alone, ")
         + f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
     return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
                 library_ms=library, **({} if yardstick is None else {"yardstick_device_ms": yardstick}),

@@ -3,7 +3,7 @@
 row-bucket table probes on one NVIDIA GPU at the main path's shapes, to
 compare two versions of the kernels inside one run on one card.
 
-    python3 scan_timing.py [--root DIR] [--cases all|scan|probe|tables]
+    python3 scan_timing.py [--root DIR] [--cases all|scan|probe|tables] [--tables tiled,...]
 
 `--root` imports slacken_tpu_torch from DIR, another checkout of the
 repository (the parent commit unpacked into a git-ignored directory, say);
@@ -22,19 +22,24 @@ library's (50, 45, 7) indexes (also random queries there), each checked
 against `lookup_taxa` first; it prints the device memory of the scale
 index's probe arrays, the peak while they are made, and the build's peak. A tree whose lookup has
 no `build_slots` probes its keys, taxa and directory, as before the slot
-table. `--cases tables` times probe_rows, probe_hashed, probe_hashed_cols
-and probe_rows_wide through chip_smoke.time_table_probe (each held to its
-twin and lookup_taxa first; the bound and the index_select yardstick as
-there) at chip_smoke.py's shapes: one 4 Mbp batch's dense minimizers and
-4,194,304 random queries, into the bench index's row-bucket and hashed
-tables and the wide (50, 45, 7) bench index's row-bucket table, then into
-the 400 Mbp scale library's narrow row-bucket and hashed tables and wide
-row-bucket table; beside both hashed probes the floor (`floor_device_ms`:
+table. `--cases tables` times probe_rows, probe_hashed, probe_hashed_cols,
+probe_tiled, their wide instances and probe_bucketed (the directory kernel
+over the bucketed router) through chip_smoke.time_table_probe
+(each held to its twin and lookup_taxa first; the bound and the
+index_select yardstick as there) at chip_smoke.py's shapes: one 4 Mbp
+batch's dense minimizers and 4,194,304 random queries, into the bench
+index's row-bucket, hashed and tiled tables and bucketed arrays and the
+wide (50, 45, 7) bench index's row-bucket and tiled tables, then into the
+400 Mbp scale library's narrow tables of the same five kinds and its wide
+row-bucket and tiled tables; `--tables` keeps some of the kinds (hashed1,
+hashed, hashed128, tiled, bucketed). Beside both hashed probes the floor (`floor_device_ms`:
 one sector a query at its home slot, where the tree has
-cuda_kernels.hashed_floor_cuda), and beside the narrow row probe its own
-(one sector a query from its guessed lane, where the tree has
-cuda_kernels.rows_floor_cuda). Run parent, change, change, parent in one
-command to compare two trees.
+cuda_kernels.hashed_floor_cuda), beside the narrow row probe its own (one
+sector a query from its guessed lane, where the tree has
+cuda_kernels.rows_floor_cuda), and beside both tiled probes theirs (the
+router entries, then the sector of the bucket's first record, where the
+tree has cuda_kernels.tiled_floor_cuda). Run parent, change, change, parent
+in one command to compare two trees.
 """
 
 from __future__ import annotations
@@ -53,6 +58,9 @@ import chip_smoke
 #: warps: 2,048 rows in two segments each, stitched in the launch
 BUILD_SEGMENTED = (2048, 4096)
 
+#: the probe tables that `--cases tables` times
+TABLE_CASES = ("hashed1", "hashed", "hashed128", "tiled", "bucketed")
+
 #: (label, (k, m, s), rank-table m or None, shapes)
 CASES = [
     ("scan", (35, 31, 7), None, [*chip_smoke.SCAN_SHAPES, chip_smoke.LONG_ROWS, BUILD_SEGMENTED]),
@@ -67,6 +75,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--cases", choices=("all", "scan", "probe", "tables"), default="all")
+    ap.add_argument("--tables", default=",".join(TABLE_CASES),
+                    help="the tables of --cases tables, comma-separated (default: all)")
     args = ap.parse_args(argv)
 
     import torch
@@ -92,7 +102,7 @@ def main(argv=None):
             found = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "stack frame" in x][:2 if entry else 1]
             print(f"[{name}] {fn}: {'; '.join(found)}", flush=True)
     if args.cases in ("all", "tables"):
-        time_tables(name, dev)
+        time_tables(name, dev, args.tables.split(","))
     if args.cases in ("all", "probe"):
         time_probe_wide(name, dev)
     if args.cases != "all" and args.cases != "scan":
@@ -116,7 +126,7 @@ def main(argv=None):
     return 0
 
 
-def time_tables(name, dev):
+def time_tables(name, dev, only=TABLE_CASES):
     import torch
 
     from slacken_tpu_torch import workloads
@@ -124,12 +134,16 @@ def time_tables(name, dev):
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
     from slacken_tpu_torch.ops import cuda_kernels
 
+    floors = {"hashed1": "rows_floor_cuda", "tiled": "tiled_floor_cuda"}
+
     def timed(label, index, probes, shapes):
         for probe in probes:
+            if probe not in only:
+                continue
             table = index.device_arrays(dev, probe)[2]
             for what, queries in shapes:
                 kernel = chip_smoke.TABLE_PROBES[probe, queries.dim() == 2]
-                with_floor = hasattr(cuda_kernels, "rows_floor_cuda" if probe == "hashed1" else "hashed_floor_cuda")
+                with_floor = hasattr(cuda_kernels, floors.get(probe, "hashed_floor_cuda"))
                 r = chip_smoke.time_table_probe(f"{label}, {what}", table, index.keys_t, index.taxa_t, queries, kernel,
                                                 with_floor=with_floor)
                 yardstick = (f"; index_select {chip_smoke.fmt_ms(r['yardstick_device_ms'])}"
@@ -143,11 +157,11 @@ def time_tables(name, dev):
     tax, reads = workloads.bench_taxonomy(), workloads.bench_reads()
     library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
     idx = KeyValueIndex.build(library(), narrow, tax, dev)
-    timed("bench index", idx, ("hashed1", "hashed", "hashed128"), (
+    timed("bench index", idx, TABLE_CASES, (
         ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1)),
         ("random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.BENCH_RECORDS))))
     idx = KeyValueIndex.build(library(), wide, tax, dev)
-    timed("wide bench index (50, 45, 7)", idx, ("hashed1",), (
+    timed("wide bench index (50, 45, 7)", idx, ("hashed1", "tiled"), (
         ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1)),
         ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.BENCH_RECORDS))))
     del idx
@@ -156,13 +170,13 @@ def time_tables(name, dev):
     reads = workloads.scale_reads(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA, library=genomes)
     torch.cuda.empty_cache()
     idx = KeyValueIndex.build(iter(genomes), narrow, tax, dev)
-    timed("scale index", idx, ("hashed1", "hashed", "hashed128"), (
+    timed("scale index", idx, TABLE_CASES, (
         ("random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.SCALE_RECORDS + 1)),
         ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1))))
     del idx
     torch.cuda.empty_cache()
     idx = KeyValueIndex.build(iter(genomes), wide, tax, dev)
-    timed("wide scale index", idx, ("hashed1",), (
+    timed("wide scale index", idx, ("hashed1", "tiled"), (
         ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.SCALE_RECORDS)),
         ("one batch's dense minimizers",
          chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1))))

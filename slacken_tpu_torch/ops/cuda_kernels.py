@@ -140,12 +140,13 @@ def _load():
     lib.stpu_probe.argtypes = [p, p, i64, p, i64, i32, p, i64, p, p]
     lib.stpu_probe_wide.argtypes = [p, p, p, i64, i32, i32, p, i64, p, p]
     lib.stpu_probe_tiled.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
+    lib.stpu_tiled_floor.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
     lib.stpu_probe_rows.argtypes = [p, i32, i32, ctypes.c_uint, i32, p, i64, p, p]
     lib.stpu_rows_floor.argtypes = [p, i32, i32, ctypes.c_uint, p, i64, p, p]
     lib.stpu_probe_hashed.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     lib.stpu_hashed_floor.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
-    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide,
-               lib.stpu_probe_tiled, lib.stpu_probe_rows, lib.stpu_rows_floor, lib.stpu_probe_hashed,
+    for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide, lib.stpu_probe_tiled,
+               lib.stpu_tiled_floor, lib.stpu_probe_rows, lib.stpu_rows_floor, lib.stpu_probe_hashed,
                lib.stpu_hashed_floor):
         fn.restype = i32
     for name in MASK_IDIOMS:
@@ -408,11 +409,10 @@ def _table_queries(queries: torch.Tensor, wide: bool, table: torch.Tensor) -> No
         raise ValueError(f"the table lies on {table.device}, the queries on {queries.device}")
 
 
-def lookup_taxa_tiled_cuda(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
-    """Exact-match probe of a tiled table (kernels/probe_tables.cu,
-    probe_tiled_kernel): int32 taxon per int64 [Q] query, or per [Q, 2]
-    query of a wide table, 0 on a miss. Reads the router bucket of the
-    query's prefix only. Twin: lookup.lookup_taxa_tiled."""
+def _tiled_table(table: TiledTable, queries: torch.Tensor) -> bool:
+    """Check a tiled table and its queries; True for a wide table. The
+    records are 16-byte aligned: the probe reads two records as 3 (wide 5)
+    8-byte loads, its floor a sector as two 16-byte loads."""
     router, records, tile, bits, key_bits = table
     _require(router, "router", torch.int32, 1)
     _require(records, "table", torch.int32, 3)
@@ -423,14 +423,47 @@ def lookup_taxa_tiled_cuda(table: TiledTable, queries: torch.Tensor) -> torch.Te
             or not 0 <= shift <= (127 if wide else 63) or router.device != records.device):
         raise ValueError(f"a tiled table of {tuple(records.shape)} lanes with a router of {router.shape[0]} entries "
                          f"on {router.device} does not fit tile {tile}, {bits} bits of {key_bits}")
+    if records.data_ptr() % 16:
+        raise ValueError("a tiled table's records must be 16-byte aligned (the probe loads 16 bytes at a time)")
     _table_queries(queries, wide, records)
+    return wide
+
+
+def _launch_tiled(fn, table: TiledTable, queries: torch.Tensor, wide: bool, name: str) -> torch.Tensor:
+    """fn (the tiled probe or its floor) over the queries; no launch for none."""
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
-    name = "probe_tiled_wide" if wide else "probe_tiled"
-    rc = _launch(queries, _load().stpu_probe_tiled, router.data_ptr(), 1 << bits, shift, records.data_ptr(),
-                 int(wide), queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    if queries.shape[0]:
+        rc = _launch(queries, fn, table.router.data_ptr(), 1 << table.bits, table.key_bits - table.bits,
+                     table.table.data_ptr(), int(wide), queries.data_ptr(), queries.shape[0], out.data_ptr(),
+                     _stream(queries))
+        _check(rc, name)
     return out
+
+
+def lookup_taxa_tiled_cuda(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of a tiled table (kernels/probe_tables.cu,
+    probe_tiled_kernel): int32 taxon per int64 [Q] query, or per [Q, 2]
+    query of a wide table, 0 on a miss. Reads the router bucket of the
+    query's prefix, then the bucket's records two a step from the record
+    that the query's place in the bucket's range guesses, a step's loads
+    issued together. Twin: lookup.lookup_taxa_tiled."""
+    wide = _tiled_table(table, queries)
+    name = "probe_tiled_wide" if wide else "probe_tiled"
+    out = _launch_tiled(_load().stpu_probe_tiled, table, queries, wide, name)
+    if queries.shape[0]:
+        LAUNCHES[name] += 1
+    return out
+
+
+def tiled_floor_cuda(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
+    """A measurement on no path (kernels/probe_tables.cu,
+    tiled_floor_kernel): for each query inside the key space, router[p] ^
+    router[p + 1] and, if its bucket is not empty, the xor of the aligned
+    32-byte sector that holds the first lane of the bucket's first record;
+    else 0. int32 [Q]. What the tiled probe cannot beat: its router entries
+    and one dependent sector a query. Not counted in LAUNCHES. Plain
+    version: lookup.router_sectors."""
+    return _launch_tiled(_load().stpu_tiled_floor, table, queries, _tiled_table(table, queries), "tiled_floor")
 
 
 def _rows_table(table: HashedRows, queries: torch.Tensor) -> bool:

@@ -25,11 +25,32 @@
 // bytes; on the H100 that spends bytes (6.4 GB for one 4 Mbp batch of narrow
 // queries against a hashed1 table of tile 128), so each kernel reads only
 // what can hold the answer, one thread a query (four for the wide rows):
-//   * tiled: the router entries p and p + 1 (one sector), then the records
-//     of bucket [router[p], router[p + 1]) in key order until one is not
-//     below the query. The JAX lookup's two rows cover that bucket
-//     (tile_for_span), and a key of another bucket never equals the query,
-//     so the answer is the same. A bucket holds under one key on average.
+//   * tiled: the router entries p and p + 1 (one sector; an empty bucket
+//     reads nothing more), then the records of bucket [router[p], router[p
+//     + 1]) in key order, two a step (narrow 3 uint2, wide 5), the loads of
+//     a step that hold a lane of a record of the bucket issued before any
+//     compare. The walk starts at the step that holds the record the
+//     query's place in its bucket's range guesses (keys spread evenly over
+//     a bucket's range); the first record of the step not below the query
+//     ends it: its taxon, read in the same loads, if it equals the query,
+//     else a miss; unless it is the step's first record and the bucket
+//     holds earlier ones (the guess passed the query: a step left), or the
+//     step's records are all below the query (a step right, until the
+//     bucket ends). Records past the bucket count as above the query (later
+//     buckets, or the all-ones padding) and records before it as below
+//     (earlier buckets), so neither needs its loads. The JAX lookup's two
+//     rows cover the bucket (tile_for_span), and a key of another bucket
+//     never equals the query, so the answer is the same. The walk it
+//     replaces waited on each record's compare before loading the next:
+//     4-5 dependent trips at scale (7.8 records a bucket, up to 129). At
+//     bench size a bucket holds 0.31 records on average and the router
+//     decides. On an H100 (PERF.md) the walk from the bucket's first record,
+//     8 records a step, every load of a step read, a bucket of one record
+//     read in a branch of its own, and 4 records a step (3 or 5 uint4; the
+//     wide instance at 40 registers, or forced to 32 with a spill) were
+//     slower; one compare a record for "below", with the lanes of the first
+//     record not below selected after it, costs fewer instructions than an
+//     "equal" compare a record as well.
 //   * rows, narrow: the row of the scrambled query s holds its keys sorted
 //     by scrambled value, the free all-ones lanes last, and their scrambles
 //     are spread evenly over the row's range, so the first lane not below
@@ -117,11 +138,12 @@
 //     trip) cost 1.7x at scale, and reading the block's 8 lo' and 8 taxon
 //     lanes behind an equal hi' (48 registers) 1.5x on the bench batch
 //     (PERF.md).
-// `hashed_floor_kernel` and `rows_floor_kernel` are on no path: a
-// measurement of what the hashed probes and the narrow row probe cannot
-// beat, each query's one aligned 32-byte sector at its home slot (of the
-// hi' block, or of the row-major slots) or of its row's hi' lanes at its
-// guessed lane, read and folded into one int.
+// `hashed_floor_kernel`, `rows_floor_kernel` and `tiled_floor_kernel` are
+// on no path: a measurement of what the hashed probes, the narrow row probe
+// and the tiled probes cannot beat, each query's one aligned 32-byte sector
+// at its home slot (of the hi' block, or of the row-major slots), of its
+// row's hi' lanes at its guessed lane, or after its router entries of its
+// bucket's first record, read and folded into one int.
 // An invalid window's -1 (narrow) has a prefix beyond every router bucket
 // and misses without a load; its scramble matches no key, and the hashed
 // and row probes skip every negative query (no key is negative). Wide, its
@@ -150,17 +172,22 @@ __device__ __forceinline__ unsigned long long join(unsigned hi, unsigned lo) {
   return ((unsigned long long)hi << 32) | lo;
 }
 
-// keys of a tiled table are records of LIMBS + 1 uint32 lanes (the key's
-// limbs, most significant first, then the taxon), sorted by key
+// the eight lanes of a 32-byte sector, 16-byte aligned
+__device__ __forceinline__ void sector8(const unsigned* p, unsigned (&v)[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p)), b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// The router bucket p of query qi of a tiled table whose router cuts the
+// key space at `shift`, and the query as (hi, lo) (narrow: hi 0); false for
+// a query beyond the key space (an invalid window's -1: narrow, its prefix
+// lies beyond every bucket; wide, its all-ones l3 lies above the space).
 template <bool WIDE>
-__global__ void __launch_bounds__(THREADS)
-probe_tiled_kernel(const int* __restrict__ router, unsigned long long buckets, int shift,
-                   const unsigned* __restrict__ records, const long long* __restrict__ queries, long long nq,
-                   int* __restrict__ out) {
-  constexpr int LANES = WIDE ? 5 : 3;
-  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (qi >= nq) return;
-  unsigned long long hi = 0, lo, p, above = 0;
+__device__ __forceinline__ bool tiled_bucket(const long long* __restrict__ queries, long long qi, int shift,
+                                             unsigned long long buckets, unsigned long long& hi,
+                                             unsigned long long& lo, unsigned long long& p) {
+  unsigned long long above = 0;
+  hi = 0;
   if (WIDE) {
     const ulonglong2 x = __ldcs(reinterpret_cast<const ulonglong2*>(queries) + qi);
     hi = x.x;
@@ -178,33 +205,111 @@ probe_tiled_kernel(const int* __restrict__ router, unsigned long long buckets, i
     lo = (unsigned long long)__ldcs(queries + qi);
     p = lo >> shift;  // logical: a negative query's prefix lies beyond every bucket
   }
+  return above == 0 && p < buckets;
+}
+
+// The top 32 bits of the low `shift` bits of the key (hi, lo): the query's
+// place inside its router bucket's range, over 2^32.
+__device__ __forceinline__ unsigned bucket_place(unsigned long long hi, unsigned long long lo, int shift) {
+  if (shift <= 32) return (unsigned)(lo << (32 - shift));
+  const int s = shift - 32;
+  return (unsigned)(s < 64 ? (lo >> s) | (hi << (64 - s)) : hi >> (s - 64));
+}
+
+// records a step of the tiled probe
+constexpr int TILED_STEP = 2;
+
+// Records of a tiled table: LANES = LIMBS + 1 uint32 lanes each (the key's
+// limbs, most significant first, then the taxon), sorted by key, 8-byte
+// aligned. A step is records b and b + 1, b even: LANES uint2.
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS)
+probe_tiled_kernel(const int* __restrict__ router, unsigned long long buckets, int shift,
+                   const unsigned* __restrict__ records, const long long* __restrict__ queries, long long nq,
+                   int* __restrict__ out) {
+  constexpr int LANES = WIDE ? 5 : 3;
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  unsigned long long hi, lo, p;
   int taxon = 0;
-  if (above == 0 && p < buckets) {
-    const int end = __ldg(router + p + 1);
-    for (int i = __ldg(router + p); i < end; ++i) {
-      const unsigned* r = records + (long long)i * LANES;
-      bool below, equal;
-      if (WIDE) {
-        const unsigned long long k_hi = join(__ldg(r), __ldg(r + 1)), k_lo = join(__ldg(r + 2), __ldg(r + 3));
-        below = k_hi < hi || (k_hi == hi && k_lo < lo);
-        equal = k_hi == hi && k_lo == lo;
-      } else {
-        const unsigned long long key = join(__ldg(r), __ldg(r + 1));
-        below = key < lo;
-        equal = key == lo;
+  if (tiled_bucket<WIDE>(queries, qi, shift, buckets, hi, lo, p)) {
+    const int start = __ldg(router + p), end = __ldg(router + p + 1);
+    // the step of the record that the query's place in the bucket's range guesses
+    const int guess = (int)(((unsigned long long)bucket_place(hi, lo, shift) * (unsigned)(end - start)) >> 32);
+    int b = (start + guess) & -TILED_STEP;
+    // an empty bucket reads no record; `right`: every record before b is
+    // below the query; `left`: the record at b + TILED_STEP is not
+    for (bool right = false, left = false; start < end;) {
+      // records [r0, r1) of the step lie in the bucket: the loads that hold
+      // none of their lanes are not issued, and records past the bucket
+      // count as not below the query (they are: later buckets, or the
+      // all-ones padding), records before it as below (earlier buckets)
+      const int r0 = max(start - b, 0), r1 = min(end - b, TILED_STEP);
+      const uint2* at = reinterpret_cast<const uint2*>(records + (long long)b * LANES);
+      unsigned w[TILED_STEP * LANES];
+#pragma unroll
+      for (int i = 0; i < LANES; ++i) {
+        const uint2 x = 2 * i + 2 > LANES * r0 && 2 * i < LANES * r1 ? __ldg(at + i) : make_uint2(0, 0);
+        w[2 * i] = x.x, w[2 * i + 1] = x.y;
       }
-      if (below) continue;
-      if (equal) taxon = __ldg(reinterpret_cast<const int*>(r) + LANES - 1);
-      break;  // found, or passed where the query would be
+      unsigned below = 0;
+#pragma unroll
+      for (int r = 0; r < TILED_STEP; ++r) {
+        const unsigned* k = w + LANES * r;
+        const unsigned long long k_hi = WIDE ? join(k[0], k[1]) : 0, k_lo = join(k[LANES - 3], k[LANES - 2]);
+        below |= (unsigned)(k_hi < hi || (k_hi == hi && k_lo < lo)) << r;
+      }
+      const int j = __ffs((~below & (~0u << r0)) | (~0u << r1)) - 1;  // the first record not below the query
+      if (j < TILED_STEP) {
+        if (j < r1) {  // in the bucket: its lanes decide
+          unsigned k[LANES];
+#pragma unroll
+          for (int i = 0; i < LANES; ++i) k[i] = j ? w[LANES + i] : w[i];
+          if ((WIDE ? join(k[0], k[1]) : 0) == hi && join(k[LANES - 3], k[LANES - 2]) == lo) {
+            taxon = (int)k[LANES - 1];
+            break;
+          }
+        }
+        // a miss, unless the guess passed the query: the step's first
+        // record is above it and the bucket holds earlier ones
+        if (j > 0 || b <= start || right) break;
+        b -= TILED_STEP;
+        left = true;
+      } else {
+        if (left || b + TILED_STEP >= end) break;  // every record of the bucket is below the query
+        b += TILED_STEP;
+        right = true;
+      }
     }
   }
   __stcs(out + qi, taxon);
 }
 
-// the eight lanes of a 32-byte sector, 16-byte aligned
-__device__ __forceinline__ void sector8(const unsigned* p, unsigned (&v)[8]) {
-  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p)), b = __ldg(reinterpret_cast<const uint4*>(p) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+// On no path: each query inside the key space reads its router entries p
+// and p + 1 and, if the bucket is not empty, the aligned 32-byte sector
+// that holds the first lane of its first record, folded into one int, so
+// that the loads cannot be dropped.
+template <bool WIDE>
+__global__ void __launch_bounds__(THREADS)
+tiled_floor_kernel(const int* __restrict__ router, unsigned long long buckets, int shift,
+                   const unsigned* __restrict__ records, const long long* __restrict__ queries, long long nq,
+                   int* __restrict__ out) {
+  constexpr int LANES = WIDE ? 5 : 3;
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  unsigned long long hi, lo, p;
+  unsigned v = 0;
+  if (tiled_bucket<WIDE>(queries, qi, shift, buckets, hi, lo, p)) {
+    const int start = __ldg(router + p), end = __ldg(router + p + 1);
+    v = (unsigned)(start ^ end);
+    if (start < end) {
+      unsigned w[8];
+      sector8(records + ((long long)start * LANES & ~7ll), w);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v ^= w[i];
+    }
+  }
+  __stcs(out + qi, (int)v);
 }
 
 // The lane where the narrow row walk starts (lookup.row_guess): the
@@ -450,16 +555,34 @@ unsigned blocks_of(long long nq) { return (unsigned)((nq + THREADS - 1) / THREAD
 
 // router: int32 [buckets + 1] (buckets = 2^bits), the first record of each
 // prefix of the key >> shift; records: [rows * tile, 3 | 5] uint32 lanes in
-// key order (wide: the four limbs of the 128-bit key, then the taxon);
-// queries: int64 [nq] or, wide, [nq, 2] (hi64, lo64), 16-byte aligned; out:
-// int32 [nq]. Returns the cudaError_t of the launch (0 on success).
+// key order (wide: the four limbs of the 128-bit key, then the taxon),
+// 16-byte aligned, with at least two records of padding past the last key
+// (lookup.build_tiled keeps two rows); queries: int64 [nq] or, wide,
+// [nq, 2] (hi64, lo64), 16-byte aligned; out: int32 [nq]. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int stpu_probe_tiled(const void* router, long long buckets, int shift, const void* records, int wide,
                                 const void* queries, long long nq, void* out, void* stream) {
   if (nq <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(records) % 16) return (int)cudaErrorInvalidValue;
   const auto kernel = wide ? probe_tiled_kernel<true> : probe_tiled_kernel<false>;
   kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)router, (unsigned long long)buckets, shift, (const unsigned*)records, (const long long*)queries, nq,
-      (int*)out);
+      (const int*)router, (unsigned long long)buckets, shift, (const unsigned*)records, (const long long*)queries,
+      nq, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// The floor of the tiled probe (tiled_floor_kernel), on no path: the
+// arguments of stpu_probe_tiled; out: int32 [nq], router[p] ^ router[p + 1]
+// and the xor of the sector of a non-empty bucket's first record for each
+// query inside the key space, else 0.
+extern "C" int stpu_tiled_floor(const void* router, long long buckets, int shift, const void* records, int wide,
+                                const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(records) % 16) return (int)cudaErrorInvalidValue;
+  const auto kernel = wide ? tiled_floor_kernel<true> : tiled_floor_kernel<false>;
+  kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)router, (unsigned long long)buckets, shift, (const unsigned*)records, (const long long*)queries,
+      nq, (int*)out);
   return (int)cudaGetLastError();
 }
 

@@ -467,6 +467,20 @@ def build_tiled(keys: torch.Tensor, taxa: torch.Tensor, key_bits: int, tile: int
     return TiledTable(router, table.view(n_rows, tile, len(limbs) + 1), tile, bits, key_bits)
 
 
+def router_buckets(table, queries: torch.Tensor):
+    """(inside, p): whether each query lies inside the key space that the
+    router of a TiledTable or Bucketed cuts (narrow: non-negative, its
+    prefix below 2^bits), and its router bucket there (0 elsewhere)."""
+    shift = table.key_bits - table.bits
+    if queries.dim() == 2:
+        p, above = prefix_wide(queries, shift)
+        inside = (queries[:, 0] >= 0) & (above == 0) & (p >= 0) & (p < 1 << table.bits)
+    else:
+        p = queries >> shift
+        inside = (queries >= 0) & (p < 1 << table.bits)
+    return inside, torch.where(inside, p, 0)
+
+
 def lookup_taxa_tiled(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
     """The tiled lookup as the JAX package writes it (lookup_taxa_tiled,
     lookup_taxa_tiled_wide): the router entry of the query's prefix, the two
@@ -474,25 +488,31 @@ def lookup_taxa_tiled(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
     every limb, else 0. A query that is negative (an invalid window's -1) or
     beyond the key space misses unsearched. int32 [Q]; the twin of the
     probe_tiled kernels."""
-    router, rows, tile, bits, key_bits = table
-    shift = key_bits - bits
-    wide = queries.dim() == 2
+    router, rows, tile = table.router, table.table, table.tile
     out = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
     step = max(1, TWIN_LANES // (2 * rows.shape[1] * rows.shape[2]))  # queries a gather
     for a in range(0, queries.shape[0], step):
         q = queries[a:a + step]
-        if wide:
-            p, above = prefix_wide(q, shift)
-            inside = (q[:, 0] >= 0) & (above == 0) & (p >= 0) & (p < 1 << bits)
-        else:
-            p = q >> shift
-            inside = (q >= 0) & (p < 1 << bits)
-        row = router[torch.where(inside, p, 0)].long() // tile
+        inside, p = router_buckets(table, q)
+        row = router[p].long() // tile
         both = torch.cat([rows[row], rows[row + 1]], 1)  # [q, 2 * tile, 3 | 5]
         eq = torch.stack([both[:, :, i] == limb[:, None] for i, limb in enumerate(_limbs(q))]).all(0)
         taxon = torch.where(eq, both[:, :, -1], 0).amax(1)
         out[a:a + step] = torch.where(inside, taxon, 0)
     return out
+
+
+def router_sectors(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of the tiled probe's floor (cuda_kernels.tiled_floor_cuda,
+    a measurement on no path): for each query inside the key space,
+    router[p] ^ router[p + 1] and, if its bucket is not empty, the xor of
+    the 8 lanes of the aligned 32-byte sector that holds the first lane of
+    the bucket's first record; else 0. int32 [Q]."""
+    inside, p = router_buckets(table, queries)
+    start, end = table.router[p], table.router[p + 1]
+    filled = inside & (end > start)
+    sector = _xor8(table.table.reshape(-1), torch.where(filled, start.long() * table.table.shape[2] // 8 * 8, 0))
+    return torch.where(inside, start ^ end ^ torch.where(filled, sector, 0), 0)
 
 
 def xorshift64(x: torch.Tensor) -> torch.Tensor:

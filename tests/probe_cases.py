@@ -467,3 +467,119 @@ def rows_walk(table, queries, guess=None):
                 out[qi] = max(int(lanes[hi + 2 * tile + i].view(np.int32)), 0)
                 break
     return out
+
+
+#: the hand-made tiled tables of `tiled_walk_case`: (key_bits, wide)
+TILED_WALK_KINDS = {"62-bit keys": (62, False), "26-bit ranks": (26, False), "wide keys, l3 0": (90, True)}
+#: bucket sizes of `tiled_walk_case`, in router order from prefix 1: empty
+#: buckets among them, 1 to 9 records, and 17 (the tile + 1 at tile 16),
+#: so that buckets start at records 4j, 4j + 1, 4j + 2 and 4j + 3
+TILED_BUCKETS = (3, 0, 4, 5, 1, 8, 9, 0, 17, 2, 1, 1, 6, 7, 0, 3, 9, 4, 17, 5, 1, 0, 8, 2)
+
+
+def tiled_walk_case(rng, kind):
+    """(sorted unique uint64 keys [N] or [N, 2], int32 taxa, key_bits,
+    int64 queries [Q] or [Q, 2]) of a tiled table with a 12-bit router
+    (`TILED_WALK_KINDS`: 62-bit keys, 26-bit ranks, or wide (m = 45) keys,
+    whose l3 is 0 throughout): one key in bucket 0 (the first record), the
+    buckets of TILED_BUCKETS from prefix 1, then 1 to 5 keys in every 37th
+    prefix, and 4 keys in the top prefix, the last of them the largest key
+    of the space (the last bucket ends at N). The largest bucket is 17, so
+    build_tiled's tile is 16. The queries: every key and each key plus and
+    minus one, the first and last value of every designed bucket's range,
+    random values inside the space and of any sign (wide: random rows), and
+    -1 (wide: an all-ones row)."""
+    key_bits, wide = TILED_WALK_KINDS[kind]
+    shift = key_bits - 12
+    sizes = {0: 1, **{1 + i: n for i, n in enumerate(TILED_BUCKETS)}, 4095: 4}
+    for p in range(40, 4095, 37):
+        sizes[p] = int(rng.integers(1, 6))
+    keys = []
+    for p, n in sizes.items():
+        low = rng.choice(1 << min(shift, 40), n, replace=False).astype(object) << max(shift - 40, 0)
+        keys += [(p << shift) | int(x) for x in low]
+    keys[-1] = (1 << key_bits) - 1
+    keys = sorted(set(keys))
+    edges = [e for p in sizes for e in ((p << shift), ((p + 1) << shift) - 1)]
+    top = (1 << key_bits) - 1
+    values = keys + [min(k + 1, top) for k in keys] + [max(k - 1, 0) for k in keys] + edges
+    values += [int(x) for x in rng.integers(0, 1 << min(key_bits, 62), 500)]
+    taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+    if wide:
+        as_rows = lambda v: np.array([(x >> 64, x & MASK64) for x in v], np.uint64)  # noqa: E731
+        q = np.concatenate([as_rows(values), rng.integers(0, 1 << 64, (300, 2), dtype=np.uint64),
+                            np.full((2, 2), MASK64, np.uint64)])
+        return as_rows(keys), taxa, key_bits, q.view(np.int64)
+    q = np.concatenate([np.array(values, np.uint64).view(np.int64),
+                        rng.integers(-(1 << 63), (1 << 63) - 1, 500, dtype=np.int64), [-1]])
+    return np.array(keys, np.uint64), taxa, key_bits, q
+
+
+def _as_int(row):
+    """A key or query as a non-negative Python int: uint64, or (hi64, lo64)."""
+    row = np.asarray(row).view(np.uint64)
+    return int(row) if row.ndim == 0 else (int(row[0]) << 64) | int(row[1])
+
+
+def tiled_guess(query, shift, length):
+    """The offset into its bucket of `length` records where the tiled
+    probe's walk starts (probe_tiled_kernel): the query's place in its
+    bucket's range, the top 32 bits of its low `shift` bits over 2^32, times
+    the length, rounded down."""
+    low = query & ((1 << shift) - 1)
+    place = low << (32 - shift) if shift <= 32 else low >> (shift - 32)
+    return place * length >> 32
+
+
+#: records a step of probe_tiled_kernel
+TILED_STEP = 2
+
+
+def tiled_walk(table, queries, start=None):
+    """probe_tiled_kernel (kernels/probe_tables.cu) query by query in numpy:
+    a query beyond the key space, or whose router bucket [s, e) is empty,
+    answers 0 unread; else the walk reads TILED_STEP records a step from
+    record s + start (`start`: an int or int64 [Q] offset into the bucket,
+    at most e - s - 1; by default the kernel's, `tiled_guess`) rounded down
+    to a multiple of TILED_STEP,
+    comparing the records of the step that lie in the bucket (those past it
+    count as above the query, those before it as below); the first record
+    not below the query answers its taxon if equal, else the walk ends on a
+    miss, unless it is the step's first record and the bucket holds earlier
+    records not known below (a start past the query): then the walk steps
+    left; a step whose records are all below the query passes to the right,
+    until the bucket ends. int32 [Q]."""
+    lanes = table.table.numpy().view(np.uint32)
+    n_lanes = lanes.shape[2]
+    lanes = lanes.reshape(-1, n_lanes)
+    router = table.router.numpy()
+    inside, p = (x.numpy() for x in lookup.router_buckets(table, torch.from_numpy(queries)))
+    offset = None if start is None else np.broadcast_to(np.asarray(start), len(queries))
+    shift = table.key_bits - table.bits
+    out = np.zeros(len(queries), np.int32)
+    limbs = lanes[:, :-1].astype(np.uint64)
+    words = (limbs[:, 0::2] << np.uint64(32)) | limbs[:, 1::2]  # [rows, 1 | 2]: the key as uint64 words
+    key = [_as_int(w if len(w) == 2 else w[0]) for w in words].__getitem__
+    for qi in np.flatnonzero(inside):
+        s, e = int(router[p[qi]]), int(router[p[qi] + 1])
+        if s >= e:
+            continue
+        q = _as_int(queries[qi])
+        b = (s + (tiled_guess(q, shift, e - s) if offset is None else min(int(offset[qi]), e - s - 1))) & -TILED_STEP
+        right = left = False
+        while True:
+            r0, r1 = max(s - b, 0), min(e - b, TILED_STEP)
+            ge = [r >= r1 or (r >= r0 and key(b + r) >= q) for r in range(TILED_STEP)]
+            if any(ge):
+                j = ge.index(True)
+                if j < r1 and key(b + j) == q:
+                    out[qi] = lanes[b + j, -1].view(np.int32)
+                    break
+                if j > 0 or b <= s or right:
+                    break
+                b, left = b - TILED_STEP, True
+            else:
+                if left or b + TILED_STEP >= e:
+                    break
+                b, right = b + TILED_STEP, True
+    return out

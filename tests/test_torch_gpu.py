@@ -603,6 +603,62 @@ def test_rows_floor_kernel_reads_the_guessed_sector(cuda, kind):
         cuda_kernels.rows_floor_cuda(wide, torch.from_numpy(wide_keys.view(np.int64)).to(cuda))
 
 
+@pytest.mark.parametrize("kind", list(probe_cases.TILED_WALK_KINDS))
+def test_tiled_probe_kernel_on_walk_cases(cuda, kind):
+    """probe_tiled(_wide) on the hand-made tables of
+    probe_cases.tiled_walk_case (buckets of 0 to 9 records and of the tile +
+    1, starting at every record modulo 4, the first at record 0, the last
+    ending at the last key; 62-bit keys, 26-bit ranks, wide keys whose l3
+    is 0): one launch, equal to the twin and lookup_taxa; then on runs of
+    equal queries with invalid windows between, over every slice of
+    probe_cases.stream_slices."""
+    rng = np.random.default_rng(len(kind))
+    keys, taxa, key_bits, q = probe_cases.tiled_walk_case(rng, kind)
+    card = _assert_table_probe(cuda, "tiled", keys, taxa, key_bits, q)
+    host = lookup.build_tiled(torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), key_bits)
+    stream = np.concatenate([q, probe_cases.query_runs(rng, q, 3000)])
+    _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_tiled_wide" if keys.ndim == 2 else "probe_tiled")
+
+
+@pytest.mark.parametrize("kind", [*probe_cases.TILED_WALK_KINDS, "wide"])
+def test_tiled_floor_kernel_reads_the_first_sector(cuda, kind):
+    """The tiled probe's floor (a measurement on no path) equals its plain
+    version, lookup.router_sectors, narrow and wide, and launches no counted
+    kernel."""
+    rng = np.random.default_rng(len(kind) + 3)
+    if kind == "wide":
+        keys, taxa, key_bits = probe_cases.table_keys(rng, kind)
+        q = probe_cases.queries_of(rng, keys, 45).view(np.int64)
+    else:
+        keys, taxa, key_bits, q = probe_cases.tiled_walk_case(rng, kind)
+    table = lookup.build_tiled(torch.from_numpy(keys.view(np.int64)).to(cuda), torch.from_numpy(taxa).to(cuda),
+                               key_bits)
+    q = torch.from_numpy(q).to(cuda)
+    before = dict(cuda_kernels.LAUNCHES)
+    got = cuda_kernels.tiled_floor_cuda(table, q)
+    assert _launched(before) == {}
+    want = lookup.router_sectors(table, q)
+    assert torch.equal(got, want) and int((want != 0).sum()) > q.shape[0] // 2
+
+
+def test_tiled_probe_refuses_records_off_16_bytes(cuda):
+    """The tiled probe and its floor read records 16 bytes at a time: a
+    table whose records start 4 bytes past a 16-byte boundary raises
+    ValueError, and so does one whose router does not fit."""
+    keys, taxa, key_bits = probe_cases.table_keys(np.random.default_rng(2), "narrow")
+    k = torch.from_numpy(keys.view(np.int64)).to(cuda)
+    table = lookup.build_tiled(k, torch.from_numpy(taxa).to(cuda), key_bits)
+    shifted = torch.empty(table.table.numel() + 4, dtype=torch.int32, device=cuda)[1:1 + table.table.numel()]
+    shifted = shifted.view_as(table.table).copy_(table.table)
+    assert shifted.data_ptr() % 16 == 4
+    for fn in (cuda_kernels.lookup_taxa_tiled_cuda, cuda_kernels.tiled_floor_cuda):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(table._replace(table=shifted), k)
+        with pytest.raises(ValueError, match="does not fit"):
+            fn(table._replace(bits=table.bits + 1), k)
+    assert torch.equal(cuda_kernels.lookup_taxa_tiled_cuda(table, k).cpu(), torch.from_numpy(taxa))
+
+
 def test_table_probe_kernels_refuse_what_they_do_not_take(cuda):
     keys = torch.arange(0, 1 << 40, 1 << 30, device=cuda)
     taxa = torch.ones(keys.shape[0], dtype=torch.int32, device=cuda)
