@@ -21,9 +21,9 @@ launch counts set to 0 just before it and read just after:
     and classify with each probe in both modes, over Mesh([cuda] * 8) with
     tiled and hashed, classify2 --probe hashed1 and one NCCL rank with
     --probe hashed1 and hashed, every file equal to the routed run's; after
-    the scale phase the tiled, hashed1, hashed and hashed128 tables of the
-    400 Mbp index, its reads classified with each probe and those kernels
-    timed there (`phase_probes_scale`);
+    the scale phase the tiled, hashed1, hashed and hashed128 tables and the
+    bucketed arrays of the 400 Mbp index, its reads classified with each
+    probe and those kernels timed there (`phase_probes_scale`);
   * per-read mode: the same reads with per-read output, card against CPU,
     lines and kreports byte-identical after decompression, kreports equal
     to reports mode's;
@@ -1106,13 +1106,17 @@ def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
     8 hi' lanes a non-negative query from its guessed lane; a tiled table,
     narrow or wide, that of cuda_kernels.tiled_floor_cuda (held to
     lookup.router_sectors first), a query's router entries and then the
-    sector of its bucket's first record. A floor is neither a library call
+    sector of its bucket's first record; bucketed arrays that of
+    cuda_kernels.bucketed_floor_cuda (held to lookup.bucket_sectors first),
+    a query's router entries and then the sector of keys at its guessed
+    key. A floor is neither a library call
     nor a yardstick of the same function; `with_floor` False leaves it out
     (a tree older than its kernel). The bound counts what these queries
     need: each query and its answer, and once for each distinct query
     inside the key space: tiled, its two router entries and one record if
-    its bucket is not empty; bucketed, as the directory probe, a router
-    entry and a key, and a taxon if it hits; hashed1, once for
+    its bucket is not empty; bucketed, its two router entries if its
+    bucket is empty, else a router entry and a key, and a taxon if it hits;
+    hashed1, once for
     each distinct query that the kernel walks (narrow, a non-negative one;
     wide, one whose l3 is not all ones), one 32-byte sector of the row's
     first key block and, on a hit, one sector of each other key block and of
@@ -1157,21 +1161,25 @@ def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
         if not torch.equal(cuda_kernels.tiled_floor_cuda(table, queries), lookup.router_sectors(table, queries)):
             fail(f"the tiled floor kernel differs from lookup.router_sectors on {label}")
         floor = device_ms(lambda: cuda_kernels.tiled_floor_cuda(table, queries))
+    if with_floor and isinstance(table, lookup.Bucketed):
+        if not torch.equal(cuda_kernels.bucketed_floor_cuda(table, queries), lookup.bucket_sectors(table, queries)):
+            fail(f"the bucketed floor kernel differs from lookup.bucket_sectors on {label}")
+        floor = device_ms(lambda: cuda_kernels.bucketed_floor_cuda(table, queries))
     if with_floor and isinstance(table, lookup.HashedRows) and not wide:
         if not torch.equal(cuda_kernels.rows_floor_cuda(table, queries), lookup.guess_sectors(table, queries)):
             fail(f"the row probe's floor kernel differs from lookup.guess_sectors on {label}")
         floor = device_ms(lambda: cuda_kernels.rows_floor_cuda(table, queries))
-    at = {lookup.HashedRows: "at its guessed lane", lookup.TiledTable: "after its router entries"}.get(
-        type(table), "at its home slot")  # of the floor's sector
+    at = {lookup.HashedRows: "at its guessed lane", lookup.TiledTable: "after its router entries",
+          lookup.Bucketed: "at its guessed key after its router entries"}.get(type(table), "at its home slot")
     nq, hits, q_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
     if routered:  # each distinct query inside the key space, once
         seen = torch.unique(queries[router_bucket(table, queries)[0]], dim=0)
-        if isinstance(table, lookup.Bucketed):
+        p = router_bucket(table, seen)[1]
+        filled = int((table.router[p + 1] > table.router[p]).sum())
+        if isinstance(table, lookup.Bucketed):  # empty: two router entries; else one and a key, a taxon on a hit
             found = int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
-            need = (q_bytes + 4) * nq + 12 * seen.shape[0] + 4 * found
+            need = (q_bytes + 4) * nq + 8 * (seen.shape[0] - filled) + 12 * filled + 4 * found
         else:
-            p = router_bucket(table, seen)[1]
-            filled = int((table.router[p + 1] > table.router[p]).sum())
             need = (q_bytes + 4) * nq + 8 * seen.shape[0] + table.table.shape[2] * 4 * filled
     elif isinstance(table, lookup.HashedTable):  # the slot of each distinct non-negative query, once
         seen = torch.unique(queries[queries >= 0])
@@ -3634,7 +3642,7 @@ def main():
                "probe_rows_wide": (tables_cu, "slacken_tpu/ops/lookup.py:891"),
                "probe_hashed": (tables_cu, "slacken_tpu/ops/lookup.py:478"),
                "probe_hashed_cols": (tables_cu, "slacken_tpu/ops/lookup.py:566"),
-               "probe_bucketed": (probe_cu, "slacken_tpu/ops/lookup.py:269"),
+               "probe_bucketed": (tables_cu, "slacken_tpu/ops/lookup.py:269"),
                **{name: (idioms[0], idioms[1] + str(line)) for name, line in
                   zip(cuda_kernels.MASK_IDIOMS, (1023, 1027, 1030, 1036, 1047))}}
     log(json.dumps({"kernels": [

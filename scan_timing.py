@@ -23,22 +23,27 @@ against `lookup_taxa` first; it prints the device memory of the scale
 index's probe arrays, the peak while they are made, and the build's peak. A tree whose lookup has
 no `build_slots` probes its keys, taxa and directory, as before the slot
 table. `--cases tables` times probe_rows, probe_hashed, probe_hashed_cols,
-probe_tiled, their wide instances and probe_bucketed (the directory kernel
-over the bucketed router) through chip_smoke.time_table_probe
+probe_tiled, their wide instances and probe_bucketed through
+chip_smoke.time_table_probe
 (each held to its twin and lookup_taxa first; the bound and the
 index_select yardstick as there) at chip_smoke.py's shapes: one 4 Mbp
 batch's dense minimizers and 4,194,304 random queries, into the bench
 index's row-bucket, hashed and tiled tables and bucketed arrays and the
 wide (50, 45, 7) bench index's row-bucket and tiled tables, then into the
 400 Mbp scale library's narrow tables of the same five kinds and its wide
-row-bucket and tiled tables; `--tables` keeps some of the kinds (hashed1,
-hashed, hashed128, tiled, bucketed). Beside both hashed probes the floor (`floor_device_ms`:
+row-bucket and tiled tables; beside them the directory probe of `routed`
+(the narrow indexes' keys, taxa and directory; its time alone, held to
+lookup_taxa first); `--tables` keeps some of the kinds (hashed1, hashed,
+hashed128, tiled, bucketed, routed), and builds no wide index without
+hashed1 or tiled. Beside both hashed probes the floor (`floor_device_ms`:
 one sector a query at its home slot, where the tree has
 cuda_kernels.hashed_floor_cuda), beside the narrow row probe its own (one
 sector a query from its guessed lane, where the tree has
-cuda_kernels.rows_floor_cuda), and beside both tiled probes theirs (the
+cuda_kernels.rows_floor_cuda), beside both tiled probes theirs (the
 router entries, then the sector of the bucket's first record, where the
-tree has cuda_kernels.tiled_floor_cuda). Run parent, change, change, parent
+tree has cuda_kernels.tiled_floor_cuda) and beside the bucketed probe its
+own (the router entries, then the sector of keys at the guessed key, where
+the tree has cuda_kernels.bucketed_floor_cuda). Run parent, change, change, parent
 in one command to compare two trees.
 """
 
@@ -58,8 +63,8 @@ import chip_smoke
 #: warps: 2,048 rows in two segments each, stitched in the launch
 BUILD_SEGMENTED = (2048, 4096)
 
-#: the probe tables that `--cases tables` times
-TABLE_CASES = ("hashed1", "hashed", "hashed128", "tiled", "bucketed")
+#: the probe tables that `--cases tables` times; "routed": the directory probe
+TABLE_CASES = ("hashed1", "hashed", "hashed128", "tiled", "bucketed", "routed")
 
 #: (label, (k, m, s), rank-table m or None, shapes)
 CASES = [
@@ -132,20 +137,27 @@ def time_tables(name, dev, only=TABLE_CASES):
     from slacken_tpu_torch import workloads
     from slacken_tpu_torch.classify import Classifier
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
-    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.ops import cuda_kernels, lookup
 
-    floors = {"hashed1": "rows_floor_cuda", "tiled": "tiled_floor_cuda"}
+    floors = {"hashed1": "rows_floor_cuda", "tiled": "tiled_floor_cuda", "bucketed": "bucketed_floor_cuda"}
 
     def timed(label, index, probes, shapes):
         for probe in probes:
             if probe not in only:
                 continue
-            table = index.device_arrays(dev, probe)[2]
+            arrays = index.device_arrays(dev, probe)
             for what, queries in shapes:
+                if probe == "routed":  # the directory probe: its time alone, held to lookup_taxa first
+                    run = lambda: lookup.probe(*arrays, queries)  # noqa: E731
+                    if not torch.equal(run(), lookup.lookup_taxa(index.keys_t, index.taxa_t, queries)):
+                        raise SystemExit(f"scan_timing: the directory probe differs from lookup_taxa on {label}")
+                    print(f"[{name}] probe {label}, {what}: back to back {chip_smoke.cuda_ms(run):.4f} ms; alone "
+                          f"{chip_smoke.fmt_ms(chip_smoke.device_ms(run))}", flush=True)
+                    continue
                 kernel = chip_smoke.TABLE_PROBES[probe, queries.dim() == 2]
                 with_floor = hasattr(cuda_kernels, floors.get(probe, "hashed_floor_cuda"))
-                r = chip_smoke.time_table_probe(f"{label}, {what}", table, index.keys_t, index.taxa_t, queries, kernel,
-                                                with_floor=with_floor)
+                r = chip_smoke.time_table_probe(f"{label}, {what}", arrays[2], index.keys_t, index.taxa_t, queries,
+                                                kernel, with_floor=with_floor)
                 yardstick = (f"; index_select {chip_smoke.fmt_ms(r['yardstick_device_ms'])}"
                              if "yardstick_device_ms" in r else "")
                 if "floor_device_ms" in r:
@@ -154,16 +166,19 @@ def time_tables(name, dev, only=TABLE_CASES):
                       f"{chip_smoke.fmt_ms(r['device_ms'])}; bound {r['bound_ms']:.4f} ms{yardstick}", flush=True)
 
     narrow, wide = IndexParams(k=35, m=31, spaces=7), IndexParams(k=50, m=45, spaces=7)
+    wide_probes = ("hashed1", "tiled")
     tax, reads = workloads.bench_taxonomy(), workloads.bench_reads()
     library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
     idx = KeyValueIndex.build(library(), narrow, tax, dev)
     timed("bench index", idx, TABLE_CASES, (
         ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1)),
         ("random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.BENCH_RECORDS))))
-    idx = KeyValueIndex.build(library(), wide, tax, dev)
-    timed("wide bench index (50, 45, 7)", idx, ("hashed1", "tiled"), (
-        ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1)),
-        ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.BENCH_RECORDS))))
+    if set(wide_probes) & set(only):
+        idx = KeyValueIndex.build(library(), wide, tax, dev)
+        timed("wide bench index (50, 45, 7)", idx, wide_probes, (
+            ("one batch's dense minimizers",
+             chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1)),
+            ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.BENCH_RECORDS))))
     del idx
     genomes = list(workloads.scale_library(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA))
     tax = workloads.scale_taxonomy(chip_smoke.SCALE_TAXA)
@@ -175,13 +190,14 @@ def time_tables(name, dev, only=TABLE_CASES):
         ("one batch's dense minimizers", chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.reshape(-1))))
     del idx
     torch.cuda.empty_cache()
-    idx = KeyValueIndex.build(iter(genomes), wide, tax, dev)
-    timed("wide scale index", idx, ("hashed1", "tiled"), (
-        ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.SCALE_RECORDS)),
-        ("one batch's dense minimizers",
-         chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1))))
-    del idx
-    torch.cuda.empty_cache()
+    if set(wide_probes) & set(only):
+        idx = KeyValueIndex.build(iter(genomes), wide, tax, dev)
+        timed("wide scale index", idx, wide_probes, (
+            ("random queries", chip_smoke.random_wide_queries(dev, idx.keys_t, 1 << 22, chip_smoke.SCALE_RECORDS)),
+            ("one batch's dense minimizers",
+             chip_smoke.batch_queries(Classifier(idx, dev), reads)[2].minimizer.flatten(0, 1))))
+        del idx
+        torch.cuda.empty_cache()
 
 
 #: keys a bucket of the slot tables timed beside the default's

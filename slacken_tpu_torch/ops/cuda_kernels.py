@@ -37,8 +37,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "
 MASK_IDIOMS = ("select", "astype", "concat", "carry", "sum_bool")
 
 #: the probes of the tiled and row-bucket tables (kernels/probe_tables.cu),
-#: narrow and wide; of the hashed table in its two layouts (the same file);
-#: and of the bucketed arrays (the directory kernel, kernels/probe.cu)
+#: narrow and wide; of the hashed table in its two layouts and of the
+#: bucketed arrays (the same file)
 TABLE_PROBES = ("probe_tiled", "probe_tiled_wide", "probe_rows", "probe_rows_wide", "probe_hashed",
                 "probe_hashed_cols", "probe_bucketed")
 
@@ -141,13 +141,15 @@ def _load():
     lib.stpu_probe_wide.argtypes = [p, p, p, i64, i32, i32, p, i64, p, p]
     lib.stpu_probe_tiled.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
     lib.stpu_tiled_floor.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
+    lib.stpu_probe_bucketed.argtypes = [p, i64, i32, p, p, p, i64, p, p]
+    lib.stpu_bucketed_floor.argtypes = [p, i64, i32, p, p, i64, p, p]
     lib.stpu_probe_rows.argtypes = [p, i32, i32, ctypes.c_uint, i32, p, i64, p, p]
     lib.stpu_rows_floor.argtypes = [p, i32, i32, ctypes.c_uint, p, i64, p, p]
     lib.stpu_probe_hashed.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     lib.stpu_hashed_floor.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide, lib.stpu_probe_tiled,
-               lib.stpu_tiled_floor, lib.stpu_probe_rows, lib.stpu_rows_floor, lib.stpu_probe_hashed,
-               lib.stpu_hashed_floor):
+               lib.stpu_tiled_floor, lib.stpu_probe_bucketed, lib.stpu_bucketed_floor, lib.stpu_probe_rows,
+               lib.stpu_rows_floor, lib.stpu_probe_hashed, lib.stpu_hashed_floor):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -313,29 +315,6 @@ def lookup_taxa_directory_cuda(
     its slot table (`lookup_taxa_slots_cuda`)."""
     if keys.dim() == 2 and keys.device.type == "cuda":
         raise ValueError("a wide probe on the card reads the index's slot table (lookup.build_slots), not its keys")
-    return _probe_directory(keys, taxa, directory, queries, "probe")
-
-
-def lookup_taxa_bucketed_cuda(table: Bucketed, queries: torch.Tensor) -> torch.Tensor:
-    """Exact-match probe of the bucketed arrays (`--probe bucketed`): the
-    directory kernel (kernels/probe.cu) over the router as the directory of
-    the unpadded keys, counted as "probe_bucketed". The router is a
-    directory (entry p: the first key whose top `bits` of `key_bits` are >=
-    p; the keys sorted, non-negative and below 2^key_bits, so its last
-    entry is N), and the kernel's walk from it needs no bucket end, so the
-    answer is lookup_taxa_bucketed's (the twin). int32 [Q], 0 on a miss."""
-    router, keys, taxa, maxb, bits, key_bits = table
-    n = table.n
-    if maxb < 1 or n < 0 or taxa.shape != keys.shape or not 0 <= key_bits - bits <= 63:
-        raise ValueError(f"bucketed arrays of {keys.shape[0]} keys and {taxa.shape[0]} taxa do not fit maxb {maxb}, "
-                         f"{bits} bits of {key_bits}")
-    if router.shape[0] != (1 << bits) + 1:
-        raise ValueError(f"a router of {router.shape[0]} entries does not fit {bits} bits")
-    return _probe_directory(keys[:n], taxa[:n], Directory(router, key_bits - bits), queries, "probe_bucketed")
-
-
-def _probe_directory(keys, taxa, directory: Directory, queries: torch.Tensor, name: str) -> torch.Tensor:
-    """The directory kernel's checks and launch, counted under `name`."""
     starts, shift = directory
     _require(keys, "keys", torch.int64, 1)
     _require(taxa, "taxa", torch.int32, 1)
@@ -358,8 +337,8 @@ def _probe_directory(keys, taxa, directory: Directory, queries: torch.Tensor, na
         queries, _load().stpu_probe, keys.data_ptr(), taxa.data_ptr(), n, starts.data_ptr(), buckets, shift,
         queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
     )
-    _check(rc, name)
-    LAUNCHES[name] += 1
+    _check(rc, "probe")
+    LAUNCHES["probe"] += 1
     return out
 
 
@@ -464,6 +443,62 @@ def tiled_floor_cuda(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
     and one dependent sector a query. Not counted in LAUNCHES. Plain
     version: lookup.router_sectors."""
     return _launch_tiled(_load().stpu_tiled_floor, table, queries, _tiled_table(table, queries), "tiled_floor")
+
+
+def _bucketed_table(table: Bucketed, queries: torch.Tensor) -> None:
+    """Check bucketed arrays and their queries. The keys are 16-byte
+    aligned: the probe and its floor read two keys a load."""
+    router, keys, taxa, maxb, bits, key_bits = table
+    _require(router, "router", torch.int32, 1)
+    _require(keys, "keys", torch.int64, 1)
+    _require(taxa, "taxa", torch.int32, 1)
+    if maxb < 1 or table.n < 0 or taxa.shape != keys.shape or not 0 <= key_bits - bits <= 63:
+        raise ValueError(f"bucketed arrays of {keys.shape[0]} keys and {taxa.shape[0]} taxa do not fit maxb {maxb}, "
+                         f"{bits} bits of {key_bits}")
+    if router.shape[0] != (1 << bits) + 1 or len({router.device, keys.device, taxa.device}) != 1:
+        raise ValueError(f"a router of {router.shape[0]} entries on {router.device} does not fit {bits} bits and "
+                         f"keys on {keys.device}")
+    if keys.data_ptr() % 16:
+        raise ValueError("bucketed keys must be 16-byte aligned (the probe loads 16 bytes at a time)")
+    _table_queries(queries, False, keys)
+
+
+def lookup_taxa_bucketed_cuda(table: Bucketed, queries: torch.Tensor) -> torch.Tensor:
+    """Exact-match probe of the bucketed arrays (`--probe bucketed`;
+    kernels/probe_tables.cu, probe_bucketed_kernel): int32 taxon per int64
+    [Q] query, 0 on a miss. Reads the router entries of the query's prefix
+    (an empty bucket reads no key), then the bucket's keys 4 a step (an
+    aligned 32-byte sector) from the key that the query's place in the
+    bucket's range guesses, and the taxon of an equal key. Twin:
+    lookup.lookup_taxa_bucketed."""
+    _bucketed_table(table, queries)
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    if table.n == 0 or queries.shape[0] == 0:  # an empty index, or nothing to launch
+        return out.zero_()
+    rc = _launch(queries, _load().stpu_probe_bucketed, table.router.data_ptr(), 1 << table.bits,
+                 table.key_bits - table.bits, table.keys.data_ptr(), table.taxa.data_ptr(), queries.data_ptr(),
+                 queries.shape[0], out.data_ptr(), _stream(queries))
+    _check(rc, "probe_bucketed")
+    LAUNCHES["probe_bucketed"] += 1
+    return out
+
+
+def bucketed_floor_cuda(table: Bucketed, queries: torch.Tensor) -> torch.Tensor:
+    """A measurement on no path (kernels/probe_tables.cu,
+    bucketed_floor_kernel): for each non-negative query inside the key
+    space, router[p] ^ router[p + 1] and, if its bucket is not empty, the
+    xor of the aligned 32-byte sector of keys that holds its guessed key
+    (the 16-byte halves that hold a key of the bucket); else 0. int32 [Q].
+    What the bucketed probe cannot beat: its router entries and one
+    dependent sector a query in a non-empty bucket. Not counted in
+    LAUNCHES. Plain version: lookup.bucket_sectors."""
+    _bucketed_table(table, queries)
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    rc = _launch(queries, _load().stpu_bucketed_floor, table.router.data_ptr(), 1 << table.bits,
+                 table.key_bits - table.bits, table.keys.data_ptr(), queries.data_ptr(), queries.shape[0],
+                 out.data_ptr(), _stream(queries))
+    _check(rc, "bucketed_floor")
+    return out
 
 
 def _rows_table(table: HashedRows, queries: torch.Tensor) -> bool:

@@ -1,4 +1,7 @@
-// Exact-match index probe through a prefix directory.
+// Exact-match index probe through a prefix directory (`--probe routed`).
+// The bucketed arrays of `--probe bucketed`, whose router is such a
+// directory, have a kernel of their own, probe_bucketed_kernel in
+// probe_tables.cu, which reads each bucket's end.
 //
 // Replaces the Pallas kernel `_probe_kernel` / `lookup_taxa_dma`
 // (slacken_tpu/ops/pallas_kernels.py:98,182), which finds the 128-key block

@@ -1,14 +1,13 @@
 // Exact-match probes of the JAX package's other probe tables, which
-// `--probe tiled`, `hashed1`, `hashed` and `hashed128` choose: the tiled
-// table (a prefix router over the records in key order), the row-bucket
-// table (a row a hash of the key) and the displacement-bounded hashed table
-// (a key parked near the slot that its hash names), the last in two
-// layouts. Each kernel returns the taxon of the key equal to the query, or
-// 0; the tables come from lookup.build_tiled, lookup.build_hashed_rows,
-// lookup.build_hashed and lookup.build_hashed_cols, lane for lane the JAX
-// builders' layouts. (`--probe bucketed` runs the directory kernel of
-// probe.cu over its router: the same function as the JAX package's
-// lookup_taxa_bucketed, slacken_tpu/ops/lookup.py:269.)
+// `--probe tiled`, `hashed1`, `hashed`, `hashed128` and `bucketed` choose:
+// the tiled table (a prefix router over the records in key order), the
+// row-bucket table (a row a hash of the key), the displacement-bounded
+// hashed table (a key parked near the slot that its hash names), the last
+// in two layouts, and the bucketed arrays (a prefix router over the sorted
+// keys and, apart, their taxa). Each kernel returns the taxon of the key
+// equal to the query, or 0; the tables come from lookup.build_tiled,
+// lookup.build_hashed_rows, lookup.build_hashed, lookup.build_hashed_cols
+// and lookup.build_bucketed, lane for lane the JAX builders' layouts.
 //
 // Replaces XLA code of the JAX package, not a Pallas kernel:
 //   probe_tiled       lookup_taxa_tiled            slacken_tpu/ops/lookup.py:333
@@ -17,8 +16,9 @@
 //   probe_rows_wide   lookup_taxa_hashed_rows_wide slacken_tpu/ops/lookup.py:891
 //   probe_hashed      lookup_taxa_hashed           slacken_tpu/ops/lookup.py:478
 //   probe_hashed_cols lookup_taxa_hashed_cols      slacken_tpu/ops/lookup.py:566
-// Their twins are lookup.lookup_taxa_tiled, lookup.lookup_taxa_hashed_rows
-// and lookup.lookup_taxa_hashed(_cols).
+//   probe_bucketed    lookup_taxa_bucketed         slacken_tpu/ops/lookup.py:269
+// Their twins are lookup.lookup_taxa_tiled, lookup.lookup_taxa_hashed_rows,
+// lookup.lookup_taxa_hashed(_cols) and lookup.lookup_taxa_bucketed.
 //
 // Design. The JAX lookups gather whole rows per query ([Q, 2 * tile, 3|5]
 // and [Q, 3|5 * tile] lanes) because a TPU gathers at a rate of rows, not of
@@ -51,6 +51,30 @@
 //     slower; one compare a record for "below", with the lanes of the first
 //     record not below selected after it, costs fewer instructions than an
 //     "equal" compare a record as well.
+//   * bucketed: the tiled probe's walk over 8-byte keys, their taxa apart.
+//     One thread a query reads the router entries p and p + 1 (an empty
+//     bucket, 73% of them at bench size, answers 0 with no key read), then
+//     the aligned 32-byte sector of keys that holds the key the query's
+//     place in its bucket's range guesses, 4 keys as two 16-byte loads, only
+//     those that hold a key of the bucket, issued together; a sector left
+//     or right until one holds the first key not below the query, as the
+//     tiled walk steps; an equal key reads its taxon (a third dependent
+//     trip, 4 bytes). Keys past the bucket count as not below the query
+//     (later buckets, or the maxb all-ones padding keys, which are -1 as
+//     int64 and so never compared), keys before it as below; no load leaves
+//     the bucket, so none leaves the padded arrays. The JAX lookup compares
+//     the query with the maxb keys from router[p], which cover the bucket,
+//     and a key of another bucket never equals it: the same answer,
+//     max(taxon, 0) as its reduction gives. It replaces the directory
+//     kernel of probe.cu run over the router, which read no bucket end: a
+//     key sector to learn that a bucket is empty, a walk from the bucket's
+//     first key 4 keys a step (1-3 dependent trips at 7.8 keys a bucket).
+//     On an H100 (PERF.md) 2 keys a step (one 16-byte load), the guessed
+//     sector's taxa read with its keys (a hit in two trips, at the cost of a
+//     taxa sector for every query in a non-empty bucket) and the walk from
+//     the bucket's first key were slower; the kernel is 1.4-1.6x its floor,
+//     the difference being a hit's taxon sector, which the JAX layout keeps
+//     apart from the keys.
 //   * rows, narrow: the row of the scrambled query s holds its keys sorted
 //     by scrambled value, the free all-ones lanes last, and their scrambles
 //     are spread evenly over the row's range, so the first lane not below
@@ -138,17 +162,18 @@
 //     trip) cost 1.7x at scale, and reading the block's 8 lo' and 8 taxon
 //     lanes behind an equal hi' (48 registers) 1.5x on the bench batch
 //     (PERF.md).
-// `hashed_floor_kernel`, `rows_floor_kernel` and `tiled_floor_kernel` are
-// on no path: a measurement of what the hashed probes, the narrow row probe
-// and the tiled probes cannot beat, each query's one aligned 32-byte sector
-// at its home slot (of the hi' block, or of the row-major slots), of its
-// row's hi' lanes at its guessed lane, or after its router entries of its
-// bucket's first record, read and folded into one int.
+// `hashed_floor_kernel`, `rows_floor_kernel`, `tiled_floor_kernel` and
+// `bucketed_floor_kernel` are on no path: a measurement of what the hashed
+// probes, the narrow row probe, the tiled probes and the bucketed probe
+// cannot beat, each query's one aligned 32-byte sector at its home slot (of
+// the hi' block, or of the row-major slots), of its row's hi' lanes at its
+// guessed lane, or after its router entries of its bucket's first record or
+// (bucketed) of the keys at its guessed key, read and folded into one int.
 // An invalid window's -1 (narrow) has a prefix beyond every router bucket
-// and misses without a load; its scramble matches no key, and the hashed
-// and row probes skip every negative query (no key is negative). Wide, its
-// l3 is all ones: the tiled probe finds it beyond the buckets, the row
-// probe answers it 0 without a load.
+// and misses without a load; its scramble matches no key, and the hashed,
+// row and bucketed probes skip every negative query (no key is negative).
+// Wide, its l3 is all ones: the tiled probe finds it beyond the buckets, the
+// row probe answers it 0 without a load.
 //
 // Bound: as for the directory probe, the rate at which scattered 32-byte
 // sectors come from the L2 or device memory, not the bytes streamed.
@@ -307,6 +332,113 @@ tiled_floor_kernel(const int* __restrict__ router, unsigned long long buckets, i
       sector8(records + ((long long)start * LANES & ~7ll), w);
 #pragma unroll
       for (int i = 0; i < 8; ++i) v ^= w[i];
+    }
+  }
+  __stcs(out + qi, (int)v);
+}
+
+// keys a step of the bucketed probe, and of its floor: an aligned 32-byte
+// sector
+constexpr int BUCKETED_STEP = 4;
+
+// The bucket [start, end) of a non-negative query x inside the key space
+// of a bucketed router that cuts it at `shift` (its entries p and p + 1,
+// usually one sector), and the key of the bucket that x's place in the
+// bucket's range guesses, as the tiled probe guesses a record; false for
+// any other query.
+__device__ __forceinline__ bool bucketed_bucket(const int* __restrict__ router, unsigned long long buckets, int shift,
+                                                const long long* __restrict__ queries, long long qi,
+                                                unsigned long long& x, int& start, int& end, int& guess) {
+  unsigned long long hi, p;
+  if (!tiled_bucket<false>(queries, qi, shift, buckets, hi, x, p) || (long long)x < 0) return false;
+  start = __ldg(router + p);
+  end = __ldg(router + p + 1);
+  guess = start + (int)(((unsigned long long)bucket_place(0, x, shift) * (unsigned)(end - start)) >> 32);
+  return true;
+}
+
+// Keys [b, b + N) of the sorted keys (b a multiple of N), two a 16-byte
+// load, only the loads that hold a key of [start, end) issued, before any
+// compare; the others read as 0.
+template <int N>
+__device__ __forceinline__ void bucket_keys(const long long* __restrict__ keys, int b, int start, int end,
+                                            unsigned long long (&k)[N]) {
+#pragma unroll
+  for (int h = 0; h < N; h += 2) {
+    const bool held = b + h + 2 > start && b + h < end;
+    const longlong2 x = held ? __ldg(reinterpret_cast<const longlong2*>(keys + b + h)) : make_longlong2(0, 0);
+    k[h] = (unsigned long long)x.x, k[h + 1] = (unsigned long long)x.y;
+  }
+}
+
+// The sorted keys and their taxa of a bucketed table, apart, and its
+// router (see the header)
+__global__ void __launch_bounds__(THREADS)
+probe_bucketed_kernel(const int* __restrict__ router, unsigned long long buckets, int shift,
+                      const long long* __restrict__ keys, const int* __restrict__ taxa,
+                      const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  unsigned long long x;
+  int start, end, b, taxon = 0;
+  if (bucketed_bucket(router, buckets, shift, queries, qi, x, start, end, b)) {
+    b &= -BUCKETED_STEP;
+    // an empty bucket reads no key; `right`: every key before b is below
+    // the query; `left`: the key at b + BUCKETED_STEP is not
+    for (bool right = false, left = false; start < end;) {
+      // keys [r0, r1) of the step lie in the bucket; those past it count as
+      // not below the query, those before it as below
+      const int r0 = max(start - b, 0), r1 = min(end - b, BUCKETED_STEP);
+      unsigned long long k[BUCKETED_STEP];
+      bucket_keys(keys, b, start, end, k);
+      unsigned below = 0, equal = 0;
+#pragma unroll
+      for (int r = 0; r < BUCKETED_STEP; ++r) {
+        below |= (unsigned)(k[r] < x) << r;
+        equal |= (unsigned)(k[r] == x) << r;
+      }
+      const int j = __ffs((~below & (~0u << r0)) | (~0u << r1)) - 1;  // the first key not below the query
+      if (j < BUCKETED_STEP) {
+        if (j < r1 && (equal >> j & 1)) {  // in the bucket, and equal
+          taxon = max(__ldg(taxa + b + j), 0);
+          break;
+        }
+        // a miss, unless the guess passed the query: the step's first key
+        // is above it and the bucket holds earlier ones
+        if (j > 0 || b <= start || right) break;
+        b -= BUCKETED_STEP;
+        left = true;
+      } else {
+        if (left || b + BUCKETED_STEP >= end) break;  // every key of the bucket is below the query
+        b += BUCKETED_STEP;
+        right = true;
+      }
+    }
+  }
+  __stcs(out + qi, taxon);
+}
+
+// On no path: each non-negative query inside the key space reads its
+// router entries p and p + 1 and, if the bucket is not empty, the aligned
+// 32-byte sector of keys that holds its guessed key (the 16-byte halves
+// that hold a key of the bucket, as the probe's first step), folded into
+// one int, so that the loads cannot be dropped.
+__global__ void __launch_bounds__(THREADS)
+bucketed_floor_kernel(const int* __restrict__ router, unsigned long long buckets, int shift,
+                      const long long* __restrict__ keys, const long long* __restrict__ queries, long long nq,
+                      int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  unsigned long long x;
+  int start, end, guess;
+  unsigned v = 0;
+  if (bucketed_bucket(router, buckets, shift, queries, qi, x, start, end, guess)) {
+    v = (unsigned)(start ^ end);
+    if (start < end) {
+      unsigned long long k[BUCKETED_STEP];
+      bucket_keys(keys, guess & -BUCKETED_STEP, start, end, k);
+#pragma unroll
+      for (int r = 0; r < BUCKETED_STEP; ++r) v ^= (unsigned)k[r] ^ (unsigned)(k[r] >> 32);
     }
   }
   __stcs(out + qi, (int)v);
@@ -583,6 +715,36 @@ extern "C" int stpu_tiled_floor(const void* router, long long buckets, int shift
   kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)router, (unsigned long long)buckets, shift, (const unsigned*)records, (const long long*)queries,
       nq, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// router: int32 [buckets + 1] (buckets = 2^bits), the first key of each
+// prefix of the key >> shift; keys: the sorted non-negative int64 keys,
+// 16-byte aligned, then at least one padding key (lookup.build_bucketed
+// pads maxb >= 1 all-ones keys); taxa: int32, a key's at its position;
+// queries: int64 [nq]; out: int32 [nq]. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int stpu_probe_bucketed(const void* router, long long buckets, int shift, const void* keys,
+                                   const void* taxa, const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(keys) % 16) return (int)cudaErrorInvalidValue;
+  probe_bucketed_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)router, (unsigned long long)buckets, shift, (const long long*)keys, (const int*)taxa,
+      (const long long*)queries, nq, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// The floor of the bucketed probe (bucketed_floor_kernel), on no path: the
+// arguments of stpu_probe_bucketed but the taxa; out: int32 [nq],
+// router[p] ^ router[p + 1] and the xor of the guessed sector's keys of a
+// non-empty bucket for each non-negative query inside the key space, else 0.
+extern "C" int stpu_bucketed_floor(const void* router, long long buckets, int shift, const void* keys,
+                                   const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(keys) % 16) return (int)cudaErrorInvalidValue;
+  bucketed_floor_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)router, (unsigned long long)buckets, shift, (const long long*)keys, (const long long*)queries, nq,
+      (int*)out);
   return (int)cudaGetLastError();
 }
 

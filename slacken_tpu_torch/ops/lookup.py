@@ -37,9 +37,9 @@ home slot, in [rows, tile, 3] or [rows, 3 * tile] lanes), probed by
 `lookup_taxa_hashed(_cols)` on the CPU and by probe_tables.cu's
 probe_hashed kernel on the card, and the padded arrays of `bucketed`
 (`build_bucketed`: the tiled table's router over the keys and taxa padded by
-the largest bucket), probed by `lookup_taxa_bucketed` on the CPU and by the
-directory kernel (kernels/probe.cu) over its router on the card. Tables hold
-uint32 lanes as int32 bit patterns.
+the largest bucket), probed by `lookup_taxa_bucketed` on the CPU and by
+probe_tables.cu's probe_bucketed kernel on the card. Tables hold uint32
+lanes as int32 bit patterns.
 """
 
 from __future__ import annotations
@@ -515,6 +515,31 @@ def router_sectors(table: TiledTable, queries: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, start ^ end ^ torch.where(filled, sector, 0), 0)
 
 
+def bucket_sectors(table: Bucketed, queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of the bucketed probe's floor (cuda_kernels.bucketed_floor_cuda,
+    a measurement on no path): for each query inside the key space,
+    router[p] ^ router[p + 1] and, if its bucket [s, e) is not empty, the
+    xor of the uint32 lanes of the aligned 4-key sector that holds the key
+    that the probe guesses, of those 16-byte halves of it that hold a key of
+    the bucket; else 0. int32 [Q]."""
+    inside, p = router_buckets(table, queries)
+    start, end = table.router[p].long(), table.router[p + 1].long()
+    filled = inside & (end > start)
+    # the guess: the query's place in its bucket's range, the top 32 bits of
+    # its low `shift` bits over 2^32, times the bucket's length
+    shift = table.key_bits - table.bits
+    low = torch.where(filled, queries, 0) & ((1 << shift) - 1)
+    place = low << (32 - shift) if shift <= 32 else low >> (shift - 32)
+    b = (start + ((place * (end - start)) >> 32)) // 4 * 4
+    out = start ^ end
+    for r in range(4):
+        h = r // 2 * 2  # the sector's 16-byte half that holds key b + r
+        held = filled & (b + h + 2 > start) & (b + h < end)
+        key = table.keys[torch.where(held, b + r, 0)]
+        out = out ^ torch.where(held, (key ^ (key >> 32)) & 0xFFFFFFFF, 0)
+    return torch.where(inside, out, 0).to(torch.int32)
+
+
 def xorshift64(x: torch.Tensor) -> torch.Tensor:
     """The bijective xorshift64 mix (13, 7, 17) of int64 bit patterns, with a
     logical right shift."""
@@ -838,8 +863,8 @@ def lookup_taxa_bucketed(table: Bucketed, queries: torch.Tensor) -> torch.Tensor
     `maxb` padded keys and taxa from there, the taxon of a key equal to the
     query, else 0. A negative query (an invalid window's -1) misses
     unsearched: the JAX lookup gives it 0 too (only the all-ones padding, of
-    taxon 0, can equal it). int32 [Q]; the twin of the probe_bucketed route
-    (the directory kernel over the router)."""
+    taxon 0, can equal it). int32 [Q]; the twin of the probe_bucketed
+    kernel."""
     router, keys, taxa, maxb, bits, key_bits = table
     out = torch.zeros(queries.shape[0], dtype=torch.int32, device=queries.device)
     span = torch.arange(maxb, device=queries.device)

@@ -2,8 +2,9 @@
 twin's (test_torch_probe_slots.py) and its kernel's (test_torch_gpu.py);
 key sets for the tiled and row-bucket tables' tests
 (test_torch_probe_tables.py, test_torch_probe_rows.py and
-test_torch_gpu.py) and for the hashed tables' (test_torch_probe_hashed.py
-and test_torch_gpu.py)."""
+test_torch_gpu.py), for the hashed tables' (test_torch_probe_hashed.py
+and test_torch_gpu.py) and for the bucketed arrays'
+(test_torch_probe_bucketed.py and test_torch_gpu.py)."""
 
 import numpy as np
 import torch
@@ -582,4 +583,89 @@ def tiled_walk(table, queries, start=None):
                 if left or b + TILED_STEP >= e:
                     break
                 b, right = b + TILED_STEP, True
+    return out
+
+
+#: the hand-made bucketed arrays of `bucketed_walk_case`
+BUCKETED_WALK_KINDS = ("62-bit keys", "26-bit ranks", "one key a bucket")
+
+
+def bucketed_walk_case(rng, kind):
+    """(sorted unique uint64 keys [N], int32 taxa, key_bits, int64 queries
+    [Q]) of bucketed arrays with a 12-bit router (`BUCKETED_WALK_KINDS`):
+    tiled_walk_case's narrow key sets (buckets of 0 to 9 keys and of 17,
+    the largest, so maxb 17; buckets starting at every key modulo 4, the
+    first at key 0, the last ending at the last key, which is the largest
+    of the key space, right before the padding), or one key in each of
+    about 1,000 prefixes from prefix 0 to the top one (maxb 1: a single
+    padding key after the last). The queries: tiled_walk_case's (every key,
+    key + 1 and - 1, both edges of every designed bucket's prefix, random
+    values inside the space and of any sign, -1), then 0, 2^key_bits and
+    values above it."""
+    if kind == "one key a bucket":
+        key_bits, shift = 62, 50
+        prefixes = np.unique(np.concatenate([[0, 4095], rng.choice(4096, 1000, replace=False)])).astype(np.uint64)
+        keys = (prefixes << np.uint64(shift)) | rng.integers(0, 1 << shift, len(prefixes), dtype=np.uint64)
+        keys[-1] = np.uint64((1 << key_bits) - 1)
+        edges = np.concatenate([prefixes << np.uint64(shift), ((prefixes + np.uint64(1)) << np.uint64(shift)) - 1])
+        q = np.concatenate([keys, keys + np.uint64(1), keys - np.uint64(1), edges,
+                            rng.integers(0, 1 << key_bits, 500, dtype=np.uint64)]).view(np.int64)
+        q = np.concatenate([q, rng.integers(-(1 << 63), (1 << 63) - 1, 500, dtype=np.int64), [-1]])
+        taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+    else:
+        keys, taxa, key_bits, q = tiled_walk_case(rng, kind)
+    beyond = np.array([0, 1 << key_bits, (1 << key_bits) + 1, 1 << 62, (1 << 63) - 1], np.int64)
+    return keys, taxa, key_bits, np.concatenate([q, beyond])
+
+
+#: keys a step of probe_bucketed_kernel: an aligned 32-byte sector
+BUCKETED_STEP = 4
+
+
+def bucketed_walk(table, queries, start=None, step=BUCKETED_STEP):
+    """probe_bucketed_kernel (kernels/probe_tables.cu) query by query in
+    numpy: a negative query, one beyond the key space, or one whose router
+    bucket [s, e) is empty answers 0 unread; else the walk reads `step`
+    keys a step (two a 16-byte load, only the loads that hold a key of the
+    bucket; each asserted to lie in the padded arrays) from key s + start
+    (`start`: an int or int64 [Q] offset into the bucket, at most e - s -
+    1; by default the kernel's guess, `tiled_guess`) rounded down to a
+    multiple of `step`. Keys past the bucket count as not below the query,
+    keys before it as below; the first key not below the query answers
+    max(taxon, 0) if equal, else a miss, unless it is the step's first key
+    and the bucket holds earlier keys not known below (a step left); a step
+    whose keys are all below passes to the right, until the bucket ends.
+    int32 [Q]."""
+    keys, taxa, router = table.keys.numpy(), table.taxa.numpy(), table.router.numpy()
+    inside, p = (x.numpy() for x in lookup.router_buckets(table, torch.from_numpy(queries)))
+    offset = None if start is None else np.broadcast_to(np.asarray(start), len(queries))
+    shift = table.key_bits - table.bits
+    out = np.zeros(len(queries), np.int32)
+    for qi in np.flatnonzero(inside):
+        s, e = int(router[p[qi]]), int(router[p[qi] + 1])
+        if s >= e:
+            continue
+        q = int(queries[qi])
+        b = (s + (tiled_guess(q, shift, e - s) if offset is None else min(int(offset[qi]), e - s - 1))) // step * step
+        right = left = False
+        while True:
+            r0, r1 = max(s - b, 0), min(e - b, step)
+            k = [0] * step
+            for h in range(0, step, 2):
+                if b + h + 2 > s and b + h < e:
+                    assert 0 <= b + h and b + h + 1 < len(keys), (b, h, len(keys))
+                    k[h], k[h + 1] = (int(x) & MASK64 for x in keys[b + h:b + h + 2])
+            ge = [r >= r1 or (r >= r0 and k[r] >= q) for r in range(step)]
+            if any(ge):
+                j = ge.index(True)
+                if j < r1 and k[j] == q:
+                    out[qi] = max(int(taxa[b + j]), 0)
+                    break
+                if j > 0 or b <= s or right:
+                    break
+                b, left = b - step, True
+            else:
+                if left or b + step >= e:
+                    break
+                b, right = b + step, True
     return out

@@ -774,9 +774,10 @@ def test_hashed_floor_kernel_reads_the_home_sector(cuda, cols):
 
 @pytest.mark.parametrize("kind", ["narrow", "rank table", "skewed", "empty"])
 def test_hashed_probe_bucketed_route_matches_twin(cuda, kind):
-    """--probe bucketed on the card: the directory kernel over the router
-    (one launch, counted as probe_bucketed) == lookup_taxa_bucketed over the
-    padded arrays == lookup_taxa; the arrays built on the card == on the CPU."""
+    """--probe bucketed on the card: probe_bucketed_kernel over the router
+    and the padded arrays (one launch, none for an empty index) ==
+    lookup_taxa_bucketed over them == lookup_taxa; the arrays built on the
+    card == on the CPU."""
     rng = np.random.default_rng(len(kind))
     keys, taxa, key_bits = probe_cases.table_keys(rng, kind)
     k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
@@ -794,8 +795,8 @@ def test_hashed_probe_bucketed_route_matches_twin(cuda, kind):
 
 
 def test_hashed_probe_routes_refuse_what_they_do_not_take(cuda):
-    """What the hashed kernel and the bucketed route (the directory kernel's
-    checks) do not take raises ValueError."""
+    """What the hashed kernel and the bucketed kernel do not take raises
+    ValueError."""
     keys = torch.arange(0, 1 << 40, 1 << 30, device=cuda)
     taxa = torch.ones(keys.shape[0], dtype=torch.int32, device=cuda)
     hashed, bucketed = lookup.build_hashed(keys, taxa), lookup.build_bucketed(keys, taxa, 62)
@@ -816,6 +817,80 @@ def test_hashed_probe_routes_refuse_what_they_do_not_take(cuda):
                                                keys)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.lookup_taxa_bucketed_cuda(bucketed, torch.arange(20, device=cuda)[::2])
+
+
+def _bucketed(cuda, keys, taxa, key_bits):
+    """The bucketed arrays of these keys built on the CPU and on the card,
+    held equal."""
+    k, t = torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa)
+    host, card = lookup.build_bucketed(k, t, key_bits), lookup.build_bucketed(k.to(cuda), t.to(cuda), key_bits)
+    for a, b in zip(host, card):
+        assert torch.equal(a, b.cpu()) if isinstance(a, torch.Tensor) else a == b
+    return host, card
+
+
+@pytest.mark.parametrize("kind", [*probe_cases.BUCKETED_WALK_KINDS, "narrow", "skewed"])
+def test_bucketed_probe_kernel_on_walk_cases(cuda, kind):
+    """probe_bucketed on the hand-made arrays of
+    probe_cases.bucketed_walk_case (buckets of 0 to 9 keys and of maxb,
+    starting at every key modulo 4, the first at key 0, the last ending at
+    the last key right before the padding; one key a bucket, maxb 1) and on
+    probe_cases.table_keys' random keys and 40 keys under one prefix: one
+    launch, equal to the twin, to the kernel's numpy walk and to
+    lookup_taxa; then on runs of equal queries with invalid windows
+    between, over every slice of probe_cases.stream_slices."""
+    rng = np.random.default_rng(len(kind))
+    if kind in probe_cases.BUCKETED_WALK_KINDS:
+        keys, taxa, key_bits, q = probe_cases.bucketed_walk_case(rng, kind)
+    else:
+        keys, taxa, key_bits = probe_cases.table_keys(rng, kind)
+        q = _table_queries(rng, keys)
+    host, card = _bucketed(cuda, keys, taxa, key_bits)
+    before = dict(cuda_kernels.LAUNCHES)
+    got = lookup.probe(None, None, card, torch.from_numpy(q).to(cuda))
+    assert _launched(before) == {"probe_bucketed": 1}
+    want = lookup.lookup_taxa(torch.from_numpy(keys.view(np.int64)), torch.from_numpy(taxa), torch.from_numpy(q))
+    assert torch.equal(got.cpu(), want) and torch.equal(lookup.lookup_taxa_bucketed(host, torch.from_numpy(q)), want)
+    assert np.array_equal(probe_cases.bucketed_walk(host, q), want.numpy()) and bool((want[:len(keys)] > 0).all())
+    stream = np.concatenate([q, probe_cases.query_runs(rng, q, 3000)])
+    _assert_on_slices(cuda, card, host, keys, taxa, stream, "probe_bucketed")
+
+
+@pytest.mark.parametrize("kind", [*probe_cases.BUCKETED_WALK_KINDS, "skewed"])
+def test_bucketed_floor_kernel_reads_the_guessed_sector(cuda, kind):
+    """The bucketed probe's floor (a measurement on no path) equals its
+    plain version, lookup.bucket_sectors, and launches no counted kernel."""
+    rng = np.random.default_rng(len(kind) + 3)
+    if kind in probe_cases.BUCKETED_WALK_KINDS:
+        keys, taxa, key_bits, q = probe_cases.bucketed_walk_case(rng, kind)
+    else:
+        keys, taxa, key_bits = probe_cases.table_keys(rng, kind)
+        q = _table_queries(rng, keys)
+    _, card = _bucketed(cuda, keys, taxa, key_bits)
+    q = torch.from_numpy(q).to(cuda)
+    before = dict(cuda_kernels.LAUNCHES)
+    got = cuda_kernels.bucketed_floor_cuda(card, q)
+    assert _launched(before) == {}
+    want = lookup.bucket_sectors(card, q)
+    assert torch.equal(got, want) and int((want != 0).sum()) > q.shape[0] // 4
+
+
+def test_bucketed_probe_refuses_keys_off_16_bytes(cuda):
+    """The bucketed probe and its floor read two keys a load: keys that
+    start 8 bytes past a 16-byte boundary raise ValueError, and so does a
+    router that does not fit."""
+    keys, taxa, key_bits = probe_cases.table_keys(np.random.default_rng(2), "narrow")
+    k = torch.from_numpy(keys.view(np.int64)).to(cuda)
+    table = lookup.build_bucketed(k, torch.from_numpy(taxa).to(cuda), key_bits)
+    shifted = torch.empty(table.keys.numel() + 2, dtype=torch.int64, device=cuda)[1:1 + table.keys.numel()]
+    shifted.copy_(table.keys)
+    assert shifted.data_ptr() % 16 == 8
+    for fn in (cuda_kernels.lookup_taxa_bucketed_cuda, cuda_kernels.bucketed_floor_cuda):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(table._replace(keys=shifted), k)
+        with pytest.raises(ValueError, match="does not fit"):
+            fn(table._replace(bits=table.bits + 1), k)
+    assert torch.equal(cuda_kernels.lookup_taxa_bucketed_cuda(table, k).cpu(), torch.from_numpy(taxa))
 
 
 @pytest.mark.parametrize("shape", [(8, 128), (4096, 128), (5, 16), (33, 1000)])
