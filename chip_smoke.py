@@ -26,9 +26,12 @@ launch counts set to 0 just before it and read just after:
     probe and those kernels timed there (`phase_probes_scale`);
   * per-read mode: the same reads with per-read output, card against CPU,
     lines and kreports byte-identical after decompression, kreports equal
-    to reports mode's;
+    to reports mode's; then under STPU_HIT_RUNS=1 (each row's hit runs in
+    place of its dense window taxa, through the kernel that `check_hit_runs`
+    holds to its twin first), every file equal to the dense run's, with the
+    walls side by side;
   * paired input: two FASTQ files of simulated mates through the CLI's own
-    function on the card and on the CPU;
+    function on the card (dense and under STPU_HIT_RUNS=1) and on the CPU;
   * the programmatic API (Slacken.classify_reads, write_reports,
     Classifier.classify_and_write) on reads and pairs, card against CPU;
   * the kernel diagnostics entry point (the five mask-idiom kernels);
@@ -884,12 +887,13 @@ def require_launches(path, launches, names=("scan", "probe"), never=()):
 def twins_forbidden():
     """While a run on the card goes, the kernels' plain twins fail the script
     if anything calls them."""
-    from slacken_tpu_torch.ops import lookup, minimizers
+    from slacken_tpu_torch.ops import hitruns, lookup, minimizers
 
     def refuse(*args, **kwargs):
         fail("a kernel's plain twin was called on the card's path")
 
     names = ((minimizers, "window_minimizers"), (minimizers, "stitch_segments"), (lookup, "lookup_taxa"),
+             (hitruns, "hit_runs_plain"),
              (lookup, "lookup_taxa_slots"), (lookup, "lookup_taxa_tiled"), (lookup, "lookup_taxa_hashed_rows"),
              (lookup, "lookup_taxa_hashed"), (lookup, "lookup_taxa_hashed_cols"), (lookup, "lookup_taxa_bucketed"))
     saved = [getattr(mod, name) for mod, name in names]
@@ -900,6 +904,40 @@ def twins_forbidden():
     finally:
         for (mod, name), fn in zip(names, saved):
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def hit_runs_on():
+    """STPU_HIT_RUNS=1 while the block runs (per-read mode copies each row's
+    hit runs in place of its dense window taxa); 0, as `main` sets it, after."""
+    os.environ["STPU_HIT_RUNS"] = "1"
+    try:
+        yield
+    finally:
+        os.environ["STPU_HIT_RUNS"] = "0"
+
+
+@contextlib.contextmanager
+def count_runs_formatting():
+    """While the block runs, counts of the calls of the native runs
+    formatters: {"lines": output_lines_runs, "pairs": hit_lines_runs}. A
+    batch with a row over the run cap formats through neither."""
+    from slacken_tpu_torch import native
+
+    calls = {"lines": 0, "pairs": 0}
+    saved = native.output_lines_runs, native.hit_lines_runs
+
+    def counted(key, fn):
+        def wrapped(*args, **kwargs):
+            calls[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    native.output_lines_runs, native.hit_lines_runs = counted("lines", saved[0]), counted("pairs", saved[1])
+    try:
+        yield calls
+    finally:
+        native.output_lines_runs, native.hit_lines_runs = saved
 
 
 def output_tree(prefix):
@@ -1401,9 +1439,93 @@ def phase_probes_scale(dev, out, results, genomes, scale_idx):
     return total
 
 
+#: the hit-runs kernel's checks besides the bench batch: (rows, width, k,
+#: paired) of workloads.hit_runs_rows (every fourth row over the cap, N runs
+#: of k to 2k, padding rows), a paired batch of the bench's pairs' width, long
+#: buckets up to the widest row the reduction takes, and wide k
+HIT_RUNS_CASES = [(32768, 128, 35, False), (16384, 264, 35, True), (64, 4096, 35, True), (8, 32768, 35, False),
+                  (3, 65528, 35, True), (8192, 128, 50, False), (4096, 264, 120, True)]
+
+
+def bench_batch(cls, reads):
+    """The bench's first full per-read batch on the card: (window taxa
+    [rows, 128] int32, validity bits, splits, row lengths), as the
+    classifier's dispatch makes them."""
+    from slacken_tpu_torch import to_device
+    from slacken_tpu_torch.ops import encode
+
+    rows = cls._rows_target(128)
+    codes = np.concatenate([p.codes for p in reads])[:rows]
+    lens = np.concatenate([p.lengths for p in reads])[:rows].astype(np.int32)
+    if codes.shape != (rows, 128):
+        fail(f"the bench's reads make a batch of {codes.shape}, expected [{rows}, 128]")
+    packed, valid = encode.pack_2bit(codes)
+    valid_dev = to_device(valid, cls.device)
+    _, wt = cls._classify_packed_rows(packed, valid, np.zeros(rows, np.int32), 128, valid_dev)
+    return wt, valid_dev, to_device(np.full(rows, -1, np.int32), cls.device), to_device(lens, cls.device)
+
+
+def check_hit_runs(dev, results, bench):
+    """The hit-runs kernel == its twin (max_abs_err 0) on the bench batch's
+    window taxa and on HIT_RUNS_CASES, at the default cap and at 4 (more rows
+    over it); timed at the bench batch: alone and back to back, the twin, the
+    bound, and the bundle's device-to-host copy beside the dense one's."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.ops import cuda_kernels, hitruns
+
+    cap, k = hitruns.DEFAULT_RUNS_PER_ROW, bench["idx"].params.k
+    batch = bench_batch(bench["cls"], bench["reads"])
+    cases = {f"bench batch {list(batch[0].shape)} (the classifier's window taxa)": (batch, k)}
+    for i, (rows, width, kk, paired) in enumerate(HIT_RUNS_CASES):
+        label = f"[{rows}, {width}] k={kk}{' paired' if paired else ''} (workloads.hit_runs_rows)"
+        arrays = workloads.hit_runs_rows(1900 + i, rows, width, kk, paired)
+        cases[label] = ([torch.from_numpy(a).to(dev) for a in arrays], kk)
+    err, over = 0, {}
+    for label, (args, kk) in cases.items():
+        for c in (cap, 4):
+            got, want = cuda_kernels.hit_runs_cuda(*args, kk, c), hitruns.hit_runs_plain(*args, kk, c)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                fail(f"hit_runs kernel returns {tuple(got.shape)} at {label}, its twin {tuple(want.shape)}")
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            if err:
+                fail(f"hit_runs kernel differs from its twin at {label}, cap {c} (max abs err {err})")
+            over[(label, c)] = int((got[:, -3] > c).sum())
+    log("hit_runs kernel == twin, max_abs_err 0, at " + "; ".join(
+        f"{label}: {over[(label, cap)]} rows over cap {cap}, {over[(label, 4)]} over cap 4" for label in cases))
+    if not any(over[(label, cap)] for label in cases):
+        fail("no hit_runs check had a row over the cap")
+    args = cases[next(iter(cases))][0]
+    wt = args[0]
+    out = torch.empty((wt.shape[0], hitruns.bundle_width(cap)), dtype=torch.int32, device=dev)
+    one_launch(lambda: cuda_kernels.hit_runs_cuda(*args, k, cap), "hit_runs")
+    ms = cuda_ms(lambda: cuda_kernels.hit_runs_cuda(*args, k, cap))
+    dev_ms = device_ms(lambda: cuda_kernels.hit_runs_cuda(*args, k, cap))
+    plain = cuda_ms(lambda: hitruns.hit_runs_plain(*args, k, cap), iters=5, warmup=1)
+    n_bytes = tensor_bytes(*args, out)
+    # about 20 integer operations a window position: compares, ballots, shuffles, popcounts
+    bound_ms, by = bound(n_bytes, 20 * wt.numel())
+    bundle_host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+    dense_host = torch.empty(wt.shape, dtype=torch.int32, pin_memory=True)
+    d2h_bundle = cuda_ms(lambda: bundle_host.copy_(out, non_blocking=True))
+    d2h_dense = cuda_ms(lambda: dense_host.copy_(wt, non_blocking=True))
+    share = None if dev_ms is None else bound_ms / dev_ms
+    log(f"hit_runs at the bench batch [{wt.shape[0]}, {wt.shape[1]}], cap {cap}: kernel {ms:.4f} ms back to back, "
+        f"{fmt_ms(dev_ms)} on the device alone, plain {plain:.4f} ms, bound {bound_ms:.5f} ms ({by}, {n_bytes} "
+        f"bytes){'' if share is None else f', {100 * share:.1f}% of it alone'}; no single PyTorch call computes it; "
+        f"device-to-host copy of the bundle ({tensor_bytes(out)} bytes) {d2h_bundle:.4f} ms, of the dense window "
+        f"taxa ({tensor_bytes(wt)} bytes) {d2h_dense:.4f} ms")
+    results["hit_runs"] = dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms,
+                               bound_by=by, library_ms=None, bytes=n_bytes, d2h_bundle_ms=d2h_bundle,
+                               d2h_dense_ms=d2h_dense)
+
+
 def phase_detailed(dev, out, bench):
     """Per-read mode on the bench reads: card against CPU, and against
-    reports mode's kreports."""
+    reports mode's kreports; then under STPU_HIT_RUNS=1, each file
+    byte-identical to the dense run's and the CPU's."""
     import torch
 
     from slacken_tpu_torch.classify import Classifier, ClassifyParams
@@ -1419,7 +1541,7 @@ def phase_detailed(dev, out, bench):
     log(f"bench classify on the card, per-read mode: {n_reads} reads, runs "
         f"{[round(t, 4) for t in times]} s, median {rate:.1f} reads/s "
         f"({rate / bench['reports_rate']:.3f} of reports mode's {bench['reports_rate']:.1f})")
-    require_launches("per-read mode (3 runs)", launches, never=("scan_stitch",))
+    require_launches("per-read mode (3 runs)", launches, never=("scan_stitch", "hit_runs"))
     profile_run(lambda: cls.classify_and_write_packed(reads, os.path.join(out, "detprof"), cpar),
                 "per-read mode")
     t0 = time.perf_counter()
@@ -1440,6 +1562,26 @@ def phase_detailed(dev, out, bench):
         f"mode's; lines per file {n_lines}")
     if any(n != n_reads for n in n_lines.values()):
         fail(f"per-read files hold {n_lines} lines, expected {n_reads} each")
+    with hit_runs_on():
+        runs = Classifier(bench["idx"], dev)
+    runs.classify_and_write_packed(reads, os.path.join(out, "hr"), cpar)  # warm
+    cuda_kernels.reset_launch_counts()
+    with twins_forbidden(), count_runs_formatting() as calls:
+        runs_times = timed_runs(lambda r: runs.classify_and_write_packed(reads, os.path.join(out, f"hr{r}"), cpar))
+    counts = dict(cuda_kernels.LAUNCHES)
+    require_launches("per-read mode, STPU_HIT_RUNS=1 (3 runs)", counts, names=("scan", "probe", "hit_runs"),
+                     never=("scan_stitch",))
+    add_launches(launches, counts)
+    for run in ["hr", "hr0", "hr1", "hr2"]:
+        if output_tree(os.path.join(out, run)) != want:
+            fail(f"per-read output under STPU_HIT_RUNS=1 ({run}) differs from the dense run's and the CPU's")
+    log(f"per-read files under STPU_HIT_RUNS=1 byte-identical to the dense run's and the CPU's; of "
+        f"{counts['hit_runs']} batches, {calls['lines']} formatted whole by native.output_lines_runs, "
+        f"{calls['pairs']} through the pairs path (native.hit_lines_runs: a row over the run cap)")
+    for name, ts in (("dense", times), ("hit runs", runs_times)):
+        log(f"per-read wall, {name}: runs {[round(t, 4) for t in ts]} s, median {statistics.median(ts):.4f} s "
+            f"(spread {max(ts) - min(ts):.4f} s), {n_reads / statistics.median(ts):.1f} reads/s, "
+            f"{statistics.median(ts) / statistics.median(times):.3f} of dense")
     rows = cls.target_batch_bp // 128
     src = torch.zeros((rows, 128), dtype=torch.int32, device=dev)
     dst = torch.empty((rows, 128), dtype=torch.int32, pin_memory=True)
@@ -1467,7 +1609,16 @@ def phase_paired(dev, out, bench):
         fail("the paired classify CLI failed on the card")
     dt = time.perf_counter() - t0
     launches = dict(cuda_kernels.LAUNCHES)
-    require_launches("paired CLI", launches)
+    require_launches("paired CLI", launches, never=("hit_runs",))
+    with hit_runs_on(), twins_forbidden():
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cli.main([*common, "-o", os.path.join(out, "pairhr")]) != 0:
+            fail("the paired classify CLI failed on the card under STPU_HIT_RUNS=1")
+        dt_runs = time.perf_counter() - t0
+        counts = dict(cuda_kernels.LAUNCHES)
+    require_launches("paired CLI, STPU_HIT_RUNS=1", counts, names=("scan", "probe", "hit_runs"))
+    add_launches(launches, counts)
     t0 = time.perf_counter()
     if cli.main([*common, "-o", os.path.join(out, "paircpu"), "--device", "cpu"]) != 0:
         fail("the paired classify CLI failed on the CPU")
@@ -1476,6 +1627,9 @@ def phase_paired(dev, out, bench):
     got, want = output_tree(os.path.join(out, "pair")), output_tree(os.path.join(out, "paircpu"))
     if got != want or len(got) != 4:
         fail("paired per-read output differs between the card and the CPU")
+    if output_tree(os.path.join(out, "pairhr")) != want:
+        fail("paired per-read output under STPU_HIT_RUNS=1 differs from the dense run's and the CPU's")
+    log(f"paired CLI under STPU_HIT_RUNS=1: {dt_runs:.2f} s on the card, files byte-identical to the dense run's")
     lines = got[os.path.join("_c0.00", "sample=all", "part-00000.txt.gz")]
     n_lines, n_borders = lines.count(b"\n"), lines.count(b"|:|")
     if n_lines != PAIRS or n_borders != PAIRS:
@@ -3551,6 +3705,9 @@ def main():
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    # per-read mode's default on the card, the dense copy; the per-read and
+    # paired phases turn hit runs on around their own runs
+    os.environ["STPU_HIT_RUNS"] = "0"
 
     from slacken_tpu_torch import native
     from slacken_tpu_torch.ops import cuda_kernels
@@ -3590,6 +3747,7 @@ def main():
     check_mask_idioms(dev, results)
     check_resolve(rng, dev)
     bench = phase_bench(dev, out, results)
+    check_hit_runs(dev, results, bench)
     by_path = {"reports": bench["launches"], "probes": phase_probes(dev, out, bench, results),
                "per_read": phase_detailed(dev, out, bench),
                "paired": phase_paired(dev, out, bench), "api": phase_api(dev, out, bench),
@@ -3643,6 +3801,7 @@ def main():
                "probe_hashed": (tables_cu, "slacken_tpu/ops/lookup.py:478"),
                "probe_hashed_cols": (tables_cu, "slacken_tpu/ops/lookup.py:566"),
                "probe_bucketed": (tables_cu, "slacken_tpu/ops/lookup.py:269"),
+               "hit_runs": ("slacken_tpu_torch/ops/kernels/hitruns.cu", "slacken_tpu/ops/hitruns.py:43"),
                **{name: (idioms[0], idioms[1] + str(line)) for name, line in
                   zip(cuda_kernels.MASK_IDIOMS, (1023, 1027, 1030, 1036, 1047))}}
     log(json.dumps({"kernels": [

@@ -16,7 +16,9 @@ Per batch of packed reads, on the device:
   5. per-threshold finalisation against a host-computed table of
      ceil_f64(threshold * total), giving one [B, 3 + nthr] int32 bundle.
      Reports mode copies back only this bundle; per-read mode also copies
-     the dense [B, L] int32 window taxa into a reused pinned buffer.
+     the dense [B, L] int32 window taxa into a reused pinned buffer, or,
+     under STPU_HIT_RUNS, each row's final hit runs (ops/hitruns.py, a CUDA
+     kernel); rows over the run cap are then fetched densely, by row.
 
 The host packs batches, keeps up to PIPELINE_DEPTH batches in flight
 (launches are asynchronous until the host reads a bundle), resolves the rare
@@ -45,7 +47,7 @@ import torch
 
 from . import native, to_device
 from .index import KeyValueIndex
-from .ops import encode
+from .ops import encode, hitruns
 from .ops.lookup import probe
 from .ops.minimizers import window_minimizers_packed
 from .ops.resolve import INVALID_WINDOW, ResolveResult, compact_hits, resolve_hits
@@ -380,8 +382,11 @@ def _samples_of(titles: List[str], sre) -> Optional[np.ndarray]:
 
 @dataclass
 class _Batch:
-    """One harvested batch. `window_taxa` (per-read mode only) is a view of
-    a reused pinned buffer: valid until the next batch is requested."""
+    """One harvested batch. In per-read mode it carries either the dense
+    `window_taxa` (possibly a view of a reused pinned buffer: valid until the
+    next batch is requested) or, under the hit-runs reduction, `hit_runs`
+    (hitruns.decode's values, counts, nruns, totals and overflow rows) with
+    the overflow rows' window taxa in `run_rows`."""
 
     titles: List[str]
     num_distinct: np.ndarray
@@ -393,8 +398,10 @@ class _Batch:
     mate_split: List[Optional[int]]  # R1 length per row if paired
     row_lens: List[int]  # true row content length (trailing Ns are content)
     window_taxa: Optional[np.ndarray] = None  # host [n, L] int32
-    pinned: Optional[torch.Tensor] = None  # the buffer behind window_taxa
+    pinned: Optional[torch.Tensor] = None  # the buffer behind window_taxa or hit_runs
     hit_pairs: Optional[list] = None  # memoised (hit_details, length_string)
+    hit_runs: Optional[tuple] = None
+    run_rows: Optional[Dict[int, np.ndarray]] = None
 
 
 class Classifier:
@@ -419,12 +426,20 @@ class Classifier:
         self._place_index()
         self._req_luts: Dict[tuple, torch.Tensor] = {}
         self._thresholds: tuple = (0.0,)
-        #: set per call by the entry points: the dense window taxa reach the
-        #: host only when per-read lines are produced
+        #: set per call by the entry points: the window taxa reach the host
+        #: only when per-read lines are produced
         self._fetch_window_taxa = False
-        #: free pinned [rows, L] int32 buffers per shape. A buffer is taken
-        #: at dispatch and comes back once its batch has been consumed, so
-        #: at most PIPELINE_DEPTH + 1 exist per shape.
+        #: per-read mode copies each row's final hit runs (ops/hitruns.py)
+        #: in place of its dense window taxa when STPU_HIT_RUNS is 1. The
+        #: default, as in the JAX package, is on only on a CPU device without
+        #: the native formatter, where formatting O(runs) in Python beats the
+        #: dense walk.
+        hr_default = "1" if not self._cuda and not native.available() else "0"
+        self._hit_runs = os.environ.get("STPU_HIT_RUNS", hr_default) == "1"
+        #: free pinned int32 buffers per shape for the window taxa or their
+        #: hit runs. A buffer is taken at dispatch and comes back once its
+        #: batch has been consumed, so at most PIPELINE_DEPTH + 1 exist per
+        #: shape.
         self._pinned_free: Dict[tuple, List[torch.Tensor]] = {}
         #: the number in the per-read part files' names (one a process)
         self._part_index = 0
@@ -465,18 +480,27 @@ class Classifier:
                            self._keys, self._taxa, self._directory,
                            self.index.params.minimizer_params, self._lut)]
 
-    def _classify_packed_rows(self, packed, valid, ambig, tmax: int):
-        """(bundle, window taxa) of one batch of pack_2bit's arrays."""
+    def _classify_packed_rows(self, packed, valid, ambig, tmax: int, valid_dev=None):
+        """(bundle, window taxa) of one batch of pack_2bit's arrays.
+        `valid_dev`: the validity bits already on the device, if they are."""
         return classify_batch(
-            to_device(packed, self.device), to_device(valid, self.device), to_device(ambig, self.device),
-            self._keys, self._taxa, self._directory, self._table, self._req_lut(tmax),
-            self.index.params.minimizer_params, self.max_taxa, self._lut,
+            to_device(packed, self.device), to_device(valid, self.device) if valid_dev is None else valid_dev,
+            to_device(ambig, self.device), self._keys, self._taxa, self._directory, self._table,
+            self._req_lut(tmax), self.index.params.minimizer_params, self.max_taxa, self._lut,
         )
+
+    def _fetch_runs(self, width: int) -> bool:
+        """Whether per-read mode copies hit runs in place of the dense window
+        taxa for rows of `width` (never for rows of 2^16 or more)."""
+        return self._fetch_window_taxa and self._hit_runs and width < hitruns.MAX_ROW
 
     def _dispatch(self, codes: np.ndarray, titles, splits, row_lens):
         """Launch one batch; pair with _harvest. Rows pad to `_padded_rows`
         (INVALID rows) and the width to a multiple of 8 (INVALID columns,
-        which no valid window touches) for the 2-bit wire format."""
+        which no valid window touches) for the 2-bit wire format. In per-read
+        mode the window taxa, or their hit runs (rows under 2^16 wide), go to
+        the host with the bundle; the device window taxa stay until the
+        harvest, which fetches the rows over the run cap."""
         n, width = codes.shape
         rows = self._padded_rows(n)
         w8 = -(-width // 8) * 8
@@ -484,40 +508,56 @@ class Classifier:
             padded = np.full((rows, w8), encode.INVALID, np.uint8)
             padded[:n, :width] = codes
             codes = padded
-        ambig = _ambig_array(codes, splits, row_lens, self.index.params.k, n)
+        k = self.index.params.k
+        ambig = _ambig_array(codes, splits, row_lens, k, n)
         packed, valid = encode.pack_2bit(codes)
-        bundle, window_taxa = self._classify_packed_rows(packed, valid, ambig, w8)
+        runs = self._fetch_runs(w8)
+        valid_dev = to_device(valid, self.device) if runs else None
+        bundle, window_taxa = self._classify_packed_rows(packed, valid, ambig, w8, valid_dev)
+        if runs:
+            split_arr = np.full(rows, -1, np.int32)
+            split_arr[:n] = [-1 if s is None else s for s in splits]
+            len_arr = np.zeros(rows, np.int32)
+            len_arr[:n] = row_lens
+            fetched = hitruns.hit_runs(window_taxa, valid_dev, to_device(split_arr, self.device),
+                                       to_device(len_arr, self.device), k, hitruns.DEFAULT_RUNS_PER_ROW)
+        else:
+            fetched = window_taxa if self._fetch_window_taxa else None
         pinned = None
         if self._cuda:
             host = torch.empty(bundle.shape, dtype=bundle.dtype, pin_memory=True)
             host.copy_(bundle, non_blocking=True)
-            if self._fetch_window_taxa:
-                free = self._pinned_free.setdefault((rows, w8), [])
-                pinned = free.pop() if free else torch.empty(
-                    (rows, w8), dtype=torch.int32, pin_memory=True)
-                pinned[:n].copy_(window_taxa[:n], non_blocking=True)
-                window_taxa = pinned
+            if fetched is not None:
+                free = self._pinned_free.setdefault(tuple(fetched.shape), [])
+                pinned = free.pop() if free else torch.empty(fetched.shape, dtype=torch.int32, pin_memory=True)
+                pinned[:n].copy_(fetched[:n], non_blocking=True)
+                fetched = pinned
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
         else:
             host, done = bundle, None
-        return titles, host, done, window_taxa, pinned, codes[:n], splits, row_lens
+        return titles, host, done, window_taxa, runs, fetched, pinned, codes[:n], splits, row_lens
 
     def _harvest(self, dispatched) -> _Batch:
-        titles, host, done, window_taxa, pinned, codes, splits, row_lens = dispatched
+        titles, host, done, window_taxa, runs, fetched, pinned, codes, splits, row_lens = dispatched
         if done is not None:
             done.synchronize()
         n = len(titles)
         fb = host.numpy()[:n]
-        rows = np.flatnonzero(fb[:, 2])
-        wt_host = window_taxa.numpy()[:n] if self._fetch_window_taxa else None
-        ovf = {}
-        if len(rows):
-            if wt_host is not None:
-                wt = wt_host[rows]
-            else:
-                wt = window_taxa[torch.from_numpy(rows).to(window_taxa.device)].cpu().numpy()
-            ovf = dict(zip(rows.tolist(), wt))
+        rows = np.flatnonzero(fb[:, 2])  # over max_taxa: resolved on the host
+        wt_host = None if fetched is None else fetched.numpy()[:n]
+        hit_runs = None
+        if runs:
+            hit_runs = hitruns.decode(wt_host, hitruns.DEFAULT_RUNS_PER_ROW)
+            wt_host = None
+            fetch = np.union1d(hit_runs[4], rows)  # over the run cap or max_taxa
+        else:
+            fetch = rows if wt_host is None else rows[:0]
+        dense = {}
+        if len(fetch):
+            got = window_taxa[torch.from_numpy(fetch).to(window_taxa.device)].cpu().numpy()
+            dense = dict(zip(fetch.tolist(), got))
+        ovf = {r: (dense[r] if wt_host is None else wt_host[r]) for r in rows.tolist()}
         return _Batch(
             titles=titles,
             num_distinct=fb[:, 0],
@@ -529,6 +569,8 @@ class Classifier:
             row_lens=row_lens,
             window_taxa=wt_host,
             pinned=pinned,
+            hit_runs=hit_runs,
+            run_rows=dense if runs else None,
         )
 
     def _drain(self, pending, keep: int):
@@ -618,16 +660,39 @@ class Classifier:
         if batch.hit_pairs is None:
             k = self.index.params.k
             splits = np.array([-1 if s is None else s for s in batch.mate_split], np.int64)
-            pairs = native.hit_lines(batch.codes, batch.window_taxa, splits, batch.row_lens, k)
-            if pairs is None:
-                pairs = [
-                    hits_to_strings(
-                        _row_hit_parts(batch.codes[i], batch.window_taxa[i],
-                                       batch.mate_split[i], batch.row_lens[i], k), k)
-                    for i in range(len(batch.titles))
-                ]
+            if batch.hit_runs is not None:
+                pairs = self._pairs_from_runs(batch, splits, k)
+            else:
+                pairs = native.hit_lines(batch.codes, batch.window_taxa, splits, batch.row_lens, k)
+                if pairs is None:
+                    pairs = [
+                        hits_to_strings(
+                            _row_hit_parts(batch.codes[i], batch.window_taxa[i],
+                                           batch.mate_split[i], batch.row_lens[i], k), k)
+                        for i in range(len(batch.titles))
+                    ]
             batch.hit_pairs = pairs
         return batch.hit_pairs
+
+    def _pairs_from_runs(self, batch: _Batch, splits: np.ndarray, k: int):
+        """(details, length) pairs from the hit runs (in C++, else in
+        Python); a row over the run cap from its dense window taxa."""
+        values, counts, nruns, totals, overflow_rows = batch.hit_runs
+        cap = values.shape[1]
+        pairs = native.hit_lines_runs(values, counts, np.minimum(nruns, cap), totals, splits, k)
+        if pairs is None:
+            pairs = []
+            for i in range(len(batch.titles)):
+                parts = [[]] if batch.mate_split[i] is None else [[], []]
+                for j in range(min(int(nruns[i]), cap)):
+                    pv = int(values[i, j])
+                    taxon = (pv >> 1) - 2
+                    parts[pv & 1].append([AMBIGUOUS_SPAN if taxon == -1 else taxon, int(counts[i, j])])
+                pairs.append(hits_to_strings(parts, k))
+        for i in overflow_rows.tolist():
+            parts = _row_hit_parts(batch.codes[i], batch.run_rows[i], batch.mate_split[i], batch.row_lens[i], k)
+            pairs[i] = hits_to_strings(parts, k)
+        return pairs
 
     def finalize(self, batch: _Batch, threshold: float, cpar: ClassifyParams) -> List[ClassifiedRead]:
         """Apply one confidence threshold to a batch's device results."""
@@ -794,14 +859,18 @@ class Classifier:
 
 
 class _LineFormatter:
-    """Per-read Kraken lines of one batch from its dense window taxa: whole
-    lines in C++ (native.output_lines_dense + gather_rows) when the native
-    library is available, else Python formatting over the hit pairs."""
+    """Per-read Kraken lines of one batch. Whole lines in C++ when the
+    native library is available: from the hit runs (native.output_lines_runs)
+    when the batch has them and no row overflowed their cap, from the dense
+    window taxa (output_lines_dense) when it has no runs. Otherwise, or when
+    a formatter gives nothing, Python formatting over the hit pairs, where a
+    row over the run cap reads its own dense window taxa."""
 
     def __init__(self, classifier: Classifier, batch: _Batch):
         self.classifier = classifier
         self.batch = batch
-        self.native = native.available()
+        self.emitted = None
+        self.native = native.available() and (batch.hit_runs is None or len(batch.hit_runs[4]) == 0)
         if self.native:
             tb = [s.encode("utf-8") for s in batch.titles]
             self.title_offs = np.zeros(len(tb) + 1, np.int64)
@@ -814,17 +883,24 @@ class _LineFormatter:
     def emit(self, rtax: np.ndarray, classified: np.ndarray) -> None:
         """Format every row for one threshold's (report taxon, classified)."""
         self.rtax, self.classified = rtax, classified
-        if self.native:
-            b = self.batch
+        if not self.native:
+            return
+        b, k = self.batch, self.classifier.index.params.k
+        if b.hit_runs is not None:
+            values, counts, nruns, totals, _ = b.hit_runs
+            self.emitted = native.output_lines_runs(
+                values, counts, nruns, totals, self.splits, self.blob, self.title_offs, rtax,
+                classified.astype(np.uint8), k, self.max_title,
+            )
+        else:
             self.emitted = native.output_lines_dense(
                 b.codes, b.window_taxa, self.splits, self.row_lens, self.blob,
-                self.title_offs, rtax, classified.astype(np.uint8),
-                self.classifier.index.params.k, self.max_title,
+                self.title_offs, rtax, classified.astype(np.uint8), k, self.max_title,
             )
 
     def write(self, writer: ParallelGzipWriter, idxs: np.ndarray) -> None:
         """Write the lines of rows `idxs` (non-empty) to `writer`."""
-        if self.native:
+        if self.emitted is not None:
             writer.write_bytes(native.gather_rows(*self.emitted, idxs))
             return
         titles = self.batch.titles

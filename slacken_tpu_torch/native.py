@@ -9,8 +9,8 @@ another machine may carry its _build/ along. Every entry point has a numpy
 fallback so the package works without a compiler; `available()` reports
 which path is active.
 
-Counterpart of slacken_tpu/native.py, without the bindings for the hit-runs
-formatters and the radix sort, which nothing in this package calls.
+Counterpart of slacken_tpu/native.py, without the binding for the radix
+sort, which nothing in this package calls.
 """
 
 from __future__ import annotations
@@ -93,6 +93,16 @@ def _load():
     lib.stpu_fasta_fill.restype = i64
     lib.stpu_hit_lines.argtypes = [p_u8, p_i32, i64, i64, p_i64, p_i64, i64, ctypes.c_char_p, p_i64]
     lib.stpu_hit_lines.restype = i64
+    lib.stpu_hit_lines_runs.argtypes = [
+        p_i32, p_i32, p_i64, p_i64, p_i64, i64, i64, i64, i64,
+        ctypes.c_char_p, p_i64,
+    ]
+    lib.stpu_hit_lines_runs.restype = i64
+    lib.stpu_output_lines_runs.argtypes = [
+        p_i32, p_i32, p_i64, p_i64, p_i64, ctypes.c_char_p, p_i64, p_i64,
+        p_u8, i64, i64, i64, i64, ctypes.c_char_p, p_i64,
+    ]
+    lib.stpu_output_lines_runs.restype = i64
     lib.stpu_output_lines_dense.argtypes = [
         p_u8, p_i32, p_i64, p_i64, ctypes.c_char_p, p_i64, p_i64,
         p_u8, i64, i64, i64, i64, ctypes.c_char_p, p_i64,
@@ -319,7 +329,45 @@ def hit_lines(codes, window_taxa, splits, row_lens, k):
     return result
 
 
-#: reused private-slot emit buffer for output_lines_dense/hit_lines
+def hit_lines_runs(values, counts, nruns, totals, splits, k):
+    """Per-read (hit_details, length_string) from device-reduced hit runs
+    (ops/hitruns.py); O(runs) per row instead of O(row length). Returns
+    None when the native library is unavailable (caller falls back)."""
+    lib = _load()
+    if lib is None:
+        return None
+    values = np.ascontiguousarray(values, np.int32)
+    counts = np.ascontiguousarray(counts, np.int32)
+    b, cap = values.shape
+    nruns_arr = np.ascontiguousarray(nruns, np.int64)
+    totals_arr = np.ascontiguousarray(totals, np.int64)
+    splits_arr = np.ascontiguousarray(splits, np.int64)
+    cap_row = cap * 24 + 64
+    out = _emit_buffer(b * cap_row)
+    offsets = np.empty(b + 1, np.int64)
+    lib.stpu_hit_lines_runs(
+        _as_ptr(values, ctypes.c_int32),
+        _as_ptr(counts, ctypes.c_int32),
+        _as_ptr(nruns_arr, ctypes.c_int64),
+        _as_ptr(totals_arr, ctypes.c_int64),
+        _as_ptr(splits_arr, ctypes.c_int64),
+        b,
+        cap,
+        k,
+        cap_row,
+        out,
+        _as_ptr(offsets, ctypes.c_int64),
+    )
+    mv = memoryview(out)
+    result = []
+    for r in range(b):
+        row = str(mv[r * cap_row : offsets[r] - 1], "ascii")
+        details, _, length = row.rpartition("\t")
+        result.append((details, length))
+    return result
+
+
+#: reused private-slot emit buffer for the output_lines_*/hit_lines*
 #: formatters — a fresh multi-MB allocation per batch costs more in page
 #: faults than the C++ emit loop itself. THREAD-LOCAL so concurrent
 #: Classifier streams never share a buffer; within a thread the buffer is
@@ -334,6 +382,43 @@ def _emit_buffer(size: int):
         buf = ctypes.create_string_buffer(max(size, 1 << 20))
         _emit_tls.buf = buf
     return buf
+
+
+def output_lines_runs(values, counts, nruns, totals, splits, titles_blob,
+                      title_offs, rtax, classified, k, max_title):
+    """Full per-read Kraken output lines from device hit runs. Returns
+    (buf, starts [B] int64, ends [B] int64) or None (no native lib); row
+    r's line is buf[starts[r]:ends[r]] including the trailing newline.
+    `buf` is the SHARED emit buffer — consume before the next formatter
+    call (gather_rows or a memoryview join)."""
+    lib = _load()
+    if lib is None:
+        return None
+    values = np.ascontiguousarray(values, np.int32)
+    counts = np.ascontiguousarray(counts, np.int32)
+    b, cap = values.shape
+    cap_row = cap * 24 + int(max_title) + 80
+    out = _emit_buffer(b * cap_row)
+    ends = np.empty(b, np.int64)
+    lib.stpu_output_lines_runs(
+        _as_ptr(values, ctypes.c_int32),
+        _as_ptr(counts, ctypes.c_int32),
+        _as_ptr(np.ascontiguousarray(nruns, np.int64), ctypes.c_int64),
+        _as_ptr(np.ascontiguousarray(totals, np.int64), ctypes.c_int64),
+        _as_ptr(np.ascontiguousarray(splits, np.int64), ctypes.c_int64),
+        titles_blob,
+        _as_ptr(np.ascontiguousarray(title_offs, np.int64), ctypes.c_int64),
+        _as_ptr(np.ascontiguousarray(rtax, np.int64), ctypes.c_int64),
+        _as_ptr(np.ascontiguousarray(classified, np.uint8), ctypes.c_uint8),
+        b,
+        cap,
+        k,
+        cap_row,
+        out,
+        _as_ptr(ends, ctypes.c_int64),
+    )
+    starts = np.arange(b, dtype=np.int64) * cap_row
+    return out, starts, ends
 
 
 def output_lines_dense(codes, window_taxa, splits, row_lens, titles_blob,

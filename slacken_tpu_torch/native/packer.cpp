@@ -304,6 +304,109 @@ int64_t stpu_hit_lines(const uint8_t* codes, const int32_t* wt, int64_t n_rows,
     return n_rows ? offsets[n_rows - 1] : 0;
 }
 
+// Runs-based variant: the device already reduced each read to its ordered
+// hit runs (slacken_tpu_torch/ops/hitruns.py), so each row is O(runs) instead of
+// O(row_stride). values[r*cap+j] = (taxon+2)<<1 | mate (taxon -1 = 'A');
+// counts parallel; totals[r*2+m] = per-mate k-mer sums. Same private-slot
+// output contract as stpu_hit_lines with cap_row supplied by the caller.
+int64_t stpu_hit_lines_runs(const int32_t* values, const int32_t* counts,
+                            const int64_t* nruns, const int64_t* totals,
+                            const int64_t* splits, int64_t n_rows,
+                            int64_t cap, int64_t k, int64_t cap_row,
+                            char* out, int64_t* offsets) {
+#pragma omp parallel for schedule(static)
+    for (int64_t r = 0; r < n_rows; r++) {
+        HitWriter w(out + r * cap_row);
+        const bool paired = splits[r] >= 0;
+        const int32_t* v = values + r * cap;
+        const int32_t* c = counts + r * cap;
+        const int64_t n = nruns[r];
+        bool wrote = false;
+        auto emit_run = [&](int64_t pv, int64_t cnt) {
+            if (wrote) w.put_ch(' ');
+            int64_t taxon = (pv >> 1) - 2;
+            if (taxon == -1) w.put_ch('A');
+            else w.put_int(taxon);
+            w.put_ch(':');
+            w.put_int(cnt);
+            wrote = true;
+        };
+        int64_t j = 0;
+        for (; j < n && (v[j] & 1) == 0; j++) emit_run(v[j], c[j]);
+        if (paired) {
+            if (wrote) w.put_ch(' ');
+            w.put_str("|:|");
+            wrote = true;
+            for (; j < n; j++) emit_run(v[j], c[j]);
+        }
+        w.put_ch('\t');
+        w.put_int(totals[r * 2] + (k - 1));
+        if (paired) {
+            w.put_ch('|');
+            w.put_int(totals[r * 2 + 1] + (k - 1));
+        }
+        w.put_ch('\n');
+        offsets[r] = w.p - out;
+    }
+    offsets[n_rows] = n_rows ? offsets[n_rows - 1] : 0;
+    return n_rows ? offsets[n_rows - 1] : 0;
+}
+
+// Full Kraken output lines from device hit runs:
+//   "C|U\t<title>\t<taxon>\t<len[|len2]>\t<details>\n"
+// per row, into private slots of cap_row bytes; ends[r] = absolute END of
+// row r's bytes. titles arrive as one concatenated blob with offsets
+// (title r = titles[toffs[r], toffs[r+1])). This removes the per-read
+// Python f-string from the streaming detailed writer.
+int64_t stpu_output_lines_runs(
+    const int32_t* values, const int32_t* counts, const int64_t* nruns,
+    const int64_t* totals, const int64_t* splits, const char* titles,
+    const int64_t* toffs, const int64_t* rtax, const uint8_t* classified,
+    int64_t n_rows, int64_t cap, int64_t k, int64_t cap_row, char* out,
+    int64_t* ends) {
+#pragma omp parallel for schedule(static)
+    for (int64_t r = 0; r < n_rows; r++) {
+        HitWriter w(out + r * cap_row);
+        w.put_ch(classified[r] ? 'C' : 'U');
+        w.put_ch('\t');
+        for (int64_t t = toffs[r]; t < toffs[r + 1]; t++) w.put_ch(titles[t]);
+        w.put_ch('\t');
+        w.put_int(rtax[r]);
+        w.put_ch('\t');
+        const bool paired = splits[r] >= 0;
+        w.put_int(totals[r * 2] + (k - 1));
+        if (paired) {
+            w.put_ch('|');
+            w.put_int(totals[r * 2 + 1] + (k - 1));
+        }
+        w.put_ch('\t');
+        const int32_t* v = values + r * cap;
+        const int32_t* c = counts + r * cap;
+        const int64_t n = nruns[r];
+        bool wrote = false;
+        auto emit_run = [&](int64_t pv, int64_t cnt) {
+            if (wrote) w.put_ch(' ');
+            int64_t taxon = (pv >> 1) - 2;
+            if (taxon == -1) w.put_ch('A');
+            else w.put_int(taxon);
+            w.put_ch(':');
+            w.put_int(cnt);
+            wrote = true;
+        };
+        int64_t j = 0;
+        for (; j < n && (v[j] & 1) == 0; j++) emit_run(v[j], c[j]);
+        if (paired) {
+            if (wrote) w.put_ch(' ');
+            w.put_str("|:|");
+            wrote = true;
+            for (; j < n; j++) emit_run(v[j], c[j]);
+        }
+        w.put_ch('\n');
+        ends[r] = w.p - out;
+    }
+    return 0;
+}
+
 // Full Kraken output lines from DENSE window taxa ([B, L] i32 + codes):
 //   "C|U\t<title>\t<taxon>\t<len[|len2]>\t<details>\n"
 // per row, into private slots of cap_row bytes; ends[r] = absolute END of

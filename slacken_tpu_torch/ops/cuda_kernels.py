@@ -46,10 +46,11 @@ TABLE_PROBES = ("probe_tiled", "probe_tiled_wide", "probe_rows", "probe_rows_wid
 #: scan_wide, probe_wide: the kernels for m > 31; scan_stitch: the scan
 #: launches (of any of the three) whose rows were cut into segments and
 #: stitched inside the launch (kernels/scan.cu, stitch_row), counted beside
-#: the scan's own name
+#: the scan's own name; hit_runs: per-read mode's reduction of the window
+#: taxa (kernels/hitruns.cu)
 LAUNCHES: Dict[str, int] = {
     name: 0 for name in ("scan", "scan_lut", "scan_wide", "scan_stitch", "probe", "probe_wide", *TABLE_PROBES,
-                         *MASK_IDIOMS)
+                         "hit_runs", *MASK_IDIOMS)
 }
 
 #: warps a scan launch should have in flight on each SM: four a scheduler,
@@ -147,9 +148,10 @@ def _load():
     lib.stpu_rows_floor.argtypes = [p, i32, i32, ctypes.c_uint, p, i64, p, p]
     lib.stpu_probe_hashed.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     lib.stpu_hashed_floor.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
+    lib.stpu_hit_runs.argtypes = [p, p, p, p, i64, i32, i32, i32, p, p]
     for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide, lib.stpu_probe_tiled,
                lib.stpu_tiled_floor, lib.stpu_probe_bucketed, lib.stpu_bucketed_floor, lib.stpu_probe_rows,
-               lib.stpu_rows_floor, lib.stpu_probe_hashed, lib.stpu_hashed_floor):
+               lib.stpu_rows_floor, lib.stpu_probe_hashed, lib.stpu_hashed_floor, lib.stpu_hit_runs):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -603,6 +605,39 @@ def hashed_floor_cuda(table: HashedTable, queries: torch.Tensor) -> torch.Tensor
     rc = _launch(queries, _load().stpu_hashed_floor, table.table.data_ptr(), table.slots, table.tile, table.bits,
                  int(table.cols), queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
     _check(rc, "hashed_floor")
+    return out
+
+
+def hit_runs_cuda(window_taxa: torch.Tensor, valid: torch.Tensor, splits: torch.Tensor, row_lens: torch.Tensor,
+                  k: int, cap: int) -> torch.Tensor:
+    """Each row's final hit runs (kernels/hitruns.cu), one warp a row: the
+    [B, cap + cap/2 + 3] int32 bundle of hitruns.hit_runs_plain from the
+    [B, L] int32 window taxa, pack_2bit's [B, L/8] uint8 validity bits and
+    int32 [B] splits (-1 single-end) and row lengths. L is a multiple of 8
+    below 2^16, cap even, k positive."""
+    _require(window_taxa, "window_taxa", torch.int32, 2)
+    _require(valid, "valid", torch.uint8, 2)
+    _require(splits, "splits", torch.int32, 1)
+    _require(row_lens, "row_lens", torch.int32, 1)
+    b, L = window_taxa.shape
+    if L % 8 or L >= 1 << 16 or tuple(valid.shape) != (b, L // 8):
+        raise ValueError(f"window taxa [{b}, {L}] need L a multiple of 8 below 2^16 and valid [{b}, {L // 8}], "
+                         f"got valid {tuple(valid.shape)}")
+    if splits.shape[0] != b or row_lens.shape[0] != b:
+        raise ValueError(f"splits [{splits.shape[0]}] and row_lens [{row_lens.shape[0]}] must have {b} rows")
+    if len({window_taxa.device, valid.device, splits.device, row_lens.device}) != 1:
+        raise ValueError("window_taxa, valid, splits and row_lens must be on one device")
+    if cap < 2 or cap % 2 or cap > 4096 or k < 1:
+        raise ValueError(f"hit runs take an even cap in [2, 4096] and k >= 1, got cap={cap} k={k}")
+    out = torch.empty((b, cap + cap // 2 + 3), dtype=torch.int32, device=window_taxa.device)
+    if b == 0:
+        return out
+    rc = _launch(
+        window_taxa, _load().stpu_hit_runs, window_taxa.data_ptr(), valid.data_ptr(), splits.data_ptr(),
+        row_lens.data_ptr(), b, L, k, cap, out.data_ptr(), _stream(window_taxa),
+    )
+    _check(rc, "hit_runs")
+    LAUNCHES["hit_runs"] += 1
     return out
 
 

@@ -102,7 +102,7 @@ class MeshClassifier(Classifier):
         fn = pmesh.scan_probe_replicated if self.layout == "replicated" else pmesh.scan_probe_ring
         return fn(self.mesh, self._arrays, self._luts, packed, valid, self.index.params.minimizer_params)
 
-    def _classify_packed_rows(self, packed, valid, ambig, tmax: int):
+    def _classify_packed_rows(self, packed, valid, ambig, tmax: int, valid_dev=None):
         req_luts = {d: self._req_lut(tmax, d) for d in self.mesh.distinct}
         return pmesh.classify_rows(self.mesh, self.scan_probe(packed, valid), ambig, self._tables, req_luts,
                                    self.max_taxa)

@@ -14,6 +14,7 @@ import numpy as np
 
 from . import native
 from .ops import encode
+from .ops.resolve import INVALID_WINDOW
 from .taxonomy import Taxonomy
 
 BENCH_SEED = 20260816
@@ -196,6 +197,57 @@ def carry_rows(rng, shape: Tuple[int, int], segment: int, k: int) -> np.ndarray:
             if kind < 2:
                 codes[r, s : s + k] = codes[r, a - k : a]
     return codes
+
+def hit_runs_rows(seed: int, rows: int, width: int, k: int, paired: bool = False, taxa: int = 6):
+    """Inputs of the hit-runs reduction (ops/hitruns.py) as the classifier
+    makes them: (window taxa int32 [rows, width], pack_2bit's validity bits
+    uint8 [rows, width/8], splits int32 [rows] (-1 single-end), row lengths
+    int32 [rows]); width a multiple of 8. A window is valid when its k chars
+    are, and valid windows carry piecewise-constant taxa (NONE = 0 among
+    them, up to 2^30). Rows cycle through four kinds: clean, a few Ns, N runs
+    of k to 2k bases (ambiguous runs), and full rows with one N in 100 and 60
+    taxon changes (more runs than the cap); the first two rows are padding
+    (length 0) and the third is full.
+    Paired rows put N runs against the mate border, one side or the other."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (rows, width)).astype(np.uint8)
+    lens = rng.integers(min(k, width) // 2, width + 1, rows)
+    lens[:2] = 0
+    lens[2 % rows] = width
+    splits = np.full(rows, -1, np.int64)
+    for i in range(rows):
+        n, kind = int(lens[i]), i % 4
+        if kind == 1:
+            codes[i, rng.integers(0, width, 3)] = encode.INVALID
+        elif kind == 2:
+            for a in rng.integers(0, width, 2):
+                codes[i, a : a + int(rng.integers(k, 2 * k + 1))] = encode.INVALID
+        elif kind == 3:
+            codes[i, rng.random(width) < 0.01] = encode.INVALID
+            lens[i] = n = width
+        if paired and n >= 3:
+            s = int(rng.integers(1, n - 1))
+            splits[i] = s
+            codes[i, s] = encode.INVALID
+            if i % 5 == 0:
+                codes[i, max(0, s - k - int(rng.integers(0, 3))) : s] = encode.INVALID
+            elif i % 5 == 1:
+                codes[i, s + 1 : s + 1 + k + int(rng.integers(0, 3))] = encode.INVALID
+        codes[i, n:] = encode.INVALID
+    bad = np.concatenate([np.zeros((rows, 1), np.int64), np.cumsum(codes == encode.INVALID, axis=1)], axis=1)
+    pos = np.arange(width)
+    end = np.minimum(pos + k, width)
+    win_ok = (pos + k <= width)[None, :] & (bad[:, end] - bad[:, pos] == 0)
+    pool = np.concatenate([[0], rng.integers(1, 1 << 30, taxa)]).astype(np.int32)
+    wt = np.empty((rows, width), np.int32)
+    for i in range(rows):
+        cuts = np.sort(rng.integers(0, width, 60 if i % 4 == 3 else int(rng.integers(0, 5))))
+        seg = np.searchsorted(cuts, pos, side="right")
+        wt[i] = pool[rng.integers(0, len(pool), len(cuts) + 1)][seg]
+    wt[~win_ok] = INVALID_WINDOW
+    _, valid = encode.pack_2bit(codes)
+    return wt, valid, splits.astype(np.int32), lens.astype(np.int32)
+
 
 _LETTERS = np.frombuffer(b"ACGTN", np.uint8)
 

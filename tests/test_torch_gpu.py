@@ -5,10 +5,14 @@ which the GPU host lacks, so run these there with
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_gpu.py
 """
 
+import gzip
+import os
+
 import numpy as np
 import pytest
 import torch
 
+import hitruns_cases
 import probe_cases
 from slacken_tpu_torch import diagnostics, workloads
 from slacken_tpu_torch.ops import cuda_kernels, encode, lookup, mask_idioms, minimizers, ordering
@@ -1500,3 +1504,80 @@ def test_build_distributed_over_distinct_cards(cuda, keep):
         got_cols = [got.keys_t, got.taxa_t] + ([got.record_keys_t, got.record_taxa_t] if keep else [])
         for a, b in zip(got_cols, cols):
             assert torch.equal(a.cpu(), b)
+
+
+#: the CPU cases' shapes, the bench batch, a 4 kbp bucket single-end and
+#: paired, long buckets up to the widest row a reduction takes, and wide k
+HIT_RUNS_SHAPES = [*hitruns_cases.SHAPES, (32768, 128, 35, False), (64, 4096, 35, False), (64, 4096, 35, True),
+                   (8, 32768, 35, True), (3, 65528, 35, False), (256, 264, 120, True), (64, 128, 128, False)]
+
+
+@pytest.mark.parametrize("i,rows,width,k,paired", [(i, *s) for i, s in enumerate(HIT_RUNS_SHAPES)])
+def test_hit_runs_kernel_matches_twin(cuda, i, rows, width, k, paired):
+    """hit_runs_cuda equals hit_runs_plain on the card (max_abs_err 0) at the
+    default cap, at a cap below a tile and at one above it, in one launch
+    each; no launch for zero rows."""
+    from slacken_tpu_torch.ops import hitruns
+
+    args = [torch.from_numpy(a).to(cuda) for a in workloads.hit_runs_rows(100 + i, rows, width, k, paired)]
+    for cap in (hitruns.DEFAULT_RUNS_PER_ROW, 4, 48):
+        before = cuda_kernels.LAUNCHES["hit_runs"]
+        got = hitruns.hit_runs(*args, k, cap)
+        assert cuda_kernels.LAUNCHES["hit_runs"] == before + 1
+        want = hitruns.hit_runs_plain(*args, k, cap)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and int((got.long() - want.long()).abs().max()) == 0
+        if cap == 4 and width >= 2 * k:
+            assert int((got[:, -3] > cap).sum()) > 0
+    empty = [a[:0] for a in args]
+    before = cuda_kernels.LAUNCHES["hit_runs"]
+    assert cuda_kernels.hit_runs_cuda(*empty, k, 16).shape == (0, 27)
+    assert cuda_kernels.LAUNCHES["hit_runs"] == before
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["dense", "hit runs"])
+def test_per_read_hit_runs_on_the_card(cuda, on, tmp_path, monkeypatch):
+    """Per-read files on the card, dense and under STPU_HIT_RUNS=1, equal the
+    CPU's dense files; hit runs launch their kernel and never its twin, the
+    dense run never launches it."""
+    from slacken_tpu_torch import native
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.ops import hitruns
+
+    tax, genomes, params = _small_library("narrow")
+    rng = np.random.default_rng(3)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    reads = []
+    for i in range(300):
+        _, g = genomes[i % 6]
+        s = int(rng.integers(0, len(g) - 150))
+        codes = encode.encode_seq(g[s : s + 150]).copy()
+        if i % 3 == 0:
+            for a in rng.integers(0, 150, 3):
+                codes[a : a + int(rng.integers(1, 45))] = encode.INVALID
+        reads.append(letters[codes].tobytes())
+    codes, lens = encode.pack_batch(reads, 256)
+    stream = [native.PackedReads(codes, lens, [f"r{i}" for i in range(len(reads))])]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15], per_read_output=True)
+
+    def files(device, prefix):
+        idx = KeyValueIndex.build(iter(genomes), params, tax, device)
+        Classifier(idx, device, max_taxa_per_read=4).classify_and_write_packed(stream, str(tmp_path / prefix), cpar)
+        out = {}
+        for root, _, names in os.walk(tmp_path):
+            for n in names:
+                path = os.path.join(root, n)
+                if path.startswith(str(tmp_path / prefix) + "_c"):
+                    with (gzip.open if n.endswith(".gz") else open)(path, "rb") as f:
+                        out[os.path.relpath(path, tmp_path)[len(prefix):]] = f.read()
+        return out
+
+    monkeypatch.setenv("STPU_HIT_RUNS", "0")
+    want = files("cpu", "cpu")
+    monkeypatch.setenv("STPU_HIT_RUNS", "1" if on else "0")
+    monkeypatch.setattr(hitruns, "hit_runs_plain", None)  # the card never runs the twin
+    before = cuda_kernels.LAUNCHES["hit_runs"]
+    got = files(cuda, "card")
+    assert got == want and len(got) == 4
+    assert (cuda_kernels.LAUNCHES["hit_runs"] > before) == on

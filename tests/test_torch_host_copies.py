@@ -230,6 +230,39 @@ def test_hit_lines_and_output_lines_match(rng, native_on):
     assert outs[0] == outs[1] and outs[0].count(b"\n") == len(idxs)
 
 
+def test_hit_lines_runs_and_output_lines_runs_match(native_on):
+    """The runs formatters of the port's own library against the original's
+    on the same hit runs (single-end and paired rows, ambiguous runs, rows
+    over the cap passed capped), and (fallback) both return None."""
+    import torch
+
+    from slacken_tpu_torch.ops import hitruns
+
+    k, cap = 35, hitruns.DEFAULT_RUNS_PER_ROW
+    wt, valid, splits, lens = workloads.hit_runs_rows(3, 64, 128, k, paired=True)
+    splits[::3] = -1  # single reads among paired rows
+    bundle = hitruns.hit_runs_plain(*(torch.from_numpy(a) for a in (wt, valid, splits, lens)), k, cap).numpy()
+    values, counts, nruns, totals, _ = hitruns.decode(bundle, cap)
+    nruns = np.minimum(nruns, cap)
+    splits = splits.astype(np.int64)
+    got = native.hit_lines_runs(values, counts, nruns, totals, splits, k)
+    b = len(values)
+    titles = [f"read{i}".encode() for i in range(b)]
+    offs = np.zeros(b + 1, np.int64)
+    np.cumsum([len(t) for t in titles], out=offs[1:])
+    rtax = (np.arange(b) % 5).astype(np.int64)
+    cl = (rtax > 0).astype(np.uint8)
+    args = (values, counts, nruns, totals, splits, b"".join(titles), offs, rtax, cl, k, 8)
+    if not native_on:
+        assert got is None and native.output_lines_runs(*args) is None
+        return
+    assert got == jnative.hit_lines_runs(values, counts, nruns, totals, splits, k)
+    assert any("A:" in d for d, _ in got) and any("|:|" in d for d, _ in got)
+    idxs = np.arange(0, b, 3)
+    outs = [bytes(mod.gather_rows(*mod.output_lines_runs(*args), idxs)) for mod in (native, jnative)]
+    assert outs[0] == outs[1] and outs[0].count(b"\n") == len(idxs)
+
+
 def test_native_library_is_the_ports_own():
     path = native.library_path()
     assert os.path.dirname(path) == os.path.join(ROOT, "slacken_tpu_torch", "_build")

@@ -27,6 +27,7 @@ for name in names:
 import chip_smoke
 assert len(names) >= 35 and "slacken_tpu_torch.ops.ordering" in names, names
 assert "slacken_tpu_torch.dynamic" in names and "slacken_tpu_torch.stats" in names, names
+assert "slacken_tpu_torch.ops.hitruns" in names, names
 for name in ("bracken", "analysis.migration", "analysis.experiment", "download",
              "parallel", "parallel.mesh", "parallel.classifier", "parallel.multihost"):
     assert "slacken_tpu_torch." + name in names, names
@@ -52,7 +53,8 @@ def test_no_source_names_the_jax_package():
     files = glob.glob(os.path.join(ROOT, "slacken_tpu_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scan_timing.py")]
     assert len(files) >= 36
-    for name in (os.path.join("ops", "ordering.py"), "dynamic.py", "stats.py", "bracken.py", "download.py",
+    for name in (os.path.join("ops", "ordering.py"), os.path.join("ops", "hitruns.py"),
+                 "dynamic.py", "stats.py", "bracken.py", "download.py",
                  os.path.join("analysis", "migration.py"), os.path.join("analysis", "experiment.py"),
                  os.path.join("parallel", "__init__.py"), os.path.join("parallel", "mesh.py"),
                  os.path.join("parallel", "classifier.py"), os.path.join("parallel", "multihost.py")):
