@@ -1465,11 +1465,47 @@ def bench_batch(cls, reads):
     return wt, valid_dev, to_device(np.full(rows, -1, np.int32), cls.device), to_device(lens, cls.device)
 
 
+#: the hit-runs shapes timed beside the bench batch: (label, index into
+#: HIT_RUNS_CASES) of the N-heavy batch (every fourth row over the cap) and
+#: a long-row bucket
+HIT_RUNS_TIMED = [("N-heavy batch", 0), ("long rows", 2)]
+
+
+def time_hit_runs(args, k, cap):
+    """hit_runs_cuda on these inputs: back to back (CUDA events) and alone
+    (torch.profiler), its bound (each input once, the bundle once), and its
+    floor alone (cuda_kernels.hit_runs_floor_cuda: the same loads and writes,
+    no scan) where the tree has one."""
+    import torch
+
+    from slacken_tpu_torch.ops import cuda_kernels, hitruns
+
+    wt = args[0]
+    run = lambda: cuda_kernels.hit_runs_cuda(*args, k, cap)  # noqa: E731
+    out = torch.empty((wt.shape[0], hitruns.bundle_width(cap)), dtype=torch.int32, device=wt.device)
+    n_bytes = tensor_bytes(*args, out)
+    # about 20 integer operations a window position: compares, ballots, shuffles, popcounts
+    bound_ms, by = bound(n_bytes, 20 * wt.numel())
+    r = dict(ms=cuda_ms(run), device_ms=device_ms(run), bound_ms=bound_ms, bound_by=by, bytes=n_bytes)
+    if hasattr(cuda_kernels, "hit_runs_floor_cuda"):
+        r["floor_device_ms"] = device_ms(lambda: cuda_kernels.hit_runs_floor_cuda(*args, cap))
+    return r
+
+
+def fmt_hit_runs(label, r):
+    share = "" if r["device_ms"] is None else f", {100 * r['bound_ms'] / r['device_ms']:.1f}% of it alone"
+    floor = f"; floor {fmt_ms(r['floor_device_ms'])} alone" if "floor_device_ms" in r else ""
+    return (f"{label}: kernel {r['ms']:.4f} ms back to back, {fmt_ms(r['device_ms'])} alone, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bytes']} bytes){share}{floor}")
+
+
 def check_hit_runs(dev, results, bench):
     """The hit-runs kernel == its twin (max_abs_err 0) on the bench batch's
-    window taxa and on HIT_RUNS_CASES, at the default cap and at 4 (more rows
-    over it); timed at the bench batch: alone and back to back, the twin, the
-    bound, and the bundle's device-to-host copy beside the dense one's."""
+    window taxa, on HIT_RUNS_CASES and on the hand-made edge rows, at the
+    default cap, at 4 (more rows over it) and at 48; timed alone and back to
+    back with its bound and floor at the bench batch (caps 16 and 4), the
+    N-heavy batch and a long-row bucket; the twin, and the bundle's
+    device-to-host copy beside the dense one's, at the bench batch."""
     import torch
 
     from slacken_tpu_torch import workloads
@@ -1482,9 +1518,13 @@ def check_hit_runs(dev, results, bench):
         label = f"[{rows}, {width}] k={kk}{' paired' if paired else ''} (workloads.hit_runs_rows)"
         arrays = workloads.hit_runs_rows(1900 + i, rows, width, kk, paired)
         cases[label] = ([torch.from_numpy(a).to(dev) for a in arrays], kk)
+    for width, kk in workloads.HIT_RUNS_EDGE_SHAPES:
+        arrays = workloads.hit_runs_edge_rows(width, kk, seed=width + kk)
+        cases[f"edge rows [{arrays[0].shape[0]}, {width}] k={kk} (workloads.hit_runs_edge_rows)"] = (
+            [torch.from_numpy(a).to(dev) for a in arrays], kk)
     err, over = 0, {}
     for label, (args, kk) in cases.items():
-        for c in (cap, 4):
+        for c in (cap, 4, 48):
             got, want = cuda_kernels.hit_runs_cuda(*args, kk, c), hitruns.hit_runs_plain(*args, kk, c)
             torch.cuda.synchronize()
             if got.shape != want.shape:
@@ -1493,33 +1533,32 @@ def check_hit_runs(dev, results, bench):
             if err:
                 fail(f"hit_runs kernel differs from its twin at {label}, cap {c} (max abs err {err})")
             over[(label, c)] = int((got[:, -3] > c).sum())
-    log("hit_runs kernel == twin, max_abs_err 0, at " + "; ".join(
+    log("hit_runs kernel == twin, max_abs_err 0, caps 16, 4 and 48, at " + "; ".join(
         f"{label}: {over[(label, cap)]} rows over cap {cap}, {over[(label, 4)]} over cap 4" for label in cases))
     if not any(over[(label, cap)] for label in cases):
         fail("no hit_runs check had a row over the cap")
-    args = cases[next(iter(cases))][0]
+    labels = list(cases)
+    args = cases[labels[0]][0]
     wt = args[0]
     out = torch.empty((wt.shape[0], hitruns.bundle_width(cap)), dtype=torch.int32, device=dev)
     one_launch(lambda: cuda_kernels.hit_runs_cuda(*args, k, cap), "hit_runs")
-    ms = cuda_ms(lambda: cuda_kernels.hit_runs_cuda(*args, k, cap))
-    dev_ms = device_ms(lambda: cuda_kernels.hit_runs_cuda(*args, k, cap))
+    r = time_hit_runs(args, k, cap)
     plain = cuda_ms(lambda: hitruns.hit_runs_plain(*args, k, cap), iters=5, warmup=1)
-    n_bytes = tensor_bytes(*args, out)
-    # about 20 integer operations a window position: compares, ballots, shuffles, popcounts
-    bound_ms, by = bound(n_bytes, 20 * wt.numel())
     bundle_host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
     dense_host = torch.empty(wt.shape, dtype=torch.int32, pin_memory=True)
     d2h_bundle = cuda_ms(lambda: bundle_host.copy_(out, non_blocking=True))
     d2h_dense = cuda_ms(lambda: dense_host.copy_(wt, non_blocking=True))
-    share = None if dev_ms is None else bound_ms / dev_ms
-    log(f"hit_runs at the bench batch [{wt.shape[0]}, {wt.shape[1]}], cap {cap}: kernel {ms:.4f} ms back to back, "
-        f"{fmt_ms(dev_ms)} on the device alone, plain {plain:.4f} ms, bound {bound_ms:.5f} ms ({by}, {n_bytes} "
-        f"bytes){'' if share is None else f', {100 * share:.1f}% of it alone'}; no single PyTorch call computes it; "
-        f"device-to-host copy of the bundle ({tensor_bytes(out)} bytes) {d2h_bundle:.4f} ms, of the dense window "
-        f"taxa ({tensor_bytes(wt)} bytes) {d2h_dense:.4f} ms")
-    results["hit_runs"] = dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms,
-                               bound_by=by, library_ms=None, bytes=n_bytes, d2h_bundle_ms=d2h_bundle,
-                               d2h_dense_ms=d2h_dense)
+    log(fmt_hit_runs(f"hit_runs at the bench batch [{wt.shape[0]}, {wt.shape[1]}], cap {cap}", r) +
+        f"; plain {plain:.4f} ms; no single PyTorch call computes it; device-to-host copy of the bundle "
+        f"({tensor_bytes(out)} bytes) {d2h_bundle:.4f} ms, of the dense window taxa ({tensor_bytes(wt)} bytes) "
+        f"{d2h_dense:.4f} ms")
+    shapes = {"bench batch, cap 4": time_hit_runs(args, k, 4)}
+    for name, i in HIT_RUNS_TIMED:
+        shapes[f"{name} {labels[1 + i]}, cap {cap}"] = time_hit_runs(*cases[labels[1 + i]], cap)
+    for label, t in shapes.items():
+        log(fmt_hit_runs(f"hit_runs at the {label}", t))
+    results["hit_runs"] = dict(max_abs_err=float(err), plain_ms=plain, library_ms=None, **r, d2h_bundle_ms=d2h_bundle,
+                               d2h_dense_ms=d2h_dense, shapes=shapes)
 
 
 def phase_detailed(dev, out, bench):

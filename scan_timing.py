@@ -3,7 +3,7 @@
 row-bucket table probes on one NVIDIA GPU at the main path's shapes, to
 compare two versions of the kernels inside one run on one card.
 
-    python3 scan_timing.py [--root DIR] [--cases all|scan|probe|tables] [--tables tiled,...]
+    python3 scan_timing.py [--root DIR] [--cases all|scan|probe|tables|hitruns] [--tables tiled,...]
 
 `--root` imports slacken_tpu_torch from DIR, another checkout of the
 repository (the parent commit unpacked into a git-ignored directory, say);
@@ -43,7 +43,9 @@ cuda_kernels.rows_floor_cuda), beside both tiled probes theirs (the
 router entries, then the sector of the bucket's first record, where the
 tree has cuda_kernels.tiled_floor_cuda) and beside the bucketed probe its
 own (the router entries, then the sector of keys at the guessed key, where
-the tree has cuda_kernels.bucketed_floor_cuda). Run parent, change, change, parent
+the tree has cuda_kernels.bucketed_floor_cuda). `--cases hitruns` times
+per-read mode's hit-runs kernel (time_hit_runs), with its floor where the
+tree has cuda_kernels.hit_runs_floor_cuda. Run parent, change, change, parent
 in one command to compare two trees.
 """
 
@@ -79,7 +81,7 @@ CASES = [
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--cases", choices=("all", "scan", "probe", "tables"), default="all")
+    ap.add_argument("--cases", choices=("all", "scan", "probe", "tables", "hitruns"), default="all")
     ap.add_argument("--tables", default=",".join(TABLE_CASES),
                     help="the tables of --cases tables, comma-separated (default: all)")
     args = ap.parse_args(argv)
@@ -101,11 +103,13 @@ def main(argv=None):
     cuda_kernels.build(verbose=True)
     lines = cuda_kernels.build_info[1].splitlines()
     for i, line in enumerate(lines):
-        entry = "Compiling entry function" in line and any(x in line for x in ("scan", "probe", "floor"))
+        entry = "Compiling entry function" in line and any(x in line for x in ("scan", "probe", "floor", "hit_runs"))
         if entry or ("Function properties for" in line and "stitch" in line):
             fn = line.split(chr(39))[1] if entry else line.split("for ")[-1]
             found = [x.strip() for x in lines[i + 1:i + 4] if "Used" in x or "stack frame" in x][:2 if entry else 1]
             print(f"[{name}] {fn}: {'; '.join(found)}", flush=True)
+    if args.cases in ("all", "hitruns"):
+        time_hit_runs(name, dev)
     if args.cases in ("all", "tables"):
         time_tables(name, dev, args.tables.split(","))
     if args.cases in ("all", "probe"):
@@ -129,6 +133,36 @@ def main(argv=None):
             print(f"[{name}] {label} {kms} {list(shape)}: back to back {ms:.4f} ms; alone {alone}", flush=True)
         del lut
     return 0
+
+
+def time_hit_runs(name, dev):
+    """The hit-runs kernel at chip_smoke.py's timed shapes, each held to its
+    twin first: the bench batch's window taxa (caps 16 and 4), the N-heavy
+    batch and the long-row bucket of HIT_RUNS_TIMED (cap 16); alone, back to
+    back, the bound and, where the tree has one, the floor
+    (chip_smoke.time_hit_runs)."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels, hitruns
+
+    library = workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))
+    idx = KeyValueIndex.build(library, IndexParams(k=35, m=31, spaces=7), workloads.bench_taxonomy(), dev)
+    k = idx.params.k
+    cases = [("bench batch", chip_smoke.bench_batch(Classifier(idx, dev), workloads.bench_reads()), k, (16, 4))]
+    for label, i in chip_smoke.HIT_RUNS_TIMED:
+        rows, width, kk, paired = chip_smoke.HIT_RUNS_CASES[i]
+        arrays = workloads.hit_runs_rows(1900 + i, rows, width, kk, paired)
+        cases.append((f"{label} [{rows}, {width}]", [torch.from_numpy(a).to(dev) for a in arrays], kk, (16,)))
+    for label, args, kk, caps in cases:
+        for cap in caps:
+            if not torch.equal(cuda_kernels.hit_runs_cuda(*args, kk, cap), hitruns.hit_runs_plain(*args, kk, cap)):
+                raise SystemExit(f"scan_timing: the hit-runs kernel differs from its twin at the {label}, cap {cap}")
+            r = chip_smoke.time_hit_runs(args, kk, cap)
+            print(f"[{name}] {chip_smoke.fmt_hit_runs(f'hit_runs at the {label}, cap {cap}', r)}", flush=True)
+    del idx
 
 
 def time_tables(name, dev, only=TABLE_CASES):

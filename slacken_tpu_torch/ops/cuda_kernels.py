@@ -149,9 +149,11 @@ def _load():
     lib.stpu_probe_hashed.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     lib.stpu_hashed_floor.argtypes = [p, i64, i32, i32, i32, p, i64, p, p]
     lib.stpu_hit_runs.argtypes = [p, p, p, p, i64, i32, i32, i32, p, p]
+    lib.stpu_hit_runs_floor.argtypes = [p, p, p, p, i64, i32, i32, p, p]
     for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide, lib.stpu_probe_tiled,
                lib.stpu_tiled_floor, lib.stpu_probe_bucketed, lib.stpu_bucketed_floor, lib.stpu_probe_rows,
-               lib.stpu_rows_floor, lib.stpu_probe_hashed, lib.stpu_hashed_floor, lib.stpu_hit_runs):
+               lib.stpu_rows_floor, lib.stpu_probe_hashed, lib.stpu_hashed_floor, lib.stpu_hit_runs,
+               lib.stpu_hit_runs_floor):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -608,13 +610,8 @@ def hashed_floor_cuda(table: HashedTable, queries: torch.Tensor) -> torch.Tensor
     return out
 
 
-def hit_runs_cuda(window_taxa: torch.Tensor, valid: torch.Tensor, splits: torch.Tensor, row_lens: torch.Tensor,
-                  k: int, cap: int) -> torch.Tensor:
-    """Each row's final hit runs (kernels/hitruns.cu), one warp a row: the
-    [B, cap + cap/2 + 3] int32 bundle of hitruns.hit_runs_plain from the
-    [B, L] int32 window taxa, pack_2bit's [B, L/8] uint8 validity bits and
-    int32 [B] splits (-1 single-end) and row lengths. L is a multiple of 8
-    below 2^16, cap even, k positive."""
+def _hit_runs_inputs(window_taxa, valid, splits, row_lens, k: int, cap: int) -> torch.Tensor:
+    """Check the hit-runs kernels' inputs; the [B, cap + cap/2 + 3] int32 bundle to write."""
     _require(window_taxa, "window_taxa", torch.int32, 2)
     _require(valid, "valid", torch.uint8, 2)
     _require(splits, "splits", torch.int32, 1)
@@ -629,7 +626,21 @@ def hit_runs_cuda(window_taxa: torch.Tensor, valid: torch.Tensor, splits: torch.
         raise ValueError("window_taxa, valid, splits and row_lens must be on one device")
     if cap < 2 or cap % 2 or cap > 4096 or k < 1:
         raise ValueError(f"hit runs take an even cap in [2, 4096] and k >= 1, got cap={cap} k={k}")
-    out = torch.empty((b, cap + cap // 2 + 3), dtype=torch.int32, device=window_taxa.device)
+    if window_taxa.data_ptr() % 16:
+        raise ValueError("window_taxa must be 16-byte aligned (the kernel reads 16 bytes at a time)")
+    return torch.empty((b, cap + cap // 2 + 3), dtype=torch.int32, device=window_taxa.device)
+
+
+def hit_runs_cuda(window_taxa: torch.Tensor, valid: torch.Tensor, splits: torch.Tensor, row_lens: torch.Tensor,
+                  k: int, cap: int) -> torch.Tensor:
+    """Each row's final hit runs (kernels/hitruns.cu), 8, 16 or 32 lanes a
+    row: the [B, cap + cap/2 + 3] int32 bundle of hitruns.hit_runs_plain
+    from the [B, L] int32 window taxa, pack_2bit's [B, L/8] uint8 validity
+    bits and int32 [B] splits (-1 single-end) and row lengths. L is a
+    multiple of 8 below 2^16, cap even, k positive; the window taxa 16-byte
+    aligned (the kernel reads them 16 bytes a load)."""
+    out = _hit_runs_inputs(window_taxa, valid, splits, row_lens, k, cap)
+    b, L = window_taxa.shape
     if b == 0:
         return out
     rc = _launch(
@@ -638,6 +649,21 @@ def hit_runs_cuda(window_taxa: torch.Tensor, valid: torch.Tensor, splits: torch.
     )
     _check(rc, "hit_runs")
     LAUNCHES["hit_runs"] += 1
+    return out
+
+
+def hit_runs_floor_cuda(window_taxa: torch.Tensor, valid: torch.Tensor, splits: torch.Tensor,
+                        row_lens: torch.Tensor, cap: int) -> torch.Tensor:
+    """A measurement on no path (kernels/hitruns.cu, hit_runs_floor_kernel):
+    hit_runs_cuda's grid and loads, and a bundle of its shape written from
+    the xor of what each row's warp read, with no scan. What the kernel
+    cannot beat. Not counted in LAUNCHES."""
+    out = _hit_runs_inputs(window_taxa, valid, splits, row_lens, 1, cap)
+    b, L = window_taxa.shape
+    if b:
+        rc = _launch(window_taxa, _load().stpu_hit_runs_floor, window_taxa.data_ptr(), valid.data_ptr(),
+                     splits.data_ptr(), row_lens.data_ptr(), b, L, cap, out.data_ptr(), _stream(window_taxa))
+        _check(rc, "hit_runs_floor")
     return out
 
 

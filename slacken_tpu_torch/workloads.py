@@ -234,10 +234,8 @@ def hit_runs_rows(seed: int, rows: int, width: int, k: int, paired: bool = False
             elif i % 5 == 1:
                 codes[i, s + 1 : s + 1 + k + int(rng.integers(0, 3))] = encode.INVALID
         codes[i, n:] = encode.INVALID
-    bad = np.concatenate([np.zeros((rows, 1), np.int64), np.cumsum(codes == encode.INVALID, axis=1)], axis=1)
+    win_ok = _windows_valid(codes, k)
     pos = np.arange(width)
-    end = np.minimum(pos + k, width)
-    win_ok = (pos + k <= width)[None, :] & (bad[:, end] - bad[:, pos] == 0)
     pool = np.concatenate([[0], rng.integers(1, 1 << 30, taxa)]).astype(np.int32)
     wt = np.empty((rows, width), np.int32)
     for i in range(rows):
@@ -247,6 +245,85 @@ def hit_runs_rows(seed: int, rows: int, width: int, k: int, paired: bool = False
     wt[~win_ok] = INVALID_WINDOW
     _, valid = encode.pack_2bit(codes)
     return wt, valid, splits.astype(np.int32), lens.astype(np.int32)
+
+
+def _windows_valid(codes: np.ndarray, k: int) -> np.ndarray:
+    """[rows, width] bool: the k chars from each position lie in the row and
+    are all valid."""
+    rows, width = codes.shape
+    bad = np.concatenate([np.zeros((rows, 1), np.int64), np.cumsum(codes == encode.INVALID, axis=1)], axis=1)
+    pos = np.arange(width)
+    end = np.minimum(pos + k, width)
+    return (pos + k <= width)[None, :] & (bad[:, end] - bad[:, pos] == 0)
+
+
+#: positions a lane of the hit-runs kernel scans a step
+HIT_RUNS_PER_LANE = 16
+#: (width, k) of hit_runs_edge_rows that the tests and chip_smoke.py run:
+#: one chunk of 16 and of 32 lanes (a lane border at 128), two chunks with a
+#: tail of 8 positions, three chunks
+HIT_RUNS_EDGE_SHAPES = [(136, 7), (136, 35), (264, 35), (520, 7), (1032, 50)]
+
+
+def hit_runs_lanes(width: int) -> int:
+    """Lanes of the hit-runs kernel a row of this width: the fewest of 8, 16
+    and 32 whose chunk (HIT_RUNS_PER_LANE a lane) covers the row, at most a
+    warp."""
+    return 8 if width <= 8 * HIT_RUNS_PER_LANE else 16 if width <= 16 * HIT_RUNS_PER_LANE else 32
+
+
+def hit_runs_edge_rows(width: int, k: int, seed: int = 0):
+    """Hand-made inputs of the hit-runs reduction, as hit_runs_rows returns
+    them, at the edges of the kernel's walk (kernels/hitruns.cu:
+    HIT_RUNS_PER_LANE positions a lane, hit_runs_lanes(width) lanes a chunk)
+    around a border c, the first chunk border of a row wider than one chunk,
+    else the lane border at 128: a padding row; runs that cross c or start
+    at it and at other places of a lane; an all-N stretch (ambiguous
+    windows) across c; a gap shorter than k across it between equal taxa
+    (one run, carried over the first lanes after it); mate borders at four
+    neighbouring places of a lane, with N runs ending at the border and
+    starting after it, and at c; a full row and one ending in N, for the
+    tail chunk when width is not a multiple of the chunk. width a multiple of
+    8 above 128."""
+    if width % 8 or width <= 128:
+        raise ValueError(f"edge rows need a width that is a multiple of 8 above 128, got {width}")
+    chunk = HIT_RUNS_PER_LANE * hit_runs_lanes(width)
+    c = chunk if width > chunk else 128
+    mid = 4 * (width // 8)
+    # (N stretches, length, split, taxon cuts) a row
+    spec = [
+        ([], 0, -1, []),
+        ([], width, -1, [5, 20, 40, 60, c - 8]),
+        ([], width, -1, [c - 4, c - 2, c, c + 1, c + 3]),
+        ([(c - 28, c + k + 12)], width, -1, [40]),
+        ([(c + 2, c + 2 + max(1, k // 4))], width, -1, []),
+        ([], width, -1, [width - k - 2]),
+        ([(width - k - 3, width)], width, -1, [c + 2]),
+    ]
+    for j in range(4):
+        s = mid - 1 + j  # mate 2 starts at mid + j
+        stretch = [(s - k - 1, s)] if j == 0 else [(s + 1, s + k + 3)] if j == 1 else []
+        spec.append((stretch, width, s, [] if j < 3 else [s - 5, s + 3]))
+    if c + k <= width:
+        spec.append(([], width, c - 1, [c - 6]))
+    rng = np.random.default_rng(seed)
+    rows = len(spec)
+    codes = rng.integers(0, 4, (rows, width)).astype(np.uint8)
+    lens, splits = np.zeros(rows, np.int32), np.full(rows, -1, np.int32)
+    pool = rng.integers(1, 1 << 30, 4).astype(np.int32)
+    taxa = np.empty((rows, width), np.int32)
+    pos = np.arange(width)
+    for i, (stretches, n, s, cuts) in enumerate(spec):
+        for a, b in stretches:
+            codes[i, max(a, 0) : b] = encode.INVALID
+        if s >= 0:
+            codes[i, s] = encode.INVALID
+        codes[i, n:] = encode.INVALID
+        lens[i], splits[i] = n, s
+        taxa[i] = pool[np.searchsorted(np.sort(cuts), pos, side="right") % len(pool)]
+    wt = np.where(_windows_valid(codes, k), taxa, INVALID_WINDOW).astype(np.int32)
+    _, valid = encode.pack_2bit(codes)
+    return wt, valid, splits, lens
 
 
 _LETTERS = np.frombuffer(b"ACGTN", np.uint8)

@@ -1,11 +1,12 @@
 """Per-read mode's hit-runs reduction of the window taxa on the CPU, against
 the JAX package: the plain twin of ops/hitruns.py and a numpy model of the
-CUDA kernel's walk, at tolerance 0; then per-read files under STPU_HIT_RUNS=1
-with the native formatters on, stubbed to None and absent, byte-identical to
-the JAX package's and to the port's dense run: single-end and paired rows,
-rows over the run cap, max_taxa overflow rows, a wide (45, 33, 7) index
-probed through hashed1, Classifier.classify's pairs, and a two-device mesh in
-both layouts. Last, the default."""
+CUDA kernel's walk, at tolerance 0, on generated rows and on rows made by
+hand at the edges of the kernel's chunks and lanes; then per-read files
+under STPU_HIT_RUNS=1 with the native formatters on, stubbed to None and
+absent, byte-identical to the JAX package's and to the port's dense run:
+single-end and paired rows, rows over the run cap, max_taxa overflow rows, a
+wide (45, 33, 7) index probed through hashed1, Classifier.classify's pairs,
+and a two-device mesh in both layouts. Last, the default."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -60,14 +61,37 @@ def test_hit_runs_plain_matches_jax(i, rows, width, k, paired, cap):
 
 @pytest.mark.parametrize("i,rows,width,k,paired", [(i, *s) for i, s in enumerate(hitruns_cases.SHAPES)])
 def test_kernel_walk_model_matches_twin(i, rows, width, k, paired):
-    """The CUDA kernel's tile walk, modelled in numpy, gives the twin's
+    """The CUDA kernel's chunk walk, modelled in numpy, gives the twin's
     bundle bit for bit (the gpu tests hold the kernel itself to the twin)."""
     wt, valid, splits, lens = _case(i, rows, width, k, paired)
     want = hitruns.hit_runs_plain(*(torch.from_numpy(a) for a in (wt, valid, splits, lens)), k, CAP).numpy()
     assert np.array_equal(hitruns_cases.warp_walk(wt, valid, splits, lens, k, CAP), want)
-    cap = 4  # more overflow rows; a cap below a tile
+    cap = 4  # more overflow rows
     want = hitruns.hit_runs_plain(*(torch.from_numpy(a) for a in (wt, valid, splits, lens)), k, cap).numpy()
     assert np.array_equal(hitruns_cases.warp_walk(wt, valid, splits, lens, k, cap), want)
+
+
+@pytest.mark.parametrize("width,k", hitruns_cases.EDGE_SHAPES)
+def test_hit_runs_plain_matches_jax_on_edge_rows(width, k):
+    wt, valid, splits, lens = hitruns_cases.edge_rows(width, k)
+    for cap in (CAP, 4, 48):
+        got = hitruns.hit_runs(*(torch.from_numpy(a) for a in (wt, valid, splits, lens)), k, cap).numpy()
+        assert np.array_equal(got, _jax_hit_runs(wt, valid, splits, lens, k, cap))
+    assert (lens == 0).any() and (splits >= 0).sum() >= 4 and (got[:, -1] > 0).sum() >= 4
+
+
+@pytest.mark.parametrize("width,k", hitruns_cases.EDGE_SHAPES)
+def test_kernel_walk_model_matches_twin_on_edge_rows(width, k):
+    """The kernel's walk, modelled in numpy, on the hand-made rows: runs, an
+    all-N stretch and a gap across a chunk or lane border, mate borders at
+    neighbouring places of a lane and at the border, a tail chunk; caps 16,
+    4 and 48."""
+    wt, valid, splits, lens = hitruns_cases.edge_rows(width, k)
+    for cap in (CAP, 4, 48):
+        want = hitruns.hit_runs_plain(*(torch.from_numpy(a) for a in (wt, valid, splits, lens)), k, cap).numpy()
+        assert np.array_equal(hitruns_cases.warp_walk(wt, valid, splits, lens, k, cap), want)
+        if cap == 4 and width >= 2 * k:
+            assert (want[:, -3] > cap).any()
 
 
 def test_decode_matches_jax():
