@@ -35,6 +35,13 @@ launch counts set to 0 just before it and read just after:
   * the programmatic API (Slacken.classify_reads, write_reports,
     Classifier.classify_and_write) on reads and pairs, card against CPU;
   * the kernel diagnostics entry point (the five mask-idiom kernels);
+  * the oracle fuzz harness (slacken_tpu_torch/fuzz.py, `phase_fuzz`):
+    FUZZ_SEEDS under each of the six narrow and three wide probe choices, a
+    random taxonomy, library, (k, m, s), thresholds, gate and adversarial
+    reads each, the index built on the card, every read held bit for bit to
+    the naive oracle through classify, classify_packed and the written
+    per-read and kreport files, dense and under STPU_HIT_RUNS=1; the first
+    mismatch prints its repro and fails;
   * the 400 Mbp scale library, built and classified (131,190,899 records);
   * wide keys: the bench library at (k, m, s) = (50, 45, 7) and (35, 33, 0),
     built, saved, loaded and classified in both modes on the card and on the
@@ -1725,6 +1732,53 @@ def phase_api(dev, out, bench):
         f"classified at 0.15; {dt:.2f} s on the card")
     if n_cls < 0.9 * (len(singles) + len(pairs)):
         fail(f"the api run classified {n_cls} of {len(singles) + len(pairs)}")
+    return launches
+
+
+#: the fuzz phase's seeds, each run under every (probe, wide) choice (the
+#: j-th choice adds 1000 * j, so that no two choices share a draw)
+FUZZ_SEEDS = range(20261018, 20261018 + 40)
+#: the kernels that the fuzz phase must launch: both scans, every probe
+#: kernel of the nine choices, and hit runs
+FUZZ_KERNELS = ("scan", "scan_wide", "probe", "probe_wide", "probe_tiled", "probe_tiled_wide", "probe_rows",
+                "probe_rows_wide", "probe_hashed", "probe_hashed_cols", "probe_bucketed", "hit_runs")
+
+
+def phase_fuzz(dev, out):
+    """The oracle fuzz harness on the card: each of FUZZ_SEEDS under each of
+    the nine (probe, wide) choices of fuzz.CHOICES, (k, m) drawn narrow or
+    wide to match, with the kernels' plain twins refused. The first read
+    that differs from the oracle prints the harness's JSON repro and fails.
+    Returns the launch counts."""
+    import torch
+
+    from slacken_tpu_torch import fuzz
+    from slacken_tpu_torch.ops import cuda_kernels
+
+    where = os.path.join(out, "fuzz")
+    os.makedirs(where, exist_ok=True)
+    iterations = checks = comparisons = 0
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with twins_forbidden():
+        for j, (probe, wide) in enumerate(fuzz.CHOICES):
+            for seed in (s + 1000 * j for s in FUZZ_SEEDS):
+                try:
+                    r = fuzz.fuzz_iteration(iterations, seed, dev, probe, wide, out=where)
+                except fuzz.FuzzMismatch as e:
+                    log(json.dumps(e.repro))
+                    fail(f"fuzz: seed {seed} with the {'wide' if wide else 'narrow'} {probe} probe differs from "
+                         "the oracle (repro above)")
+                iterations += 1
+                checks += r["checks"]
+                comparisons += r["comparisons"]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    shutil.rmtree(where, ignore_errors=True)
+    log(f"fuzz: {iterations} iterations ({len(FUZZ_SEEDS)} seeds x {len(fuzz.CHOICES)} probe choices), "
+        f"{checks} read-threshold checks ({comparisons} comparisons), 0 mismatches, {dt:.2f} s on the card")
+    require_launches("fuzz", launches, FUZZ_KERNELS)
     return launches
 
 
@@ -3790,7 +3844,7 @@ def main():
     by_path = {"reports": bench["launches"], "probes": phase_probes(dev, out, bench, results),
                "per_read": phase_detailed(dev, out, bench),
                "paired": phase_paired(dev, out, bench), "api": phase_api(dev, out, bench),
-               "diagnostics": phase_diagnostics(dev)}
+               "diagnostics": phase_diagnostics(dev), "fuzz": phase_fuzz(dev, out)}
     reads = bench["reads"]
     bases = {"narrow": (None, bench["idx_cpu"])}  # kind -> (card's, CPU's) base index with its sidecar
     del bench

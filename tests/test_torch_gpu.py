@@ -1666,3 +1666,26 @@ def test_per_read_hit_runs_on_the_card(cuda, on, tmp_path, monkeypatch):
     got = files(cuda, "card")
     assert got == want and len(got) == 4
     assert (cuda_kernels.LAUNCHES["hit_runs"] > before) == on
+
+
+FUZZ_KERNELS = {("routed", False): "probe", ("tiled", False): "probe_tiled", ("hashed1", False): "probe_rows",
+                ("hashed", False): "probe_hashed", ("hashed128", False): "probe_hashed_cols",
+                ("bucketed", False): "probe_bucketed", ("routed", True): "probe_wide",
+                ("tiled", True): "probe_tiled_wide", ("hashed1", True): "probe_rows_wide"}
+
+
+@pytest.mark.parametrize("probe,wide", list(FUZZ_KERNELS), ids=[f"{p}-{'wide' if w else 'narrow'}"
+                                                                for p, w in FUZZ_KERNELS])
+def test_fuzz_on_the_card(cuda, probe, wide, tmp_path):
+    """Two oracle fuzz iterations (slacken_tpu_torch/fuzz.py) under the
+    probe choice on the card: every read equal to the oracle through
+    classify, classify_packed and the written files, dense and under hit
+    runs, through the choice's scan, probe and hit-runs kernels."""
+    from slacken_tpu_torch import fuzz
+
+    cuda_kernels.reset_launch_counts()
+    for seed in (3, 17):
+        r = fuzz.fuzz_iteration(seed, seed, cuda, probe, wide, out=str(tmp_path))
+        assert r["probe"] == probe and (r["m"] > 31) == wide and r["checks"] > 0
+    for name in ("scan_wide" if wide else "scan", FUZZ_KERNELS[probe, wide], "hit_runs"):
+        assert cuda_kernels.LAUNCHES[name] > 0, name

@@ -1,7 +1,8 @@
 """The port runs where JAX and the JAX package are absent: no
-slacken_tpu_torch module (nor chip_smoke.py) imports jax, slacken_tpu or the
-bench scripts, and the device is chosen explicitly, never falling back to
-the CPU."""
+slacken_tpu_torch module (nor chip_smoke.py) imports jax, slacken_tpu, the
+bench scripts, or the repository's tests and scripts (the oracle and the
+fuzz harness are the port's own copies), and the device is chosen
+explicitly, never falling back to the CPU."""
 
 import glob
 import os
@@ -29,10 +30,12 @@ assert len(names) >= 35 and "slacken_tpu_torch.ops.ordering" in names, names
 assert "slacken_tpu_torch.dynamic" in names and "slacken_tpu_torch.stats" in names, names
 assert "slacken_tpu_torch.ops.hitruns" in names, names
 for name in ("bracken", "analysis.migration", "analysis.experiment", "download",
-             "parallel", "parallel.mesh", "parallel.classifier", "parallel.multihost"):
+             "parallel", "parallel.mesh", "parallel.classifier", "parallel.multihost", "oracle", "fuzz"):
     assert "slacken_tpu_torch." + name in names, names
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "slacken_tpu", "bench", "scale_bench"))
+             if m.split(".")[0] in ("jax", "jaxlib", "slacken_tpu", "bench", "scale_bench", "oracle",
+                                    "oracle_fuzz", "tests", "scripts", "conftest")
+             or m.startswith("test_"))
 assert not bad, bad
 print("imported", len(names))
 """
@@ -48,8 +51,8 @@ def test_no_module_imports_jax():
 
 def test_no_source_names_the_jax_package():
     """No file of the port, nor chip_smoke.py or scan_timing.py, holds an
-    import of jax, slacken_tpu, bench or scale_bench (not even inside a
-    function)."""
+    import of jax, slacken_tpu, bench or scale_bench, nor of the tests' or
+    the scripts' modules (not even inside a function)."""
     files = glob.glob(os.path.join(ROOT, "slacken_tpu_torch", "**", "*.py"), recursive=True)
     files += [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scan_timing.py")]
     assert len(files) >= 36
@@ -57,9 +60,11 @@ def test_no_source_names_the_jax_package():
                  "dynamic.py", "stats.py", "bracken.py", "download.py",
                  os.path.join("analysis", "migration.py"), os.path.join("analysis", "experiment.py"),
                  os.path.join("parallel", "__init__.py"), os.path.join("parallel", "mesh.py"),
-                 os.path.join("parallel", "classifier.py"), os.path.join("parallel", "multihost.py")):
+                 os.path.join("parallel", "classifier.py"), os.path.join("parallel", "multihost.py"),
+                 "oracle.py", "fuzz.py"):
         assert os.path.join(ROOT, "slacken_tpu_torch", name) in files
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|slacken_tpu|bench|scale_bench)\b", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|slacken_tpu|bench|scale_bench|tests|scripts|oracle|"
+                     r"oracle_fuzz|conftest|test_\w+)\b", re.M)
     for path in files:
         with open(path) as f:
             found = pat.search(f.read())
