@@ -1799,9 +1799,8 @@ def phase_diagnostics(dev):
 
 def profile_run(fn, mode):
     """Where one warm run of fn (classify in `mode`) spends its time: the
-    device's busy share of the wall and the main thread's leading host
-    functions."""
-    device_busy(fn, f"classify, {mode}", host_activity=True)
+    main thread's leading host functions, after one plain run."""
+    fn()
     host_profile(fn, f"one classify run, {mode}")
 
 
@@ -2350,33 +2349,6 @@ def index_equal(a, b):
             and torch.equal(a.taxa_t.cpu(), b.taxa_t.cpu()))
 
 
-def device_busy(fn, what, host_activity=False):
-    """fn's wall and the device's busy share of it (torch.profiler; kernel
-    and copy time summed, so an upper bound), with the leading device work.
-    `host_activity` also traces the host's operators, as the classify
-    profiles of the earlier phases always did. Returns fn's result."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_activity
-                 else [ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
-                  key=lambda e: -e.self_device_time_total)
-    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    if dev_ms > 0:
-        log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy {dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}% of "
-            "the wall, under the profiler); leading device work: " +
-            ", ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in rows[:6]))
-    else:
-        log(f"profiled {what}: wall {wall_ms:.2f} ms, device busy not measured (the profiler saw no device time)")
-    return result
-
-
 def phase_classify2(dev, out, reads, bases):
     """Two-step classification at bench size, card against CPU, for a narrow,
     a wide (50, 45, 7) and a rank-table (35, 13, 3, lexicographic) base index
@@ -2658,14 +2630,14 @@ def phase_classify2_scale(dev, out, genomes):
             f"{made.num_records} records; peak torch.cuda.max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
         prof = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, default, cpar, None, os.path.join(out, "c2s_prof", "dyn"), dev)
         run_whole = lambda: prof.two_step_classify_and_write(fragments, packed_factory=lambda: iter(reads))  # noqa: E731
-        device_busy(run_whole, "classify2 at scale, the whole")
+        run_whole()
         host_profile(run_whole, "classify2 at scale, the whole", top_n=10)
         distinct = dynamic.Dynamic(base, workloads.GenomeList(genomes), 8, dynamic.MinimizerDistinctCount(1000), cpar, None,
                                    os.path.join(out, "c2s_distinct", "dyn"), dev)
         t0 = time.perf_counter()
         by_distinct = distinct.find_taxon_set(fragments)
         distinct_s = sync_s(t0)
-        device_busy(lambda: distinct.find_taxon_set(fragments), "classify2 at scale, find taxon set by distinct minimizers")
+        distinct.find_taxon_set(fragments)
         log(f"classify2 at scale, find taxon set by MinimizerDistinctCount(1000): {distinct_s:.3f} s "
             f"({n_reads / distinct_s:.1f} reads/s), {len(by_distinct)} taxa")
         if by_distinct != sources:
@@ -3263,10 +3235,8 @@ def phase_mesh_scale(dev, out, genomes, scale_idx):
         f"reads/s, classified {c} of {total}; peak torch.cuda.max_memory_allocated {ring_peak} bytes above the "
         f"{before} held before")
     require_launches("mesh at scale (build_distributed, ring classify)", launches)
-    device_busy(lambda: build_distributed(iter(genomes), IndexParams(k=35, m=31, spaces=7), tax, mesh),
-                "build_distributed at scale over 8 shards")
-    device_busy(lambda: cls.classify_and_write_packed(reads, os.path.join(out, "mscale_prof"), cpar),
-                "ring classify at scale over 8 shards")
+    build_distributed(iter(genomes), IndexParams(k=35, m=31, spaces=7), tax, mesh)
+    cls.classify_and_write_packed(reads, os.path.join(out, "mscale_prof"), cpar)
     return launches
 
 
@@ -3384,9 +3354,7 @@ def mh_rank(rank, spec):
                          "lockstep": cls.lockstep, "padding": cls.padding_dispatches, "p2p": cls.p2p_bytes - sent,
                          "peak": torch.cuda.max_memory_allocated() - before if cuda else None})
             if job.get("profile") and cuda:
-                device_busy(lambda: cls.classify_and_write_stream(lambda: iter(reads), job["out"] + "_prof", cpar,
-                                                                  job.get("rows")),
-                            f"rank {rank} of {spec['world']} ({ctx.backend}, local {ctx.mesh}), {job['tag']}")
+                cls.classify_and_write_stream(lambda: iter(reads), job["out"] + "_prof", cpar, job.get("rows"))
             del cls
         if lib:
             multihost.shutdown()

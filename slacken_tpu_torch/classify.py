@@ -53,7 +53,7 @@ from .ops.minimizers import window_minimizers_packed
 from .ops.resolve import INVALID_WINDOW, ResolveResult, compact_hits, resolve_hits
 from .report import KrakenReport
 from .taxonomy import NONE, Taxonomy
-from .utils import prefetch_iterator
+from .utils import count, prefetch_iterator, span
 from .zio import ParallelGzipWriter
 
 #: batches launched ahead of the one the host post-processes
@@ -500,64 +500,87 @@ class Classifier:
         which no valid window touches) for the 2-bit wire format. In per-read
         mode the window taxa, or their hit runs (rows under 2^16 wide), go to
         the host with the bundle; the device window taxa stay until the
-        harvest, which fetches the rows over the run cap."""
-        n, width = codes.shape
-        rows = self._padded_rows(n)
-        w8 = -(-width // 8) * 8
-        if (rows, w8) != (n, width):
-            padded = np.full((rows, w8), encode.INVALID, np.uint8)
-            padded[:n, :width] = codes
-            codes = padded
-        k = self.index.params.k
-        ambig = _ambig_array(codes, splits, row_lens, k, n)
-        packed, valid = encode.pack_2bit(codes)
-        runs = self._fetch_runs(w8)
-        valid_dev = to_device(valid, self.device) if runs else None
-        bundle, window_taxa = self._classify_packed_rows(packed, valid, ambig, w8, valid_dev)
-        if runs:
-            split_arr = np.full(rows, -1, np.int32)
-            split_arr[:n] = [-1 if s is None else s for s in splits]
-            len_arr = np.zeros(rows, np.int32)
-            len_arr[:n] = row_lens
-            fetched = hitruns.hit_runs(window_taxa, valid_dev, to_device(split_arr, self.device),
-                                       to_device(len_arr, self.device), k, hitruns.DEFAULT_RUNS_PER_ROW)
-        else:
-            fetched = window_taxa if self._fetch_window_taxa else None
-        pinned = None
-        if self._cuda:
-            host = torch.empty(bundle.shape, dtype=bundle.dtype, pin_memory=True)
-            host.copy_(bundle, non_blocking=True)
-            if fetched is not None:
-                free = self._pinned_free.setdefault(tuple(fetched.shape), [])
-                pinned = free.pop() if free else torch.empty(fetched.shape, dtype=torch.int32, pin_memory=True)
-                pinned[:n].copy_(fetched[:n], non_blocking=True)
-                fetched = pinned
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-        else:
-            host, done = bundle, None
-        return titles, host, done, window_taxa, runs, fetched, pinned, codes[:n], splits, row_lens
+        harvest, which fetches the rows over the run cap. A `dispatch` span
+        counts the rows launched and the padding rows among them; its
+        `dispatch.launch` the bytes queued for copy to the device and back."""
+        with span("dispatch"):
+            n, width = codes.shape
+            rows = self._padded_rows(n)
+            w8 = -(-width // 8) * 8
+            count("rows", rows)
+            count("padded_rows", rows - n)
+            with span("dispatch.pad"):
+                if (rows, w8) != (n, width):
+                    padded = np.full((rows, w8), encode.INVALID, np.uint8)
+                    padded[:n, :width] = codes
+                    codes = padded
+            k = self.index.params.k
+            with span("dispatch.ambig"):
+                ambig = _ambig_array(codes, splits, row_lens, k, n)
+            with span("dispatch.pack"):
+                packed, valid = encode.pack_2bit(codes)
+            with span("dispatch.launch"):
+                h2d = packed.nbytes + valid.nbytes + ambig.nbytes
+                runs = self._fetch_runs(w8)
+                valid_dev = to_device(valid, self.device) if runs else None
+                bundle, window_taxa = self._classify_packed_rows(packed, valid, ambig, w8, valid_dev)
+                if runs:
+                    split_arr = np.full(rows, -1, np.int32)
+                    split_arr[:n] = [-1 if s is None else s for s in splits]
+                    len_arr = np.zeros(rows, np.int32)
+                    len_arr[:n] = row_lens
+                    h2d += split_arr.nbytes + len_arr.nbytes
+                    fetched = hitruns.hit_runs(window_taxa, valid_dev, to_device(split_arr, self.device),
+                                               to_device(len_arr, self.device), k, hitruns.DEFAULT_RUNS_PER_ROW)
+                else:
+                    fetched = window_taxa if self._fetch_window_taxa else None
+                d2h = bundle.numel() * bundle.element_size()
+                if fetched is not None:
+                    d2h += fetched[:n].numel() * fetched.element_size()
+                pinned = None
+                if self._cuda:
+                    host = torch.empty(bundle.shape, dtype=bundle.dtype, pin_memory=True)
+                    host.copy_(bundle, non_blocking=True)
+                    if fetched is not None:
+                        free = self._pinned_free.setdefault(tuple(fetched.shape), [])
+                        pinned = free.pop() if free else torch.empty(fetched.shape, dtype=torch.int32, pin_memory=True)
+                        pinned[:n].copy_(fetched[:n], non_blocking=True)
+                        fetched = pinned
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(self.device))
+                else:
+                    host, done = bundle, None
+                count("h2d_bytes", h2d)
+                count("d2h_bytes", d2h)
+            return titles, host, done, window_taxa, runs, fetched, pinned, codes[:n], splits, row_lens
 
     def _harvest(self, dispatched) -> _Batch:
+        """The host's side of a dispatched batch, as a `harvest` span: the
+        wait for its copies (`harvest.wait`), then the synchronous fetch of
+        the rows over max_taxa or the run cap (`harvest.overflow`)."""
         titles, host, done, window_taxa, runs, fetched, pinned, codes, splits, row_lens = dispatched
-        if done is not None:
-            done.synchronize()
-        n = len(titles)
-        fb = host.numpy()[:n]
-        rows = np.flatnonzero(fb[:, 2])  # over max_taxa: resolved on the host
-        wt_host = None if fetched is None else fetched.numpy()[:n]
-        hit_runs = None
-        if runs:
-            hit_runs = hitruns.decode(wt_host, hitruns.DEFAULT_RUNS_PER_ROW)
-            wt_host = None
-            fetch = np.union1d(hit_runs[4], rows)  # over the run cap or max_taxa
-        else:
-            fetch = rows if wt_host is None else rows[:0]
-        dense = {}
-        if len(fetch):
-            got = window_taxa[torch.from_numpy(fetch).to(window_taxa.device)].cpu().numpy()
-            dense = dict(zip(fetch.tolist(), got))
-        ovf = {r: (dense[r] if wt_host is None else wt_host[r]) for r in rows.tolist()}
+        with span("harvest"):
+            with span("harvest.wait"):
+                if done is not None:
+                    done.synchronize()
+            n = len(titles)
+            fb = host.numpy()[:n]
+            rows = np.flatnonzero(fb[:, 2])  # over max_taxa: resolved on the host
+            wt_host = None if fetched is None else fetched.numpy()[:n]
+            hit_runs = None
+            if runs:
+                hit_runs = hitruns.decode(wt_host, hitruns.DEFAULT_RUNS_PER_ROW)
+                wt_host = None
+                fetch = np.union1d(hit_runs[4], rows)  # over the run cap or max_taxa
+            else:
+                fetch = rows if wt_host is None else rows[:0]
+            dense = {}
+            if len(fetch):
+                with span("harvest.overflow"):
+                    got = window_taxa[torch.from_numpy(fetch).to(window_taxa.device)].cpu().numpy()
+                count("d2h_bytes", got.nbytes)
+                dense = dict(zip(fetch.tolist(), got))
+            ovf = {r: (dense[r] if wt_host is None else wt_host[r]) for r in rows.tolist()}
         return _Batch(
             titles=titles,
             num_distinct=fb[:, 0],
@@ -579,6 +602,7 @@ class Classifier:
         next batch."""
         while len(pending) > keep:
             batch = self._harvest(pending.popleft())
+            count("reads", len(batch.titles))
             yield batch
             if batch.pinned is not None:
                 self._pinned_free[tuple(batch.pinned.shape)].append(batch.pinned)
@@ -589,52 +613,62 @@ class Classifier:
         up to PIPELINE_DEPTH batches are in flight while the host
         post-processes earlier ones."""
         packed_iter = prefetch_iterator(packed_iter, depth=2)
+        try:
+            yield from self._batches(packed_iter)
+        finally:
+            packed_iter.close()
+
+    def _batches(self, packed_iter):
+        """packed_batches' pipeline over the prefetched chunks; taking in a
+        chunk and joining parts into a batch are `batch.assemble` spans."""
         pending = collections.deque()
         buffers: Dict[int, list] = {}  # width -> [(codes, titles, splits, lens)]
 
         def emit(width, force=False):
             rows_target = self._rows_target(width)
             buf = buffers.get(width, [])
-            count = sum(len(x[1]) for x in buf)
-            while count >= rows_target or (force and count > 0):
-                take = min(count, rows_target)
-                codes_parts, titles, splits, lens = [], [], [], []
-                got = 0
-                while got < take:
-                    c, t, s, l = buf[0]
-                    need = take - got
-                    if len(t) <= need:
-                        codes_parts.append(c)
-                        titles += t
-                        splits += s
-                        lens += l
-                        got += len(t)
-                        buf.pop(0)
-                    else:
-                        codes_parts.append(c[:need])
-                        titles += t[:need]
-                        splits += s[:need]
-                        lens += l[:need]
-                        buf[0] = (c[need:], t[need:], s[need:], l[need:])
-                        got = take
-                count -= take
-                codes = np.ascontiguousarray(
-                    np.concatenate(codes_parts) if len(codes_parts) > 1 else codes_parts[0]
-                )
+            queued = sum(len(x[1]) for x in buf)
+            while queued >= rows_target or (force and queued > 0):
+                with span("batch.assemble"):
+                    take = min(queued, rows_target)
+                    codes_parts, titles, splits, lens = [], [], [], []
+                    got = 0
+                    while got < take:
+                        c, t, s, l = buf[0]
+                        need = take - got
+                        if len(t) <= need:
+                            codes_parts.append(c)
+                            titles += t
+                            splits += s
+                            lens += l
+                            got += len(t)
+                            buf.pop(0)
+                        else:
+                            codes_parts.append(c[:need])
+                            titles += t[:need]
+                            splits += s[:need]
+                            lens += l[:need]
+                            buf[0] = (c[need:], t[need:], s[need:], l[need:])
+                            got = take
+                    queued -= take
+                    codes = np.ascontiguousarray(
+                        np.concatenate(codes_parts) if len(codes_parts) > 1 else codes_parts[0]
+                    )
                 pending.append(self._dispatch(codes, titles, splits, lens))
                 yield from self._drain(pending, PIPELINE_DEPTH)
             buffers[width] = buf
 
         for packed in packed_iter:
-            width = packed.codes.shape[1]
-            if getattr(packed, "splits", None) is not None:
-                # a negative split marks a single read among paired rows
-                splits = [int(x) if x >= 0 else None for x in packed.splits]
-            else:
-                splits = [None] * len(packed)
-            buffers.setdefault(width, []).append(
-                (packed.codes, list(packed.titles), splits, [int(x) for x in packed.lengths])
-            )
+            with span("batch.assemble"):
+                width = packed.codes.shape[1]
+                if getattr(packed, "splits", None) is not None:
+                    # a negative split marks a single read among paired rows
+                    splits = [int(x) if x >= 0 else None for x in packed.splits]
+                else:
+                    splits = [None] * len(packed)
+                buffers.setdefault(width, []).append(
+                    (packed.codes, list(packed.titles), splits, [int(x) for x in packed.lengths])
+                )
             yield from emit(width)
         for width in list(buffers):
             yield from emit(width, force=True)
@@ -643,15 +677,18 @@ class Classifier:
     # -- per-threshold finalisation -----------------------------------------
 
     def _finalize_taxa(self, batch: _Batch, threshold: float, cpar: ClassifyParams):
-        """(taxon, classified) per read for one threshold."""
-        taxon = batch.final_taxa[threshold]
-        if batch.overflow_window_taxa:
-            taxon = taxon.copy()
-            required = np.ceil(threshold * batch.total_kmers.astype(np.float64))
-            parents = self.index.taxonomy.parents
-            for i, row in batch.overflow_window_taxa.items():
-                taxon[i] = _resolve_host(parents, _window_taxa_counts(row), required[i])
-        classified = (taxon != NONE) & (batch.num_distinct >= cpar.min_hit_groups)
+        """(taxon, classified) per read for one threshold, as an
+        `output.finalize` span counting the rows resolved on the host."""
+        with span("output.finalize"):
+            taxon = batch.final_taxa[threshold]
+            if batch.overflow_window_taxa:
+                taxon = taxon.copy()
+                required = np.ceil(threshold * batch.total_kmers.astype(np.float64))
+                parents = self.index.taxonomy.parents
+                for i, row in batch.overflow_window_taxa.items():
+                    taxon[i] = _resolve_host(parents, _window_taxa_counts(row), required[i])
+                count("host_resolved_rows", len(batch.overflow_window_taxa))
+            classified = (taxon != NONE) & (batch.num_distinct >= cpar.min_hit_groups)
         return taxon, classified
 
     def _hit_pairs(self, batch: _Batch):
@@ -759,11 +796,12 @@ class Classifier:
                 yield pack(bucket)
 
         acc: Dict[float, list] = {t: [] for t in cpar.thresholds}
-        for batch in self.packed_batches(chunks()):
-            queue = order[batch.codes.shape[1]]
-            positions = [queue.popleft() for _ in batch.titles]
-            for t in cpar.thresholds:
-                acc[t].extend(zip(positions, self.finalize(batch, t, cpar)))
+        with span("classify.request", request=True):
+            for batch in self.packed_batches(chunks()):
+                queue = order[batch.codes.shape[1]]
+                positions = [queue.popleft() for _ in batch.titles]
+                for t in cpar.thresholds:
+                    acc[t].extend(zip(positions, self.finalize(batch, t, cpar)))
         return {
             t: [read for _, read in sorted(pairs, key=lambda x: x[0])]
             for t, pairs in acc.items()
@@ -774,9 +812,10 @@ class Classifier:
         device pass; reads come back in stream order within a row width."""
         self._begin(cpar)
         results: Dict[float, List[ClassifiedRead]] = {t: [] for t in cpar.thresholds}
-        for batch in self.packed_batches(packed_iter):
-            for t in cpar.thresholds:
-                results[t].extend(self.finalize(batch, t, cpar))
+        with span("classify.request", request=True):
+            for batch in self.packed_batches(packed_iter):
+                for t in cpar.thresholds:
+                    results[t].extend(self.finalize(batch, t, cpar))
         return results
 
     def classify_and_write(
@@ -796,52 +835,62 @@ class Classifier:
         per-read mode, sample=<sample>/part-<_part_index:05d>.txt.gz with one Kraken line
         per read. Returns {threshold: [sample ids]}. Everything streams: per
         (sample, taxon) counts aggregate, and lines are written, as batches
-        arrive."""
-        self._begin(cpar)
-        counts: Dict[float, Dict[str, Dict[int, int]]] = {t: {} for t in cpar.thresholds}
-        sre = re.compile(cpar.sample_regex) if cpar.sample_regex else None
-        writers: Dict[tuple, ParallelGzipWriter] = {}
+        arrive. The request is a `classify.request` span; under it the
+        per-threshold tallies are `output.count`, the lines `lines.emit`,
+        `lines.write` and `lines.close`, and the kreports `reports.write`."""
+        with span("classify.request", request=True):
+            self._begin(cpar)
+            counts: Dict[float, Dict[str, Dict[int, int]]] = {t: {} for t in cpar.thresholds}
+            sre = re.compile(cpar.sample_regex) if cpar.sample_regex else None
+            writers: Dict[tuple, ParallelGzipWriter] = {}
 
-        def writer_for(t, sample):
-            if (t, sample) not in writers:
-                d = os.path.join(
-                    output_location + "_c" + format_threshold(t, cpar.thresholds),
-                    f"sample={sample}")
-                os.makedirs(d, exist_ok=True)
-                writers[(t, sample)] = ParallelGzipWriter(
-                    os.path.join(d, f"part-{self._part_index:05d}.txt.gz"), level=1)
-            return writers[(t, sample)]
+            def writer_for(t, sample):
+                if (t, sample) not in writers:
+                    d = os.path.join(
+                        output_location + "_c" + format_threshold(t, cpar.thresholds),
+                        f"sample={sample}")
+                    os.makedirs(d, exist_ok=True)
+                    writers[(t, sample)] = ParallelGzipWriter(
+                        os.path.join(d, f"part-{self._part_index:05d}.txt.gz"), level=1)
+                return writers[(t, sample)]
 
-        try:
-            for batch in self.packed_batches(packed_iter):
-                n = len(batch.titles)
-                samples = _samples_of(batch.titles, sre)
-                lines = _LineFormatter(self, batch) if cpar.per_read_output else None
-                for t in cpar.thresholds:
-                    taxon, classified = self._finalize_taxa(batch, t, cpar)
-                    rtax = np.where(classified, taxon, NONE)
-                    keep = classified if not cpar.with_unclassified else np.ones(n, bool)
-                    groups = (
-                        [("all", np.flatnonzero(keep))]
-                        if samples is None
-                        else [(str(s), np.flatnonzero(keep & (samples == s)))
-                              for s in np.unique(samples[keep])]
-                    )
-                    if lines is not None:
-                        lines.emit(rtax, classified)
-                    for sample, idxs in groups:
-                        if len(idxs) == 0:
-                            continue
+            try:
+                for batch in self.packed_batches(packed_iter):
+                    n = len(batch.titles)
+                    samples = _samples_of(batch.titles, sre)
+                    lines = None
+                    if cpar.per_read_output:
+                        with span("lines.emit"):
+                            lines = _LineFormatter(self, batch)
+                    for t in cpar.thresholds:
+                        taxon, classified = self._finalize_taxa(batch, t, cpar)
+                        with span("output.count"):
+                            rtax = np.where(classified, taxon, NONE)
+                            keep = classified if not cpar.with_unclassified else np.ones(n, bool)
+                            groups = (
+                                [("all", np.flatnonzero(keep))]
+                                if samples is None
+                                else [(str(s), np.flatnonzero(keep & (samples == s)))
+                                      for s in np.unique(samples[keep])]
+                            )
+                            groups = [(sample, idxs) for sample, idxs in groups if len(idxs)]
+                            for sample, idxs in groups:
+                                agg = counts[t].setdefault(sample, {})
+                                vals, cts = np.unique(rtax[idxs], return_counts=True)
+                                for v, c in zip(vals.tolist(), cts.tolist()):
+                                    agg[v] = agg.get(v, 0) + c
                         if lines is not None:
-                            lines.write(writer_for(t, sample), idxs)
-                        agg = counts[t].setdefault(sample, {})
-                        vals, cts = np.unique(rtax[idxs], return_counts=True)
-                        for v, c in zip(vals.tolist(), cts.tolist()):
-                            agg[v] = agg.get(v, 0) + c
-        finally:
-            for f in writers.values():
-                f.close()
-        return self._write_reports(counts, output_location, cpar)
+                            with span("lines.emit"):
+                                lines.emit(rtax, classified)
+                            for sample, idxs in groups:
+                                with span("lines.write"):
+                                    lines.write(writer_for(t, sample), idxs)
+            finally:
+                with span("lines.close"):
+                    for f in writers.values():
+                        f.close()
+            with span("reports.write"):
+                return self._write_reports(counts, output_location, cpar)
 
     def _write_reports(self, counts, output_location: str, cpar: ClassifyParams):
         out = {}

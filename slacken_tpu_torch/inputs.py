@@ -18,6 +18,7 @@ import numpy as np
 from . import native
 from .classify import Fragment
 from .ops import encode
+from .utils import span
 from .zio import open_gz_subprocess
 
 DEFAULT_MAX_FRAGMENT = 1 << 20
@@ -155,6 +156,12 @@ def fragments_from_files(
                     yield Fragment(h, s)
 
 
+def _parse_fastq(buf: bytes, row_len: Optional[int]):
+    """native.pack_fastq_chunk of buf, as an `input.parse` span."""
+    with span("input.parse"):
+        return native.pack_fastq_chunk(buf, row_len)
+
+
 def packed_reads_from_file(path: str, chunk_bytes: int = 64 << 20, row_len: Optional[int] = None):
     """Stream a FASTQ/FASTA file as native-packed code batches
     (native.PackedReads)."""
@@ -166,14 +173,12 @@ def packed_reads_from_file(path: str, chunk_bytes: int = 64 << 20, row_len: Opti
                 if not chunk:
                     break
                 buf = tail + chunk
-                packed, consumed = native.pack_fastq_chunk(buf, row_len)
+                packed, consumed = _parse_fastq(buf, row_len)
                 tail = buf[consumed:]
                 if len(packed):
                     yield packed
             if tail.strip():
-                packed, _ = native.pack_fastq_chunk(
-                    tail if tail.endswith(b"\n") else tail + b"\n", row_len
-                )
+                packed, _ = _parse_fastq(tail if tail.endswith(b"\n") else tail + b"\n", row_len)
                 if len(packed):
                     yield packed
     else:
@@ -213,7 +218,9 @@ def packed_pairs_from_files(path1: str, path2: str, chunk_bytes: int = 64 << 20)
             )
         p1 = native.PackedReads(buf1.codes[:n], buf1.lengths[:n], buf1.titles[:n])
         p2 = native.PackedReads(buf2.codes[:n], buf2.lengths[:n], buf2.titles[:n])
-        yield native.pack_pairs(p1, p2)
+        with span("input.pair"):
+            pairs = native.pack_pairs(p1, p2)
+        yield pairs
         buf1 = native.PackedReads(buf1.codes[n:], buf1.lengths[n:], buf1.titles[n:])
         buf2 = native.PackedReads(buf2.codes[n:], buf2.lengths[n:], buf2.titles[n:])
 
