@@ -4,10 +4,11 @@
 Run from the repository root: `python3 chip_smoke.py`. It builds the CUDA
 kernels from ops/kernels/*.cu, checks each kernel bit-exact against its
 plain PyTorch twin on the card (the scan, its rank-table instance and the
-wide scan at every main-path shape (bracken's [4, 2^20] rows too) and at other k, m, s; the probe and the
-wide probe on random, one-prefix and tiny indexes, the wide probe over slot
-tables of both field modes and with a raised directory, and later on the
-bench and the scale indexes), then drives the port's paths, each with the kernels'
+wide scan at every main-path shape (bracken's [4, 2^20] rows too) and at other k, m, s; the directory
+probe, the narrow slot probe and the wide probe on random, one-prefix and
+tiny indexes, the wide probe over slot tables of both field modes and with a
+raised directory, and later on the bench and the scale indexes, the narrow
+slot probe there beside the directory probe), then drives the port's paths, each with the kernels'
 launch counts set to 0 just before it and read just after:
 
   * reports mode: build the bench library's index on the card (2,623,028
@@ -508,46 +509,59 @@ def check_scan(rng, dev, results):
                                   fused_into="stitch_row in the SEG instances of scan_kernel and scan_wide_kernel")
 
 
-def time_probe(label, keys, taxa, directory, queries, name="probe"):
+def time_probe(label, keys, taxa, table, queries, name="probe"):
     """Kernel == twin on these queries, then the kernel's time beside the
     twin's and, for narrow keys, torch.searchsorted's (a yardstick: the port
-    never calls it on the card; it has no form for two-limb keys). A wide
-    index passes its slot table as `directory` (what the kernel reads) and
-    its keys and taxa (what the twin reads). The bound counts the same work
-    for both kinds and before the slot table as since: keys, taxa and a
-    directory of BUCKET_KEYS keys a bucket, read once for each distinct
-    query, as the table probes' bounds count them. Returns the numbers of
-    one entry of the probe's `shapes`."""
+    never calls it on the card; it has no form for two-limb keys). `table`
+    is what the kernel reads: a narrow index's directory (the directory
+    kernel, "probe"), its slot table ("probe_slots") or a wide index's
+    ("probe_wide"); `keys` and `taxa` are what the twins read, copied to the
+    queries' device where they lie elsewhere (an index whose slot table is
+    on the card keeps them in host memory). The bound counts what the
+    layout reads, once for each distinct query, as the table probes' bounds
+    count it: a directory entry and a key, and a taxon a hit (the directory
+    kernel and the wide probe), or a directory entry and a slot, which holds
+    the taxon or its code (a narrow slot table: a code a hit when the field
+    holds codes). Over a narrow slot table also its floor (the directory
+    entries, then the sector of slots at the guessed slot), and the
+    directory kernel on the same keys and queries, whose entry goes under
+    "directory". Returns the numbers of one entry of the probe's `shapes`."""
     import torch
 
     from slacken_tpu_torch.ops import cuda_kernels, lookup
 
-    wide = keys.dim() == 2
-    table = directory
-    if wide:
-        directory = lookup.build_directory(keys)
+    keys, taxa = keys.to(queries.device), taxa.to(queries.device)
+    wide, slots = keys.dim() == 2, isinstance(table, lookup.SlotTable)
+    directory = lookup.build_directory(keys) if slots else table
     before = cuda_kernels.LAUNCHES[name]
-    got = lookup.probe(None if wide else keys, None if wide else taxa, table, queries)
+    got = lookup.probe(None if slots else keys, None if slots else taxa, table, queries)
     if cuda_kernels.LAUNCHES[name] != before + 1:
         fail(f"the probe of {label} did not launch the {name} kernel")
     want = lookup.lookup_taxa(keys, taxa, queries)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
-    if wide:
+    if slots:
         err = max(err, int((lookup.lookup_taxa_slots(table, queries) - want).abs().max()))
     if err:
         fail(f"{name} differs from the twin on {label} (max abs err {err})")
-    run = ((lambda: cuda_kernels.lookup_taxa_slots_cuda(table, queries)) if wide  # noqa: E731
+    run = ((lambda: cuda_kernels.lookup_taxa_slots_cuda(table, queries)) if slots  # noqa: E731
            else (lambda: cuda_kernels.lookup_taxa_directory_cuda(keys, taxa, directory, queries)))
     ms, dev_ms = cuda_ms(run), device_ms(run)
+    floor = None
+    if slots and not wide:
+        if not torch.equal(cuda_kernels.slots_floor_cuda(table, queries), lookup.slot_sectors(table, queries)):
+            fail(f"the slot probe's floor kernel differs from lookup.slot_sectors on {label}")
+        floor = device_ms(lambda: cuda_kernels.slots_floor_cuda(table, queries))
     plain = cuda_ms(lambda: lookup.lookup_taxa(keys, taxa, queries), iters=5)
     library = None if wide else cuda_ms(lambda: torch.searchsorted(keys, queries))
     # bytes: the smaller of every array once (queries, keys, taxa and
-    # directory in, taxa out) and what these queries need (a query and its
-    # answer; once for each distinct query inside the keys' range, one
-    # directory entry and one key, and one taxon if it hits): a probe of a
-    # large index reads little of it. Operations: a shift, two compares and
-    # a select or two per query.
+    # directory in, or slots, directory and codes; taxa out) and what these
+    # queries need (a query and its answer; once for each distinct query
+    # inside the keys' range, one directory entry and one key, and one taxon
+    # if it hits; over narrow slots a directory entry and a slot, and a code
+    # if it hits and the field holds codes): a probe of a large index reads
+    # little of it. Operations: a shift, two compares and a select or two per
+    # query.
     nq, hits, key_bytes = queries.shape[0], int((want > 0).sum()), 16 if wide else 8
     if wide:
         p_lo, p_above = lookup.prefix_wide(queries, directory.shift)
@@ -557,21 +571,43 @@ def time_probe(label, keys, taxa, directory, queries, name="probe"):
     seen = torch.unique(queries[inside], dim=0)
     inside = seen.shape[0]  # distinct queries inside the keys' range
     found = int((lookup.lookup_taxa(keys, taxa, seen) > 0).sum())
-    n_bytes = min(tensor_bytes(queries, keys, taxa, directory.starts) + 4 * nq,
-                  (key_bytes + 4) * nq + (key_bytes + 4) * inside + 4 * found)
+    if slots and not wide:
+        codes = () if table.codes is None else (table.codes,)
+        n_bytes = min(tensor_bytes(queries, table.slots, table.directory.starts, *codes) + 4 * nq,
+                      12 * nq + 12 * inside + (4 * found if codes else 0))
+    else:
+        n_bytes = min(tensor_bytes(queries, keys, taxa, directory.starts) + 4 * nq,
+                      (key_bytes + 4) * nq + (key_bytes + 4) * inside + 4 * found)
     bound_ms, by = bound(n_bytes, (16 if wide else 8) * nq)
-    d = table.directory if wide else directory
-    slots = (f" of slots with a {table.c}-bit field, {'direct' if table.codes is None else 'codes'}"
-             f"{'' if table.codes is None else f' ({table.codes.shape[0]} taxa)'}") if wide else ""
-    log(f"{name}, {label}: {keys.shape[0]} keys ({d.buckets} buckets{slots}, shift {d.shift}), {nq} queries, "
+    d = table.directory if slots else directory
+    held = (f" of slots with a {table.c}-bit field, {'direct' if table.codes is None else 'codes'}"
+            f"{'' if table.codes is None else f' ({table.codes.shape[0]} taxa)'}, "
+            f"{lookup.probe_bytes(table) / max(keys.shape[0], 1):.2f} bytes a record") if slots else ""
+    log(f"{name}, {label}: {keys.shape[0]} keys ({d.buckets} buckets{held}, shift {d.shift}), {nq} queries, "
         f"{hits} hits, {inside} distinct inside the keys' range, max_abs_err 0; kernel {ms:.4f} ms ({fmt_ms(dev_ms)} on "
-        "the "
-        f"device alone), plain twin {plain:.4f} ms, " +
+        "the device alone), " + ("" if floor is None else f"floor: the directory entries and one sector a query at "
+                                 f"its guessed slot {fmt_ms(floor)} on the device alone, ") +
+        f"plain twin {plain:.4f} ms, " +
         ("no library call: torch.searchsorted takes one-limb keys only, " if wide
          else f"torch.searchsorted alone {library:.4f} ms, ") +
         f"bound {bound_ms:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
-    return dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
-                library_ms=library)
+    entry = dict(max_abs_err=float(err), ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bound_ms, bound_by=by,
+                 library_ms=library, **({} if floor is None else {"floor_device_ms": floor}))
+    if slots and not wide:
+        entry["directory"] = time_probe(label, keys, taxa, directory, queries)
+        if entry["directory"]["device_ms"] is not None and dev_ms is not None:
+            log(f"probe_slots against the directory kernel, {label}: {dev_ms:.4f} / "
+                f"{entry['directory']['device_ms']:.4f} ms on the device alone")
+    return entry
+
+
+def time_routed(label, keys, taxa, table, queries, results):
+    """time_probe of a narrow index's routed probe on the card (its slot
+    table), with the directory kernel beside it on the same queries: the
+    entries of both kernels' `shapes`."""
+    entry = time_probe(label, keys, taxa, table, queries, "probe_slots")
+    results["probe"]["shapes"][label] = entry.pop("directory")
+    results["probe_slots"]["shapes"][label] = entry
 
 
 def random_queries(rng, keys, nq):
@@ -590,7 +626,8 @@ def narrow_random_queries(dev, index, seed):
     import torch
 
     rng = np.random.default_rng(seed)
-    host_keys = index.keys_t[torch.from_numpy(rng.integers(0, index.num_records, 1 << 21)).to(dev)].cpu().numpy()
+    keys = index.keys_t  # in host memory once a classifier holds the index's slot table on the card
+    host_keys = keys[torch.from_numpy(rng.integers(0, index.num_records, 1 << 21)).to(keys.device)].cpu().numpy()
     return torch.from_numpy(random_queries(rng, host_keys, 1 << 22)).to(dev)
 
 
@@ -619,27 +656,33 @@ def check_probe(rng, dev, results):
             for bucket_keys in (1, lookup.BUCKET_KEYS, 1 << 30):  # the last: one bucket holds every key
                 d = lookup.build_directory(k_d, bucket_keys)
                 got, want = lookup.probe(k_d, t_d, d, q_d), lookup.lookup_taxa(k_d, t_d, q_d)
+                table = lookup.build_slots(k_d, t_d, d)  # the slot kernel, under the same directory
+                slots = lookup.probe(None, None, table, q_d)
                 torch.cuda.synchronize()
                 if not torch.equal(got, want) or not torch.equal(lookup.lookup_taxa_directory(k_d, t_d, d, q_d), want):
                     fail(f"probe differs from the twin: {len(keys)} keys, {kind}, {d.buckets} buckets")
+                if not torch.equal(slots, want) or not torch.equal(lookup.lookup_taxa_slots(table, q_d), want):
+                    fail(f"probe_slots differs from the twin: {len(keys)} keys, {kind}, {d.buckets} buckets")
                 n_cases += 1
-    log(f"probe kernel == twin == directory twin on {n_cases} adversarial indexes (0 to 100,003 keys; uniform, one "
-        "prefix, two prefixes, narrow keys; 1, 4 and all keys a bucket), max_abs_err 0")
+    log(f"probe and probe_slots kernels == twins == directory twin on {n_cases} adversarial indexes (0 to 100,003 "
+        "keys; uniform, one prefix, two prefixes, narrow keys; 1, 4 and all keys a bucket), max_abs_err 0")
 
     n = 2_000_000
     keys = np.unique(rng.integers(0, 1 << 62, int(n * 1.01), dtype=np.int64))[:n]
     taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
     nq = 1 << 22  # one 4 Mbp batch probes every window position
     k_d, t_d, q_d = (torch.from_numpy(a).to(dev) for a in (keys, taxa, random_queries(rng, keys, nq)))
-    shapes = {"2M random keys, random queries": time_probe(
-        "2M random keys, random queries", k_d, t_d, lookup.build_directory(k_d), q_d)}
+    label = "2M random keys, random queries"
+    results["probe"], results["probe_slots"] = {"shapes": {}}, {"shapes": {}}
+    time_routed(label, k_d, t_d, lookup.build_slots(k_d, t_d), q_d, results)
     # the directory's one parameter, timed on the same index and queries
     for bucket_keys in (2, 4, 8, 16, 64):
         d = lookup.build_directory(k_d, bucket_keys)
         ms = cuda_ms(lambda: lookup.probe(k_d, t_d, d, q_d))
         log(f"probe, 2M random keys, about {bucket_keys} keys a bucket ({d.starts.numel() * 4 / 1e6:.2f} MB "
             f"directory): {ms:.4f} ms")
-    results["probe"] = dict(shapes["2M random keys, random queries"], shapes=shapes)
+    for name in ("probe", "probe_slots"):
+        results[name] = dict(results[name]["shapes"][label], shapes=results[name]["shapes"])
     check_probe_wide(rng, dev, results)
 
 
@@ -679,6 +722,7 @@ def random_wide_queries(dev, keys, nq, seed):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
+    keys = keys.to(dev)
     pick = lambda n: keys[torch.randint(0, keys.shape[0], (n,), generator=gen, device=dev)]  # noqa: E731
     near = pick(nq // 4).clone()
     near[:, 1] = rand64(gen, nq // 4, dev)
@@ -880,7 +924,7 @@ def classified_count(report_path):
     return total - uncl, total
 
 
-def require_launches(path, launches, names=("scan", "probe"), never=()):
+def require_launches(path, launches, names=("scan", "probe_slots"), never=()):
     log(f"{path}: kernel launches {launches}")
     for name in names:
         if launches[name] == 0:
@@ -1101,6 +1145,7 @@ def check_hashed_rules(label, table, keys):
 
     from slacken_tpu_torch.ops import lookup
 
+    keys = keys.to(table.table.device)
     n, rows, tile = keys.shape[0], table.table.shape[0], table.tile
     first = max(12, int(np.ceil(np.log2(max(n, 2)))) + (0 if table.cols else 1))
     least = lookup.HASHED_COLS_TILE if table.cols else lookup.HASHED_TILE
@@ -1172,6 +1217,7 @@ def time_table_probe(label, table, keys, taxa, queries, name, with_floor=True):
 
     from slacken_tpu_torch.ops import cuda_kernels, lookup
 
+    keys, taxa = keys.to(queries.device), taxa.to(queries.device)  # the host's, where a slot table holds the card's
     wide = queries.dim() == 2
     twin = {lookup.TiledTable: lookup.lookup_taxa_tiled, lookup.HashedRows: lookup.lookup_taxa_hashed_rows,
             lookup.HashedTable: lookup.lookup_taxa_hashed, lookup.Bucketed: lookup.lookup_taxa_bucketed}[type(table)]
@@ -1615,7 +1661,7 @@ def phase_detailed(dev, out, bench):
     with twins_forbidden(), count_runs_formatting() as calls:
         runs_times = timed_runs(lambda r: runs.classify_and_write_packed(reads, os.path.join(out, f"hr{r}"), cpar))
     counts = dict(cuda_kernels.LAUNCHES)
-    require_launches("per-read mode, STPU_HIT_RUNS=1 (3 runs)", counts, names=("scan", "probe", "hit_runs"),
+    require_launches("per-read mode, STPU_HIT_RUNS=1 (3 runs)", counts, names=("scan", "probe_slots", "hit_runs"),
                      never=("scan_stitch",))
     add_launches(launches, counts)
     for run in ["hr", "hr0", "hr1", "hr2"]:
@@ -1663,7 +1709,7 @@ def phase_paired(dev, out, bench):
             fail("the paired classify CLI failed on the card under STPU_HIT_RUNS=1")
         dt_runs = time.perf_counter() - t0
         counts = dict(cuda_kernels.LAUNCHES)
-    require_launches("paired CLI, STPU_HIT_RUNS=1", counts, names=("scan", "probe", "hit_runs"))
+    require_launches("paired CLI, STPU_HIT_RUNS=1", counts, names=("scan", "probe_slots", "hit_runs"))
     add_launches(launches, counts)
     t0 = time.perf_counter()
     if cli.main([*common, "-o", os.path.join(out, "paircpu"), "--device", "cpu"]) != 0:
@@ -1740,7 +1786,7 @@ def phase_api(dev, out, bench):
 FUZZ_SEEDS = range(20261018, 20261018 + 40)
 #: the kernels that the fuzz phase must launch: both scans, every probe
 #: kernel of the nine choices, and hit runs
-FUZZ_KERNELS = ("scan", "scan_wide", "probe", "probe_wide", "probe_tiled", "probe_tiled_wide", "probe_rows",
+FUZZ_KERNELS = ("scan", "scan_wide", "probe_slots", "probe_wide", "probe_tiled", "probe_tiled_wide", "probe_rows",
                 "probe_rows_wide", "probe_hashed", "probe_hashed_cols", "probe_bucketed", "hit_runs")
 
 
@@ -1851,7 +1897,7 @@ def breakdown(cls, reads, cpar, results):
     st["scan"] = cuda_ms(lambda: minimizers.window_minimizers_packed(packed, valid, mp), iters=10)
     q = wm.minimizer.reshape(-1)
     label = "bench index, one batch's dense minimizers"
-    results["probe"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q)
+    time_routed(label, cls.index.keys_t, cls.index.taxa_t, cls._directory, q, results)
     st["probe"] = cuda_ms(lambda: lookup.probe(cls._keys, cls._taxa, cls._directory, q), iters=10)
     looked = lookup.probe(cls._keys, cls._taxa, cls._directory, q).reshape(b, l)
     wt = torch.where(wm.valid, looked, resolve.INVALID_WINDOW)
@@ -1923,7 +1969,7 @@ def phase_scale(dev, out, results, genomes):
         ("scale index, random queries", narrow_random_queries(dev, idx, SCALE_RECORDS)),
         ("scale index, one batch's dense minimizers", batch_queries(cls, reads)[2].minimizer.reshape(-1)),
     ):
-        results["probe"]["shapes"][label] = time_probe(label, cls._keys, cls._taxa, cls._directory, q)
+        time_routed(label, idx.keys_t, idx.taxa_t, cls._directory, q, results)
     del cls
     t0 = time.perf_counter()
     spaced = idx.respace(9)
@@ -1965,7 +2011,8 @@ def merge_bytes(dev, tax, scale_idx):
                         keys = torch.stack([torch.randint(0, 1 << 26, (m,), device=dev, generator=gen),
                                             torch.randint(-(1 << 63), (1 << 63) - 1, (m,), device=dev, generator=gen)], 1)
                     else:
-                        keys = scale_idx.keys_t[torch.randperm(scale_idx.num_records, device=dev, generator=gen)[:m]]
+                        keys = scale_idx.keys_t.to(dev)[torch.randperm(scale_idx.num_records, device=dev,
+                                                                       generator=gen)[:m]]
                     if twice:
                         keys = keys.repeat(2, *([1] * (keys.dim() - 1)))
                     taxa = torch.randint(10, 10 + SCALE_TAXA, (n,), device=dev, generator=gen, dtype=torch.int32)
@@ -2046,7 +2093,7 @@ def phase_build_bounded(dev, out, genomes, scale_idx):
         if "spill_dir" in kw and (os.path.exists(spill) or not s["spilled_bytes"]):
             fail(f"spill_dir: {s['spilled_bytes']} bytes spilled, directory left: {os.path.exists(spill)}")
         require_launches(f"bounded scale build, {label}", launches, ("scan",),
-                         ("scan_lut", "scan_wide", "probe", "probe_wide"))
+                         ("scan_lut", "scan_wide", "probe", "probe_slots", "probe_wide"))
         add_launches(total, launches)
         del idx
     return total
@@ -2077,7 +2124,7 @@ def phase_build_bounded_bench(dev, out, bases):
     lib = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
     spill = os.path.join(out, "bbb_spill")
     total = {}
-    kernel = {False: ("scan", "probe"), True: ("scan_wide", "probe_wide")}
+    kernel = {False: ("scan", "probe_slots"), True: ("scan_wide", "probe_wide")}
 
     def run(what, names, fn):
         cuda_kernels.reset_launch_counts()
@@ -2232,7 +2279,7 @@ def phase_wide(dev, out, reads, results, genomes, bases):
     library = lambda: workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED))  # noqa: E731
     n_reads = sum(len(p) for p in reads)
     total = {}
-    narrow = ("scan", "scan_lut", "probe")
+    narrow = ("scan", "scan_lut", "probe", "probe_slots")
     for tag, kms in (("w45", (50, 45, 7)), ("w33", (35, 33, 0))):
         params = IndexParams(k=kms[0], m=kms[1], spaces=kms[2])
         idx, cls, launches, idx_cpu = card_against_cpu(dev, out, tag, params, tax, library, reads, n_reads, 0.8,
@@ -2329,7 +2376,7 @@ def phase_ordering(dev, out, reads, bases):
         idx, _, launches, idx_cpu = card_against_cpu(
             dev, out, name, IndexParams(**kms, ordering=name), tax, library, reads, n_reads, 0.9,
             frequency_table if name == "frequency" else None, keep_records=name == "lexicographic")
-        require_launches(f"{name} ordering: build, 3 classify runs", launches, ("scan_lut", "probe"),
+        require_launches(f"{name} ordering: build, 3 classify runs", launches, ("scan_lut", "probe_slots"),
                          ("scan", "scan_wide", "probe_wide"))
         add_launches(total, launches)
         if name == "lexicographic":  # ranks are the masked m-mers: the XOR order with no toggle
@@ -2367,7 +2414,7 @@ def phase_classify2(dev, out, reads, bases):
     from slacken_tpu_torch.classify import ClassifyParams, Fragment
     from slacken_tpu_torch.index import IndexParams, KeyValueIndex
     from slacken_tpu_torch.inputs import GenomeLibrary
-    from slacken_tpu_torch.ops import cuda_kernels
+    from slacken_tpu_torch.ops import cuda_kernels, lookup
 
     tax = workloads.bench_taxonomy()
     genomes = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
@@ -2410,7 +2457,8 @@ def phase_classify2(dev, out, reads, bases):
         "lexicographic": [("distinct", distinct_c, None, reports, True, True),
                           ("reads", reads_c, None, per_read, False, False)],
     }
-    kernels = {"narrow": ("scan", "probe"), "wide": ("scan_wide", "probe_wide"), "lexicographic": ("scan_lut", "probe")}
+    kernels = {"narrow": ("scan", "probe_slots"), "wide": ("scan_wide", "probe_wide"),
+               "lexicographic": ("scan_lut", "probe_slots")}
     for kind, (card, host) in bases.items():
         card.to(dev)
         everything = set(tax.taxa())
@@ -2435,11 +2483,13 @@ def phase_classify2(dev, out, reads, bases):
                         card_s = time.perf_counter() - t0
                     launches = dict(cuda_kernels.LAUNCHES)
                     require_launches(f"classify2 {kind} {tag}", launches, kernels[kind],
-                                     [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide")
+                                     [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_slots", "probe_wide")
                                       if k not in kernels[kind]])
                     add_launches(total, launches)
-                    if made[where].keys_t.device.type != dev.type:
-                        fail(f"classify2 {kind} {tag}: the dynamic index left the card")
+                    on_card = [a[2] for (d, p), a in made[where]._on.items() if d.type == "cuda" and p == "routed"]
+                    if not (on_card and isinstance(on_card[0], lookup.SlotTable)) or made[where].keys_t.is_cuda:
+                        fail(f"classify2 {kind} {tag}: the dynamic index is not held once, as its slot table, on "
+                             "the card")
                 else:
                     t0 = time.perf_counter()
                     made[where] = dyn.two_step_classify_and_write(
@@ -2607,8 +2657,8 @@ def phase_classify2_scale(dev, out, genomes):
         directory_s = sync_s(t0)
         del directory
         cls = Classifier(restricted, dev)
-        if cls._keys.data_ptr() != restricted.keys_t.data_ptr():
-            fail("classify2 at scale: the Classifier copied the dynamic index's keys")
+        if cls._keys is not None or restricted.keys_t.device.type != "cpu":
+            fail("classify2 at scale: the card holds the dynamic index's records twice")
         t0 = time.perf_counter()
         cls.classify_and_write_packed(iter(reads), os.path.join(out, "c2s_steps", "dyn"), cpar)
         classify_s = sync_s(t0)
@@ -2728,7 +2778,8 @@ def phase_bracken(dev, out, bases):
 
     genomes = list(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)))
     lib = workloads.GenomeList(genomes)
-    kernels = {"narrow": ("scan", "probe"), "wide": ("scan_wide", "probe_wide"), "lexicographic": ("scan_lut", "probe")}
+    kernels = {"narrow": ("scan", "probe_slots"), "wide": ("scan_wide", "probe_wide"),
+               "lexicographic": ("scan_lut", "probe_slots")}
     total = {}
     for kind, (card, host) in bases.items():
         card.to(dev)
@@ -2744,7 +2795,8 @@ def phase_bracken(dev, out, bases):
             walls["wall"] = time.perf_counter() - t0
         launches = dict(cuda_kernels.LAUNCHES)
         require_launches(f"bracken {kind}", launches, (*kernels[kind], "scan_stitch"),
-                         [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide") if k not in kernels[kind]])
+                         [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_slots", "probe_wide")
+                          if k not in kernels[kind]])
         add_launches(total, launches)
         t0 = time.perf_counter()
         paths["cpu"] = os.path.join(out, f"br_{kind}_cpu.kmer_distrib")
@@ -2786,7 +2838,7 @@ def phase_bracken(dev, out, bases):
         finally:
             bracken.BrackenWeights.build_weights = real
     launches = dict(cuda_kernels.LAUNCHES)
-    require_launches("bracken-build CLI", launches, ("scan", "scan_stitch", "probe"))
+    require_launches("bracken-build CLI", launches, ("scan", "scan_stitch", "probe_slots"))
     add_launches(total, launches)
     written = os.path.join(f"{idx_dir}_bracken", "database100mers.kmer_distrib")
     bracken.write_kmer_distrib(chunked, os.path.join(out, "br_chunked.kmer_distrib"))
@@ -2854,8 +2906,8 @@ def bracken_at_scale(dev, out, label, genomes, params, records=None):
             bracken.hit_taxa_per_row = real_taxa
         peak = torch.cuda.max_memory_allocated()
         launches = dict(cuda_kernels.LAUNCHES)
-        names, never = ((("scan_wide", "probe_wide"), ("scan", "scan_lut", "probe")) if idx.wide
-                        else (("scan", "probe"), ("scan_wide", "scan_lut", "probe_wide")))
+        names, never = ((("scan_wide", "probe_wide"), ("scan", "scan_lut", "probe", "probe_slots")) if idx.wide
+                        else (("scan", "probe_slots"), ("scan_wide", "scan_lut", "probe", "probe_wide")))
         require_launches(f"bracken at scale, {label}", launches, (*names, "scan_stitch"), never)
         # the device classifier against the numpy counts on one long row
         codes = encode.encode_seq(genomes[0][1][:SAMPLE_POSITIONS])[None, :]
@@ -2930,7 +2982,7 @@ def phase_compare_index(dev, out, bases):
 
     keep = set(list(workloads.BENCH_SIZES)[:2]) | {1}
     total = {}
-    for kind, probe_name in (("narrow", "probe"), ("wide", "probe_wide")):
+    for kind, probe_name in (("narrow", "probe_slots"), ("wide", "probe_wide")):
         card, host = bases[kind]
         card.to(dev)
         pairs = {"card": (card, card.build_restricted(keep)), "cpu": (host, host.build_restricted(keep))}
@@ -2979,7 +3031,7 @@ def phase_compare_index(dev, out, bases):
             if cli.main(argv) != 0:
                 fail(f"the CLI failed on the card: {argv}")
     launches = dict(cuda_kernels.LAUNCHES)
-    require_launches("compareIndex CLI", launches, ("probe",))
+    require_launches("compareIndex CLI", launches, ("probe_slots",))
     add_launches(total, launches)
     text = buf.getvalue()
     if (open(os.path.join(out, "ci_cli_taxaToRoot_report.txt"), "rb").read()
@@ -3022,9 +3074,9 @@ def phase_mesh(dev, out, reads, bases):
     modes = {"rep": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=False),
              "det": ClassifyParams(thresholds=[0.0, 0.15], per_read_output=True)}
     # kind -> (saved index, its single-device card runs in reports and per-read mode, scan, probe)
-    kinds = {"narrow": ("idx", "gpu", "det", "scan", "probe"),
+    kinds = {"narrow": ("idx", "gpu", "det", "scan", "probe_slots"),
              "wide (50, 45, 7)": ("w45_idx", "w45_rep", "w45_det", "scan_wide", "probe_wide"),
-             "signature (35, 13, 3)": ("signature_idx", "signature_rep", "signature_det", "scan_lut", "probe")}
+             "signature (35, 13, 3)": ("signature_idx", "signature_rep", "signature_det", "scan_lut", "probe_slots")}
     total = {}
     for kind, (idx_dir, rep_dir, det_dir, scan, probe) in kinds.items():
         idx = KeyValueIndex.load(os.path.join(out, idx_dir))
@@ -3045,7 +3097,8 @@ def phase_mesh(dev, out, reads, bases):
                 WALLS[f"mesh {kind} {layout}"] = walls
             launches = dict(cuda_kernels.LAUNCHES)
             require_launches(f"mesh {kind} {layout}", launches, (scan, probe),
-                             [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide") if k not in (scan, probe)])
+                             [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_slots", "probe_wide")
+                              if k not in (scan, probe)])
             add_launches(total, launches)
             for mode in modes:
                 got = output_tree(os.path.join(out, f"{tag}_{mode}"))
@@ -3207,7 +3260,7 @@ def phase_mesh_scale(dev, out, genomes, scale_idx):
         build_peak = torch.cuda.max_memory_allocated() - before
         if idx.num_records != SCALE_RECORDS:
             fail(f"build_distributed at scale gave {idx.num_records} records, expected {SCALE_RECORDS}")
-        if not (torch.equal(idx.keys_t, scale_idx.keys_t) and torch.equal(idx.taxa_t, scale_idx.taxa_t)):
+        if not index_equal(idx, scale_idx):
             fail("build_distributed at scale differs from the single-device build")
         log(f"build_distributed at scale over Mesh([{dev}] * {MESH_SHARDS}): {idx.num_records} records equal to "
             f"the single-device build in {build_s:.2f} s ({SCALE_BP / build_s / 1e6:.2f} Mbp/s incl. host packing, "
@@ -3243,9 +3296,9 @@ def phase_mesh_scale(dev, out, genomes, scale_idx):
 MH_SHARDS = 8
 MH_TIMEOUT = 600  # seconds that one spawned group of ranks may take
 #: kind -> (saved index, its single-device card runs in reports and per-read mode, scan, probe)
-MH_KINDS = {"narrow": ("idx", "gpu", "det", "scan", "probe"),
+MH_KINDS = {"narrow": ("idx", "gpu", "det", "scan", "probe_slots"),
             "wide (50, 45, 7)": ("w45_idx", "w45_rep", "w45_det", "scan_wide", "probe_wide"),
-            "signature (35, 13, 3)": ("signature_idx", "signature_rep", "signature_det", "scan_lut", "probe")}
+            "signature (35, 13, 3)": ("signature_idx", "signature_rep", "signature_det", "scan_lut", "probe_slots")}
 #: each kind's index parameters (the earlier phases build them so)
 MH_PARAMS = {"narrow": dict(k=35, m=31, spaces=7), "wide (50, 45, 7)": dict(k=50, m=45, spaces=7),
              "signature (35, 13, 3)": dict(k=35, m=13, spaces=3, ordering="signature")}
@@ -3456,7 +3509,7 @@ def check_mh(out, what, jobs, reports, total, single_walls):
         scan, probe = MH_KINDS[job["kind"]][3:]
         for r, rec in enumerate(recs):
             require_launches(f"multihost {what}, rank {r}, {job['tag']}", rec["launches"], (scan, probe),
-                             [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_wide")
+                             [k for k in ("scan", "scan_lut", "scan_wide", "probe", "probe_slots", "probe_wide")
                               if k not in (scan, probe)])
             add_launches(total, rec["launches"])
         got = output_tree(job["prefix"])
@@ -3854,6 +3907,7 @@ def main():
                "scan_wide": (scan_cu, "slacken_tpu/ops/minimizers.py:372"),
                "scan_stitch": (scan_cu, "slacken_tpu/ops/minimizers.py:417"),
                "probe": (probe_cu, "slacken_tpu/ops/pallas_kernels.py:98"),
+               "probe_slots": (tables_cu, "slacken_tpu/ops/pallas_kernels.py:98"),
                "probe_wide": (probe_cu, "slacken_tpu/ops/lookup.py:161"),
                "probe_tiled": (tables_cu, "slacken_tpu/ops/lookup.py:333"),
                "probe_tiled_wide": (tables_cu, "slacken_tpu/ops/lookup.py:212"),

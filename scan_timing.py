@@ -3,7 +3,7 @@
 row-bucket table probes on one NVIDIA GPU at the main path's shapes, to
 compare two versions of the kernels inside one run on one card.
 
-    python3 scan_timing.py [--root DIR] [--cases all|scan|probe|tables|hitruns] [--tables tiled,...]
+    python3 scan_timing.py [--root DIR] [--cases all|scan|probe|routed|tables|hitruns] [--tables tiled,...]
 
 `--root` imports slacken_tpu_torch from DIR, another checkout of the
 repository (the parent commit unpacked into a git-ignored directory, say);
@@ -22,7 +22,10 @@ library's (50, 45, 7) indexes (also random queries there), each checked
 against `lookup_taxa` first; it prints the device memory of the scale
 index's probe arrays, the peak while they are made, and the build's peak. A tree whose lookup has
 no `build_slots` probes its keys, taxa and directory, as before the slot
-table. `--cases tables` times probe_rows, probe_hashed, probe_hashed_cols,
+table. `--cases routed` times the routed probe of narrow keys at
+chip_smoke.py's four shapes (time_routed): the slot kernel, its floor and
+the directory kernel on the same queries, and prints the card memory that
+a classifier of the scale index holds. `--cases tables` times probe_rows, probe_hashed, probe_hashed_cols,
 probe_tiled, their wide instances and probe_bucketed through
 chip_smoke.time_table_probe
 (each held to its twin and lookup_taxa first; the bound and the
@@ -81,7 +84,7 @@ CASES = [
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    ap.add_argument("--cases", choices=("all", "scan", "probe", "tables", "hitruns"), default="all")
+    ap.add_argument("--cases", choices=("all", "scan", "probe", "routed", "tables", "hitruns"), default="all")
     ap.add_argument("--tables", default=",".join(TABLE_CASES),
                     help="the tables of --cases tables, comma-separated (default: all)")
     args = ap.parse_args(argv)
@@ -112,6 +115,8 @@ def main(argv=None):
         time_hit_runs(name, dev)
     if args.cases in ("all", "tables"):
         time_tables(name, dev, args.tables.split(","))
+    if args.cases in ("all", "routed"):
+        time_routed(name, dev)
     if args.cases in ("all", "probe"):
         time_probe_wide(name, dev)
     if args.cases != "all" and args.cases != "scan":
@@ -181,11 +186,13 @@ def time_tables(name, dev, only=TABLE_CASES):
                 continue
             arrays = index.device_arrays(dev, probe)
             for what, queries in shapes:
-                if probe == "routed":  # the directory probe: its time alone, held to lookup_taxa first
+                if probe == "routed":  # the routed probe on the card: its time alone, held to lookup_taxa first
                     run = lambda: lookup.probe(*arrays, queries)  # noqa: E731
-                    if not torch.equal(run(), lookup.lookup_taxa(index.keys_t, index.taxa_t, queries)):
-                        raise SystemExit(f"scan_timing: the directory probe differs from lookup_taxa on {label}")
-                    print(f"[{name}] probe {label}, {what}: back to back {chip_smoke.cuda_ms(run):.4f} ms; alone "
+                    keys, taxa = index.keys_t.to(dev), index.taxa_t.to(dev)
+                    if not torch.equal(run(), lookup.lookup_taxa(keys, taxa, queries)):
+                        raise SystemExit(f"scan_timing: the routed probe differs from lookup_taxa on {label}")
+                    kernel = "probe_slots" if isinstance(arrays[2], getattr(lookup, "SlotTable", ())) else "probe"
+                    print(f"[{name}] {kernel} {label}, {what}: back to back {chip_smoke.cuda_ms(run):.4f} ms; alone "
                           f"{chip_smoke.fmt_ms(chip_smoke.device_ms(run))}", flush=True)
                     continue
                 kernel = chip_smoke.TABLE_PROBES[probe, queries.dim() == 2]
@@ -234,6 +241,68 @@ def time_tables(name, dev, only=TABLE_CASES):
         torch.cuda.empty_cache()
 
 
+def time_routed(name, dev):
+    """The routed probe of narrow keys at chip_smoke.py's four shapes of the
+    directory kernel: 4,194,304 random queries into 2M random keys, one 4
+    Mbp batch's dense minimizers into the bench index, random queries and
+    one batch's dense minimizers into the 400 Mbp scale index.
+    chip_smoke.time_probe over the keys' slot table (each kernel held to
+    its twin and lookup_taxa first) times the slot kernel, its floor and,
+    on the same queries, the directory kernel; a tree without narrow slot
+    tables (no cuda_kernels.slots_floor_cuda) times the directory kernel
+    alone. Then the card memory that a classifier of the scale index holds."""
+    import torch
+
+    from slacken_tpu_torch import workloads
+    from slacken_tpu_torch.classify import Classifier
+    from slacken_tpu_torch.index import IndexParams, KeyValueIndex
+    from slacken_tpu_torch.ops import cuda_kernels, lookup
+
+    slots = hasattr(cuda_kernels, "slots_floor_cuda")
+
+    def timed(label, keys, taxa, queries):
+        keys, taxa = keys.to(dev), taxa.to(dev)
+        table = lookup.build_slots(keys, taxa) if slots else lookup.build_directory(keys)
+        r = chip_smoke.time_probe(label, keys, taxa, table, queries, "probe_slots" if slots else "probe")
+        for kernel, e in (("probe_slots", r), ("probe", r["directory"])) if slots else (("probe", r),):
+            floor = f"; floor {chip_smoke.fmt_ms(e['floor_device_ms'])}" if "floor_device_ms" in e else ""
+            print(f"[{name}] {kernel} {label}: back to back {e['ms']:.4f} ms; alone {chip_smoke.fmt_ms(e['device_ms'])}"
+                  f"; bound {e['bound_ms']:.4f} ms{floor}", flush=True)
+
+    rng = np.random.default_rng(20261019)
+    n = 2_000_000
+    keys = np.unique(rng.integers(0, 1 << 62, int(n * 1.01), dtype=np.int64))[:n]
+    taxa = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+    timed("2M random keys, random queries", torch.from_numpy(keys), torch.from_numpy(taxa),
+          torch.from_numpy(chip_smoke.random_queries(rng, keys, 1 << 22)).to(dev))
+    narrow = IndexParams(k=35, m=31, spaces=7)
+    idx = KeyValueIndex.build(workloads.bench_library(np.random.default_rng(workloads.BENCH_SEED)), narrow,
+                              workloads.bench_taxonomy(), dev)
+    cls = Classifier(idx, dev)
+    timed("bench index, one batch's dense minimizers", idx.keys_t, idx.taxa_t,
+          chip_smoke.batch_queries(cls, workloads.bench_reads())[2].minimizer.reshape(-1))
+    del idx, cls
+    genomes = list(workloads.scale_library(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA))
+    reads = workloads.scale_reads(chip_smoke.SCALE_BP, chip_smoke.SCALE_TAXA, library=genomes)
+    torch.cuda.empty_cache()
+    idx = KeyValueIndex.build(iter(genomes), narrow, workloads.scale_taxonomy(chip_smoke.SCALE_TAXA), dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cls = Classifier(idx, dev)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"[{name}] scale index: {idx.num_records} records; card memory {before} bytes with the index's keys and "
+          f"taxa there, {after} under a classifier ({after / idx.num_records:.3f} bytes a record), keys on "
+          f"{idx.keys_t.device}", flush=True)
+    for label, queries in (
+        ("scale index, random queries", chip_smoke.narrow_random_queries(dev, idx, chip_smoke.SCALE_RECORDS + 1)),
+        ("scale index, one batch's dense minimizers", chip_smoke.batch_queries(cls, reads)[2].minimizer.reshape(-1)),
+    ):
+        timed(label, idx.keys_t, idx.taxa_t, queries)
+    del idx, cls
+    torch.cuda.empty_cache()
+
+
 #: keys a bucket of the slot tables timed beside the default's
 BUCKET_SWEEP = (2, 4, 8)
 
@@ -259,6 +328,7 @@ def time_probe_wide(name, dev):
     from slacken_tpu_torch.ops import lookup
 
     def timed(label, keys, taxa, arrays, queries):
+        keys, taxa = keys.to(queries.device), taxa.to(queries.device)  # on the host under a classifier's slot table
         for bucket_keys in (None, *BUCKET_SWEEP):
             if bucket_keys is not None:  # the directory's one parameter, on the slots
                 if not hasattr(lookup, "build_slots"):

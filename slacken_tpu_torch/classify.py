@@ -48,7 +48,7 @@ import torch
 from . import native, to_device
 from .index import KeyValueIndex
 from .ops import encode, hitruns
-from .ops.lookup import probe
+from .ops.lookup import probe, probe_bytes
 from .ops.minimizers import window_minimizers_packed
 from .ops.resolve import INVALID_WINDOW, ResolveResult, compact_hits, resolve_hits
 from .report import KrakenReport
@@ -448,6 +448,7 @@ class Classifier:
         """Put what a batch reads on the device, once: the index's probe
         arrays, its rank table and the taxonomy's rpath table."""
         self._keys, self._taxa, self._directory = self.index.device_arrays(self.device, self.probe)
+        self._index_bytes = probe_bytes((self._keys, self._taxa, self._directory))
         self._lut = self.index.device_lut(self.device)
         # indexed by raw taxon ID: [max_id + 1, D], copied to the device once
         self._table = torch.from_numpy(self.index.taxonomy.rpath_table()).to(self.device)
@@ -501,14 +502,18 @@ class Classifier:
         mode the window taxa, or their hit runs (rows under 2^16 wide), go to
         the host with the bundle; the device window taxa stay until the
         harvest, which fetches the rows over the run cap. A `dispatch` span
-        counts the rows launched and the padding rows among them; its
-        `dispatch.launch` the bytes queued for copy to the device and back."""
+        counts the rows launched and the padding rows among them, and the
+        bytes of the probe arrays that the batch reads (`_place_index`) and
+        the index's records; its `dispatch.launch` the bytes queued for copy
+        to the device and back."""
         with span("dispatch"):
             n, width = codes.shape
             rows = self._padded_rows(n)
             w8 = -(-width // 8) * 8
             count("rows", rows)
             count("padded_rows", rows - n)
+            count("index_bytes", self._index_bytes)
+            count("index_records", self.index.num_records)
             with span("dispatch.pad"):
                 if (rows, w8) != (n, width):
                     padded = np.full((rows, w8), encode.INVALID, np.uint8)

@@ -698,11 +698,41 @@ def _batches(fragments, params: IndexParams, taxonomy: Optional[Taxonomy], batch
         yield flush()
 
 
+def probe_arrays(keys: torch.Tensor, taxa: torch.Tensor, probe: str, m: int) -> Tuple[
+        Optional[torch.Tensor], Optional[torch.Tensor],
+        Directory | SlotTable | TiledTable | HashedRows | HashedTable | Bucketed]:
+    """What `lookup.probe` reads for the probe `probe`, built from sorted
+    keys and taxa of minimizer length `m` where they lie (see
+    KeyValueIndex.device_arrays)."""
+    wide = m > 31
+    if wide and probe in ("hashed", "hashed128", "bucketed"):
+        raise NotImplementedError(f"the {probe} probe requires m <= 31")
+    if probe == "tiled":
+        return None, None, build_tiled(keys, taxa, 2 * m)
+    if probe == "hashed1":
+        return None, None, build_hashed_rows(keys, taxa)
+    if probe == "hashed":
+        return None, None, build_hashed(keys, taxa)
+    if probe == "hashed128":
+        return None, None, build_hashed_cols(keys, taxa)
+    if probe == "bucketed":
+        return None, None, build_bucketed(keys, taxa, 2 * m)
+    if probe != "routed":
+        raise ValueError(f"no probe arrays for the probe {probe!r}")
+    if keys.device.type == "cuda":
+        return None, None, build_slots(keys, taxa)
+    return keys, taxa, build_directory(keys)
+
+
 class KeyValueIndex:
     """Sorted minimizer -> LCA taxon index with its parameters and taxonomy.
-    Keys and taxa live as torch tensors on one device: int64 [N] keys (every
-    key is below 2^62), or for a wide m int64 [N, 2] rows holding the bit
-    patterns of (hi64, lo64). The host arrays materialise on demand.
+    Keys and taxa live as torch tensors on one device, or in host memory
+    once a card holds their slot table in their place (device_arrays): then
+    `home` is that card, and the index's own work (respace, the per-taxon
+    counts, stats.depth_histograms) still runs there, on a copy; `device`
+    says where. Keys are int64 [N] (every key is below 2^62), or for a wide
+    m int64 [N, 2] rows holding the bit patterns of (hi64, lo64). The host
+    arrays materialise on demand.
     `ordering_lut` is the uint32 rank table of an explicit ordering.
     `record_keys_t` and `record_taxa_t` are the full-records sidecar of a
     keep_records build (distinct (key, taxon) pairs sorted by key, then
@@ -723,6 +753,7 @@ class KeyValueIndex:
         self.ordering_lut = ordering_lut
         self.record_keys_t: Optional[torch.Tensor] = None
         self.record_taxa_t: Optional[torch.Tensor] = None
+        self.home: Optional[torch.device] = None
         #: a build's MergeTree counts, and with trace its phase walls (seconds)
         self.build_stats: Optional[dict] = None
         self.build_phases: Optional[Dict[str, float]] = None
@@ -756,10 +787,17 @@ class KeyValueIndex:
     def record_taxa(self) -> Optional[np.ndarray]:
         return None if self.record_taxa_t is None else self.record_taxa_t.cpu().numpy()
 
+    @property
+    def device(self) -> torch.device:
+        """Where the index's own work runs: where its keys lie, or the card
+        whose slot table holds them while they wait in host memory."""
+        return self.keys_t.device if self.home is None else self.home
+
     def to(self, device) -> "KeyValueIndex":
         """Move the keys, the taxa and the sidecar to `device`, in place."""
         device = torch.device(device)
         self.keys_t, self.taxa_t = self.keys_t.to(device), self.taxa_t.to(device)
+        self.home = None
         if self.record_keys_t is not None:
             self.record_keys_t = self.record_keys_t.to(device)
             self.record_taxa_t = self.record_taxa_t.to(device)
@@ -776,38 +814,32 @@ class KeyValueIndex:
             Directory | SlotTable | TiledTable | HashedRows | HashedTable | Bucketed]:
         """What `lookup.probe` reads on `device` for the probe `probe`,
         copied or built there once a (device, probe): "routed", (keys, taxa,
-        prefix directory), or for a wide index on the card (None, None, slot
-        table), whose rows hold key and taxon together; "tiled", (None, None,
+        prefix directory) on the CPU, or on the card (None, None, slot
+        table), whose slots hold key remainder and taxon together (8 bytes a
+        narrow record, 16 a wide one); "tiled", (None, None,
         TiledTable); "hashed1", (None, None, HashedRows); "hashed" and
         "hashed128", (None, None, HashedTable) of build_hashed and
         build_hashed_cols; "bucketed", (None, None, Bucketed). The tables
         are built on the device from the keys there (the card's own copy of
         an index built on the card). The last three take narrow keys only,
         as the JAX index's device_hashed, device_hashed_cols and
-        device_bucketed do."""
+        device_bucketed do. A routed slot table built on a card from the
+        keys that live there hands the records over to it (`hand_over`), so
+        that the card holds them once."""
         device = torch.device(device)
         if (device, probe) not in self._on:
-            if self.wide and probe in ("hashed", "hashed128", "bucketed"):
-                raise NotImplementedError(f"the {probe} probe requires m <= 31")
             keys, taxa = self.keys_t.to(device), self.taxa_t.to(device)
-            if probe == "tiled":
-                arrays = (None, None, build_tiled(keys, taxa, self.key_bits))
-            elif probe == "hashed1":
-                arrays = (None, None, build_hashed_rows(keys, taxa))
-            elif probe == "hashed":
-                arrays = (None, None, build_hashed(keys, taxa))
-            elif probe == "hashed128":
-                arrays = (None, None, build_hashed_cols(keys, taxa))
-            elif probe == "bucketed":
-                arrays = (None, None, build_bucketed(keys, taxa, self.key_bits))
-            elif probe != "routed":
-                raise ValueError(f"no probe arrays for the probe {probe!r}")
-            elif self.wide and device.type == "cuda":
-                arrays = (None, None, build_slots(keys, taxa))
-            else:
-                arrays = (keys, taxa, build_directory(keys))
-            self._on[device, probe] = arrays
+            self._on[device, probe] = arrays = probe_arrays(keys, taxa, probe, self.params.m)
+            if probe == "routed" and arrays[0] is None and keys is self.keys_t:
+                self.hand_over(device)
         return self._on[device, probe]
+
+    def hand_over(self, device: torch.device) -> None:
+        """Keep the keys and taxa in host memory from now on: tables on
+        `device` hold the records in their place there, and `device` stays
+        the index's home, where its own work runs."""
+        self.keys_t, self.taxa_t = self.keys_t.cpu(), self.taxa_t.cpu()
+        self.home = torch.device(device)
 
     def device_lut(self, device) -> Optional[torch.Tensor]:
         """The rank table on `device` as int32 (every rank is below 2^30),
@@ -918,8 +950,8 @@ class KeyValueIndex:
     def respace(self, spaces: int) -> "KeyValueIndex":
         """Project this index to a larger number of spaced-seed spaces and
         reduce again (KeyValueIndex.scala:353-382): an index with s spaces
-        holds all that one with s' > s needs. Where the keys lie. The mask of
-        a wide key splits over its two limbs."""
+        holds all that one with s' > s needs. On the index's device. The
+        mask of a wide key splits over its two limbs."""
         if spaces <= self.params.spaces:
             raise ValueError(
                 f"Respacing must increase spaces (was {self.params.spaces}, got {spaces})"
@@ -927,7 +959,7 @@ class KeyValueIndex:
         if self.params.ordering != "xor":
             # rank-table keys are opaque ranks; re-masking them is meaningless
             raise NotImplementedError("respace requires the xor ordering")
-        keys, taxa = self.keys_t, self.taxa_t
+        keys, taxa = self.keys_t.to(self.device), self.taxa_t.to(self.device)
         mask = space_mask_int(self.params.m, spaces)
         if self.wide:
             hi, lo = limbs_int64(mask)
@@ -940,7 +972,7 @@ class KeyValueIndex:
     def records_per_taxon(self) -> Dict[int, int]:
         """taxon -> number of stored minimizers, in taxon order; counted on
         the index's device."""
-        return taxon_counts(self.taxa_t)
+        return taxon_counts(self.taxa_t.to(self.device))
 
     def distinct_minimizers_per_taxon(self) -> Dict[int, int]:
         # keys are unique already, so this equals records_per_taxon

@@ -43,14 +43,16 @@ TABLE_PROBES = ("probe_tiled", "probe_tiled_wide", "probe_rows", "probe_rows_wid
                 "probe_hashed_cols", "probe_bucketed")
 
 #: scan: the XOR-ordered narrow scan; scan_lut: its rank-table instance;
-#: scan_wide, probe_wide: the kernels for m > 31; scan_stitch: the scan
+#: scan_wide, probe_wide: the kernels for m > 31; probe: the directory
+#: probe over narrow keys and taxa; probe_slots: the routed probe of a
+#: narrow index on the card, over its slot table; scan_stitch: the scan
 #: launches (of any of the three) whose rows were cut into segments and
 #: stitched inside the launch (kernels/scan.cu, stitch_row), counted beside
 #: the scan's own name; hit_runs: per-read mode's reduction of the window
 #: taxa (kernels/hitruns.cu)
 LAUNCHES: Dict[str, int] = {
-    name: 0 for name in ("scan", "scan_lut", "scan_wide", "scan_stitch", "probe", "probe_wide", *TABLE_PROBES,
-                         "hit_runs", *MASK_IDIOMS)
+    name: 0 for name in ("scan", "scan_lut", "scan_wide", "scan_stitch", "probe", "probe_slots", "probe_wide",
+                         *TABLE_PROBES, "hit_runs", *MASK_IDIOMS)
 }
 
 #: warps a scan launch should have in flight on each SM: four a scheduler,
@@ -143,6 +145,7 @@ def _load():
     lib.stpu_probe_tiled.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
     lib.stpu_tiled_floor.argtypes = [p, i64, i32, p, i32, p, i64, p, p]
     lib.stpu_probe_bucketed.argtypes = [p, i64, i32, p, p, p, i64, p, p]
+    lib.stpu_probe_slots.argtypes = [p, i64, i32, i32, p, p, p, i64, p, p]
     lib.stpu_bucketed_floor.argtypes = [p, i64, i32, p, p, i64, p, p]
     lib.stpu_probe_rows.argtypes = [p, i32, i32, ctypes.c_uint, i32, p, i64, p, p]
     lib.stpu_rows_floor.argtypes = [p, i32, i32, ctypes.c_uint, p, i64, p, p]
@@ -151,9 +154,9 @@ def _load():
     lib.stpu_hit_runs.argtypes = [p, p, p, p, i64, i32, i32, i32, p, p]
     lib.stpu_hit_runs_floor.argtypes = [p, p, p, p, i64, i32, i32, p, p]
     for fn in (lib.stpu_scan, lib.stpu_scan_wide, lib.stpu_probe, lib.stpu_probe_wide, lib.stpu_probe_tiled,
-               lib.stpu_tiled_floor, lib.stpu_probe_bucketed, lib.stpu_bucketed_floor, lib.stpu_probe_rows,
-               lib.stpu_rows_floor, lib.stpu_probe_hashed, lib.stpu_hashed_floor, lib.stpu_hit_runs,
-               lib.stpu_hit_runs_floor):
+               lib.stpu_tiled_floor, lib.stpu_probe_bucketed, lib.stpu_probe_slots, lib.stpu_bucketed_floor,
+               lib.stpu_probe_rows, lib.stpu_rows_floor, lib.stpu_probe_hashed, lib.stpu_hashed_floor,
+               lib.stpu_hit_runs, lib.stpu_hit_runs_floor):
         fn.restype = i32
     for name in MASK_IDIOMS:
         fn = getattr(lib, f"stpu_mask_{name}")
@@ -347,38 +350,71 @@ def lookup_taxa_directory_cuda(
 
 
 def lookup_taxa_slots_cuda(table: SlotTable, queries: torch.Tensor) -> torch.Tensor:
-    """Exact-match probe of a wide index through its slot table
-    (kernels/probe.cu, probe_wide_kernel): int32 taxon per int64 [Q, 2]
-    query (hi64, lo64), 0 on a miss. Twin: lookup.lookup_taxa_slots."""
+    """Exact-match probe of an index through its slot table: int32 taxon per
+    query, 0 on a miss. A narrow table (slots int64 [N], queries int64 [Q];
+    kernels/probe_tables.cu, probe_slots_kernel, counted as "probe_slots")
+    or a wide one (slots [N, 2], queries [Q, 2] as (hi64, lo64);
+    kernels/probe.cu, probe_wide_kernel, counted as "probe_wide"). Twin:
+    lookup.lookup_taxa_slots."""
     slots, c, codes, directory = table
     starts, shift = directory
-    _require(slots, "slots", torch.int64, 2)
+    wide = slots.dim() == 2
+    _require(slots, "slots", torch.int64, 2 if wide else 1)
     _require(starts, "directory.starts", torch.int32, 1)
-    _require(queries, "queries", torch.int64, 2)
+    _require(queries, "queries", torch.int64, 2 if wide else 1)
     if codes is not None:
         _require(codes, "codes", torch.int32, 1)
-    n, buckets = slots.shape[0], directory.buckets
-    if slots.shape[1] != 2 or queries.shape[1] != 2:
+    n, buckets, width = slots.shape[0], directory.buckets, 128 if wide else 64
+    if wide and (slots.shape[1] != 2 or queries.shape[1] != 2):
         raise ValueError(f"slots and queries are [N, 2] and [Q, 2], got {tuple(slots.shape)} and {tuple(queries.shape)}")
-    if (buckets < 1 or buckets & (buckets - 1) or not 0 <= shift <= 127
-            or not 1 <= c <= min(32, 128 - shift) or (codes is not None and codes.shape[0] == 0)):
+    if (buckets < 1 or buckets & (buckets - 1) or not 0 <= shift < width
+            or not 1 <= c <= min(32, width - shift) or (codes is not None and codes.shape[0] == 0)):
         raise ValueError(
             f"a slot table of {n} rows with a field of {c} bits and codes "
             f"{None if codes is None else codes.shape[0]} does not fit a directory of {buckets} buckets and shift {shift}"
         )
     if len({slots.device, starts.device, queries.device, *(() if codes is None else (codes.device,))}) != 1:
         raise ValueError("slots, directory, codes and queries must be on one device")
-    if slots.data_ptr() % 16 or queries.data_ptr() % 16:
-        raise ValueError("slots and queries must be 16-byte aligned (the probe loads 16 bytes at a time)")
+    if slots.data_ptr() % 16 or (wide and queries.data_ptr() % 16):
+        raise ValueError("slots and wide queries must be 16-byte aligned (the probe loads 16 bytes at a time)")
+    if not wide and slots.untyped_storage().nbytes() < 8 * (slots.storage_offset() + n + 1):
+        raise ValueError("narrow slots need a readable word past the last (build_slots allocates one)")
     out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
-    if n == 0:  # an empty index: every query misses
+    if n == 0 or queries.shape[0] == 0:  # an empty index, or nothing to launch
         return out.zero_()
-    rc = _launch(
-        queries, _load().stpu_probe_wide, slots.data_ptr(), None if codes is None else codes.data_ptr(), starts.data_ptr(), buckets, shift, c,
-        queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries),
-    )
-    _check(rc, "probe_wide")
-    LAUNCHES["probe_wide"] += 1
+    code_ptr = None if codes is None else codes.data_ptr()
+    if wide:
+        name = "probe_wide"
+        rc = _launch(queries, _load().stpu_probe_wide, slots.data_ptr(), code_ptr, starts.data_ptr(), buckets, shift,
+                     c, queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
+    else:
+        name = "probe_slots"
+        rc = _launch(queries, _load().stpu_probe_slots, starts.data_ptr(), buckets, shift, c, slots.data_ptr(),
+                     code_ptr, queries.data_ptr(), queries.shape[0], out.data_ptr(), _stream(queries))
+    _check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def slots_floor_cuda(table: SlotTable, queries: torch.Tensor) -> torch.Tensor:
+    """A measurement on no path (kernels/probe_tables.cu,
+    bucketed_floor_kernel over a narrow slot table's directory and slots):
+    for each non-negative query inside the key space, starts[p] ^
+    starts[p + 1] and, if its bucket is not empty, the xor of the aligned
+    32-byte sector of slots that holds its guessed slot (the 16-byte halves
+    that hold a slot of the bucket); else 0. int32 [Q]. What the narrow
+    slot probe cannot beat: its directory entries and one dependent sector
+    a query in a non-empty bucket. Not counted in LAUNCHES. Plain version:
+    lookup.slot_sectors."""
+    slots, _, _, directory = table
+    _require(slots, "slots", torch.int64, 1)
+    _require(directory.starts, "directory.starts", torch.int32, 1)
+    _table_queries(queries, False, slots)
+    out = torch.empty(queries.shape[0], dtype=torch.int32, device=queries.device)
+    rc = _launch(queries, _load().stpu_bucketed_floor, directory.starts.data_ptr(), directory.buckets,
+                 directory.shift, slots.data_ptr(), queries.data_ptr(), queries.shape[0], out.data_ptr(),
+                 _stream(queries))
+    _check(rc, "slots_floor")
     return out
 
 

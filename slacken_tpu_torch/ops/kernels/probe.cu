@@ -1,7 +1,12 @@
 // Exact-match index probe through a prefix directory (`--probe routed`).
 // The bucketed arrays of `--probe bucketed`, whose router is such a
 // directory, have a kernel of their own, probe_bucketed_kernel in
-// probe_tables.cu, which reads each bucket's end.
+// probe_tables.cu, which reads each bucket's end. A narrow index on the
+// card is probed through its slot table by probe_slots_kernel there, on the
+// same walk (key remainder and taxon in one 8-byte slot, as the wide slots
+// below hold them in 16): probe_kernel, the directory kernel over the keys
+// and taxa, is off the card's classify paths and stays, tested, as the
+// yardstick of the slot kernel's timings.
 //
 // Replaces the Pallas kernel `_probe_kernel` / `lookup_taxa_dma`
 // (slacken_tpu/ops/pallas_kernels.py:98,182), which finds the 128-key block

@@ -75,6 +75,25 @@
 //     the bucket's first key were slower; the kernel is 1.4-1.6x its floor,
 //     the difference being a hit's taxon sector, which the JAX layout keeps
 //     apart from the keys.
+//   * slots (`--probe routed`, narrow keys, on the card): the bucketed walk
+//     over the index's slot table, 8 bytes a record, each the key's
+//     remainder below its bucket's prefix above a c-bit field that holds
+//     the taxon or its code (lookup.build_slots), under the prefix directory
+//     of about 4 keys a bucket (BUCKET_KEYS), which takes the router's place.
+//     One thread a query reads the directory entries p and p + 1 (an empty
+//     bucket answers 0 with no slot read), then the aligned 32-byte sector
+//     of 4 slots that holds the slot the query's place in its bucket's range
+//     guesses, a sector left or right as the bucketed walk steps, comparing
+//     Q = (query mod 2^shift) << c unsigned (a slot's top bit may be set).
+//     The first slot not below Q is a hit if its bits above the field equal
+//     Q's; its taxon is the field, from the same load, or the field's code
+//     (a table of the index's distinct taxa, small enough to stay in the
+//     L2). A hit costs two dependent trips (directory, one sector) where the
+//     directory kernel of probe.cu walked the keys from the bucket's start
+//     and then read the taxon apart, and the card holds 8 bytes a record,
+//     not 12, and no second copy of the keys. The slot table is allocated
+//     with a word past its last slot, which a 16-byte load of the last
+//     sector may read (the bucketed arrays have their padding keys there).
 //   * rows, narrow: the row of the scrambled query s holds its keys sorted
 //     by scrambled value, the free all-ones lanes last, and their scrambles
 //     are spread evenly over the row's range, so the first lane not below
@@ -371,6 +390,56 @@ __device__ __forceinline__ void bucket_keys(const long long* __restrict__ keys, 
   }
 }
 
+// The walk of a bucket [start, end) of sorted 8-byte words from word b,
+// the guess (see the header): the answer to x. SLOTS false: the bucketed
+// table's keys, x the query, the taxon of an equal key read from `taxa`.
+// SLOTS true: a narrow slot table's slots (r << c) | f, x = Q the query's
+// remainder << c, a hit the first slot not below Q whose bits above the
+// field equal Q's, its taxon the field f or, given `taxa` (the codes),
+// taxa[f], from the same load. Words compare unsigned either way.
+template <bool SLOTS>
+__device__ __forceinline__ int bucket_walk(const long long* __restrict__ keys, const int* __restrict__ taxa,
+                                           int start, int end, int b, unsigned long long x,
+                                           unsigned long long field) {
+  b &= -BUCKETED_STEP;
+  // an empty bucket reads no key; `right`: every key before b is below the
+  // query; `left`: the key at b + BUCKETED_STEP is not
+  for (bool right = false, left = false; start < end;) {
+    // keys [r0, r1) of the step lie in the bucket; those past it count as
+    // not below the query, those before it as below
+    const int r0 = max(start - b, 0), r1 = min(end - b, BUCKETED_STEP);
+    unsigned long long k[BUCKETED_STEP];
+    bucket_keys(keys, b, start, end, k);
+    unsigned below = 0, equal = 0;
+#pragma unroll
+    for (int r = 0; r < BUCKETED_STEP; ++r) {
+      below |= (unsigned)(k[r] < x) << r;
+      equal |= (unsigned)(SLOTS ? (k[r] ^ x) <= field : k[r] == x) << r;
+    }
+    const int j = __ffs((~below & (~0u << r0)) | (~0u << r1)) - 1;  // the first key not below the query
+    if (j < BUCKETED_STEP) {
+      if (j < r1 && (equal >> j & 1)) {  // in the bucket, and equal
+        if (!SLOTS) return max(__ldg(taxa + b + j), 0);
+        unsigned long long s = k[0];
+#pragma unroll
+        for (int r = 1; r < BUCKETED_STEP; ++r) s = j == r ? k[r] : s;  // selects: no local memory
+        const int f = (int)(s & field);
+        return taxa ? __ldg(taxa + f) : f;
+      }
+      // a miss, unless the guess passed the query: the step's first key
+      // is above it and the bucket holds earlier ones
+      if (j > 0 || b <= start || right) return 0;
+      b -= BUCKETED_STEP;
+      left = true;
+    } else {
+      if (left || b + BUCKETED_STEP >= end) return 0;  // every key of the bucket is below the query
+      b += BUCKETED_STEP;
+      right = true;
+    }
+  }
+  return 0;
+}
+
 // The sorted keys and their taxa of a bucketed table, apart, and its
 // router (see the header)
 __global__ void __launch_bounds__(THREADS)
@@ -381,40 +450,22 @@ probe_bucketed_kernel(const int* __restrict__ router, unsigned long long buckets
   if (qi >= nq) return;
   unsigned long long x;
   int start, end, b, taxon = 0;
-  if (bucketed_bucket(router, buckets, shift, queries, qi, x, start, end, b)) {
-    b &= -BUCKETED_STEP;
-    // an empty bucket reads no key; `right`: every key before b is below
-    // the query; `left`: the key at b + BUCKETED_STEP is not
-    for (bool right = false, left = false; start < end;) {
-      // keys [r0, r1) of the step lie in the bucket; those past it count as
-      // not below the query, those before it as below
-      const int r0 = max(start - b, 0), r1 = min(end - b, BUCKETED_STEP);
-      unsigned long long k[BUCKETED_STEP];
-      bucket_keys(keys, b, start, end, k);
-      unsigned below = 0, equal = 0;
-#pragma unroll
-      for (int r = 0; r < BUCKETED_STEP; ++r) {
-        below |= (unsigned)(k[r] < x) << r;
-        equal |= (unsigned)(k[r] == x) << r;
-      }
-      const int j = __ffs((~below & (~0u << r0)) | (~0u << r1)) - 1;  // the first key not below the query
-      if (j < BUCKETED_STEP) {
-        if (j < r1 && (equal >> j & 1)) {  // in the bucket, and equal
-          taxon = max(__ldg(taxa + b + j), 0);
-          break;
-        }
-        // a miss, unless the guess passed the query: the step's first key
-        // is above it and the bucket holds earlier ones
-        if (j > 0 || b <= start || right) break;
-        b -= BUCKETED_STEP;
-        left = true;
-      } else {
-        if (left || b + BUCKETED_STEP >= end) break;  // every key of the bucket is below the query
-        b += BUCKETED_STEP;
-        right = true;
-      }
-    }
-  }
+  if (bucketed_bucket(router, buckets, shift, queries, qi, x, start, end, b))
+    taxon = bucket_walk<false>(keys, taxa, start, end, b, x, 0);
+  __stcs(out + qi, taxon);
+}
+
+// A narrow index's slot table under its prefix directory (see the header)
+__global__ void __launch_bounds__(THREADS)
+probe_slots_kernel(const int* __restrict__ starts, unsigned long long buckets, int shift, int c,
+                   const long long* __restrict__ slots, const int* __restrict__ codes,
+                   const long long* __restrict__ queries, long long nq, int* __restrict__ out) {
+  const long long qi = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (qi >= nq) return;
+  unsigned long long x;
+  int start, end, b, taxon = 0;
+  if (bucketed_bucket(starts, buckets, shift, queries, qi, x, start, end, b))
+    taxon = bucket_walk<true>(slots, codes, start, end, b, (x & ((1ull << shift) - 1)) << c, (1ull << c) - 1);
   __stcs(out + qi, taxon);
 }
 
@@ -745,6 +796,23 @@ extern "C" int stpu_bucketed_floor(const void* router, long long buckets, int sh
   bucketed_floor_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)router, (unsigned long long)buckets, shift, (const long long*)keys, (const long long*)queries, nq,
       (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// starts: int32 [buckets + 1], the prefix directory of the narrow keys >>
+// shift (0 <= shift <= 63); slots: int64 [n] (lookup.build_slots' (r << c)
+// | f in key order, 1 <= c <= min(32, 64 - shift)), 16-byte aligned, with
+// a readable word past the last (build_slots allocates one); codes: int32
+// table of the distinct taxa, or null when the field is the taxon;
+// queries: int64 [nq]; out: int32 [nq]. Returns the cudaError_t of the
+// launch (0 on success).
+extern "C" int stpu_probe_slots(const void* starts, long long buckets, int shift, int c, const void* slots,
+                                const void* codes, const void* queries, long long nq, void* out, void* stream) {
+  if (nq <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(slots) % 16) return (int)cudaErrorInvalidValue;
+  probe_slots_kernel<<<blocks_of(nq), THREADS, 0, (cudaStream_t)stream>>>(
+      (const int*)starts, (unsigned long long)buckets, shift, c, (const long long*)slots, (const int*)codes,
+      (const long long*)queries, nq, (int*)out);
   return (int)cudaGetLastError();
 }
 

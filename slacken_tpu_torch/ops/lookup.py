@@ -17,10 +17,11 @@ Wide keys (m > 31) are rows of an interleaved int64 [N, 2] tensor, the
 and tells them apart by `keys.dim()`; queries are [Q] or [Q, 2] to match.
 The directory's prefix then comes from the top of the widest 128-bit key
 (wholly or mostly from lo64 when m is 32 or 33), and its shift reaches 127.
-On the card a wide index is probed through its slot table (`build_slots`):
+On the card an index is probed through its slot table (`build_slots`):
 each key's remainder below its bucket's prefix and its taxon (or the
-taxon's code) in one 16-byte row, so that a hit reads its taxon with its
-key; `lookup_taxa_slots` is that walk's twin.
+taxon's code) in one word, 8 bytes for narrow keys and 16 for wide, so that
+a hit reads its taxon with its key and the card holds the records once;
+`lookup_taxa_slots` is that walk's twin.
 
 The JAX package's other probe tables, which `--probe` picks, are here too,
 narrow and wide, built in torch ops on the keys' device with the JAX
@@ -86,11 +87,18 @@ def build_directory(keys: torch.Tensor, bucket_keys: int = BUCKET_KEYS) -> Direc
     if n and int(keys[0]) < 0:
         raise ValueError("index keys must be non-negative")
     width = int(keys[-1]).bit_length() if n else 0
-    b = prefix_bits(n, width, bucket_keys)
+    return _directory_narrow(keys, prefix_bits(n, width, bucket_keys), width)
+
+
+def _directory_narrow(keys: torch.Tensor, b: int, width: int) -> Directory:
+    """The directory of 2^b buckets named by the top b of `width` bits of
+    the sorted narrow `keys`, made in steps of CHUNK_ROWS buckets."""
     shift = width - b
-    edges = torch.arange((1 << b) + 1, dtype=torch.int64, device=keys.device) << shift
-    starts = torch.searchsorted(keys, edges).to(torch.int32)
-    starts[-1] = n  # 2^b << shift overflows int64 when width is 63
+    starts = torch.empty((1 << b) + 1, dtype=torch.int32, device=keys.device)
+    for e in range(0, starts.shape[0], CHUNK_ROWS):
+        edges = torch.arange(e, min(e + CHUNK_ROWS, starts.shape[0]), dtype=torch.int64, device=keys.device)
+        starts[e:e + edges.shape[0]] = torch.searchsorted(keys, edges << shift, out_int32=True)
+    starts[-1] = keys.shape[0]  # 2^b << shift overflows int64 when width is 63
     return Directory(starts, shift)
 
 
@@ -121,31 +129,47 @@ def lookup_taxa_directory(
     directory and its edge cases against `lookup_taxa` on the CPU; off the
     pipeline's path."""
     n = keys.shape[0]
-    starts, shift = directory
     if n == 0 or queries.numel() == 0:
         return torch.zeros(queries.shape[:1], dtype=torch.int32, device=queries.device)
     if keys.dim() == 2:
         return _lookup_taxa_directory_wide(keys, taxa, directory, queries)
-    # a negative query, or one above the widest key's prefix, misses unsearched
+    inside, lo, end = _bucket(directory, queries)
+    pos = _bisect(keys, queries, lo, end)
+    idx = pos.clamp(max=n - 1)
+    found = inside & (pos < end) & (keys[idx] == queries)
+    return torch.where(found, taxa[idx], 0).to(torch.int32)
+
+
+def _bucket(directory: Directory, queries: torch.Tensor):
+    """(inside, start, end) of each narrow query's bucket: a negative query
+    (an invalid window's -1), or one above the widest key's prefix, is not
+    inside, and gets bucket 0's range."""
+    starts, shift = directory
     prefix = queries >> shift
     inside = (queries >= 0) & (prefix < directory.buckets)
     p = torch.where(inside, prefix, 0)
-    lo, hi = starts[p].long(), starts[p + 1].long()
-    end = hi
+    return inside, starts[p].long(), starts[p + 1].long()
+
+
+def _bisect(keys, queries, lo, hi):
+    """First position in [lo, hi) of the int64 `keys` not below its query,
+    both compared unsigned, by bisection; `hi` where every key of the range
+    is below."""
+    n = keys.shape[0]
+    q = queries ^ _SIGN
     for _ in range(int((hi - lo).max()).bit_length()):
         mid = (lo + hi) >> 1
-        less = (lo < hi) & (keys[mid.clamp(max=n - 1)] < queries)
+        less = (lo < hi) & ((keys[mid.clamp(max=n - 1)] ^ _SIGN) < q)
         lo, hi = torch.where(less, mid + 1, lo), torch.where(less | (lo >= hi), hi, mid)
-    idx = lo.clamp(max=n - 1)
-    found = inside & (lo < end) & (keys[idx] == queries)
-    return torch.where(found, taxa[idx], 0).to(torch.int32)
+    return lo
 
 
 def probe(keys, taxa, directory, queries: torch.Tensor) -> torch.Tensor:
     """Probe `queries` (int64 [Q], or [Q, 2] in a wide index) in the index:
-    a kernel on CUDA, the plain twin on the CPU. A wide index on the card
-    passes its slot table (`build_slots`) as `directory`, and the other
-    probes their `TiledTable`, `HashedRows`, `HashedTable` or `Bucketed`;
+    a kernel on CUDA, the plain twin on the CPU. The routed probe of an
+    index on the card passes its slot table (`build_slots`; narrow or wide)
+    as `directory`, and the other probes their `TiledTable`, `HashedRows`,
+    `HashedTable` or `Bucketed`;
     the kernel, or on the CPU its twin, then reads neither `keys` nor
     `taxa`, which may be None."""
     kind = type(directory)
@@ -256,41 +280,45 @@ def _lookup_taxa_directory_wide(keys, taxa, directory, queries):
 
 
 # ---------------------------------------------------------------------------
-# The slot table of a wide index: key and taxon in one 16-byte row
+# The slot table: key remainder and taxon in one word, 8 bytes a narrow key
+# and 16 a wide one
 # ---------------------------------------------------------------------------
 
 
 class SlotTable(NamedTuple):
-    """A wide index as the probe kernel reads it. Inside bucket p of
-    `directory` every key is (p << shift) | r with r < 2^shift, so a row
-    holds the 128-bit value (r << c) | f as (hi64, lo64), in key order: the
-    key's remainder above a field f of c bits, which is the taxon itself
-    (`codes` None) or its position in `codes`."""
+    """An index as the routed probe kernels read it on the card. Inside
+    bucket p of `directory` every key is (p << shift) | r with r < 2^shift,
+    so a slot holds the value (r << c) | f, in key order: the key's
+    remainder above a field f of c bits, which is the taxon itself (`codes`
+    None) or its position in `codes`. A narrow index's slot is one int64, a
+    wide index's the 128-bit value as a row (hi64, lo64)."""
 
-    slots: torch.Tensor  # int64 [N, 2]; hi64 may have its top bit set
-    c: int  # 1 <= c <= 32, and directory.shift + c <= 128
+    slots: torch.Tensor  # int64 [N] (narrow) or [N, 2] (wide); the top bit may be set
+    c: int  # 1 <= c <= 32, and directory.shift + c <= 64 (narrow) or 128 (wide)
     codes: Optional[torch.Tensor]  # int32 [D]: the index's distinct taxa, sorted; None: f is the taxon
     directory: Directory  # the index's directory, with b raised where the fit rule needs it
 
 
-def slot_fit(shift: int, top: int, n_taxa: int) -> Tuple[int, int, bool]:
+def slot_fit(shift: int, top: int, n_taxa: int, width: int = 128) -> Tuple[int, int, bool]:
     """The fit rule of a slot's field, for an index whose directory has this
     shift, whose largest taxon is `top` and which holds `n_taxa` distinct
-    taxa: (bits by which the directory's b must rise, c, direct). The field
-    takes the c = min(32, 128 - shift) bits that the remainder leaves. It
-    holds the taxon itself if every taxon is below 2^c (always when shift <=
-    96, for taxa are int32), else the taxon's code, which needs
-    bitlen(n_taxa - 1) bits; where those are more than c, each bit by which
-    b rises takes one from the remainder and gives it to the field.
+    taxa, in slots of `width` bits (64 narrow, 128 wide): (bits by which the
+    directory's b must rise, c, direct). The field takes the c = min(32,
+    width - shift) bits that the remainder leaves. It holds the taxon
+    itself if every taxon is below 2^c (always when shift <= width - 32, for
+    taxa are int32), else the taxon's code, which needs bitlen(n_taxa - 1)
+    bits; where those are more than c, each bit by which b rises takes one
+    from the remainder and gives it to the field.
 
     With at most 4 keys a bucket (SLOT_BUCKET_KEYS, BUCKET_KEYS) no rise is
-    needed: either b is the whole width (shift = 0, c = 32, direct), or
+    needed: either b is the whole key width (shift = 0, c = 32, direct), or
     b = bitlen(ceil(n / 4) - 1) >= bitlen(n - 1) - 2 over n keys (more with
-    smaller buckets), and then shift = width - b <= 126 - b, so
-    c >= min(32, b + 2) >= min(32, bitlen(n - 1)) >= bitlen(n_taxa - 1), as
-    n_taxa <= n < 2^31. Only a directory asked for with larger buckets needs
-    the rise."""
-    c = min(32, 128 - shift)
+    smaller buckets), and then shift = key width - b <= width - 2 - b, as
+    narrow keys are below 2^62 and wide ones below 2^126, so c >= min(32, b
+    + 2) >= min(32, bitlen(n - 1)) >= bitlen(n_taxa - 1), as n_taxa <= n <
+    2^31. Only a directory asked for with larger buckets, or over narrow
+    keys of 63 bits, needs the rise."""
+    c = min(32, width - shift)
     if top < 1 << c:
         return 0, c, True
     rise = max(0, (n_taxa - 1).bit_length() - c)
@@ -311,52 +339,92 @@ def _shl(hi: torch.Tensor, lo: torch.Tensor, c: int):
     return (hi << c) | ((lo >> (64 - c)) & ((1 << c) - 1)), lo << c
 
 
+def _remainder(queries: torch.Tensor, shift: int, c: int) -> torch.Tensor:
+    """Q = (query mod 2^shift) << c of narrow int64 queries, 0 <= shift <=
+    63, as an int64 bit pattern (its top bit may be set)."""
+    return (queries & ((1 << shift) - 1)) << c
+
+
 def build_slots(keys: torch.Tensor, taxa: torch.Tensor, directory: Optional[Directory] = None) -> SlotTable:
-    """The slot table of the sorted, unique wide `keys` ([N, 2]) with int32
-    `taxa` under `directory` (by default build_directory(keys,
-    SLOT_BUCKET_KEYS)), by the fit rule (`slot_fit`), in torch ops on the
-    keys' device. Index preparation, once an index and device."""
-    n = keys.shape[0]
-    if keys.dim() != 2 or taxa.shape != (n,):
-        raise ValueError(f"slots take wide keys [N, 2] and taxa [N], got {tuple(keys.shape)} and {tuple(taxa.shape)}")
+    """The slot table of the sorted, unique `keys` (int64 [N], or [N, 2]
+    wide) with int32 `taxa` under `directory` (by default
+    build_directory(keys) with BUCKET_KEYS keys a bucket for narrow keys,
+    one 32-byte sector of slots, and SLOT_BUCKET_KEYS for wide), by the fit
+    rule (`slot_fit`, over 64 or 128 bits), in torch ops on the keys'
+    device, CHUNK_ROWS rows a step. Index preparation, once an index and
+    device."""
+    n, wide = keys.shape[0], keys.dim() == 2
+    if keys.dim() not in (1, 2) or keys.shape[1:] not in ((), (2,)) or taxa.shape != (n,):
+        raise ValueError(f"slots take keys [N] or [N, 2] and taxa [N], got {tuple(keys.shape)} and {tuple(taxa.shape)}")
     if directory is None:
-        directory = build_directory(keys, SLOT_BUCKET_KEYS)
+        directory = build_directory(keys, SLOT_BUCKET_KEYS if wide else BUCKET_KEYS)
     if n and int(taxa.min()) < 0:
         raise ValueError("taxa must be non-negative")
+    width = 128 if wide else 64
     b = directory.buckets.bit_length() - 1
     top = int(taxa.max()) if n else 0
-    codes = torch.unique(taxa) if top >> min(32, 128 - directory.shift) else None
-    rise, c, direct = slot_fit(directory.shift, top, 0 if codes is None else codes.shape[0])
+    codes = torch.unique(taxa) if top >> min(32, width - directory.shift) else None
+    rise, c, direct = slot_fit(directory.shift, top, 0 if codes is None else codes.shape[0], width)
     if rise:
-        directory = _directory_wide(keys, b + rise, directory.shift + b)
-    slots = torch.empty((n, 2), dtype=torch.int64, device=keys.device)
+        directory = (_directory_wide if wide else _directory_narrow)(keys, b + rise, directory.shift + b)
+    if wide:
+        slots = torch.empty((n, 2), dtype=torch.int64, device=keys.device)
+    else:  # a word past the last slot, which the kernel's 16-byte loads may read
+        slots = torch.zeros(n + 1, dtype=torch.int64, device=keys.device)[:n]
     for i in range(0, n, CHUNK_ROWS):
         t = taxa[i:i + CHUNK_ROWS]
-        hi, lo = _shl(*_low_bits(keys[i:i + CHUNK_ROWS], directory.shift), c)
-        slots[i:i + CHUNK_ROWS, 0] = hi
-        slots[i:i + CHUNK_ROWS, 1] = lo | (t.long() if direct else torch.searchsorted(codes, t))
+        f = t.long() if direct else torch.searchsorted(codes, t)
+        if wide:
+            hi, lo = _shl(*_low_bits(keys[i:i + CHUNK_ROWS], directory.shift), c)
+            slots[i:i + CHUNK_ROWS, 0] = hi
+            slots[i:i + CHUNK_ROWS, 1] = lo | f
+        else:
+            slots[i:i + CHUNK_ROWS] = _remainder(keys[i:i + CHUNK_ROWS], directory.shift, c) | f
     return SlotTable(slots, c, codes, directory)
 
 
 def lookup_taxa_slots(table: SlotTable, queries: torch.Tensor) -> torch.Tensor:
-    """The slot kernel's walk in tensor ops: the query's bucket from the
+    """The slot kernels' walk in tensor ops: the query's bucket from the
     directory, Q = (query mod 2^shift) << c, a bisection of the bucket for
-    its first slot not below Q (unsigned in both limbs), a hit where that
-    slot's bits above the field equal Q's, then the field or its code.
-    int32 [Q], 0 on a miss. The tests' and chip_smoke.py's twin of the
-    kernel; off the pipeline's path."""
+    its first slot not below Q (unsigned, in both limbs of a wide slot), a
+    hit where that slot's bits above the field equal Q's, then the field or
+    its code. int32 [Q] for int64 queries [Q] (narrow) or [Q, 2] (wide), 0
+    on a miss. The tests' and chip_smoke.py's twin of the kernels; off the
+    pipeline's path."""
     slots, c, codes, directory = table
     n = slots.shape[0]
     if n == 0 or queries.shape[0] == 0:
         return torch.zeros(queries.shape[:1], dtype=torch.int32, device=queries.device)
-    inside, lo, end = _bucket_wide(directory, queries)
-    q = torch.stack(_shl(*_low_bits(queries, directory.shift), c), 1)
-    pos = _bisect_wide(slots, q, lo, end)
-    s = slots[pos.clamp(max=n - 1)]
-    found = inside & (pos < end) & (s[:, 0] == q[:, 0]) & (((s[:, 1] ^ q[:, 1]) >> c) == 0)
-    field = s[:, 1] & ((1 << c) - 1)
+    if slots.dim() == 2:
+        inside, lo, end = _bucket_wide(directory, queries)
+        q = torch.stack(_shl(*_low_bits(queries, directory.shift), c), 1)
+        pos = _bisect_wide(slots, q, lo, end)
+        s = slots[pos.clamp(max=n - 1)]
+        found = inside & (pos < end) & (s[:, 0] == q[:, 0]) & (((s[:, 1] ^ q[:, 1]) >> c) == 0)
+        field = s[:, 1] & ((1 << c) - 1)
+    else:
+        inside, lo, end = _bucket(directory, queries)
+        q = _remainder(queries, directory.shift, c)
+        pos = _bisect(slots, q, lo, end)
+        s = slots[pos.clamp(max=n - 1)]
+        found = inside & (pos < end) & (((s ^ q) >> c) == 0)
+        field = s & ((1 << c) - 1)
     taxon = field if codes is None else codes[torch.where(found, field, 0)]
     return torch.where(found, taxon, 0).to(torch.int32)
+
+
+def probe_bytes(arrays) -> int:
+    """The bytes of the tensors among probe arrays (KeyValueIndex.device_arrays'
+    triple, the fields of its table and of their directory), each once."""
+    seen, total, todo = set(), 0, [arrays]
+    while todo:
+        a = todo.pop()
+        if isinstance(a, torch.Tensor) and id(a) not in seen:
+            seen.add(id(a))
+            total += a.numel() * a.element_size()
+        elif isinstance(a, (tuple, list)):
+            todo.extend(a)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +606,17 @@ def bucket_sectors(table: Bucketed, queries: torch.Tensor) -> torch.Tensor:
         key = table.keys[torch.where(held, b + r, 0)]
         out = out ^ torch.where(held, (key ^ (key >> 32)) & 0xFFFFFFFF, 0)
     return torch.where(inside, out, 0).to(torch.int32)
+
+
+def slot_sectors(table: SlotTable, queries: torch.Tensor) -> torch.Tensor:
+    """Plain version of the narrow slot probe's floor (cuda_kernels.slots_floor_cuda,
+    a measurement on no path): bucket_sectors over the table's directory as
+    the router and its slots, with the word past the last, as the keys.
+    int32 [Q]."""
+    d, slots = table.directory, table.slots
+    b = d.buckets.bit_length() - 1
+    padded = torch.cat([slots, slots.new_zeros(1)])  # build_slots' word past the last
+    return bucket_sectors(Bucketed(d.starts, padded, None, 1, b, d.shift + b), queries)
 
 
 def xorshift64(x: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ from ..index import (
     sample_boundaries,
 )
 from ..ops import encode
+from ..ops.lookup import probe_bytes
 from ..ops.minimizers import window_minimizers_packed
 from ..taxonomy import Taxonomy
 from . import mesh as pmesh
@@ -84,6 +85,7 @@ class MeshClassifier(Classifier):
             self._arrays = [idx.device_arrays(d, self.mesh_probe) for d in self.mesh]
         else:
             self._arrays = self._ring_shards()
+        self._index_bytes = probe_bytes(self._arrays)  # a repeated device's arrays once
 
     def _ring_shards(self):
         """The ring's shards, one a mesh entry: the index cut into key ranges."""

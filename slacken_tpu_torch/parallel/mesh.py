@@ -45,6 +45,7 @@ import torch
 
 from .. import get_device, to_device
 from ..classify import postprocess, scan_probe
+from ..index import probe_arrays
 from ..ops.lookup import probe
 from ..ops.minimizers import window_minimizers_packed
 
@@ -106,12 +107,18 @@ def chunk_bounds(rows: int, n: int) -> List[Tuple[int, int]]:
 def shard_index(index, mesh: Mesh, probe: str = "routed"):
     """The ring's shards: len(mesh) contiguous key ranges of `index` at
     np.linspace bounds (save_sharded's), each as `lookup.probe` reads it on
-    its device for `probe` (KeyValueIndex.device_arrays: keys, taxa and
-    directory, a slot table for a wide index on the card, or the shard's own
-    tiled or row-bucket table). A shard may be empty."""
+    its device for `probe` (index.probe_arrays: keys, taxa and directory on
+    the CPU, a slot table on the card, or the shard's own tiled or row-bucket
+    table). A shard may be empty. Once the shards' slot tables hold the
+    records on the cards, an index whose keys lie on a card hands them over
+    (KeyValueIndex.hand_over), so that the cards hold the records once."""
     bounds = np.linspace(0, index.num_records, len(mesh) + 1).astype(np.int64)
-    return [place_shard(index.with_records(index.keys_t[bounds[i]:bounds[i + 1]], index.taxa_t[bounds[i]:bounds[i + 1]]),
-                        dev, probe) for i, dev in enumerate(mesh)]
+    shards = [place_shard(index.with_records(index.keys_t[bounds[i]:bounds[i + 1]],
+                                             index.taxa_t[bounds[i]:bounds[i + 1]]), dev, probe)
+              for i, dev in enumerate(mesh)]
+    if probe == "routed" and index.keys_t.is_cuda and all(s[0] is None for s in shards):
+        index.hand_over(index.keys_t.device)
+    return shards
 
 
 def place_shard(shard, dev, probe: str = "routed"):
@@ -121,7 +128,7 @@ def place_shard(shard, dev, probe: str = "routed"):
     keys, taxa = shard.keys_t.to(dev), shard.taxa_t.to(dev)
     if keys.data_ptr() % 16:  # the probe kernels load 16 bytes at a time
         keys = keys.clone()
-    return shard.with_records(keys, taxa).device_arrays(dev, probe)
+    return probe_arrays(keys, taxa, probe, shard.params.m)
 
 
 def scan_chunks(mesh: Mesh, packed: np.ndarray, valid: np.ndarray, luts: Dict):

@@ -27,14 +27,16 @@ from .taxonomy import depth_to_title
 
 def depth_histograms(idx) -> Tuple[List[Tuple[int, str, int]], List[Tuple[int, str, int]]]:
     """(minimizer-depth histogram, taxon-depth histogram): rows of
-    (depth, rank title, count) sorted by depth (KeyValueIndex.scala:326-336)."""
-    depth_std = torch.from_numpy(idx.taxonomy.depth_std).to(idx.taxa_t.device)
+    (depth, rank title, count) sorted by depth (KeyValueIndex.scala:326-336),
+    counted on the index's device."""
+    depth_std = torch.from_numpy(idx.taxonomy.depth_std).to(idx.device)
+    taxa = idx.taxa_t.to(idx.device)
 
     def rows(taxa):
         d, c = torch.unique(depth_std[taxa.long()], return_counts=True)
         return [(d, depth_to_title(d) or str(d), c) for d, c in zip(d.tolist(), c.tolist())]
 
-    return rows(idx.taxa_t), rows(torch.unique(idx.taxa_t))
+    return rows(taxa), rows(torch.unique(taxa))
 
 
 def taxon_coverage_stats(idx) -> Dict[str, float]:

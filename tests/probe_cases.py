@@ -86,6 +86,57 @@ def mode(table):
     return "direct" if table.codes is None else "code"
 
 
+#: narrow key sets of the one-limb slot table's tests: 62-bit keys, one
+#: prefix, two prefixes far apart, dense small keys (shift 0 at one key a
+#: bucket) and 63-bit keys (shift 63 with one bucket; codes need a rise)
+NARROW_SLOT_KINDS = ("uniform", "one prefix", "two prefixes", "dense", "63-bit")
+
+
+def narrow_slot_keys(rng, kind, n):
+    """n sorted unique non-negative int64 keys of `kind` (fewer where the
+    kind has fewer)."""
+    if kind == "uniform":
+        raw = rng.integers(0, 1 << 62, 2 * n + 1, dtype=np.int64)
+    elif kind == "one prefix":
+        raw = (1 << 61) + rng.integers(0, 1 << 20, 2 * n + 1, dtype=np.int64)
+    elif kind == "two prefixes":
+        raw = np.concatenate([rng.integers(0, 1 << 12, n // 2 + 1, dtype=np.int64),
+                              (1 << 62) - 1 - rng.integers(0, 1 << 12, n, dtype=np.int64)])
+    elif kind == "dense":
+        raw = np.arange(n, dtype=np.int64)
+    else:
+        raw = np.concatenate([rng.integers(0, (1 << 63) - 1, 2 * n, dtype=np.int64), [(1 << 63) - 1]])
+    keys = np.unique(raw)
+    return keys[np.sort(rng.permutation(len(keys))[:n])]
+
+
+def narrow_slot_queries(rng, keys, shift):
+    """int64 queries around narrow `keys`: every key, +-1, each key's
+    remainder in the neighbouring buckets (key +- 2^shift), the edges of the
+    key space, random ones, and invalid windows' -1."""
+    k, u, d = keys.astype(np.int64), keys.astype(np.uint64), np.uint64(1) << np.uint64(shift)
+    near = np.concatenate([k, k + 1, k - 1, (u + d).view(np.int64), (u - d).view(np.int64)])  # wrapped
+    return np.concatenate([
+        near, [-1, -1, -(1 << 63), 0, 1, 1 << 62, (1 << 62) - 1, (1 << 63) - 1],
+        rng.integers(0, 1 << 62, 300, dtype=np.int64), rng.integers(-(1 << 63), (1 << 63) - 1, 300, dtype=np.int64),
+    ]).astype(np.int64)
+
+
+def decode_slots(table):
+    """(keys, taxa) of a narrow slot table, int64 [N] and int32 [N]: each
+    slot's bucket p from the directory, its remainder r = slot >> c read
+    unsigned, the key (p << shift) | r, the taxon its field or the field's
+    code."""
+    slots, c, codes, (starts, shift) = table
+    n = slots.shape[0]
+    pos = torch.arange(n, dtype=torch.int64)
+    p = torch.searchsorted(starts.long(), pos, right=True) - 1
+    r = (slots >> c) & ((1 << (64 - c)) - 1)
+    field = slots & ((1 << c) - 1)
+    taxa = field if codes is None else codes.long()[field]
+    return (p << shift) | r, taxa.to(torch.int32)
+
+
 MASK64 = (1 << 64) - 1
 
 

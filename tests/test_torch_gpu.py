@@ -82,21 +82,6 @@ def test_scan_kernel_other_parameters(cuda, shape, kms, canonical):
     _assert_scan_matches_twin(cuda, _codes(shape, seed=kms[0]), mp)
 
 
-@pytest.mark.parametrize("shape", [(64, 128), (5, 264), (9, 104), (4, 4096), (3, 8)])
-@pytest.mark.parametrize("kms,table", [
-    ((15, 8, 2), "lexicographic"), ((19, 7, 2), "signature"), ((12, 6, 1), "random"),
-    ((35, 13, 3), "signature"), ((6, 3, 0), "random"), ((135, 15, 7), "lexicographic"),
-])
-def test_scan_kernel_rank_table(cuda, shape, kms, table):
-    m = kms[1]
-    lut = {"lexicographic": ordering.lexicographic_lut, "signature": ordering.signature_lut,
-           "random": lambda m: np.random.default_rng(m).permutation(1 << (2 * m))}[table](m)
-    lut = torch.from_numpy(lut.astype(np.int32))
-    for canonical in (True, False):
-        mp = minimizers.MinimizerParams(*kms, canonical=canonical)
-        _assert_scan_matches_twin(cuda, _codes(shape, seed=kms[0]), mp, lut)
-
-
 @pytest.mark.parametrize("shape", [(64, 128), (5, 264), (9, 104), (4, 4096), (3, 8), (33, 72)])
 @pytest.mark.parametrize("kms", [
     (35, 32, 0), (35, 33, 0), (50, 45, 7), (80, 63, 7), (63, 63, 0), (40, 33, 5), (32, 32, 7),
@@ -162,10 +147,13 @@ def test_scan_kernel_in_segments_matches_twin(cuda, case, segment):
 
 def _kernels_in_trace(fn, calls=3, tries=3):
     """{kernel name: launches a call} of fn under torch.profiler. A trace
-    that holds no device event at all is a fault of the profiler, not a count
-    (seen on the H100 late in a long process): fn is profiled again, up to
-    `tries` traces, and the test fails naming the profiler if none holds
-    one."""
+    that holds no device event at all is a fault of the profiler, not a count:
+    on the H100, once a scan in the process has read a 4 GiB rank table
+    (test_scan_kernel_rank_table's (135, 15, 7) case), half or more of the
+    traces hold none, whatever the caching allocator holds; so the tests
+    that count kernels in a trace are defined before that test, and run
+    first. fn is profiled again, up to `tries` traces, and the test fails
+    naming the profiler if none holds one."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -252,6 +240,28 @@ def test_scan_stitch_kernel_matches_twin(cuda, case):
     for got, w in zip((mn, *flags), want):
         assert torch.equal(got.cpu(), w)
     assert _counters_zero(cuda)
+
+
+def test_hit_runs_one_kernel_in_trace(cuda):
+    """At the bench batch's shape a call of hit_runs_cuda is one kernel in
+    the profiler's trace."""
+    args = [torch.from_numpy(a).to(cuda) for a in workloads.hit_runs_rows(7, 32768, 128, 35)]
+    assert list(_kernels_in_trace(lambda: cuda_kernels.hit_runs_cuda(*args, 35, 16)).values()) == [1]
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (5, 264), (9, 104), (4, 4096), (3, 8)])
+@pytest.mark.parametrize("kms,table", [
+    ((15, 8, 2), "lexicographic"), ((19, 7, 2), "signature"), ((12, 6, 1), "random"),
+    ((35, 13, 3), "signature"), ((6, 3, 0), "random"), ((135, 15, 7), "lexicographic"),
+])
+def test_scan_kernel_rank_table(cuda, shape, kms, table):
+    m = kms[1]
+    lut = {"lexicographic": ordering.lexicographic_lut, "signature": ordering.signature_lut,
+           "random": lambda m: np.random.default_rng(m).permutation(1 << (2 * m))}[table](m)
+    lut = torch.from_numpy(lut.astype(np.int32))
+    for canonical in (True, False):
+        mp = minimizers.MinimizerParams(*kms, canonical=canonical)
+        _assert_scan_matches_twin(cuda, _codes(shape, seed=kms[0]), mp, lut)
 
 
 @pytest.mark.parametrize("kms", [(35, 31, 7), (12, 6, 1), (50, 45, 7)])
@@ -462,6 +472,259 @@ def test_probe_wide_kernel_refuses_what_it_does_not_take(cuda):
         cuda_kernels.lookup_taxa_slots_cuda(table._replace(c=33), keys)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_kernels.lookup_taxa_slots_cuda(table, torch.cat([keys, keys], 1)[:, :2])
+
+
+def _narrow_slot_case(cuda, rng, keys, taxa, bucket_keys):
+    """The narrow slot kernel over build_slots' table of these keys, made on
+    the card, launched once (none for an empty index), == its twin on the
+    card == lookup_taxa on the CPU, on probe_cases.narrow_slot_queries at
+    the directory's shift and at the table's own; returns the table and
+    the queries on the card."""
+    k_d, t_d = torch.from_numpy(keys).to(cuda), torch.from_numpy(taxa).to(cuda)
+    d = lookup.build_directory(k_d, bucket_keys)
+    table = lookup.build_slots(k_d, t_d, d)
+    q = np.concatenate([probe_cases.narrow_slot_queries(rng, keys, d.shift),
+                        probe_cases.narrow_slot_queries(rng, keys, table.directory.shift)])
+    q_d = torch.from_numpy(q).to(cuda)
+    before = cuda_kernels.LAUNCHES["probe_slots"]
+    got = lookup.probe(None, None, table, q_d)
+    assert cuda_kernels.LAUNCHES["probe_slots"] == before + (1 if len(keys) else 0)
+    want = lookup.lookup_taxa(torch.from_numpy(keys), torch.from_numpy(taxa), torch.from_numpy(q))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(lookup.lookup_taxa_slots(table, q_d).cpu(), want)
+    return table, q_d
+
+
+@pytest.mark.parametrize("bucket_keys", [1, lookup.BUCKET_KEYS, 1 << 30])
+@pytest.mark.parametrize("taxa_kind", ["small", "wide", "distinct"])
+@pytest.mark.parametrize("kind", probe_cases.NARROW_SLOT_KINDS)
+def test_probe_slots_kernel_matches_twin(cuda, kind, taxa_kind, bucket_keys):
+    """probe_slots_kernel over narrow slot tables of 0 to 3,000 keys
+    (62-bit, one prefix, two prefixes, dense with shift 0, 63-bit; direct
+    taxa and codes; 1, 4 and all keys a bucket, and the raised directories
+    that codes need there; slots with the top bit set) == its twin ==
+    lookup_taxa."""
+    rng = np.random.default_rng(len(kind) * 11 + len(taxa_kind) + bucket_keys % 7)
+    for n in (0, 1, 2, 3, 127, 128, 129, 3000):
+        keys = probe_cases.narrow_slot_keys(rng, kind, n)
+        _narrow_slot_case(cuda, rng, keys, probe_cases.taxa_of(rng, taxa_kind, len(keys)), bucket_keys)
+
+
+@pytest.mark.parametrize("n", [2_000_000, 131_190_899], ids=["2M keys", "scale index's records"])
+def test_probe_slots_kernel_at_the_bench_and_scale_sizes(cuda, n):
+    """Random 62-bit indexes of 2M keys (chip_smoke.py's random shape) and
+    of the scale index's 131,190,899 records, made on the card, under
+    4,194,304 queries (half hits, random misses, the edges, -1): the kernel
+    == its twin == lookup_taxa; direct taxa, 8 bytes a slot, a directory of
+    about BUCKET_KEYS keys a bucket."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    keys = torch.unique(torch.randint(0, 1 << 62, (n + n // 50,), generator=gen, device=cuda))[:n].clone()
+    taxa = torch.randint(1, 1 << 20, (keys.shape[0],), generator=gen, device=cuda, dtype=torch.int32)
+    table = lookup.build_slots(keys, taxa)
+    assert table.codes is None and table.slots.shape == keys.shape and table.directory.buckets * 8 > keys.shape[0]
+    nq = 1 << 22
+    edges = torch.tensor([-1, -(1 << 63), 0, (1 << 63) - 1, int(keys[0]), int(keys[-1])], device=cuda)
+    q = torch.cat([keys[torch.randint(0, keys.shape[0], (nq // 2,), generator=gen, device=cuda)],
+                   torch.randint(0, 1 << 62, (nq // 2 - edges.shape[0],), generator=gen, device=cuda), edges])
+    got = lookup.probe(None, None, table, q)
+    want = lookup.lookup_taxa(keys, taxa, q)
+    assert torch.equal(got, want) and torch.equal(lookup.lookup_taxa_slots(table, q), want)
+    assert int((want > 0).sum()) >= nq // 2
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one prefix", "63-bit"])
+def test_slots_floor_kernel_reads_the_guessed_sector(cuda, kind):
+    """The narrow slot probe's floor (slots_floor_cuda, on no path) ==
+    lookup.slot_sectors, its plain version."""
+    rng = np.random.default_rng(len(kind))
+    for n in (1, 129, 3000):
+        keys = probe_cases.narrow_slot_keys(rng, kind, n)
+        table, q = _narrow_slot_case(cuda, rng, keys, probe_cases.taxa_of(rng, "small", len(keys)),
+                                     lookup.BUCKET_KEYS)
+        assert torch.equal(cuda_kernels.slots_floor_cuda(table, q), lookup.slot_sectors(table, q))
+
+
+def test_probe_slots_kernel_refuses_what_it_does_not_take(cuda):
+    keys = torch.arange(0, 40, 3, device=cuda)
+    table = lookup.build_slots(keys, torch.ones(keys.shape[0], dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_kernels.lookup_taxa_slots_cuda(table._replace(c=64 - table.directory.shift + 1), keys)
+    with pytest.raises(ValueError, match="a readable word past the last"):
+        cuda_kernels.lookup_taxa_slots_cuda(table._replace(slots=table.slots.clone()), keys)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        padded = torch.zeros(keys.shape[0] + 3, dtype=torch.int64, device=cuda)
+        cuda_kernels.lookup_taxa_slots_cuda(table._replace(slots=padded[1:keys.shape[0] + 1]), keys)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.lookup_taxa_slots_cuda(table, torch.stack([keys, keys], 1)[:, 0])
+
+
+def _random_index(cuda, n, seed):
+    """A narrow KeyValueIndex of n random 62-bit keys made on the card, its
+    taxa those of _small_library's taxonomy; and its records on the host."""
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    tax, _, params = _small_library("narrow")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    keys = torch.unique(torch.randint(0, 1 << 62, (n + n // 50,), generator=gen, device=cuda))[:n].clone()
+    defined = torch.tensor([10, 11, 12, 13, 14, 15, 100, 101], dtype=torch.int32, device=cuda)
+    taxa = defined[torch.randint(0, defined.shape[0], (n,), generator=gen, device=cuda)]
+    return KeyValueIndex(keys, taxa, params, tax), keys.cpu(), taxa.cpu()
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide"])
+def test_classifier_holds_the_index_once_on_the_card(cuda, kind):
+    """Classifier(...) on the card over an index that lives there: its
+    routed slot table replaces the keys and taxa on the card, which the
+    index keeps in host memory, unchanged. Narrow, 2^24 records:
+    torch.cuda.memory_allocated() ends 4 bytes a record below the directory
+    layout (keys, taxa and directory on the card), give or take 4 MB."""
+    from slacken_tpu_torch.classify import Classifier
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    if kind == "wide":
+        tax, genomes, params = _small_library("wide")
+        idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+        host_keys, host_taxa = idx.keys_t.cpu(), idx.taxa_t.cpu()
+    else:
+        idx, host_keys, host_taxa = _random_index(cuda, 1 << 24, 24)
+    torch.cuda.synchronize()
+    directory = lookup.build_directory(idx.keys_t)
+    torch.cuda.synchronize()
+    directory_layout = torch.cuda.memory_allocated()
+    del directory
+    cls = Classifier(idx, cuda)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert idx.keys_t.device.type == "cpu" and idx.taxa_t.device.type == "cpu"
+    assert torch.equal(idx.keys_t, host_keys) and torch.equal(idx.taxa_t, host_taxa)
+    assert cls._keys is None and cls._taxa is None and isinstance(cls._directory, lookup.SlotTable)
+    assert cls._directory.slots.dim() == (2 if kind == "wide" else 1)
+    if kind == "narrow":
+        n = idx.num_records
+        assert abs((directory_layout - after) - 4 * n) < 4 << 20
+    assert Classifier(idx, cuda)._directory is cls._directory  # made once a (device, probe)
+
+
+@pytest.mark.parametrize("kind", ["narrow", "wide"])
+def test_index_work_stays_on_the_card_after_a_classifier(cuda, kind, monkeypatch):
+    """Once a Classifier's slot table holds the records on the card and the
+    keys wait in host memory, the card is still the index's device: the
+    per-taxon counts, stats.depth_histograms and respace run there (every
+    torch.unique of theirs on the card; the respaced index's keys on the
+    card), and give what the same index on the CPU gives."""
+    from slacken_tpu_torch import stats
+    from slacken_tpu_torch.classify import Classifier
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    tax, genomes, params = _small_library(kind)
+    idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+    host = idx.with_records(idx.keys_t.cpu(), idx.taxa_t.cpu())
+    Classifier(idx, cuda)
+    assert idx.keys_t.device.type == "cpu" and idx.home == cuda and idx.device == cuda
+    real, seen = torch.unique, []
+
+    def unique(t, *a, **kw):
+        seen.append(t.device.type)
+        return real(t, *a, **kw)
+
+    monkeypatch.setattr(torch, "unique", unique)
+    got = (idx.records_per_taxon(), stats.depth_histograms(idx))
+    monkeypatch.setattr(torch, "unique", real)
+    assert seen and set(seen) == {"cuda"}
+    assert got == (host.records_per_taxon(), stats.depth_histograms(host))
+    spaced = idx.respace(params.spaces + 2)
+    want = host.respace(params.spaces + 2)
+    assert spaced.keys_t.device.type == "cuda" and spaced.num_records == want.num_records
+    assert torch.equal(spaced.keys_t.cpu(), want.keys_t) and torch.equal(spaced.taxa_t.cpu(), want.taxa_t)
+    assert idx.keys_t.device.type == "cpu"  # the work copied the keys; the index still holds them once
+    idx.to(cuda)
+    assert idx.home is None and idx.device == idx.keys_t.device
+
+
+def test_ring_on_the_card_holds_the_records_once(cuda):
+    """A ring MeshClassifier over Mesh([cuda] * 8) of an index on the card:
+    each shard is a slot table of its own, and the index hands its keys and
+    taxa over to host memory, so that torch.cuda.memory_allocated() ends at
+    what it was less 12 bytes a record plus the shards' probe arrays (about 9
+    bytes a record), give or take 4 MB. Its classify equals the single-device
+    classifier's on the CPU."""
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
+    from slacken_tpu_torch.index import KeyValueIndex
+    from slacken_tpu_torch.parallel.classifier import MeshClassifier
+
+    idx, host_keys, host_taxa = _random_index(cuda, 1 << 23, 23)
+    n = idx.num_records
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cls = MeshClassifier(idx, [cuda] * 8, "ring")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    held = lookup.probe_bytes(cls._arrays)
+    assert all(k is None and isinstance(s, lookup.SlotTable) for k, _, s in cls._arrays)
+    assert idx.keys_t.device.type == "cpu" and idx.home.type == "cuda"
+    assert torch.equal(idx.keys_t, host_keys) and torch.equal(idx.taxa_t, host_taxa)
+    assert held < 9.5 * n and abs(after - (before - 12 * n + held)) < 4 << 20
+    del cls
+
+    tax, genomes, params = _small_library("narrow")
+    idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+    cpu = idx.with_records(idx.keys_t.cpu(), idx.taxa_t.cpu())
+    frags = [Fragment(f"r{i}", genomes[i % 6][1][i * 20 : i * 20 + 101]) for i in range(100)]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15])
+    got = MeshClassifier(idx, [cuda] * 8, "ring").classify(frags, cpar)
+    assert idx.keys_t.device.type == "cpu"
+    assert got == Classifier(cpu, "cpu").classify(frags, cpar)
+    assert sum(r.classified for r in got[0.0]) > 50
+
+
+@pytest.mark.parametrize("per_read", [False, True], ids=["reports", "per_read"])
+@pytest.mark.parametrize("kind", ["narrow", "lexicographic"])
+def test_slot_probe_outputs_equal_the_directory_kernels(cuda, kind, per_read, tmp_path, monkeypatch):
+    """Reports mode's kreports and per-read mode's files classified on the
+    card through the slot kernel are byte-identical to those through the
+    directory kernel (the index's keys, taxa and directory on the card, as
+    before the slot table), each path launching its own kernel."""
+    from slacken_tpu_torch import native
+    from slacken_tpu_torch.classify import Classifier, ClassifyParams
+    from slacken_tpu_torch.index import KeyValueIndex
+
+    tax, genomes, params = _small_library(kind)
+    rng = np.random.default_rng(31)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    reads = []
+    for i in range(300):
+        _, g = genomes[i % 6]
+        s = int(rng.integers(0, len(g) - 150))
+        codes = encode.encode_seq(g[s : s + 150]).copy()
+        codes[rng.integers(0, 150, 2)] = encode.INVALID
+        reads.append(letters[codes].tobytes())
+    codes, lens = encode.pack_batch(reads, 256)
+    stream = [native.PackedReads(codes, lens, [f"r{i}" for i in range(len(reads))])]
+    cpar = ClassifyParams(thresholds=[0.0, 0.15], per_read_output=per_read)
+
+    def files(prefix):
+        idx = KeyValueIndex.build(iter(genomes), params, tax, cuda)
+        before = dict(cuda_kernels.LAUNCHES)
+        Classifier(idx, cuda).classify_and_write_packed(stream, str(tmp_path / prefix), cpar)
+        out = {}
+        for root, _, names in os.walk(tmp_path):
+            for n in names:
+                path = os.path.join(root, n)
+                if path.startswith(str(tmp_path / prefix) + "_c"):
+                    with (gzip.open if n.endswith(".gz") else open)(path, "rb") as f:
+                        out[os.path.relpath(path, tmp_path)[len(prefix):]] = f.read()
+        return out, {k for k in ("probe", "probe_slots") if cuda_kernels.LAUNCHES[k] != before[k]}
+
+    got, slot_kernel = files("slots")
+    with monkeypatch.context() as m:
+        m.setattr(KeyValueIndex, "device_arrays",
+                  lambda self, device, probe="routed": (self.keys_t, self.taxa_t, lookup.build_directory(self.keys_t)))
+        want, directory_kernel = files("directory")
+    assert slot_kernel == {"probe_slots"} and directory_kernel == {"probe"}
+    assert got == want and len(want) == (4 if per_read else 2)
+    assert any(b"\tS\t" in v for v in want.values())  # reads classified to species
 
 
 def test_probe_kernel_refuses_what_it_does_not_take(cuda):
@@ -1061,7 +1324,7 @@ def test_restricted_build_respace_and_span_hits_on_the_card(cuda, kind, tmp_path
         keys, taxa = dyn._span_hits(frags)
         launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
         scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
-        assert launched == ({} if d == "cpu" else {scan: 2, "probe_wide" if kind == "wide" else "probe": 2})
+        assert launched == ({} if d == "cpu" else {scan: 2, "probe_wide" if kind == "wide" else "probe_slots": 2})
         assert keys.device.type == torch.device(d).type
         hits[d] = (keys.cpu(), taxa.cpu(), dyn.distinct_minimizers_per_taxon(frags),
                    dyn.total_minimizers_per_taxon(frags))
@@ -1091,7 +1354,7 @@ def test_fragment_pass_of_long_rows_matches_the_twins(cuda, kind):
     before = dict(cuda_kernels.LAUNCHES)
     got = bracken.fragment_pass(idx, codes, cuda)
     assert {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]} == {
-        scan: 1, "scan_stitch": 1, "probe_wide" if kind == "wide" else "probe": 1}
+        scan: 1, "scan_stitch": 1, "probe_wide" if kind == "wide" else "probe_slots": 1}
     want = bracken.fragment_pass(idx, codes, "cpu")
     for g, w in zip(got, want):
         assert g.shape == (4, 1 << 20) and torch.equal(g.cpu(), w)
@@ -1178,7 +1441,7 @@ def test_mesh_classifier_on_the_card(cuda, kind, layout):
     got = card.classify(frags, cpar)
     launched = {k: v - before[k] for k, v in cuda_kernels.LAUNCHES.items() if v != before[k]}
     scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
-    probe = "probe_wide" if kind == "wide" else "probe"
+    probe = "probe_wide" if kind == "wide" else "probe_slots"
     batches = 2  # single reads in 128-wide rows, pairs in 256-wide rows
     assert launched == {scan: 8 * batches, probe: (64 if layout == "ring" else 8) * batches}
     assert got == MeshClassifier(idx, ["cpu"] * 8, layout).classify(frags, cpar)
@@ -1352,9 +1615,9 @@ def _multihost_run(tmp_path, kind, world, **spec):
     want = files(tmp_path / "one")
     assert files(tmp_path / "mh") == want and len(want) == 4
     scan = "scan_wide" if kind == "wide" else "scan_lut" if kind == "lexicographic" else "scan"
-    probe = {None: "probe", "tiled": "probe_tiled", "hashed1": "probe_rows", "hashed": "probe_hashed"}[
+    probe = {None: "probe_slots", "tiled": "probe_tiled", "hashed1": "probe_rows", "hashed": "probe_hashed"}[
         spec.get("mh_probe")]
-    probe = "probe_wide" if kind == "wide" and probe == "probe" else probe + ("_wide" if kind == "wide" else "")
+    probe = "probe_wide" if kind == "wide" and probe == "probe_slots" else probe + ("_wide" if kind == "wide" else "")
     assert all(set(s["launched"]) == {scan, probe} for s in seen)
     return seen
 
@@ -1415,7 +1678,7 @@ def test_hashed_probe_choice_on_the_card(cuda, kind, probe):
     assert sum(r.classified for r in want[0.0]) > 70
     name = {"hashed": "probe_hashed", "hashed128": "probe_hashed_cols", "bucketed": "probe_bucketed"}[probe]
     scan = "scan_lut" if kind == "lexicographic" else "scan"
-    on_mesh = "probe_hashed" if probe == "hashed" else "probe"
+    on_mesh = "probe_hashed" if probe == "hashed" else "probe_slots"
     for layout, probes in ((None, 1), ("ring", 64), ("replicated", 8)):
         before = dict(cuda_kernels.LAUNCHES)
         cls = (Classifier(idx, cuda, probe=probe) if layout is None
@@ -1600,13 +1863,6 @@ def test_hit_runs_kernel_on_edge_rows(cuda, width, k):
         assert got.shape == want.shape and int((got.long() - want.long()).abs().max()) == 0
 
 
-def test_hit_runs_one_kernel_in_trace(cuda):
-    """At the bench batch's shape a call of hit_runs_cuda is one kernel in
-    the profiler's trace."""
-    args = [torch.from_numpy(a).to(cuda) for a in workloads.hit_runs_rows(7, 32768, 128, 35)]
-    assert list(_kernels_in_trace(lambda: cuda_kernels.hit_runs_cuda(*args, 35, 16)).values()) == [1]
-
-
 def test_hit_runs_refuses_misaligned_window_taxa(cuda):
     """The kernel reads 16 bytes a lane: window taxa at a storage offset of
     one int32 raise ValueError, and nothing launches."""
@@ -1668,7 +1924,7 @@ def test_per_read_hit_runs_on_the_card(cuda, on, tmp_path, monkeypatch):
     assert (cuda_kernels.LAUNCHES["hit_runs"] > before) == on
 
 
-FUZZ_KERNELS = {("routed", False): "probe", ("tiled", False): "probe_tiled", ("hashed1", False): "probe_rows",
+FUZZ_KERNELS = {("routed", False): "probe_slots", ("tiled", False): "probe_tiled", ("hashed1", False): "probe_rows",
                 ("hashed", False): "probe_hashed", ("hashed128", False): "probe_hashed_cols",
                 ("bucketed", False): "probe_bucketed", ("routed", True): "probe_wide",
                 ("tiled", True): "probe_tiled_wide", ("hashed1", True): "probe_rows_wide"}

@@ -24,6 +24,7 @@ from slacken_tpu_torch.classify import Classifier, ClassifyParams, Fragment
 from slacken_tpu_torch.index import IndexParams, KeyValueIndex
 from slacken_tpu_torch.ops import encode
 from slacken_tpu_torch.ops.lookup import lookup_taxa
+from slacken_tpu_torch.ops.lookup import probe as probe_fn
 from slacken_tpu_torch.parallel.classifier import MeshClassifier, make_classifier
 from slacken_tpu_torch.parallel.mesh import Mesh, make_mesh
 from test_dynamic import FakeLibrary
@@ -172,6 +173,26 @@ def test_ring_lookup_on_a_repeated_device(world, kind):
     assert torch.equal(got, lookup_taxa(keys, idx.taxa_t, q))
     assert (got > 0).sum() >= 800
     assert all(torch.equal(a, b) for a, b in zip(queries, before))
+
+
+@pytest.mark.parametrize("probe", ["routed", "tiled", "hashed1", "hashed", "bucketed"])
+def test_ring_shards_are_their_key_ranges_probe_arrays(world, probe):
+    """shard_index over [cpu] * 4: each shard answers every query as the
+    plain lookup of its own key range does, and is what
+    KeyValueIndex.device_arrays makes of that range; an index on the CPU
+    keeps its keys and its device (nothing is handed over)."""
+    idx = world.index("narrow")
+    keys, taxa = idx.keys_t, idx.taxa_t
+    shards = pmesh.shard_index(idx, Mesh(["cpu"] * 4), probe)
+    assert idx.keys_t is keys and idx.home is None and idx.device == torch.device("cpu")
+    q = torch.cat([keys, keys + 1, torch.full((5,), -1, dtype=torch.int64)])
+    bounds = np.linspace(0, idx.num_records, 5).astype(np.int64)
+    for (a, b), shard in zip(zip(bounds[:-1], bounds[1:]), shards):
+        want = lookup_taxa(keys[a:b], taxa[a:b], q)
+        assert torch.equal(probe_fn(*shard, q), want)
+        part = idx.with_records(keys[a:b], taxa[a:b]).device_arrays("cpu", probe)
+        assert torch.equal(probe_fn(*part, q), want) and type(part[2]) is type(shard[2])
+        assert int((want[:idx.num_records] > 0).sum()) == b - a  # each key of the range, and only those
 
 
 @pytest.mark.parametrize("layout", ["replicated", "ring"])

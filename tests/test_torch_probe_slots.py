@@ -177,8 +177,8 @@ def test_slot_tables_in_steps_equal_one_step(indexes, monkeypatch):
 
 def test_slot_tables_refuse_what_they_do_not_take():
     keys = torch.tensor([[0, 5], [1, 7]])
-    with pytest.raises(ValueError, match="wide keys"):
-        lookup.build_slots(keys[:, 1], torch.ones(2, dtype=torch.int32), lookup.build_directory(keys[:, 1].contiguous()))
+    with pytest.raises(ValueError, match=r"keys \[N\] or \[N, 2\]"):
+        lookup.build_slots(torch.zeros((2, 3), dtype=torch.int64), torch.ones(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="non-negative"):
         lookup.build_slots(keys, torch.tensor([1, -2], dtype=torch.int32), lookup.build_directory(keys))
     table = lookup.build_slots(keys, torch.ones(2, dtype=torch.int32), lookup.build_directory(keys))

@@ -41,9 +41,10 @@ THRESHOLDS = (0.0, 0.3)
 #: the readers of the program's spans and counters (portbench/layer_metrics)
 READERS = ("parse_busy_pct.reads", "input_wait_pct.reads", "dispatch_busy_pct.reads", "device_wait_pct.reads",
            "output_busy_pct.reads", "padded_rows_pct.reads", "h2d_bytes_per_read.reads",
-           "d2h_bytes_per_read.reads", "host_resolved_rows_pct.reads")
+           "d2h_bytes_per_read.reads", "host_resolved_rows_pct.reads", "index_bytes_per_record.reads")
 #: the counters that the readers read
-COUNTERS = {"reads", "rows", "padded_rows", "h2d_bytes", "d2h_bytes", "host_resolved_rows"}
+COUNTERS = {"reads", "rows", "padded_rows", "h2d_bytes", "d2h_bytes", "host_resolved_rows", "index_bytes",
+            "index_records"}
 #: the main thread's spans directly under a classify.request
 REQUEST_CHILDREN = {"input.wait", "batch.assemble", "dispatch", "harvest", "output.finalize", "output.count",
                     "lines.emit", "lines.write", "lines.close", "reports.write"}
@@ -412,6 +413,11 @@ def test_the_readers_read_the_recorder(deployment, tmp_path):
     assert got["h2d_bytes_per_read.reads"] == sum(s.counts.get("h2d_bytes", 0) for s in utils.spans()) / 700
     assert got["d2h_bytes_per_read.reads"] == sum(s.counts.get("d2h_bytes", 0) for s in spans) / 700
     assert got["host_resolved_rows_pct.reads"] > 0
+    # on the CPU the routed probe reads the keys (8 bytes), taxa (4) and directory
+    keys, taxa, directory = idx.device_arrays("cpu")
+    assert got["index_bytes_per_record.reads"] == (
+        keys.numel() * 8 + taxa.numel() * 4 + directory.starts.numel() * 4) / idx.num_records
+    assert [s.counts["index_records"] for s in disp] == [idx.num_records] * len(disp)
     assert got["dispatch_busy_pct.reads"] == pytest.approx(
         100.0 * sum(s.seconds for s in disp) / context["reading"].window_s)
     main = [s for s in spans if s.name == "classify.request"][0]
@@ -447,6 +453,29 @@ def test_the_readers_keep_the_traced_requests():
     assert busy(two) == pytest.approx(100.0 * (disp[-2].seconds + disp[-1].seconds))
     assert [s.request for s in reqs] == sorted(s.request for s in reqs)
     assert h2d({"reading": _Reading(1.0), "traced": []}) is None
+    utils.reset()
+
+
+def test_the_index_reader_reads_the_dispatch_counts():
+    """index_bytes_per_record.reads: total index_bytes over total
+    index_records of the traced requests' dispatch spans; None where the
+    dispatch spans do not count them (a program without the counters)."""
+    read = manifest.reader("index_bytes_per_record.reads")
+    utils.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with utils.span("classify.request", request=True):
+            with utils.span("dispatch"):
+                utils.count("rows", 16)
+    assert read({"reading": _Reading(1.0), "traced": [0]}) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            with utils.span("classify.request", request=True):
+                for _ in range(3):
+                    with utils.span("dispatch"):
+                        utils.count("index_bytes", 9 * 1000 + 1024)
+                        utils.count("index_records", 1000)
+    assert read({"reading": _Reading(1.0), "traced": [0, 1]}) == (9 * 1000 + 1024) / 1000
+    assert read({"reading": _Reading(1.0), "traced": []}) is None
     utils.reset()
 
 
